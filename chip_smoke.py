@@ -3,19 +3,29 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, then builds every kernel of the
-   serving path from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all
-   started together).
+   serving and training paths from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, all started together).
 2. Checks each kernel against its plain PyTorch version on the card at the
-   full-width qwen3-1.7b shapes of the serving path (a mismatch raises).
+   full-width qwen3-1.7b shapes of the serving path and the full-width
+   llama-paper-200m shapes of a training step (16 x 512 tokens), and one
+   full-width ``quartet_linear`` backward on the kernels against the same
+   backward on the plain versions (a mismatch raises).
 3. Serves 8 requests with the port's ``Engine`` on full-width, full-depth
    qwen3-1.7b (random weights from a seed, MXFP4 KV pool, paged attention,
    greedy decoding, Quartet linears through the kernels), with every launch
    counter set to 0 just before and read just after; then holds a reduced
    model's engine tokens against its own teacher-forced forward.
-4. Times each kernel (CUDA events, median, L2 flushed before each launch)
+4. Trains: a reduced Llama 3 steps on the card (kernels) and on the CPU
+   (plain versions), losses and grad-norms compared; then full-width,
+   full-depth llama-paper-200m 5 steps through ``train.loop.train`` (batch
+   32 x 512, 2 microbatches, Quartet on every transformer linear), with every
+   launch counter set to 0 just before and read just after, beside the
+   predicted counts; prints tokens/s, the median step time and peak memory.
+5. Times each kernel (CUDA events, median, L2 flushed before each launch)
    beside its plain version and, where one PyTorch call computes the same
-   function, that call; prints the engine's tok/s and TTFT.
-5. Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
+   function, that call, at serving and training shapes; prints the engine's
+   tok/s and TTFT.
+6. Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -27,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -43,6 +54,11 @@ H100_INT8_OPS = 1979e12
 N_SLOTS, PAGE_SIZE, MAX_LEN, PREFILL_CHUNK = 8, 16, 640, 64
 N_REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW = 8, 128, 512, 32
 SEED = 0
+
+# training traffic of the train phase (the paper's sequence length; its batch
+# of 512 sequences would be --microbatch 32 at the same per-microbatch size)
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = "llama-paper-200m", 5, 32, 512, 2
+TRAIN_TOKENS_MB = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ  # 8192 tokens per microbatch
 
 
 def log(*a):
@@ -474,6 +490,381 @@ def _sdpa_operands(torch, cfg, q, pool, tables, lengths):
     mask = torch.arange(T, device=q.device)[None, None] <= qpos[..., None]
     return qq, k, v, mask[:, None]
 
+# ---------------------------------------------------------------------------
+# phase 2b: the training kernels at full width
+# ---------------------------------------------------------------------------
+
+
+class PlainOps:
+    """The kernels' plain versions behind ``kernels.ops``'s signatures, so
+    the kernel-path Quartet passes can run on them on the card."""
+
+    def __init__(self):
+        from repro_torch.kernels import hadamard_quant as HQ
+        from repro_torch.kernels import mxfp4_matmul as MM
+        from repro_torch.kernels import sr_hadamard_quant as SR
+
+        self.HQ, self.MM, self.SR = HQ, MM, SR
+
+    def hadamard_quest_quantize(self, x, group=32):
+        lead = x.shape[:-1]
+        out = self.HQ.hadamard_quest_quantize_plain(x.reshape(-1, x.shape[-1]))
+        return tuple(t.reshape(*lead, -1) for t in out)
+
+    def sr_hadamard_quantize(self, x, signs, seed, prescale=0.75, salt=0):
+        return self.SR.sr_hadamard_quantize_plain(x, signs, seed, prescale, salt)
+
+    def mxfp4_matmul(self, a, sa, b, sb):
+        lead = a.shape[:-1]
+        out = self.MM.mxfp4_matmul_plain(a.reshape(-1, a.shape[-1]),
+                                          sa.reshape(-1, sa.shape[-1]), b, sb)
+        return out.reshape(*lead, -1)
+
+
+def backward_operands(torch, K, N, gen, device="cuda"):
+    """The four backward Stage-1 operands of one full-width linear [K, N]
+    over one microbatch, as ``quartet._backward_kernels`` passes them:
+    dy [T, N] (bf16), the dequantized weight [K, N] (f32), and the two
+    transposed views xqᵀ [K, T] (f32) and dyᵀ [N, T] (bf16)."""
+    from repro_torch.core.quartet import _dequant_codes
+    from repro_torch.kernels import hadamard_quant as HQ
+
+    T = TRAIN_TOKENS_MB
+    x = torch.randn((T, K), generator=gen, device=device).to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen, device=device) / K**0.5).to(torch.bfloat16)
+    dy = (torch.randn((T, N), generator=gen, device=device) * 1e-3).to(torch.bfloat16)
+    xc, xs, _ = HQ.hadamard_quest_quantize(x)
+    wc, ws, _ = HQ.hadamard_quest_quantize(w.t())
+    return {"dy": dy, "Wq": _dequant_codes(wc, ws, 32).t().contiguous(),
+            "xqᵀ": _dequant_codes(xc, xs, 32).t(), "dyᵀ": dy.t()}
+
+
+def check_training_kernels(torch, cfg, device="cuda"):
+    """Training-shape checks on the card (full-width llama-paper-200m, one
+    microbatch of 16 x 512 tokens); raises on a mismatch.  Returns the max
+    abs error of each kernel and of the whole backward."""
+    from repro_torch.core import fastrng
+    from repro_torch.core.quartet import QuartetConfig, _backward_kernels, _forward_kernels
+    from repro_torch.kernels import mxfp4_matmul as MM
+    from repro_torch.kernels import sr_hadamard_quant as SR
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    seed = 12345
+    err = {}
+    # sr_hadamard_quantize: the up projection's four operands (K 1280, N
+    # 3456), codes and scales bit-exact, transposed views included
+    d, f = cfg.d_model, cfg.d_ff
+    codes = {}
+    for salt, (name, x) in enumerate(backward_operands(torch, d, f, gen, device).items(), 1):
+        signs = fastrng.rademacher(seed, x.shape[1], salt=11 if salt < 3 else 12, device=device)
+        got = SR.sr_hadamard_quantize(x, signs, seed, salt=salt)
+        want = SR.sr_hadamard_quantize_plain(x, signs, seed, salt=salt)
+        for g, w_, what in zip(got, want, ("codes", "scales")):
+            if not torch.equal(g, w_):
+                raise AssertionError(f"sr_hadamard_quantize {name} {tuple(x.shape)} "
+                                     f"(strides {x.stride()}): {what} differ at "
+                                     f"{int((g != w_).sum())} places")
+        codes[name] = got
+    err["sr_hadamard_quantize"] = 0.0
+
+    # mxfp4_matmul at the backward's operand layouts: dx [T, N]·[N, K] and
+    # dW [K, T]·[T, N] with B the transposed view of the SR codes, and the
+    # down projection's dW (M = d_ff rows, 8192-token contraction)
+    down = backward_operands(torch, f, d, gen, device)
+    sb = fastrng.rademacher(seed, TRAIN_TOKENS_MB, salt=12, device=device)
+    dc = SR.sr_hadamard_quantize(down["xqᵀ"], sb, seed, salt=3)
+    dg = SR.sr_hadamard_quantize(down["dyᵀ"], sb, seed, salt=4)
+    cases = {"dx": (*codes["dy"], codes["Wq"][0].t(), codes["Wq"][1].t()),
+             "dW": (*codes["xqᵀ"], codes["dyᵀ"][0].t(), codes["dyᵀ"][1].t()),
+             "dW down": (*dc, dg[0].t(), dg[1].t())}
+    worst = 0.0
+    for name, args in cases.items():
+        got, want = MM.mxfp4_matmul(*args), MM.mxfp4_matmul_plain(*args)
+        diff = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"mxfp4_matmul {name} {tuple(args[0].shape)} x "
+                                 f"{tuple(args[2].shape)}: max |Δ| {diff}")
+        worst = max(worst, diff)
+    err["mxfp4_matmul"] = worst
+
+    # one full-width quartet_linear backward (the up projection) on the
+    # kernels against the same backward on the plain versions
+    qc = QuartetConfig(use_kernels=True)
+    x = torch.randn((TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, d), generator=gen,
+                    device=device).to(torch.bfloat16)
+    w = (torch.randn((d, f), generator=gen, device=device) / d**0.5).to(torch.bfloat16)
+    dy = (torch.randn((*x.shape[:-1], f), generator=gen, device=device) * 1e-3).to(torch.bfloat16)
+    _, res = _forward_kernels(x, w, qc)
+    dx, dw = _backward_kernels(qc, seed, res, dy)
+    pdx, pdw = _backward_kernels(qc, seed, res, dy, ops=PlainOps())
+    for name, a, b in (("dx", dx, pdx), ("dW", dw, pdw)):
+        if not torch.allclose(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max())):
+            raise AssertionError(f"quartet_linear backward {name}: kernels vs plain max |Δ| "
+                                 f"{float((a - b).abs().max())} (max |plain| "
+                                 f"{float(b.abs().max())})")
+    err["quartet_linear backward"] = max(float((dx - pdx).abs().max()),
+                                         float((dw - pdw).abs().max()))
+    torch.cuda.synchronize()
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 4: training
+# ---------------------------------------------------------------------------
+
+
+def train_reduced_card_vs_cpu(torch, device="cuda"):
+    """A reduced Llama (f32) 3 steps on the card with the kernels and on the
+    CPU with the plain versions, from the same weights and batches.  Returns
+    the max relative differences of loss and grad-norm.
+
+    Tolerance.  Step 0 (same weights, same batch): loss rtol 1e-5, grad-norm
+    rtol 1e-3.  Every step: loss rtol 8e-3, grad-norm rtol 3e-2, about twice
+    the largest differences this seeded run shows on an H100 (3.84e-3 and
+    1.41e-2, the same on every machine).  The kernels equal their plain
+    versions bit for bit, but the rest of the step (norms, attention, the
+    loss) rounds differently on the card, so now and then a
+    stochastic-rounding decision flips and moves one gradient column by a
+    grid step; AdamW's first steps follow the sign of each gradient element,
+    so the next losses drift apart by a few parts in a thousand."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.convert import init_params
+    from repro_torch.data.pipeline import SyntheticC4Dataset, TokenBatcher
+    from repro_torch.launch.serve_engine import kernel_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.train.loop import train
+    from repro_torch.tree import tree_map
+
+    cfg = kernel_config(get_reduced_config(TRAIN_ARCH, dtype="float32"))
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    batcher = TokenBatcher(SyntheticC4Dataset(cfg.vocab_size, seed=SEED), 8, 64)
+    hist = {}
+    for dev in (device, "cpu"):
+        _, hist[dev] = train(model, adamw(cosine_warmup(1e-3, 3)), batcher, 3,
+                             microbatch=2, params=tree_map(lambda t: t.to(dev), params),
+                             device=dev, log_fn=lambda *_: None)
+    rel, bad = {}, []
+    for key, tol0, tol in (("loss", 1e-5, 8e-3), ("grad_norm", 1e-3, 3e-2)):
+        a = [h[key] for h in hist[device]]
+        b = [h[key] for h in hist["cpu"]]
+        r = [abs(x - y) / abs(y) for x, y in zip(a, b)]
+        rel[key] = r
+        log(f"  reduced {key}: card {a} cpu {b} (rel {r}; tolerance {tol0} at step 0, "
+            f"{tol} at every step)")
+        if not (r[0] <= tol0 and max(r) <= tol):
+            bad.append(key)
+    if bad:
+        raise AssertionError(f"reduced training: {bad} on the card vs the CPU out of tolerance")
+    return rel
+
+
+def train_full_width(torch, ops, device="cuda"):
+    """Full-width, full-depth llama-paper-200m through ``train.loop.train``:
+    TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens in TRAIN_MICRO
+    microbatches, Quartet on every transformer linear through the kernels.
+    Returns (summary, launch counts of the run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.llama_paper import LEARNING_RATES
+    from repro_torch.convert import init_params
+    from repro_torch.data.pipeline import SyntheticC4Dataset, TokenBatcher
+    from repro_torch.launch.serve_engine import kernel_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.train.loop import train
+    from repro_torch.train.steps import make_eval_step
+
+    cfg = kernel_config(get_config(TRAIN_ARCH))
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    n_params = sum(p.numel() for p in _leaves(params))
+    batcher = TokenBatcher(SyntheticC4Dataset(cfg.vocab_size, seed=SEED), TRAIN_BATCH,
+                           TRAIN_SEQ)
+    opt = adamw(cosine_warmup(LEARNING_RATES[TRAIN_ARCH], TRAIN_STEPS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, hist = train(model, opt, batcher, TRAIN_STEPS, microbatch=TRAIN_MICRO,
+                        params=params, device=device, log_every=1,
+                        log_fn=lambda m: log("  " + m))
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    # the loss after the last step, on step 0's batch (the step losses are
+    # each on their own batch, which differ by more than 5 steps move them)
+    batch0 = {k: torch.from_numpy(v).to(device) for k, v in batcher.batch(0).items()}
+    after = float(make_eval_step(model)(state.params, batch0)["nll"])
+    if not all(math.isfinite(v) for v in losses + gnorms + [after]):
+        raise AssertionError(f"non-finite training metrics: loss {losses}, gnorm {gnorms}, "
+                             f"after {after}")
+    if not after < losses[0]:
+        raise AssertionError(f"loss on step 0's batch did not fall over {TRAIN_STEPS} steps: "
+                             f"{losses[0]} -> {after}")
+    # remat: each microbatch runs every quantized linear's forward twice
+    # (2 B1 + 1 B3 each) and its backward once (4 B2 + 2 B3); the untied
+    # lm-head stays bf16 and launches none
+    linears = cfg.num_layers * 7
+    per_mb = {"hadamard_quest_quantize": 4 * linears, "sr_hadamard_quantize": 4 * linears,
+              "mxfp4_matmul": 4 * linears, "paged_attention": 0}
+    predicted = {k: v * TRAIN_MICRO * TRAIN_STEPS for k, v in per_mb.items()}
+    dts = sorted(h["dt"] for h in hist)
+    med = dts[len(dts) // 2]
+    summary = {"arch": TRAIN_ARCH, "params": n_params, "steps": TRAIN_STEPS,
+               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
+               "loss": losses, "loss_after_on_batch0": after, "grad_norm": gnorms,
+               "step_s": [h["dt"] for h in hist],
+               "median_step_s": med, "tokens_per_s_median_step": TRAIN_BATCH * TRAIN_SEQ / med,
+               "tokens_per_s_run": TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / wall,
+               "wall_s": wall, "peak_mem_gb": peak,
+               "launches": counts, "predicted_launches": predicted}
+    summary["breakdown"] = profile_train_step(torch, model, opt, state, batcher, device)
+    del state
+    torch.cuda.empty_cache()
+    return summary, counts
+
+
+KERNEL_NAMES = {"hadamard_quest_kernel": "hadamard_quest_quantize",
+                "sr_hadamard_kernel": "sr_hadamard_quantize",
+                "mxfp4_matmul_kernel": "mxfp4_matmul", "paged_attention": "paged_attention"}
+
+
+def _kind(name: str) -> str:
+    for key, kernel in KERNEL_NAMES.items():
+        if key in name:
+            return kernel
+    low = name.lower()
+    if "gemm" in low or "xmma" in low or "cutlass" in low:
+        return "library GEMM (lm-head, attention bmm, Hadamard epilogue)"
+    return "other PyTorch kernels (elementwise, reductions, copies)"
+
+
+def profile_train_step(torch, model, opt, state, batcher, device="cuda"):
+    """Where one more full-width train step's time goes: device time by
+    kernel kind from ``torch.profiler`` (kernels on one stream, so their
+    sum over the step's wall time is the busy share), and, timed apart with
+    a synchronised host clock, the lm-head + loss of one microbatch (forward
+    and backward) and one AdamW update of all parameters."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import apply_updates
+    from repro_torch.train.losses import chunked_lm_loss
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.tree import tree_map
+
+    step_fn = make_train_step(model, opt, microbatch=TRAIN_MICRO)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batcher.batch(TRAIN_STEPS).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = step_fn(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kind = {}
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        by_kind[_kind(e.key)] = by_kind.get(_kind(e.key), 0.0) + us / 1e3
+    busy = sum(by_kind.values())
+    out = {"profiled_step_ms": wall * 1e3, "device_ms_by_kind": by_kind,
+           "device_busy_ms": busy, "device_idle_share": 1 - busy / (wall * 1e3)}
+
+    def host_ms(fn, reps=3):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ts)[len(ts) // 2]
+
+    cfg = model.cfg
+    cparams = tree_map(lambda p: p.to(torch.bfloat16), state.params)
+    feats = torch.randn((TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, cfg.d_model), device=device,
+                        dtype=torch.bfloat16, requires_grad=True)
+    labels = batch["labels"][:TRAIN_BATCH // TRAIN_MICRO]
+
+    def head():
+        loss, _ = chunked_lm_loss(model.head, cparams, feats, labels, 0)
+        loss.backward()
+
+    out["lm_head_loss_fwd_bwd_ms_per_microbatch"] = host_ms(head)
+    out["adamw_update_ms"] = host_ms(lambda: apply_updates(
+        state.params, opt.update(state.params, state.opt_state, state.params)[0]))
+    return out
+
+
+def time_training_kernels(torch, cfg, timer, device="cuda"):
+    """Each training kernel over the launches of one full-width linear (the
+    up projection, K 1280, N 3456) in one microbatch of 16 x 512 tokens,
+    beside its plain version, its least time and, where one exists, one
+    PyTorch call computing the same function."""
+    from repro_torch.core import fastrng
+    from repro_torch.kernels import hadamard_quant as HQ
+    from repro_torch.kernels import mxfp4_matmul as MM
+    from repro_torch.kernels import sr_hadamard_quant as SR
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    d, f, T = cfg.d_model, cfg.d_ff, TRAIN_TOKENS_MB
+    rec = {}
+
+    # forward Stage 1: x [T, K] and the Wᵀ view, bf16
+    x = torch.randn((T, d), generator=gen, device=device).to(torch.bfloat16)
+    w = (torch.randn((d, f), generator=gen, device=device) / d**0.5).to(torch.bfloat16)
+    n = x.numel() + w.numel()
+    rec[("hadamard_quest_quantize", "train")] = dict(
+        ms=timer(lambda: (HQ.hadamard_quest_quantize(x), HQ.hadamard_quest_quantize(w.t()))),
+        plain_ms=timer(lambda: (HQ.hadamard_quest_quantize_plain(x),
+                                HQ.hadamard_quest_quantize_plain(w.t()))),
+        bound_ms=n * (2 + 1 + 1 + 4 / 32) / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None, launches_per_linear_fwd=2)
+
+    # backward Stage 1: the four operands (each element read once at its
+    # width, 2 B for dy and dyᵀ, 4 B for Wq and xqᵀ; written as a 1 B code
+    # and 4/32 B of scale)
+    opnds = backward_operands(torch, d, f, gen, device)
+    signs = {k: fastrng.rademacher(7, v.shape[1], salt=11, device=device)
+             for k, v in opnds.items()}
+    nbytes = sum(v.numel() * (v.element_size() + 1 + 4 / 32) for v in opnds.values())
+
+    def sr(fn):
+        return lambda: [fn(v, signs[k], 7, 0.75, i) for i, (k, v) in enumerate(opnds.items(), 1)]
+
+    rec[("sr_hadamard_quantize", "train")] = dict(
+        ms=timer(sr(SR.sr_hadamard_quantize)), plain_ms=timer(sr(SR.sr_hadamard_quantize_plain)),
+        bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None, launches_per_linear_bwd=4)
+
+    # the three GEMMs: forward, dx, dW, at their operand layouts
+    xc, xs, _ = HQ.hadamard_quest_quantize(x)
+    wc, ws, _ = HQ.hadamard_quest_quantize(w.t())
+    q = {k: SR.sr_hadamard_quantize(v, signs[k], 7, 0.75, i)
+         for i, (k, v) in enumerate(opnds.items(), 1)}
+    args = [(xc, xs, wc.t(), ws.t()),
+            (*q["dy"], q["Wq"][0].t(), q["Wq"][1].t()),
+            (*q["xqᵀ"], q["dyᵀ"][0].t(), q["dyᵀ"][1].t())]
+    deq = [(_deq(torch, a, sa).to(torch.bfloat16), _deq(torch, b.t(), sb.t()).to(torch.bfloat16).t())
+           for a, sa, b, sb in args]
+    nbytes = sum(a.numel() + sa.numel() * 4 + b.numel() + sb.numel() * 4
+                 + a.shape[0] * b.shape[1] * 4 for a, sa, b, sb in args)
+    nops = sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, _, b, _ in args)
+    by_bytes, by_ops = nbytes / H100_BYTES_PER_S, nops / H100_INT8_OPS
+    rec[("mxfp4_matmul", "train")] = dict(
+        ms=timer(lambda: [MM.mxfp4_matmul(*a) for a in args]),
+        plain_ms=timer(lambda: [MM.mxfp4_matmul_plain(*a) for a in args]),
+        bound_ms=max(by_bytes, by_ops) * 1e3,
+        bound_by="bytes" if by_bytes >= by_ops else "operations",
+        library_ms=timer(lambda: [torch.matmul(a, b) for a, b in deq]),
+        launches_per_linear=3)
+    return rec
+
 
 # ---------------------------------------------------------------------------
 
@@ -481,6 +872,8 @@ def _sdpa_operands(torch, cfg, q, pool, tables, lengths):
 SOURCES = {
     "hadamard_quest_quantize": ("src/repro_torch/csrc/hadamard_quant.cu",
                                 "src/repro/kernels/hadamard_quant.py:73"),
+    "sr_hadamard_quantize": ("src/repro_torch/csrc/sr_hadamard_quant.cu",
+                             "src/repro/kernels/sr_hadamard_quant.py:69"),
     "mxfp4_matmul": ("src/repro_torch/csrc/mxfp4_matmul.cu",
                      "src/repro/kernels/mxfp4_matmul.py:61"),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -490,8 +883,8 @@ SOURCES = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,engine,times",
-                    help="comma-separated subset of kernels,engine,times")
+    ap.add_argument("--phases", default="kernels,engine,train,times",
+                    help="comma-separated subset of kernels,engine,train,times")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -526,38 +919,61 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     cfg = get_config("qwen3-1.7b")
-    err, counts, summary, rec = {}, {}, None, {}
+    tcfg = get_config(TRAIN_ARCH)
+    err, counts, rec = {}, {}, {}
     if "kernels" in phases:
         t0 = time.perf_counter()
         err = check_kernels(torch, cfg)
+        for name, e in check_training_kernels(torch, tcfg).items():
+            err[name] = max(err.get(name, 0.0), e)
         log(f"[kernels] all kernels agree with their plain versions "
             f"(max |Δ| {err}) in {time.perf_counter() - t0:.1f} s")
     if "engine" in phases:
         t0 = time.perf_counter()
-        summary, counts = serve_full_width(torch, ops)
-        log(f"[engine] launches on the main path: {counts}")
-        missing = [k for k, v in counts.items() if v == 0]
+        summary, counts["engine"] = serve_full_width(torch, ops)
+        log(f"[engine] launches on the main path: {counts['engine']}")
+        missing = [k for k in ("hadamard_quest_quantize", "mxfp4_matmul", "paged_attention")
+                   if counts["engine"][k] == 0]
         if missing:
-            raise AssertionError(f"kernels never launched on the main path: {missing}")
+            raise AssertionError(f"kernels never launched on the serving path: {missing}")
         log(f"[engine] {json.dumps(summary)}")
         check_reduced_engine(torch)
         log(f"[engine] done in {time.perf_counter() - t0:.1f} s")
+    if "train" in phases:
+        t0 = time.perf_counter()
+        train_reduced_card_vs_cpu(torch)
+        summary, counts["train"] = train_full_width(torch, ops)
+        log(f"[train] launches on the training path: {counts['train']} "
+            f"(predicted {summary['predicted_launches']})")
+        missing = [k for k in ("hadamard_quest_quantize", "sr_hadamard_quantize",
+                               "mxfp4_matmul") if counts["train"][k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the training path: {missing}")
+        log(f"[train] {json.dumps(summary)}")
+        log(f"[train] done in {time.perf_counter() - t0:.1f} s")
     if "times" in phases:
         t0 = time.perf_counter()
-        rec = time_kernels(torch, cfg, Timer(torch))
+        timer = Timer(torch)
+        rec = time_kernels(torch, cfg, timer)
+        rec.update(time_training_kernels(torch, tcfg, timer))
         for (name, tag), r in rec.items():
-            log(f"[times] {name} {tag} (one layer): {json.dumps(r)}")
+            where = "one full-width linear" if tag == "train" else "one layer"
+            log(f"[times] {name} {tag} ({where}): {json.dumps(r)}")
         log(f"[times] done in {time.perf_counter() - t0:.1f} s")
 
-    if phases >= {"kernels", "engine", "times"}:
+    if phases >= {"kernels", "engine", "train", "times"}:
+        # the serving kernel B5 at a decode tick, the training kernels at a
+        # training microbatch; launches on each kernel's own path
         kernels = []
         for name, (src, replaces) in SOURCES.items():
-            r = rec[(name, "decode")]
+            path = "engine" if name == "paged_attention" else "train"
+            r = rec[(name, "decode" if path == "engine" else "train")]
             kernels.append({"name": name, "route": "cuda", "source": src,
-                            "replaces": replaces, "launches": counts[name],
+                            "replaces": replaces, "launches": counts[path][name],
                             "max_abs_err": err[name], "ms": r["ms"],
                             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                            "launches_by_path": {p: c[name] for p, c in counts.items()}})
         log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,8 @@
 """Model configuration (a torch-free copy of ``repro.configs.base``).
 
 One ``ModelConfig`` per architecture, with the published dimensions, plus a
-``reduced()`` variant for CPU tests.  The serving slice runs the dense
-family; the other families' fields are kept so configs copy over verbatim.
+``reduced()`` variant for CPU tests.  The port serves and trains the dense
+family; the other families' fields arrive with their slices.
 """
 
 from __future__ import annotations
@@ -42,6 +42,9 @@ class ModelConfig:
     # or "paged" (serving steps attend over the paged pool with the kernel)
     attn_backend: str = "paged"
     attn_kv_chunk: int = 1024
+    # training: recompute each layer's forward in the backward
+    # (torch.utils.checkpoint), keeping only the layer inputs
+    remat: bool = True
 
     @property
     def head_dim_(self) -> int:

@@ -15,14 +15,30 @@ ARCH_IDS = tuple(_MODULES)
 
 
 def get_config(name: str, **overrides) -> ModelConfig:
-    if name not in _MODULES:
-        raise ValueError(f"unknown arch {name!r}; the port has {ARCH_IDS}")
-    cfg = importlib.import_module(_MODULES[name]).CONFIG
+    """The ``--arch`` id's config: a registered architecture or a member of
+    the paper's Llama family (``llama-paper-30m`` … ``llama-paper-7b``)."""
+    if name in _MODULES:
+        cfg = importlib.import_module(_MODULES[name]).CONFIG
+    else:
+        from repro_torch.configs.llama_paper import PAPER_FAMILY
+
+        if name not in PAPER_FAMILY:
+            raise ValueError(f"unknown arch {name!r}; the port has {ARCH_IDS} "
+                             f"+ {tuple(PAPER_FAMILY)}")
+        cfg = PAPER_FAMILY[name]
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
 def get_reduced_config(name: str, **overrides) -> ModelConfig:
-    if name not in _MODULES:
-        raise ValueError(f"unknown arch {name!r}; the port has {ARCH_IDS}")
-    cfg = importlib.import_module(_MODULES[name]).reduced()
+    """The CPU-scale variant; every member of the paper family shares
+    ``llama_paper.reduced()``."""
+    if name in _MODULES:
+        cfg = importlib.import_module(_MODULES[name]).reduced()
+    else:
+        from repro_torch.configs import llama_paper
+
+        if name not in llama_paper.PAPER_FAMILY:
+            raise ValueError(f"unknown arch {name!r}; the port has {ARCH_IDS} "
+                             f"+ {tuple(llama_paper.PAPER_FAMILY)}")
+        cfg = llama_paper.reduced()
     return dataclasses.replace(cfg, **overrides) if overrides else cfg

@@ -1,8 +1,8 @@
 """Numeric formats: MXFP4 = E2M1 elements + E8M0 power-of-two block scales.
 
-Port of ``repro.core.formats`` for the serving path.  Every rounding rule is
-written as exact integer / power-of-two arithmetic, so the same code gives
-the same bits on the CPU, on the card, and inside the CUDA kernels:
+Port of ``repro.core.formats``.  Every rounding rule is written as exact
+integer / power-of-two arithmetic, so the same code gives the same bits on
+the CPU, on the card, and inside the CUDA kernels:
 
 * E2M1 round-to-nearest-even is the arithmetic form of the reference's
   native ``float4_e2m1fn`` cast (no fp4 type exists on the CPU or before
@@ -10,7 +10,13 @@ the same bits on the CPU, on the card, and inside the CUDA kernels:
 * E8M0-nearest (``round(log2 s)``) compares the f32 mantissa with √2
   instead of calling ``log2``, so it is exact.  A float ``log2`` is not: the
   reference's (XLA on the CPU) rounds the wrong way for ``s`` within about
-  8 ulps of ``√2·2^k`` (tests/test_torch_numerics.py sweeps that window).
+  8 ulps of ``√2·2^k`` (tests/test_torch_numerics.py sweeps that window);
+* E8M0-ceil (``ceil(log2 s − 1e-6)``, the backward's rule) reads the
+  exponent field and rounds up when the mantissa field is at least 6: that
+  is the float64 value of the formula (log2(1 + m·2⁻²³) exceeds 1e-6 exactly
+  when m ≥ 6).  The reference evaluates it with an f32 ``log2`` and an f32
+  subtraction, which keeps 2^k for some m ≥ 6 and rounds some exact powers
+  of two up (tests/test_torch_train.py sweeps m = 0..64 at every k).
 """
 
 from __future__ import annotations
@@ -72,6 +78,8 @@ E8M0_MIN_EXP = -126
 E8M0_MAX_EXP = 127
 # mantissa bits of the smallest f32 above √2 (0x3FB504F4): 1.m ≥ √2 ⇔ m ≥ this
 _SQRT2_MANTISSA = 0x3504F4
+# log2(1 + m·2^-23) > 1e-6 ⇔ m ≥ 6: the "− 1e-6" of the ceil rule
+_CEIL_MANTISSA = 6
 
 
 def exp2i(e: torch.Tensor) -> torch.Tensor:
@@ -90,13 +98,26 @@ def e8m0_nearest_exponent(scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(e, E8M0_MIN_EXP, E8M0_MAX_EXP)
 
 
-def round_scale_e8m0(scale: torch.Tensor, mode: str = "nearest") -> torch.Tensor:
-    """Positive f32 scales → nearest power of two (the forward's rule).
+def e8m0_ceil_exponent(scale: torch.Tensor) -> torch.Tensor:
+    """int32 ``ceil(log2(max(scale, 2^-126)) − 1e-6)`` clamped to [-126, 127],
+    as float64 evaluates it: the exponent field, plus one when the mantissa
+    field is at least 6 (exact powers of two and the 5 floats above each
+    stay put)."""
+    s = torch.clamp(scale.to(torch.float32), min=2.0 ** E8M0_MIN_EXP)
+    bits = s.view(torch.int32)
+    e = (bits >> 23) - 127 + ((bits & 0x7FFFFF) >= _CEIL_MANTISSA).to(torch.int32)
+    return torch.clamp(e, E8M0_MIN_EXP, E8M0_MAX_EXP)
 
-    The backward's ``"ceil"`` mode arrives with the training slice."""
-    if mode != "nearest":
-        raise NotImplementedError(f"e8m0 rounding mode {mode!r} is not ported yet")
-    return exp2i(e8m0_nearest_exponent(scale))
+
+def round_scale_e8m0(scale: torch.Tensor, mode: str = "nearest") -> torch.Tensor:
+    """Positive f32 scales → powers of two: ``"nearest"`` (the forward's
+    rule) or ``"ceil"`` (the backward's: ``absmax/scale`` stays inside the
+    grid, so stochastic rounding does not clip)."""
+    if mode == "nearest":
+        return exp2i(e8m0_nearest_exponent(scale))
+    if mode == "ceil":
+        return exp2i(e8m0_ceil_exponent(scale))
+    raise NotImplementedError(f"e8m0 rounding mode {mode!r} is not ported yet")
 
 
 def scale_to_e8m0_code(scale: torch.Tensor) -> torch.Tensor:
@@ -132,6 +153,26 @@ def rtn_e2m1(x: torch.Tensor) -> torch.Tensor:
     # copysign keeps the sign of ±0 and of values that round to zero, as the
     # reference's native cast does
     return torch.copysign(torch.where(a >= 1.0, q_norm, q_sub), x)
+
+
+def stochastic_round_to_grid(x: torch.Tensor, grid, u: torch.Tensor) -> torch.Tensor:
+    """Unbiased stochastic rounding onto a symmetric sorted grid.
+
+    Sign-magnitude, as the reference: |x| (clipped to the grid's max) goes
+    up to the next grid point with probability (|x| − lo)/(hi − lo), else
+    down to lo, and the sign is put back.  ``u`` ~ U[0, 1), x's shape."""
+    x = x.to(torch.float32)
+    g = np.asarray(grid, dtype=np.float32)
+    pos = torch.as_tensor(g[g >= 0], device=x.device)
+    a = torch.clamp(torch.abs(x), 0.0, float(g[-1]))
+    n = pos.shape[0]
+    lo_idx = torch.clamp(torch.searchsorted(pos, a, right=True) - 1, 0, n - 1)
+    hi_idx = torch.clamp(lo_idx + 1, 0, n - 1)
+    lo, hi = pos[lo_idx], pos[hi_idx]
+    gap = torch.where(hi > lo, hi - lo, torch.ones_like(hi))
+    p_up = torch.clamp((a - lo) / gap, 0.0, 1.0)
+    # copysign, as the reference's sign(x) · magnitude, keeps −0
+    return torch.copysign(torch.where(u < p_up, hi, lo), x)
 
 
 def e2m1_to_nibble(q: torch.Tensor) -> torch.Tensor:

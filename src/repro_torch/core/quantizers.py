@@ -1,8 +1,9 @@
-"""Forward quantizers of the serving path: QuEST and the packed KV payload.
+"""Quantizers: QuEST (forward), stochastic rounding (backward), packed KV.
 
-Port of ``repro.core.quantizers`` (``quest``, ``kv_quantize``,
-``kv_dequantize``).  Blocks are 1-D along the last axis.  The stochastic
-backward quantizers arrive with the training slice.
+Port of ``repro.core.quantizers`` (``quest``, ``sr_absmax_fast``,
+``kv_quantize``, ``kv_dequantize``).  Blocks are 1-D along the last axis.
+The paper's baseline quantizers (``rtn_absmax``, ``sr_absmax`` …) arrive
+with the baselines slice.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import fastrng
 from repro_torch.core import formats as F
 from repro_torch.core.formats import Format
 
@@ -59,6 +61,18 @@ def quest(x: torch.Tensor, fmt: Format = F.MXFP4) -> QuantResult:
     scales = F.round_scale_e8m0(_block_scales(x, fmt, "rms"))
     xb = F.to_blocks(x.to(torch.float32), fmt.block)
     q = F.rtn_e2m1(torch.clamp(xb / scales[..., None], -fmt.max_value, fmt.max_value))
+    return _finish(x, scales, fmt, q)
+
+
+def sr_absmax_fast(x: torch.Tensor, seed: int, fmt: Format = F.MXFP4,
+                   scale_mode: str = "ceil", salt: int = 0) -> QuantResult:
+    """Stochastic rounding with per-block AbsMax scales (E8M0 ``ceil``: no
+    clipping, so unbiased) and uniforms from the counter hash over the
+    element's index in ``[..., K/block, block]`` (``core.fastrng``)."""
+    scales = F.round_scale_e8m0(_block_scales(x, fmt, "absmax"), scale_mode)
+    xb = F.to_blocks(x.to(torch.float32), fmt.block)
+    u = fastrng.uniform(seed, xb.shape, salt, x.device)
+    q = F.stochastic_round_to_grid(xb / scales[..., None], fmt.grid, u)
     return _finish(x, scales, fmt, q)
 
 

@@ -1,11 +1,11 @@
 """GQA attention: the blocked plain-PyTorch path and the paged serving path.
 
-Port of ``repro.models.attention`` for the dense serving slice.  A forward
-without a cache (teacher-forced scoring, tests) runs
-:func:`blocked_attention`; a forward whose cache is a
-:class:`~repro_torch.kernels.paged_attention.PagedKV` quantize-scatters the
-new tokens' K/V into the pool and attends over it with the paged-attention
-kernel (:func:`_paged_decode`).  The flash backend and the cached dense /
+Port of ``repro.models.attention`` for the dense family.  A forward
+without a cache (training, teacher-forced scoring) runs
+:func:`blocked_attention`, plain PyTorch that autograd differentiates; a
+forward whose cache is a :class:`~repro_torch.kernels.paged_attention.
+PagedKV` quantize-scatters the new tokens' K/V into the pool and attends
+over it with the paged-attention kernel (:func:`_paged_decode`).  The flash backend and the cached dense /
 cross-attention variants arrive with later slices.
 """
 

@@ -1,16 +1,22 @@
 """Dense decoder-only LM (Llama/Qwen style): GQA + SwiGLU MLP, RMSNorm,
 Quartet linears, a Python loop over stacked [L, ...] layer parameters.
 
-Port of ``repro.models.transformer`` for the dense family (forward only).
-With a :class:`PagedKV` cache (the pool's leaves carry the leading [L]
-axis; the page table is shared by every layer) each layer quantize-scatters
-its new K/V into its pool slice in place and attends with the paged kernel.
+Port of ``repro.models.transformer`` for the dense family.  With a
+:class:`PagedKV` cache (the pool's leaves carry the leading [L] axis; the
+page table is shared by every layer) each layer quantize-scatters its new
+K/V into its pool slice in place and attends with the paged kernel.  When
+training (grad enabled, no cache) with ``cfg.remat``, each layer runs under
+``torch.utils.checkpoint``: only its input is kept, and the backward
+recomputes its forward, as the reference checkpoints its layer-scan
+body.  The per-layer seeds are deterministic, so the recompute
+quantizes to the same bits.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as Fn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import PagedKV
@@ -103,7 +109,6 @@ def lm_head_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, seed: int,
     return logits
 
 
-@torch.inference_mode()
 def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: int, *,
                positions: torch.Tensor | None = None, caches: PagedKV | None = None,
                method: str = "quartet", features_only: bool = False):
@@ -117,12 +122,17 @@ def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: int, 
     if cfg.pos_embed != "rope":
         raise NotImplementedError(f"pos_embed {cfg.pos_embed!r} is not ported yet")
     x = L.embed(params["embed"], tokens)
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
         seed_l = (seed + i * LAYER_SEED_STRIDE) & 0xFFFFFFFF
+        layer = layer_slice(params["layers"], i)
+        if remat:
+            x = checkpoint(dense_block, layer, x, positions, seed_l, cfg, None, method,
+                           use_reentrant=False)
+            continue
         cache = (None if caches is None
                  else PagedKV(layer_slice(caches.pool, i), caches.tables))
-        x = dense_block(layer_slice(params["layers"], i), x, positions, seed_l, cfg,
-                        cache, method)
+        x = dense_block(layer, x, positions, seed_l, cfg, cache, method)
     if features_only:
         return x, caches
     return lm_head_apply(params, x, cfg, seed, method), caches

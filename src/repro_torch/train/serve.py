@@ -6,7 +6,8 @@ per-token positions over a :class:`~repro_torch.kernels.paged_attention.
 PagedKV` cache, whose pool is updated in place.  The reference builds the
 multi-token step on a model with ``attn_rows_shared=False``; the port always
 computes causal bounds and rope angles per row, so no second model exists.
-Seeds are 0, as in the reference's serving steps.
+Seeds are 0, as in the reference's serving steps.  Both steps run under
+``torch.inference_mode``: serving never differentiates.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from repro_torch.models.registry import Model
 
 
 def make_decode_step(model: Model, *, method: str = "quartet") -> Callable:
+    @torch.inference_mode()
     def decode(params, token, position, caches):
         """token [B, 1], position [B] → (logits [B, V], caches, position + 1)."""
         logits, caches = model.forward(params, token, 0, positions=position[:, None],
@@ -35,6 +37,7 @@ def make_verify_step(model: Model, *, method: str = "quartet") -> Callable:
     logits, or with ``features_only`` the final hidden states, so a caller
     that reads one row per slot applies the head to that row only."""
 
+    @torch.inference_mode()
     def verify(params, tokens, start, caches, positions=None, features_only=False):
         S = tokens.shape[1]
         if positions is None:

@@ -1,4 +1,4 @@
-"""PyTorch port vs the JAX reference: the three serving-path kernels.
+"""PyTorch port vs the JAX reference: the serving and training kernels.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; these tests
 hold that plain version against the reference's Pallas kernel, run in
@@ -6,9 +6,10 @@ interpret mode as tests/test_kernels.py and tests/test_paged_attention.py
 run it.  The kernels themselves run only on the card: the ``cuda`` test
 below checks each against its plain version there and skips here.
 
-Tolerances: Stage-1 quantization is bit-exact (the plain version's
-butterfly Hadamard and halving sums land on the reference's bits on these
-sweeps); the GEMM takes the reference test's rtol 1e-6 / atol 1e-5 (exact
+Tolerances: Stage-1 quantization, forward and backward, is bit-exact (the
+plain versions' butterfly Hadamard and halving sums land on the reference's
+bits on these sweeps; the backward's uniforms are the same counter hash);
+the GEMM takes the reference test's rtol 1e-6 / atol 1e-5 (exact
 per-group integer products, f32 sums in another order); attention takes
 atol 1e-5 in f32 (online vs full softmax, another summation order).
 """
@@ -21,11 +22,16 @@ import torch
 
 from repro.core.quartet import QuartetConfig as JQuartetConfig
 from repro.core.quartet import quartet_linear as jquartet_linear
+from repro.core import fastrng as JR
 from repro.kernels import paged_attention as JPA
+from repro.kernels import ref as JREF
 from repro.kernels.hadamard_quant import hadamard_quest_quantize as jhq
 from repro.kernels.mxfp4_matmul import mxfp4_matmul as jmm
+from repro.kernels.sr_hadamard_quant import sr_hadamard_quantize as jsr
+from repro_torch.core.hadamard import hadamard_transform
 from repro_torch.core.quartet import QuartetConfig, quartet_linear
 from repro_torch.kernels import hadamard_quant as HQ
+from repro_torch.kernels import sr_hadamard_quant as SR
 from repro_torch.kernels import mxfp4_matmul as MM
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
@@ -82,9 +88,51 @@ def test_quartet_linear_forward_vs_reference(use_kernels):
     got = quartet_linear(torch.from_numpy(x), torch.from_numpy(w), 5,
                          QuartetConfig(use_kernels=use_kernels))
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError):  # the backward is not ported yet
-        quartet_linear(torch.from_numpy(x).requires_grad_(), torch.from_numpy(w), 5,
-                       QuartetConfig(use_kernels=use_kernels))
+    # with inputs that require grad the forward is the same (the backward is
+    # held against the reference in tests/test_torch_train.py)
+    got_g = quartet_linear(torch.from_numpy(x).requires_grad_(), torch.from_numpy(w), 5,
+                           QuartetConfig(use_kernels=use_kernels))
+    assert got_g.requires_grad and torch.equal(got_g.detach(), got)
+
+
+# ---------------------------------------------------------------------------
+# backward Stage 1: randomized Hadamard + stochastic rounding
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_sr_hadamard_plain_bit_exact_vs_reference(shape):
+    """Codes and scales equal the reference's Pallas kernel (interpret mode,
+    fed the same counter-hash uniforms) and its jnp oracle; a transposed
+    view hashes its logical index, so it gives the same bits as the
+    contiguous operand."""
+    seed, salt = 5, 3
+    x = (np.random.default_rng(2).standard_normal(shape) * 2.3).astype(np.float32)
+    signs = np.asarray(JR.rademacher(jnp.uint32(9), shape[1]))
+    u = jax.jit(lambda s: JR.uniform(s, shape, salt))(jnp.uint32(seed))
+    want = jsr(jnp.asarray(x), jnp.asarray(signs), u, block_m=64, block_k=128)
+    oracle = jax.jit(JREF.sr_hadamard_quantize_ref)(jnp.asarray(x), jnp.asarray(signs), u)
+    got = SR.sr_hadamard_quantize(torch.from_numpy(x), torch.from_numpy(signs), seed,
+                                  salt=salt)
+    for g, w, o in zip(got, want, oracle):
+        np.testing.assert_array_equal(g.numpy(), _np(w))
+        np.testing.assert_array_equal(g.numpy(), _np(o))
+    xt = torch.from_numpy(np.ascontiguousarray(x.T)).t()
+    for g, w in zip(SR.sr_hadamard_quantize(xt, torch.from_numpy(signs), seed, salt=salt), got):
+        assert torch.equal(g, w)
+
+
+def test_sr_hadamard_plain_unbiased():
+    """E[dequant(SR(x·H))] = x·H: n copies of the same 4 rows draw
+    independent uniforms (each element hashes its own index), and their
+    mean lands within the reference test's ≈5σ bound for n = 3000."""
+    n = 3000
+    x = (np.random.default_rng(3).standard_normal((4, 32)) * 1.1).astype(np.float32)
+    xt = torch.from_numpy(np.tile(x, (n, 1)))
+    codes, scales = SR.sr_hadamard_quantize(xt, torch.ones(32), 0, prescale=1.0)
+    vals = (codes.float() * 0.5 * scales).reshape(n, 4, 32)
+    target = hadamard_transform(torch.from_numpy(x), g=32)
+    assert float((vals.mean(0) - target).abs().max()) < 0.08
 
 
 # ---------------------------------------------------------------------------
@@ -224,9 +272,16 @@ def test_wrappers_take_plain_only_on_cpu_and_count_only_launches():
     x = torch.randn(8, 64)
     c, s, _ = ops.hadamard_quest_quantize(x)
     ops.mxfp4_matmul(c, s, c.t(), s.t())
+    sc, ss = ops.sr_hadamard_quantize(x.reshape(2, 4, 64), torch.ones(64), 3, salt=1)
+    assert sc.shape == (2, 4, 64) and ss.shape == (2, 4, 2)
+    assert torch.equal(sc.reshape(8, 64), SR.sr_hadamard_quantize_plain(x, torch.ones(64), 3,
+                                                                        salt=1)[0])
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+    assert set(ops.KERNELS) == {"hadamard_quest_quantize", "sr_hadamard_quantize",
+                                "mxfp4_matmul", "paged_attention"}
     meta = torch.empty((8, 64), device="meta")
     for call in (lambda: HQ.hadamard_quest_quantize(meta),
+                 lambda: SR.sr_hadamard_quantize(meta, torch.ones(64), 0),
                  lambda: MM.mxfp4_matmul(meta.to(torch.int8), meta[:, :2], meta.t(),
                                          meta[:, :2].t())):
         with pytest.raises(RuntimeError, match="unsupported device"):
@@ -245,6 +300,12 @@ def test_kernels_match_plain_on_card():
     w = torch.randn((256, 160), generator=gen, device=dev).to(torch.bfloat16)
     for t in (x, w.t()):
         for a, b in zip(HQ.hadamard_quest_quantize(t), HQ.hadamard_quest_quantize_plain(t)):
+            assert torch.equal(a, b)
+    signs = torch.where(torch.rand(256, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    for t in (x.float(), x, x.t().contiguous().t(), w.t().float()):
+        s = signs[:t.shape[1]]
+        for a, b in zip(SR.sr_hadamard_quantize(t, s, 7, salt=3),
+                        SR.sr_hadamard_quantize_plain(t, s, 7, salt=3)):
             assert torch.equal(a, b)
     ac, asc, _ = HQ.hadamard_quest_quantize(x)
     bc, bsc, _ = HQ.hadamard_quest_quantize(w.t())
