@@ -3,28 +3,39 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, then builds every kernel of the
-   serving and training paths from ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, all started together).
+   serving, training and evaluation paths from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, all started together: 6 libraries, 7 kernels).
 2. Checks each kernel against its plain PyTorch version on the card at the
    full-width qwen3-1.7b shapes of the serving path and the full-width
-   llama-paper-200m shapes of a training step (16 x 512 tokens), and one
-   full-width ``quartet_linear`` backward on the kernels against the same
-   backward on the plain versions (a mismatch raises).
+   llama-paper-200m shapes of a training step (16 x 512 tokens): B4a
+   (KV quantize-pack and its pool scatter) and B4b (unpack-dequantize and
+   its page gather) bit for bit, with an E8M0 edge sweep; B6 (flash
+   attention) at the evaluation shape, qwen3-1.7b's GQA at 4096 and a
+   ragged f32 case, with SDPA as a second reading; and one full-width
+   ``quartet_linear`` backward on the kernels against the same backward on
+   the plain versions (a mismatch raises).
 3. Serves 8 requests with the port's ``Engine`` on full-width, full-depth
    qwen3-1.7b (random weights from a seed, MXFP4 KV pool, paged attention,
    greedy decoding, Quartet linears through the kernels), with every launch
-   counter set to 0 just before and read just after; then holds a reduced
-   model's engine tokens against its own teacher-forced forward.
+   counter set to 0 just before and read just after, against the predicted
+   counts; then the first 4 requests on the gather backend (per-slot
+   prefill, gather-dequantize, dense attention, scatter back), its launches
+   against the per-slot schedule and its first-token log-probs against the
+   paged run's; then holds a reduced model's engine tokens against its own
+   teacher-forced forward and the gather tokens against the paged ones.
 4. Trains: a reduced Llama 3 steps on the card (kernels) and on the CPU
    (plain versions), losses and grad-norms compared; then full-width,
    full-depth llama-paper-200m 5 steps through ``train.loop.train`` (batch
    32 x 512, 2 microbatches, Quartet on every transformer linear), with every
    launch counter set to 0 just before and read just after, beside the
-   predicted counts; prints tokens/s, the median step time and peak memory.
+   predicted counts; prints tokens/s, the median step time and peak memory;
+   then evaluates the trained state on 4 held-out batches of 16 x 512 with
+   the training model (blocked attention) and a flash-built one (B6, 40
+   launches), the two nll values held to a stated tolerance.
 5. Times each kernel (CUDA events, median, L2 flushed before each launch)
    beside its plain version and, where one PyTorch call computes the same
-   function, that call, at serving and training shapes; prints the engine's
-   tok/s and TTFT.
+   function, that call, at serving, training and evaluation shapes; prints
+   the engine's tok/s and TTFT.
 6. Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -54,6 +65,13 @@ H100_INT8_OPS = 1979e12
 N_SLOTS, PAGE_SIZE, MAX_LEN, PREFILL_CHUNK = 8, 16, 640, 64
 N_REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW = 8, 128, 512, 32
 SEED = 0
+
+# the gather-backend run of the engine phase: the first GATHER_REQUESTS of
+# the phase's requests, GATHER_NEW new tokens each
+GATHER_REQUESTS, GATHER_NEW = 4, 16
+
+# evaluation of the train phase: held-out batches of EVAL_BATCH x TRAIN_SEQ
+EVAL_BATCHES, EVAL_BATCH = 4, 16
 
 # training traffic of the train phase (the paper's sequence length; its batch
 # of 512 sequences would be --microbatch 32 at the same per-microbatch size)
@@ -265,14 +283,211 @@ def check_kernels(torch, cfg, device="cuda"):
     return err
 
 
+def kv_edge_rows(np):
+    """Rows of two 32-groups whose first group's absmax/6 lies within ±8 ulps
+    of √2·2^k (the E8M0-nearest rounding edge) or exactly at 2^k, for k in
+    [-100, 100], plus all-zero rows (f32)."""
+    rng = np.random.default_rng(SEED)
+    amax = []
+    for k in range(-100, 101):
+        a0 = np.float32(np.sqrt(2.0) * 2.0**k * 6.0)
+        amax.extend((a0.view(np.int32) + np.arange(-8, 9, dtype=np.int32)).view(np.float32))
+        amax.append(np.float32(6.0 * 2.0**k))
+    amax = np.asarray(amax, np.float32)
+    x = np.zeros((amax.size + 8, 64), np.float32)
+    x[:amax.size, 1:32] = rng.uniform(-0.9, 0.9, (amax.size, 31)) * amax[:, None]
+    x[:amax.size, 0] = amax * np.where(rng.random(amax.size) < 0.5, -1, 1)
+    x[:amax.size, 32:] = rng.standard_normal((amax.size, 32))
+    return x
+
+
+def plain_quant_scatter(torch, codes, scales, page_ids, offsets, x):
+    """B4a's scatter form from its plain version: quantize the rows, then
+    write them with PyTorch indexing (leaves with a leading [L] axis)."""
+    from repro_torch.kernels import kv_pack as KV
+
+    L, n, H, K = x.shape
+    c, s = KV.kv_quant_pack_plain(x.reshape(-1, K))
+    pid, off = page_ids.long(), offsets.long()
+    codes[:, pid, off] = c.reshape(L, n, H, -1)
+    scales[:, pid, off] = s.reshape(L, n, H, -1)
+
+
+def flash_plain(FA, q, k, v, causal):
+    """B6's plain version over [B, S, Hq, hd] x [B, T, Hkv, hd], in the
+    kernel's 64-blocks."""
+    B, S, Hq, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    o = FA.flash_attention_plain(q.transpose(1, 2).reshape(B * Hq, S, hd),
+                                 k.transpose(1, 2).reshape(B * Hkv, T, hd),
+                                 v.transpose(1, 2).reshape(B * Hkv, T, hd), causal,
+                                 q_heads=Hq, kv_heads=Hkv)
+    return o.reshape(B, Hq, S, hd).transpose(1, 2)
+
+
+def sdpa(torch, q, k, v, causal):
+    """One PyTorch call computing B6's function (a yardstick, never on the
+    port's path): [B, H, S, hd] operands, GQA by ``enable_gqa``."""
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                            enable_gqa=True)
+
+
+def flash_shapes(cfg, tcfg):
+    """(name, B, S, T, Hq, Hkv, hd, causal, dtype name) of B6's checks: the
+    evaluation shape, qwen3-1.7b's GQA at 4096 and a ragged f32 case."""
+    return [("eval", EVAL_BATCH, TRAIN_SEQ, TRAIN_SEQ, tcfg.num_heads, tcfg.num_kv_heads,
+             tcfg.head_dim_, True, "bfloat16"),
+            ("gqa4096", 1, 4096, 4096, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, True,
+             "bfloat16"),
+            ("f32_1000", 2, 1000, 1000, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, False,
+             "float32")]
+
+
+def check_kv_and_flash(torch, cfg, tcfg, device="cuda"):
+    """B4a, B4b and B6 against their plain versions on the card; raises on a
+    mismatch.  Returns {kernel: max abs error}."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import kv_pack as KV
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    Hkv, hd, L = cfg.num_kv_heads, cfg.head_dim_, cfg.num_layers
+    err = {}
+
+    # B4a, bit-exact: the 2-d form on a [4096, 1024] block and the E8M0 edge
+    # sweep; the scatter form at a decode write (8 tokens) and a prefill
+    # write (8 x 64 tokens) of the engine, one layer's leaves and all layers'
+    blocks = [("x[4096,1024] bf16", torch.randn((4096, 1024), generator=gen, device=device)
+               .mul_(1.7).to(torch.bfloat16)),
+              ("edge sweep f32", torch.from_numpy(kv_edge_rows(np)).to(device))]
+    for name, x in blocks:
+        for g, w_, what in zip(KV.kv_quant_pack(x), KV.kv_quant_pack_plain(x), ("codes", "scales")):
+            if not torch.equal(g, w_):
+                raise AssertionError(f"kv_quant_pack {name}: {what} differ at "
+                                     f"{int((g != w_).sum())} places")
+    n_pages = 1 + N_SLOTS * (MAX_LEN // PAGE_SIZE)
+    for n_tok, layers in ((N_SLOTS, 1), (N_SLOTS * PREFILL_CHUNK, 1), (N_SLOTS, L)):
+        shape = (layers, n_pages, PAGE_SIZE, Hkv)
+        pools = [[torch.zeros((*shape, hd // 2), dtype=torch.uint8, device=device),
+                  torch.zeros((*shape, hd // 32), dtype=torch.uint8, device=device)]
+                 for _ in range(2)]
+        perm = torch.randperm((n_pages - 1) * PAGE_SIZE, generator=gen, device=device)[:n_tok]
+        pid = (1 + perm // PAGE_SIZE).to(torch.int32)
+        off = (perm % PAGE_SIZE).to(torch.int32)
+        x = (torch.randn((layers, n_tok, Hkv, hd), generator=gen, device=device) * 1.5
+             ).to(torch.bfloat16)
+        if layers == 1:  # one layer's leaves, as scatter_token passes them
+            KV.kv_quant_scatter(pools[0][0][0], pools[0][1][0], pid, off, x[0])
+        else:
+            KV.kv_quant_scatter(pools[0][0], pools[0][1], pid, off, x)
+        plain_quant_scatter(torch, pools[1][0], pools[1][1], pid, off, x)
+        for g, w_, what in zip(pools[0], pools[1], ("codes", "scales")):
+            if not torch.equal(g, w_):
+                raise AssertionError(f"kv_quant_scatter {n_tok} tokens x {layers} layers: "
+                                     f"{what} differ at {int((g != w_).sum())} places")
+    err["kv_quant_pack"] = 0.0
+
+    # B4b, bit-exact in f32 and bf16: the gather of a full-width decode tick
+    # (28 layers, 8 slots x 40 pages of 16) and the 2-d form
+    codes = torch.randint(0, 256, (L, n_pages, PAGE_SIZE, Hkv, hd // 2), generator=gen,
+                          device=device, dtype=torch.uint8)
+    scales = torch.randint(100, 155, (L, n_pages, PAGE_SIZE, Hkv, hd // 32), generator=gen,
+                           device=device, dtype=torch.uint8)
+    tables = (1 + torch.randperm(n_pages - 1, generator=gen, device=device)
+              ).to(torch.int32).reshape(N_SLOTS, -1)
+    for dt in (torch.float32, torch.bfloat16):
+        got = KV.kv_gather_dequant(codes, scales, tables, dt)
+        want = KV.kv_dequant_unpack_plain(codes[:, tables.long()], scales[:, tables.long()],
+                                          dt).reshape(got.shape)
+        if not torch.equal(got, want):
+            raise AssertionError(f"kv_gather_dequant {dt}: differ at "
+                                 f"{int((got != want).sum())} places")
+        flat_c, flat_s = codes[0].reshape(-1, hd // 2), scales[0].reshape(-1, hd // 32)
+        if not torch.equal(KV.kv_dequant_unpack(flat_c, flat_s, dt),
+                           KV.kv_dequant_unpack_plain(flat_c, flat_s, dt)):
+            raise AssertionError(f"kv_dequant_unpack {dt}: differs from its plain version")
+        del got, want
+    err["kv_dequant_unpack"] = 0.0
+
+    # B6: f32 to atol 2e-5 (another summation order and expf); bf16 to one
+    # bf16 rounding step, |Δ| <= 1e-5 + 2^-7·|plain|.  SDPA is a second
+    # reading only.
+    worst, readings = 0.0, {}
+    for name, B, S, T, hq, hkv, d, causal, dtn in flash_shapes(cfg, tcfg):
+        dt = getattr(torch, dtn)
+        q = torch.randn((B, S, hq, d), generator=gen, device=device).to(dt)
+        k, v = (torch.randn((B, T, hkv, d), generator=gen, device=device).to(dt)
+                for _ in range(2))
+        got = FA.mha_flash(q, k, v, causal=causal).float()
+        want = flash_plain(FA, q, k, v, causal).float()
+        rtol, atol = (0.0, 2e-5) if dt == torch.float32 else (2**-7, 1e-5)
+        diff = (got - want).abs()
+        bad = diff > atol + rtol * want.abs()
+        if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention {name}: {int(bad.sum())} elements off, "
+                                 f"max |Δ| {float(diff.max())}")
+        lib = sdpa(torch, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                   causal).transpose(1, 2).float()
+        readings[name] = {"max_abs_vs_plain": float(diff.max()),
+                          "max_abs_vs_sdpa": float((got - lib).abs().max())}
+        worst = max(worst, float(diff.max()))
+        del q, k, v, got, want, lib
+    log(f"  flash_attention vs plain and vs SDPA (second reading): {json.dumps(readings)}")
+    err["flash_attention"] = worst
+    torch.cuda.synchronize()
+    return err
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the engine
 # ---------------------------------------------------------------------------
 
 
+def _count_step_calls(eng) -> dict:
+    """Count the engine's step calls by kind (decode_all, prefill_all,
+    prefill_chunk) by wrapping its steps."""
+    calls = {}
+
+    def wrap(name, fn):
+        def counted(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return counted
+
+    eng._steps = eng._steps._replace(**{n: wrap(n, f) for n, f in eng._steps._asdict().items()
+                                        if f is not None})
+    return calls
+
+
+def gather_schedule(prompt_lens, max_new: int, chunk: int) -> tuple[int, int]:
+    """(prefill calls, decode ticks) of the gather engine when every request
+    is admitted at the first step: each tick a prefilling slot runs one
+    [1, chunk] call, or all of its remaining tokens as [1, 1] calls and then
+    takes its first token; every tick with a decoding slot is one decode
+    call, which gives each decoding slot one token."""
+    pos, made = [0] * len(prompt_lens), [0] * len(prompt_lens)
+    calls = ticks = 0
+    while any(m < max_new for m in made):
+        for i, n in enumerate(prompt_lens):
+            if pos[i] < n:
+                step = chunk if n - pos[i] >= chunk else n - pos[i]
+                calls += 1 if step == chunk else step
+                pos[i] += step
+                if pos[i] == n:
+                    made[i] = 1
+        decoding = [i for i, n in enumerate(prompt_lens) if pos[i] == n and 0 < made[i] < max_new]
+        ticks += bool(decoding)
+        for i in decoding:
+            made[i] += 1
+    return calls, ticks
+
+
 def serve_full_width(torch, ops, device="cuda"):
-    """8 requests on full-width, full-depth qwen3-1.7b through the engine.
-    Returns (summary dict, launch counts of that run)."""
+    """8 requests on full-width, full-depth qwen3-1.7b through the engine
+    (paged backend), then the first GATHER_REQUESTS of them on the gather
+    backend.  Returns (summary, launch counts of the paged run, gather
+    summary, launch counts of the gather run)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -292,13 +507,14 @@ def serve_full_width(torch, ops, device="cuda"):
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(MIN_PROMPT, MAX_PROMPT + 1)))
                .astype(np.int32) for _ in range(N_REQUESTS)]
 
-    def run(keep_logits: bool):
+    def run(keep_logits: bool, backend: str = "paged", prompts=prompts, max_new=MAX_NEW):
         eng = Engine(model, params, EngineConfig(
             n_slots=N_SLOTS, max_len=MAX_LEN, page_size=PAGE_SIZE, kv_dtype="mxfp4",
-            prefill_chunk=PREFILL_CHUNK, keep_logits=keep_logits))
+            prefill_chunk=PREFILL_CHUNK, keep_logits=keep_logits, decode_backend=backend))
+        calls = _count_step_calls(eng)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        reqs = [eng.submit(p, MAX_NEW, arrival_time=0.0) for p in prompts]
+        reqs = [eng.submit(p, max_new, arrival_time=0.0) for p in prompts]
         first, ticks = {}, {"prefill": [], "decode": []}
         while eng.sched.pending:
             kind = "prefill" if eng.sched.queue or eng.sched.prefilling() else "decode"
@@ -309,25 +525,38 @@ def serve_full_width(torch, ops, device="cuda"):
                 if r.tokens and r.rid not in first:
                     first[r.rid] = time.perf_counter() - t0
         torch.cuda.synchronize()
-        return eng, reqs, time.perf_counter() - t0, first, ticks
+        wall = time.perf_counter() - t0
+        for r in reqs:
+            if len(r.tokens) != max_new or r.finish_reason != "max_tokens":
+                raise AssertionError(f"{backend} request {r.rid} finished with "
+                                     f"{len(r.tokens)} tokens ({r.finish_reason!r})")
+            for row in r.logits_trace:
+                if row.shape != (cfg.vocab_size,) or not np.isfinite(row).all():
+                    raise AssertionError(f"{backend} request {r.rid}: non-finite or "
+                                         f"misshapen logits")
+            if not all(0 <= t < cfg.vocab_size for t in r.tokens):
+                raise AssertionError(f"{backend} request {r.rid}: token out of range")
+        return eng, reqs, wall, first, ticks, calls
 
+    L = cfg.num_layers
     run(False)  # warm-up: first-use costs (allocator, library handles)
     ops.reset_launch_counts()
-    eng, reqs, wall, _, _ = run(True)
+    eng, reqs, wall, _, _, calls = run(True)
     counts = ops.launch_counts()
-    for r in reqs:
-        if len(r.tokens) != MAX_NEW or r.finish_reason != "max_tokens":
-            raise AssertionError(f"request {r.rid} finished with {len(r.tokens)} tokens "
-                                 f"({r.finish_reason!r})")
-        for row in r.logits_trace:
-            if row.shape != (cfg.vocab_size,) or not np.isfinite(row).all():
-                raise AssertionError(f"request {r.rid}: non-finite or misshapen logits")
-        if not all(0 <= t < cfg.vocab_size for t in r.tokens):
-            raise AssertionError(f"request {r.rid}: token out of range")
+    # per forward (one step call): 2 B1 and 1 B3 in each of the 7 quantized
+    # linears of a layer (the tied lm-head stays bf16), 1 B5 and 2 B4a (K,
+    # then V) per layer
+    n = sum(calls.values())
+    predicted = {"hadamard_quest_quantize": 14 * L * n, "mxfp4_matmul": 7 * L * n,
+                 "paged_attention": L * n, "kv_quant_pack": 2 * L * n}
+    predicted = {k: predicted.get(k, 0) for k in counts}
     log(f"  main-path run: {len(reqs)} requests x {MAX_NEW} tokens, prompts "
-        f"{[int(p.size) for p in prompts]}, {eng.steps} steps, {wall:.3f} s "
-        f"(logits copied to the host for the checks)")
-    _, reqs, wall, first, ticks = run(False)
+        f"{[int(p.size) for p in prompts]}, {eng.steps} steps, step calls {calls}, "
+        f"{wall:.3f} s (logits copied to the host for the checks)")
+    if counts != predicted:
+        raise AssertionError(f"paged run launches {counts} != predicted {predicted}")
+    paged_reqs = reqs
+    _, reqs, wall, first, ticks, _ = run(False)
     ttft = sorted(first.values())
     toks = sum(len(r.tokens) for r in reqs)
     summary = {"requests": len(reqs), "tokens": toks, "wall_s": wall,
@@ -337,11 +566,69 @@ def serve_full_width(torch, ops, device="cuda"):
                "prefill_tick_ms_median": 1e3 * sorted(ticks["prefill"])[len(ticks["prefill"]) // 2],
                "decode_ticks": len(ticks["decode"]),
                "decode_tick_ms_median": 1e3 * sorted(ticks["decode"])[len(ticks["decode"]) // 2],
+               "step_calls": calls, "predicted_launches": predicted,
                "kv_pool_bytes": eng.cache_bytes(),
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    # the gather backend at full width: per-slot prefill ([1, 64] chunks,
+    # then [1, 1] remainders), decode over the gathered dense view
+    g_prompts = prompts[:GATHER_REQUESTS]
+    ops.reset_launch_counts()
+    geng, greqs, gwall, gfirst, _, gcalls = run(True, "gather", g_prompts, GATHER_NEW)
+    gcounts = ops.launch_counts()
+    n_pre, n_dec = gather_schedule([p.size for p in g_prompts], GATHER_NEW, PREFILL_CHUNK)
+    if gcalls != {"prefill_chunk": n_pre, "decode_all": n_dec}:
+        raise AssertionError(f"gather step calls {gcalls} != predicted "
+                             f"{{'prefill_chunk': {n_pre}, 'decode_all': {n_dec}}}")
+    # per forward: 14 B1 and 7 B3 per layer as above; per step call one
+    # gather (2 B4b, all layers) and one scatter (2 B4a, all layers)
+    n = n_pre + n_dec
+    gpredicted = {"hadamard_quest_quantize": 14 * L * n, "mxfp4_matmul": 7 * L * n,
+                  "kv_quant_pack": 2 * n, "kv_dequant_unpack": 2 * n}
+    gpredicted = {k: gpredicted.get(k, 0) for k in gcounts}
+    if gcounts != gpredicted:
+        raise AssertionError(f"gather run launches {gcounts} != predicted {gpredicted}")
+    # first-token log-probs of gather against paged, held to max |Δ| < 5.0
+    # and mean |Δ| < 1.0: twice the reference test's bound for an MXFP4 pool
+    # against unquantized K/V (2.5, 0.5), because the two backends quantize
+    # different K/V and each may sit that far from the unquantized forward.
+    # A gather prefill call attends over its own chunk's K/V before
+    # quantization and the earlier chunks' after it; the paged one quantizes
+    # each chunk before it attends; and the two chunk a prompt differently
+    # ([1, 64] + [1, 1] calls vs [8, 64] ticks).  Each backend against the
+    # teacher-forced forward of the prompt is printed beside, as a reading.
+    def logp(row):
+        return torch.log_softmax(torch.as_tensor(row).float().cpu(), -1)
+
+    lp, tf = [], {"paged": [], "gather": []}
+    with torch.inference_mode():
+        for p, g, p_ in zip(g_prompts, greqs, paged_reqs):
+            feats, _ = model.forward(params, torch.from_numpy(p)[None].to(device), 0,
+                                     features_only=True)
+            ref = logp(model.head(params, feats[:, -1:], 0)[0, 0])
+            for name, r in (("paged", p_), ("gather", g)):
+                d = (logp(r.logits_trace[0]) - ref).abs()
+                tf[name].append((float(d.max()), float(d.mean())))
+            d = (logp(g.logits_trace[0]) - logp(p_.logits_trace[0])).abs()
+            lp.append((float(d.max()), float(d.mean())))
+    agree = [sum(int(x == y) for x, y in zip(g.tokens, p_.tokens[:GATHER_NEW]))
+             for g, p_ in zip(greqs, paged_reqs)]
+    gttft = sorted(gfirst.values())
+    gtoks = sum(len(r.tokens) for r in greqs)
+    gsummary = {"requests": len(greqs), "prompts": [int(p.size) for p in g_prompts],
+                "tokens": gtoks, "wall_s": gwall, "tok_per_s": gtoks / gwall,
+                "ttft_mean_s": float(np.mean(gttft)), "ttft_max_s": gttft[-1],
+                "steps": geng.steps, "step_calls": gcalls, "predicted_launches": gpredicted,
+                "first_token_logprob_max_abs_vs_paged": [x for x, _ in lp],
+                "first_token_logprob_mean_abs_vs_paged": [y for _, y in lp],
+                "first_token_logprob_vs_teacher_forced": tf,
+                "tokens_agreeing_with_paged": agree}
+    log(f"  gather run: {json.dumps(gsummary)} (logits copied to the host for the checks)")
+    if not all(x < 5.0 and y < 1.0 for x, y in lp):
+        raise AssertionError(f"gather vs paged first-token log-probs out of tolerance: {lp}")
     del params
     torch.cuda.empty_cache()
-    return summary, counts
+    return summary, counts, gsummary, gcounts
 
 
 def _leaves(tree):
@@ -355,9 +642,10 @@ def _leaves(tree):
 def check_reduced_engine(torch, device="cuda"):
     """The repo's token oracle at a small size on the card: under the bf16
     method with a dense pool the engine's greedy tokens equal the argmax of
-    its own teacher-forced forward (f32 model); with the MXFP4 pool and the
-    Quartet kernels its first-token log-probs stay within the reference
-    test's bound of the teacher-forced ones."""
+    its own teacher-forced forward (f32 model) on the paged backend, and the
+    gather backend's tokens equal the paged backend's; with the MXFP4 pool
+    and the Quartet kernels its first-token log-probs stay within the
+    reference test's bound of the teacher-forced ones."""
     import numpy as np
 
     from repro_torch.configs import get_reduced_config
@@ -371,12 +659,16 @@ def check_reduced_engine(torch, device="cuda"):
     params = init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (7, 19, 33)]
-    for kv, method in (("dense", "bf16"), ("mxfp4", "quartet")):
+    tokens = {}
+    for kv, method, backend in (("dense", "bf16", "paged"), ("dense", "bf16", "gather"),
+                                ("mxfp4", "quartet", "paged")):
         eng = Engine(model, params, EngineConfig(n_slots=2, max_len=48, page_size=8,
                                                  kv_dtype=kv, prefill_chunk=8,
-                                                 method=method, keep_logits=True))
+                                                 method=method, keep_logits=True,
+                                                 decode_backend=backend))
         reqs = [eng.submit(p, 6) for p in prompts]
         eng.drain()
+        tokens[backend, kv] = [r.tokens for r in reqs]
         for p, r in zip(prompts, reqs):
             seq = torch.tensor(np.concatenate([p, r.tokens[:-1]])[None], device=device)
             tf, _ = model.forward(params, seq, 0, method=method)
@@ -390,8 +682,11 @@ def check_reduced_engine(torch, device="cuda"):
                      - torch.log_softmax(torch.from_numpy(r.logits_trace[0]), -1)).abs()
                 if float(d.max()) >= 2.5 or float(d.mean()) >= 0.5:
                     raise AssertionError(f"mxfp4 engine log-probs off by max {float(d.max())}")
-    log("  reduced engine: dense/bf16 tokens == teacher-forced argmax; "
-        "mxfp4/quartet first-token log-probs within bound")
+    if tokens["gather", "dense"] != tokens["paged", "dense"]:
+        raise AssertionError(f"reduced engine: gather tokens {tokens['gather', 'dense']} != "
+                             f"paged tokens {tokens['paged', 'dense']}")
+    log("  reduced engine: dense/bf16 tokens == teacher-forced argmax on both backends "
+        "(gather == paged); mxfp4/quartet first-token log-probs within bound")
 
 
 # ---------------------------------------------------------------------------
@@ -464,6 +759,75 @@ def time_kernels(torch, cfg, timer, device="cuda"):
             else "operations",
             library_ms=timer(lambda: torch.nn.functional.scaled_dot_product_attention(*lib)),
             launches_per_layer=1)
+    return rec
+
+
+def time_kv_and_flash(torch, cfg, tcfg, timer, device="cuda"):
+    """B4a over one layer's K and V writes of a decode tick (8 tokens) and a
+    prefill tick (8 x 64 tokens); B4b over one decode tick's gather (K and
+    V, 28 layers, 8 slots x 640 positions, bf16 out); B6 at the evaluation
+    shape and at qwen3-1.7b's GQA at 4096.  Each beside its plain version,
+    its least time on the H100 and, for B6, one SDPA call."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import kv_pack as KV
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    Hkv, hd, L = cfg.num_kv_heads, cfg.head_dim_, cfg.num_layers
+    n_pages = 1 + N_SLOTS * (MAX_LEN // PAGE_SIZE)
+    rec = {}
+    leaves = [torch.zeros((1, n_pages, PAGE_SIZE, Hkv, w), dtype=torch.uint8, device=device)
+              for w in (hd // 2, hd // 32)]
+    for n_tok, tag in ((N_SLOTS, "decode"), (N_SLOTS * PREFILL_CHUNK, "prefill")):
+        perm = torch.randperm((n_pages - 1) * PAGE_SIZE, generator=gen, device=device)[:n_tok]
+        pid = (1 + perm // PAGE_SIZE).to(torch.int32)
+        off = (perm % PAGE_SIZE).to(torch.int32)
+        kv = [(torch.randn((n_tok, Hkv, hd), generator=gen, device=device) * 1.5)
+              .to(torch.bfloat16) for _ in range(2)]
+        # 2 B read per bf16 element, 0.5 + 1/32 B written, 8 B of ids per token
+        nbytes = 2 * (n_tok * Hkv * hd * (2 + 0.5 + 1 / 32) + 8 * n_tok)
+        rec[("kv_quant_pack", tag)] = dict(
+            ms=timer(lambda: [KV.kv_quant_scatter(leaves[0][0], leaves[1][0], pid, off, x)
+                              for x in kv]),
+            plain_ms=timer(lambda: [plain_quant_scatter(torch, *leaves, pid, off, x[None])
+                                    for x in kv]),
+            bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
+            launches_per_layer=2)
+    del leaves
+
+    pool = [torch.randint(0, 256, (L, n_pages, PAGE_SIZE, Hkv, w), generator=gen,
+                          device=device, dtype=torch.uint8) for w in (hd // 2, hd // 32)]
+    pool[1].clamp_(100, 154)
+    tables = (1 + torch.arange(n_pages - 1, device=device, dtype=torch.int32)
+              ).reshape(N_SLOTS, -1)
+    n_el = L * tables.numel() * PAGE_SIZE * Hkv * hd
+    # per K and V: 0.5 + 1/32 B read and 2 B (bf16) written per element
+    nbytes = 2 * n_el * (0.5 + 1 / 32 + 2) + 2 * 4 * tables.numel()
+    idx = tables.long()
+    rec[("kv_dequant_unpack", "gather")] = dict(
+        ms=timer(lambda: [KV.kv_gather_dequant(*pool, tables, torch.bfloat16) for _ in range(2)]),
+        plain_ms=timer(lambda: [KV.kv_dequant_unpack_plain(pool[0][:, idx], pool[1][:, idx],
+                                                           torch.bfloat16) for _ in range(2)]),
+        bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
+        launches_per_tick=2)
+    del pool
+
+    for name, B, S, T, hq, hkv, d, causal, dtn in flash_shapes(cfg, tcfg)[:2]:
+        dt = getattr(torch, dtn)
+        q = torch.randn((B, S, hq, d), generator=gen, device=device).to(dt)
+        k, v = (torch.randn((B, T, hkv, d), generator=gen, device=device).to(dt)
+                for _ in range(2))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        nops = 4 * B * hq * S * T * d * (0.5 if causal else 1.0)
+        nbytes = 2 * (2 * B * S * hq * d + 2 * B * T * hkv * d)
+        by_ops, by_bytes = nops / H100_BF16_OPS, nbytes / H100_BYTES_PER_S
+        rec[("flash_attention", name)] = dict(
+            ms=timer(lambda: FA.mha_flash(q, k, v, causal=causal)),
+            plain_ms=timer(lambda: flash_plain(FA, q, k, v, causal)),
+            bound_ms=max(by_ops, by_bytes) * 1e3,
+            bound_by="operations" if by_ops >= by_bytes else "bytes",
+            library_ms=timer(lambda: sdpa(torch, qt, kt, vt, causal)),
+            launches_per_layer=1)
+        del q, k, v, qt, kt, vt
     return rec
 
 
@@ -723,9 +1087,47 @@ def train_full_width(torch, ops, device="cuda"):
                "wall_s": wall, "peak_mem_gb": peak,
                "launches": counts, "predicted_launches": predicted}
     summary["breakdown"] = profile_train_step(torch, model, opt, state, batcher, device)
+    summary["eval"], eval_counts = evaluate_full_width(torch, ops, model, state, device)
     del state
     torch.cuda.empty_cache()
-    return summary, counts
+    return summary, counts, eval_counts
+
+
+def evaluate_full_width(torch, ops, model, state, device="cuda"):
+    """``train.loop.evaluate`` of the trained state over EVAL_BATCHES
+    held-out batches of EVAL_BATCH x TRAIN_SEQ, once with the training model
+    (blocked attention) and once built with ``attn_backend="flash"``, every
+    launch counter set to 0 just before each.  Returns (summary, launch
+    counts of the flash run).
+
+    Tolerance: |nll_flash − nll_blocked| <= 0.01 nats.  The two attentions
+    round differently (bf16 outputs of f32 sums in another order), and a
+    one-ulp change upstream can flip a QuEST rounding decision (ROADMAP C1),
+    which moves single logits; the mean over 32768 tokens moves far less."""
+    from repro_torch.data.pipeline import SyntheticC4Dataset, TokenBatcher
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import evaluate
+
+    cfg = model.cfg
+    batcher = TokenBatcher(SyntheticC4Dataset(cfg.vocab_size, seed=SEED), EVAL_BATCH, TRAIN_SEQ)
+    out, counts = {}, {}
+    for backend, m in (("blocked", model), ("flash", build_model(cfg, attn_backend="flash"))):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out[f"nll_{backend}"] = evaluate(m, state, batcher, EVAL_BATCHES, device=device)
+        out[f"wall_s_{backend}"] = time.perf_counter() - t0  # evaluate ends in host reads
+        counts[backend] = ops.launch_counts()
+    out["nll_diff"] = out["nll_flash"] - out["nll_blocked"]
+    out["launches_blocked"], out["launches_flash"] = counts["blocked"], counts["flash"]
+    log(f"  evaluation: {json.dumps(out)} (tolerance |Δnll| <= 0.01)")
+    want = cfg.num_layers * EVAL_BATCHES
+    if counts["flash"]["flash_attention"] != want or counts["blocked"]["flash_attention"]:
+        raise AssertionError(f"flash_attention launches: flash-built {counts['flash']} "
+                             f"(want {want}), blocked {counts['blocked']} (want 0)")
+    if not (math.isfinite(out["nll_flash"]) and abs(out["nll_diff"]) <= 0.01):
+        raise AssertionError(f"flash vs blocked evaluation nll out of tolerance: {out}")
+    return out, counts["flash"]
 
 
 KERNEL_NAMES = {"hadamard_quest_kernel": "hadamard_quest_quantize",
@@ -878,7 +1280,17 @@ SOURCES = {
                      "src/repro/kernels/mxfp4_matmul.py:61"),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:238"),
+    "kv_quant_pack": ("src/repro_torch/csrc/kv_pack.cu", "src/repro/kernels/kv_pack.py:101"),
+    "kv_dequant_unpack": ("src/repro_torch/csrc/kv_pack.cu",
+                          "src/repro/kernels/kv_pack.py:140"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:81"),
 }
+# each kernel's own path (launch counts) and the timing record of its line
+PATH_OF = {"hadamard_quest_quantize": ("train", "train"),
+           "sr_hadamard_quantize": ("train", "train"), "mxfp4_matmul": ("train", "train"),
+           "paged_attention": ("engine", "decode"), "kv_quant_pack": ("engine", "decode"),
+           "kv_dequant_unpack": ("gather", "gather"), "flash_attention": ("eval", "eval")}
 
 
 def main() -> int:
@@ -924,31 +1336,40 @@ def main() -> int:
     if "kernels" in phases:
         t0 = time.perf_counter()
         err = check_kernels(torch, cfg)
+        err.update(check_kv_and_flash(torch, cfg, tcfg))
         for name, e in check_training_kernels(torch, tcfg).items():
             err[name] = max(err.get(name, 0.0), e)
         log(f"[kernels] all kernels agree with their plain versions "
             f"(max |Δ| {err}) in {time.perf_counter() - t0:.1f} s")
     if "engine" in phases:
         t0 = time.perf_counter()
-        summary, counts["engine"] = serve_full_width(torch, ops)
-        log(f"[engine] launches on the main path: {counts['engine']}")
-        missing = [k for k in ("hadamard_quest_quantize", "mxfp4_matmul", "paged_attention")
-                   if counts["engine"][k] == 0]
+        summary, counts["engine"], gsummary, counts["gather"] = serve_full_width(torch, ops)
+        log(f"[engine] launches on the main path (paged backend): {counts['engine']}")
+        log(f"[engine] launches on the gather backend: {counts['gather']}")
+        missing = [k for k in ("hadamard_quest_quantize", "mxfp4_matmul", "paged_attention",
+                               "kv_quant_pack") if counts["engine"][k] == 0]
+        missing += [f"{k} (gather)" for k in ("kv_quant_pack", "kv_dequant_unpack")
+                    if counts["gather"][k] == 0]
         if missing:
-            raise AssertionError(f"kernels never launched on the serving path: {missing}")
+            raise AssertionError(f"kernels never launched on the serving paths: {missing}")
         log(f"[engine] {json.dumps(summary)}")
+        log(f"[engine] gather {json.dumps(gsummary)}")
         check_reduced_engine(torch)
         log(f"[engine] done in {time.perf_counter() - t0:.1f} s")
     if "train" in phases:
         t0 = time.perf_counter()
         train_reduced_card_vs_cpu(torch)
-        summary, counts["train"] = train_full_width(torch, ops)
+        summary, counts["train"], counts["eval"] = train_full_width(torch, ops)
         log(f"[train] launches on the training path: {counts['train']} "
             f"(predicted {summary['predicted_launches']})")
+        log(f"[train] launches on the flash evaluation path: {counts['eval']}")
         missing = [k for k in ("hadamard_quest_quantize", "sr_hadamard_quantize",
                                "mxfp4_matmul") if counts["train"][k] == 0]
-        if missing:
-            raise AssertionError(f"kernels never launched on the training path: {missing}")
+        if missing or counts["eval"]["flash_attention"] == 0:
+            raise AssertionError(f"kernels never launched on the training path: {missing} "
+                                 f"or flash_attention on the evaluation path")
+        if counts["train"]["flash_attention"]:
+            raise AssertionError("flash_attention launched during training")
         log(f"[train] {json.dumps(summary)}")
         log(f"[train] done in {time.perf_counter() - t0:.1f} s")
     if "times" in phases:
@@ -956,18 +1377,20 @@ def main() -> int:
         timer = Timer(torch)
         rec = time_kernels(torch, cfg, timer)
         rec.update(time_training_kernels(torch, tcfg, timer))
+        rec.update(time_kv_and_flash(torch, cfg, tcfg, timer))
+        where = {"train": "one full-width linear", "gather": "one decode tick, all layers"}
         for (name, tag), r in rec.items():
-            where = "one full-width linear" if tag == "train" else "one layer"
-            log(f"[times] {name} {tag} ({where}): {json.dumps(r)}")
+            log(f"[times] {name} {tag} ({where.get(tag, 'one layer')}): {json.dumps(r)}")
         log(f"[times] done in {time.perf_counter() - t0:.1f} s")
 
     if phases >= {"kernels", "engine", "train", "times"}:
-        # the serving kernel B5 at a decode tick, the training kernels at a
-        # training microbatch; launches on each kernel's own path
+        # B5 and B4a at a decode tick, B4b at a decode tick's gather, B6 at
+        # the evaluation shape, the training kernels at a training
+        # microbatch; launches on each kernel's own path
         kernels = []
         for name, (src, replaces) in SOURCES.items():
-            path = "engine" if name == "paged_attention" else "train"
-            r = rec[(name, "decode" if path == "engine" else "train")]
+            path, tag = PATH_OF[name]
+            r = rec[(name, tag)]
             kernels.append({"name": name, "route": "cuda", "source": src,
                             "replaces": replaces, "launches": counts[path][name],
                             "max_abs_err": err[name], "ms": r["ms"],

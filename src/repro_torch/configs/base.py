@@ -38,8 +38,9 @@ class ModelConfig:
     quantize_lm_head: bool = False  # the paper quantizes transformer linears
     dtype: str = "bfloat16"
 
-    # attention backend: "blocked" (plain PyTorch online softmax, no cache)
-    # or "paged" (serving steps attend over the paged pool with the kernel)
+    # attention backend: "blocked" (plain PyTorch online softmax), "flash"
+    # (the forward-only flash kernel in cache-free forwards: evaluation) or
+    # "paged" (serving steps attend over the paged pool with the kernel)
     attn_backend: str = "paged"
     attn_kv_chunk: int = 1024
     # training: recompute each layer's forward in the backward

@@ -19,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("hadamard_quant", "sr_hadamard_quant", "mxfp4_matmul", "paged_attention")
+SOURCES = ("hadamard_quant", "sr_hadamard_quant", "mxfp4_matmul", "paged_attention", "kv_pack",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -3,7 +3,11 @@
 Port of ``repro.kernels.ops``.  The Quartet forward runs
 ``hadamard_quest_quantize`` then ``mxfp4_matmul``; its backward runs
 ``sr_hadamard_quantize`` on four operands then ``mxfp4_matmul`` for dx and
-dW; serving attends with ``paged_attention``.  Device dispatch lives in each
+dW; serving attends with ``paged_attention``, writes the packed KV pool
+with ``kv_quant_pack`` (fused into the scatter) and, on the gather backend,
+reads it with ``kv_dequant_unpack`` (fused into the gather); a model built
+with ``attn_backend="flash"`` attends with ``flash_attention`` in its
+cache-free forward.  Device dispatch lives in each
 kernel wrapper: a CPU tensor runs the plain PyTorch version, a CUDA tensor
 launches the hand-written kernel (or raises).  Each wrapper counts its own
 launches in ``<wrapper>.launches``; :func:`launch_counts` reads them so a
@@ -14,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import kv_pack as _kv
 from repro_torch.kernels.hadamard_quant import hadamard_quest_quantize as _hq_fn
 from repro_torch.kernels.mxfp4_matmul import mxfp4_matmul as _mm_fn
 from repro_torch.kernels.paged_attention import paged_attention
@@ -26,6 +32,9 @@ KERNELS = {
     "sr_hadamard_quantize": _sr_fn,
     "mxfp4_matmul": _mm_fn,
     "paged_attention": paged_attention,
+    "kv_quant_pack": _kv.kv_quant_pack,
+    "kv_dequant_unpack": _kv.kv_dequant_unpack,
+    "flash_attention": _fa.flash_attention,
 }
 
 
@@ -65,3 +74,27 @@ def mxfp4_matmul(a_codes, a_scales, b_codes, b_scales) -> torch.Tensor:
     out = _mm_fn(a_codes.reshape(-1, a_codes.shape[-1]),
                  a_scales.reshape(-1, a_scales.shape[-1]), b_codes, b_scales)
     return out.reshape(*lead, -1)
+
+
+def kv_quant_pack(x: torch.Tensor):
+    """[..., K] → (packed codes u8 [..., K/2], E8M0 codes u8 [..., K/32]);
+    bit-identical to ``core.quantizers.kv_quantize``."""
+    lead = x.shape[:-1]
+    codes, scales = _kv.kv_quant_pack(x.reshape(-1, x.shape[-1]))
+    return codes.reshape(*lead, -1), scales.reshape(*lead, -1)
+
+
+def kv_dequant_unpack(codes: torch.Tensor, scales: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(packed codes [..., K/2], E8M0 codes [..., K/32]) → [..., K] in
+    ``dtype`` (f32 by default, as the reference)."""
+    lead = codes.shape[:-1]
+    out = _kv.kv_dequant_unpack(codes.reshape(-1, codes.shape[-1]),
+                                scales.reshape(-1, scales.shape[-1]), dtype)
+    return out.reshape(*lead, -1)
+
+
+def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True) -> torch.Tensor:
+    """[B, S, Hq, hd] × [B, T, Hkv, hd] (GQA) → [B, S, Hq, hd]; forward only."""
+    return _fa.mha_flash(q, k, v, causal=causal)

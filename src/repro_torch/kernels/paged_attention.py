@@ -9,22 +9,22 @@ tables [B, P].  Page 0 is the scratch page that masked writes land on.
 On a CUDA tensor :func:`paged_attention` launches
 ``csrc/paged_attention.cu``; on a CPU tensor it runs
 :func:`paged_attention_plain`.  Quantize-on-write (:func:`scatter_token`)
-stays plain PyTorch, as in the reference.
+goes through ``kernels.kv_pack.kv_quant_scatter`` (B4a fused with the page
+scatter: one launch for K and one for V); the reference quantizes there
+with ``kv_quantize``, which computes the same bits.
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import formats as F
-from repro_torch.core import quantizers as Q
 from repro_torch.kernels import _build
+from repro_torch.kernels.kv_pack import kv_quant_scatter, unpack_dequant
 
 GROUP = 32
 NEG_INF = -1e30
@@ -43,50 +43,27 @@ def quant_block(hd: int) -> int:
     return GROUP if hd % GROUP == 0 else hd
 
 
-def quant_fmt(hd: int) -> F.Format:
-    return dataclasses.replace(F.MXFP4, block=quant_block(hd))
-
-
-def unpack_dequant(packed: torch.Tensor, scale_codes: torch.Tensor,
-                   block: int = GROUP) -> torch.Tensor:
-    """Packed nibbles [..., K/2] u8 + E8M0 codes [..., K/block] u8 → f32
-    [..., K], by arithmetic: |v| = 2^((i−2)>>1)·(1 + (i&1)/2) for i ≥ 2,
-    i/2 below."""
-    *lead, kh = packed.shape
-    k = kh * 2
-    nib = torch.stack([(packed >> 4) & 0xF, packed & 0xF], dim=-1).reshape(*lead, k)
-    idx = (nib & 7).to(torch.int32)
-    mag = torch.where(idx >= 2,
-                      F.exp2i(torch.clamp(idx - 2, min=0) >> 1) * (1.0 + 0.5 * (idx & 1)),
-                      0.5 * idx)
-    val = torch.where((nib & 8) > 0, -mag, mag)
-    scale = F.exp2i(scale_codes.to(torch.int32) - 127)
-    return (val.reshape(*lead, k // block, block) * scale[..., None]).reshape(*lead, k)
-
-
 def scatter_token(pool: dict, page_ids: torch.Tensor, offsets: torch.Tensor,
                   k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
     """Write tokens into one layer's pool slice, in place (the leaves are
     views into the engine's [L, ...] pool, so no copy of the pool is made).
 
     ``page_ids``/``offsets`` share a leading shape ``[...]``; ``k_new`` /
-    ``v_new`` are ``[..., Hkv, hd]``.  Quantize-on-write in packed mode.
-    Duplicate (page, offset) pairs — masked lanes redirected to scratch page
-    0 — resolve arbitrarily; scratch contents are never read."""
-    idx = (page_ids.reshape(-1).long(), offsets.reshape(-1).long())
+    ``v_new`` are ``[..., Hkv, hd]``.  Quantize-on-write in packed mode,
+    fused with the scatter (two launches of B4a: K, then V).  Duplicate
+    (page, offset) pairs — masked lanes redirected to scratch page 0 —
+    resolve arbitrarily; scratch contents are never read."""
+    page_ids, offsets = page_ids.reshape(-1), offsets.reshape(-1)
     hkv, hd = k_new.shape[-2:]
     k_new = k_new.reshape(-1, hkv, hd)
     v_new = v_new.reshape(-1, hkv, hd)
     if "k" in pool:
+        idx = (page_ids.long(), offsets.long())
         pool["k"].index_put_(idx, k_new.to(pool["k"].dtype))
         pool["v"].index_put_(idx, v_new.to(pool["v"].dtype))
         return pool
-    fmt = quant_fmt(hd)
-    kq, vq = Q.kv_quantize(k_new, fmt), Q.kv_quantize(v_new, fmt)
-    pool["k_codes"].index_put_(idx, kq.codes)
-    pool["k_scales"].index_put_(idx, kq.scales)
-    pool["v_codes"].index_put_(idx, vq.codes)
-    pool["v_scales"].index_put_(idx, vq.scales)
+    kv_quant_scatter(pool["k_codes"], pool["k_scales"], page_ids, offsets, k_new)
+    kv_quant_scatter(pool["v_codes"], pool["v_scales"], page_ids, offsets, v_new)
     return pool
 
 

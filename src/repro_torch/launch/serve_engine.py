@@ -1,8 +1,9 @@
 """Continuous-batching serving launcher: Poisson arrival workload.
 
-Port of ``repro.launch.serve_engine`` for the dense paged path::
+Port of ``repro.launch.serve_engine`` for the dense family::
 
-    python -m repro_torch.launch.serve_engine --arch qwen3-1.7b --requests 12
+    python -m repro_torch.launch.serve_engine --arch qwen3-1.7b --requests 12 \
+        [--decode-backend gather]
 
 samples arrival times from a Poisson process, prompt lengths uniformly from
 ``[--min-prompt, --max-prompt]``, and drives the engine on a virtual clock:
@@ -78,6 +79,8 @@ def main():
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--prefill-chunk", type=int, default=16)
     ap.add_argument("--kv", default="mxfp4", choices=["mxfp4", "dense"])
+    ap.add_argument("--decode-backend", default=None, choices=["paged", "gather"],
+                    help="paged: attend over the pool (default); gather: dense oracle")
     ap.add_argument("--method", default="quartet", choices=["quartet", "bf16"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -95,13 +98,15 @@ def main():
                                 args.max_prompt, args.max_new, cfg.vocab_size)
     engine = Engine(model, params, EngineConfig(
         n_slots=args.slots, max_len=args.max_len, page_size=args.page_size,
-        kv_dtype=args.kv, prefill_chunk=args.prefill_chunk, method=args.method))
+        kv_dtype=args.kv, prefill_chunk=args.prefill_chunk, method=args.method,
+        decode_backend=args.decode_backend))
     done, elapsed = run_workload(engine, workload)
 
     total_tokens = sum(len(r.tokens) for r in done)
     ttfts = [r.ttft() for r in done]
     where = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
-    print(f"\n{cfg.name} [{cfg.family}] kv={args.kv} slots={args.slots} on {where}")
+    print(f"\n{cfg.name} [{cfg.family}] kv={args.kv} decode={engine.decode_backend} "
+          f"slots={args.slots} on {where}")
     print(f"  {len(done)} requests, {total_tokens} tokens in {elapsed:.2f}s wall "
           f"→ {total_tokens / elapsed:.1f} tok/s, mean TTFT {np.mean(ttfts):.3f}s "
           f"(virtual clock), KV pool {engine.cache_bytes()} bytes")

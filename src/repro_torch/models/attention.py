@@ -1,12 +1,17 @@
-"""GQA attention: the blocked plain-PyTorch path and the paged serving path.
+"""GQA attention: blocked, flash, dense-cache and paged paths.
 
 Port of ``repro.models.attention`` for the dense family.  A forward
 without a cache (training, teacher-forced scoring) runs
-:func:`blocked_attention`, plain PyTorch that autograd differentiates; a
-forward whose cache is a :class:`~repro_torch.kernels.paged_attention.
-PagedKV` quantize-scatters the new tokens' K/V into the pool and attends
-over it with the paged-attention kernel (:func:`_paged_decode`).  The flash backend and the cached dense /
-cross-attention variants arrive with later slices.
+:func:`blocked_attention`, plain PyTorch that autograd differentiates, or,
+on a model built with ``attn_backend="flash"``, the forward-only flash
+kernel (evaluation).  A forward whose cache is a dense ``(k, v)`` pair
+[B, T, Hkv, hd] writes the S new entries at each slot's ``cache_index`` (in
+place) and attends over the whole cache with blocked attention (the
+gather serving backend).  A forward whose cache is a
+:class:`~repro_torch.kernels.paged_attention.PagedKV` quantize-scatters the
+new tokens' K/V into the pool and attends over it with the paged-attention
+kernel (:func:`_paged_decode`).  Cross-attention arrives with the
+encoder-decoder slice.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import mha_flash
 from repro_torch.kernels.paged_attention import PagedKV, paged_attention, scatter_token
 from repro_torch.models import layers as L
 
@@ -76,11 +82,33 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def dispatch_attention(q, k, v, q_positions, *, causal: bool, cfg: ModelConfig) -> torch.Tensor:
-    """Dense (cache-free) attention call site.  ``"paged"`` concerns
-    attention over the pool only, so dense call sites run ``"blocked"``."""
-    if cfg.attn_backend not in ("blocked", "paged"):
+    """Cache-free attention call site.  ``"flash"`` applies to
+    self-attention with S == T, where query row i sits at position i (every
+    cache-free forward); other shapes run blocked attention.  ``"paged"``
+    concerns attention over the pool only, so here it runs ``"blocked"``."""
+    if cfg.attn_backend not in ("blocked", "paged", "flash"):
         raise NotImplementedError(f"attention backend {cfg.attn_backend!r} is not ported yet")
+    if cfg.attn_backend == "flash" and q.shape[1] == k.shape[1]:
+        return mha_flash(q, k, v, causal=causal)
     return blocked_attention(q, k, v, q_positions, causal=causal, kv_chunk=cfg.attn_kv_chunk)
+
+
+def _dense_cache_attend(q, k, v, positions, cache, cache_index, *, causal: bool,
+                        cfg: ModelConfig) -> torch.Tensor:
+    """Write the S new entries of every slot at ``cache_index[b]`` of the
+    dense cache ``(k, v)`` [B, T, Hkv, hd] (in place; the start is clamped
+    to T − S, as a dynamic update slice clamps it), then attend over the
+    whole cache.  The causal mask on the query positions hides every entry
+    past a query, stale ones included."""
+    ck, cv = cache
+    B, S = q.shape[:2]
+    T = ck.shape[1]
+    start = torch.clamp(cache_index.to(torch.int64), 0, T - S)
+    idx = start[:, None] + torch.arange(S, device=q.device)[None, :]
+    bidx = torch.arange(B, device=q.device)[:, None]
+    ck[bidx, idx] = k.to(ck.dtype)
+    cv[bidx, idx] = v.to(cv.dtype)
+    return blocked_attention(q, ck, cv, positions, causal=causal, kv_chunk=cfg.attn_kv_chunk)
 
 
 def _paged_decode(params: dict, x: torch.Tensor, q: torch.Tensor, positions: torch.Tensor,
@@ -108,10 +136,12 @@ def _paged_decode(params: dict, x: torch.Tensor, q: torch.Tensor, positions: tor
 
 
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: int,
-              cfg: ModelConfig, *, causal: bool = True, kv_cache: PagedKV | None = None,
-              method: str = "quartet"):
-    """x [B, S, D], positions [B, S] → (out [B, S, D], kv_cache).  With a
-    ``PagedKV`` cache its pool is updated in place."""
+              cfg: ModelConfig, *, causal: bool = True,
+              kv_cache: PagedKV | tuple | None = None,
+              cache_index: torch.Tensor | None = None, method: str = "quartet"):
+    """x [B, S, D], positions [B, S] → (out [B, S, D], kv_cache).  A
+    ``PagedKV`` pool, or a dense ``(k, v)`` cache written at
+    ``cache_index`` [B], is updated in place."""
     hd, nq, nkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
     qc = cfg.quartet
     q = _split_heads(L.dense(params["wq"], x, L.seed_fold(seed, 1), qc, method), nq, hd)
@@ -120,7 +150,7 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: int,
     if cfg.pos_embed == "rope":
         q = L.apply_rope(q, positions, cfg.rope_theta)
 
-    if kv_cache is not None:
+    if isinstance(kv_cache, PagedKV):
         out = _paged_decode(params, x, q, positions, seed, cfg, kv_cache, method)
     else:
         k = _split_heads(L.dense(params["wk"], x, L.seed_fold(seed, 2), qc, method), nkv, hd)
@@ -129,6 +159,10 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: int,
             k = L.rmsnorm(params["k_norm"], k, cfg.norm_eps)
         if cfg.pos_embed == "rope":
             k = L.apply_rope(k, positions, cfg.rope_theta)
-        out = dispatch_attention(q, k, v, positions, causal=causal, cfg=cfg)
+        if kv_cache is None:
+            out = dispatch_attention(q, k, v, positions, causal=causal, cfg=cfg)
+        else:
+            out = _dense_cache_attend(q, k, v, positions, kv_cache, cache_index,
+                                      causal=causal, cfg=cfg)
     out = out.reshape(*x.shape[:-1], nq * hd)
     return L.dense(params["wo"], out, L.seed_fold(seed, 4), qc, method), kv_cache

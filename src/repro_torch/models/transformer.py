@@ -4,7 +4,9 @@ Quartet linears, a Python loop over stacked [L, ...] layer parameters.
 Port of ``repro.models.transformer`` for the dense family.  With a
 :class:`PagedKV` cache (the pool's leaves carry the leading [L] axis; the
 page table is shared by every layer) each layer quantize-scatters its new
-K/V into its pool slice in place and attends with the paged kernel.  When
+K/V into its pool slice in place and attends with the paged kernel.  With
+dense caches ``(K, V)`` [L, B, T, Hkv, hd] and ``cache_index`` [B], each
+layer writes its new K/V into its slice in place and attends over it.  When
 training (grad enabled, no cache) with ``cfg.remat``, each layer runs under
 ``torch.utils.checkpoint``: only its input is kept, and the backward
 recomputes its forward, as the reference checkpoints its layer-scan
@@ -54,10 +56,11 @@ def init_dense_block(cfg: ModelConfig, dtype, generator, device) -> dict:
 
 
 def dense_block(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: int,
-                cfg: ModelConfig, cache: PagedKV | None, method: str) -> torch.Tensor:
+                cfg: ModelConfig, cache, method: str,
+                cache_index: torch.Tensor | None = None) -> torch.Tensor:
     h, _ = attention(params["attn"], L.rmsnorm(params["attn_norm"], x, cfg.norm_eps),
                      positions, L.seed_fold(seed, 100), cfg, causal=cfg.is_causal_lm,
-                     kv_cache=cache, method=method)
+                     kv_cache=cache, cache_index=cache_index, method=method)
     x = x + h
     return x + mlp(params["mlp"], L.rmsnorm(params["mlp_norm"], x, cfg.norm_eps),
                    L.seed_fold(seed, 200), cfg, method)
@@ -110,12 +113,14 @@ def lm_head_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, seed: int,
 
 
 def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: int, *,
-               positions: torch.Tensor | None = None, caches: PagedKV | None = None,
-               method: str = "quartet", features_only: bool = False):
+               positions: torch.Tensor | None = None, caches=None,
+               cache_index: torch.Tensor | None = None, method: str = "quartet",
+               features_only: bool = False):
     """tokens [B, S] → (logits [B, S, V] f32, or features [B, S, D], caches).
 
-    ``caches`` is a :class:`PagedKV` over the whole [L, ...] pool (updated
-    in place) or None for a cache-free causal forward."""
+    ``caches`` is a :class:`PagedKV` over the whole [L, ...] pool, dense
+    ``(K, V)`` [L, B, T, Hkv, hd] written at ``cache_index`` [B] (both
+    updated in place), or None for a cache-free causal forward."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
@@ -130,9 +135,13 @@ def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: int, 
             x = checkpoint(dense_block, layer, x, positions, seed_l, cfg, None, method,
                            use_reentrant=False)
             continue
-        cache = (None if caches is None
-                 else PagedKV(layer_slice(caches.pool, i), caches.tables))
-        x = dense_block(layer, x, positions, seed_l, cfg, cache, method)
+        if caches is None:
+            cache = None
+        elif isinstance(caches, PagedKV):
+            cache = PagedKV(layer_slice(caches.pool, i), caches.tables)
+        else:
+            cache = (caches[0][i], caches[1][i])
+        x = dense_block(layer, x, positions, seed_l, cfg, cache, method, cache_index)
     if features_only:
         return x, caches
     return lm_head_apply(params, x, cfg, seed, method), caches

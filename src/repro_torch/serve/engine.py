@@ -1,20 +1,25 @@
 """Continuous-batching inference engine over the paged MXFP4 KV pool.
 
-Port of ``repro.serve.engine`` for the dense family, paged backend, greedy
-decoding.  ``Engine`` multiplexes requests over a fixed set of decode slots:
+Port of ``repro.serve.engine`` for the dense family, greedy decoding.
+``Engine`` multiplexes requests over a fixed set of decode slots:
 
 * ``submit(prompt, max_new) -> Request`` queues work (``.tokens`` fills in
   as the engine runs);
 * ``step()`` admits queued requests into free slots (reserving pages for
-  prompt + max_new), advances every prefilling slot by one chunk in one
-  batched call over the packed pool, then steps every decoding slot in one
-  batched call;
+  prompt + max_new), advances the prefilling slots, then steps every
+  decoding slot in one batched call;
 * ``drain()`` steps until nothing is queued or active.
 
-Both calls attend directly over the pool through the paged-attention
-kernel; quantize-on-write happens once per token.  Speculative decoding,
-prefix sharing, sampling, the state pool and multi-device serving are not
-ported yet.
+``EngineConfig.decode_backend`` picks the steps.  ``"paged"`` (the default
+for a model whose ``attn_backend`` is ``"paged"``) advances every
+prefilling slot by one chunk in one batched call, and both calls attend
+directly over the pool through the paged-attention kernel.  ``"gather"``
+(the reference's parity oracle, the default for other models) advances each
+prefilling slot on its own, one ``[1, C]`` chunk or all of its ``[1, 1]``
+remainder tokens per tick, and its steps gather-dequantize the pool into
+dense caches and scatter the new tokens back.  Quantize-on-write happens
+once per token on both.  Speculative decoding, prefix sharing, sampling, the
+state pool and multi-device serving are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,6 +46,9 @@ class EngineConfig:
     method: str = "quartet"
     eos_id: int | None = None
     keep_logits: bool = False  # record per-step logits on each Request (tests)
+    # None follows ModelConfig.attn_backend ("paged" for a paged model, else
+    # "gather"); "paged" attends over the pool; "gather" is the dense oracle
+    decode_backend: str | None = None
 
 
 class Engine:
@@ -59,7 +67,10 @@ class Engine:
                                   pages_per_slot=pages_per_slot, page_size=cfg.page_size,
                                   n_pages=n_pages, kv_dtype=cfg.kv_dtype,
                                   device=self.device)
-        self._steps = build_paged_steps(model, method=cfg.method, page_size=cfg.page_size)
+        self.decode_backend = cfg.decode_backend or (
+            "paged" if model.cfg.attn_backend == "paged" else "gather")
+        self._steps = build_paged_steps(model, method=cfg.method, page_size=cfg.page_size,
+                                        decode_backend=self.decode_backend)
 
     # ------------------------------------------------------------------ API
 
@@ -69,15 +80,20 @@ class Engine:
 
     @torch.inference_mode()
     def step(self, now: float | None = None) -> dict:
-        """One scheduler tick: admit → batched chunked prefill → batched
-        decode → retire.  Returns counts for the caller's loop."""
+        """One scheduler tick: admit → chunked prefill (batched on the paged
+        backend, per slot on the gather backend) → batched decode → retire.
+        Returns counts for the caller's loop."""
         now = time.monotonic() if now is None else now
         admitted = self.sched.admit(
             lambda req: self.cache.can_alloc(req.prompt_len + req.max_new),
             on_admit=lambda req: self.cache.alloc(req.slot, req.prompt_len + req.max_new))
-        batch = self.sched.prefill_batch()
-        if batch:
-            self._prefill_tick(batch, now)
+        if self._steps.prefill_all is not None:
+            batch = self.sched.prefill_batch()
+            if batch:
+                self._prefill_tick(batch, now)
+        else:
+            for req in self.sched.prefilling():
+                self._advance_prefill(req, now)
         decoding = self.sched.decoding()
         if decoding:
             self._decode_tick(decoding, now)
@@ -124,6 +140,25 @@ class Engine:
                 req.first_token_time = now
                 req.state = RequestState.DECODE
                 self._maybe_finish(req, now)
+
+    def _advance_prefill(self, req: Request, now: float) -> None:
+        """Per-slot prefill (gather backend): one ``[1, C]`` chunk, or, when
+        fewer than C prompt tokens remain, every one of them as a ``[1, 1]``
+        call, never padded."""
+        C = self.config.prefill_chunk
+        remaining = req.prompt_len - req.prefill_pos
+        calls = [C] if remaining >= C else [1] * remaining
+        for n in calls:
+            tokens = self._tensor(req.prompt[None, req.prefill_pos:req.prefill_pos + n])
+            logits = self._steps.prefill_chunk(
+                self.params, tokens, req.prefill_pos,
+                self._tensor(self.cache.tables[req.slot]), self.cache.pool)
+            req.prefill_pos += n
+        if req.prefill_pos == req.prompt_len:
+            self._emit(req, logits[0], int(torch.argmax(logits[0])))
+            req.first_token_time = now
+            req.state = RequestState.DECODE
+            self._maybe_finish(req, now)
 
     def _decode_tick(self, decoding: list[Request], now: float) -> None:
         B = self.config.n_slots

@@ -5,7 +5,9 @@ of fixed-size pages ``[L, n_pages, page_size, Hkv, ...]`` lives on the
 device, with a host-side free-list allocator and per-slot page tables.  In
 ``kv_dtype="mxfp4"`` mode pages hold the real 4.25-bit payload (packed E2M1
 nibbles + E8M0 scale bytes, written by ``kernels.paged_attention.
-scatter_token``); ``"dense"`` stores the model's compute dtype.
+scatter_token`` on the paged backend and :func:`scatter_tokens` on the
+gather backend, both through B4a); ``"dense"`` stores the model's compute
+dtype.
 
 Page id 0 is the scratch page: masked decode lanes and prefill padding
 redirect their writes there.  Stale page contents are never zeroed — causal
@@ -21,30 +23,73 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.quantizers import PackedQuant
+from repro_torch.kernels.kv_pack import (
+    kv_dequant_unpack,
+    kv_gather_dequant,
+    kv_quant_pack,
+    kv_quant_scatter,
+)
 from repro_torch.kernels.paged_attention import (  # noqa: F401  (re-exports)
     PagedKV,
     prefill_chunk_layout,
     quant_block,
-    unpack_dequant,
 )
 
 
+def quantize_kv(x: torch.Tensor) -> PackedQuant:
+    """[..., hd] values → packed MXFP4 payload (codes [..., hd/2] u8, scale
+    codes [..., hd/block] u8), through B4a on a CUDA tensor."""
+    hd = x.shape[-1]
+    lead = x.shape[:-1]
+    codes, scales = kv_quant_pack(x.reshape(-1, hd), quant_block(hd))
+    return PackedQuant(codes.reshape(*lead, -1), scales.reshape(*lead, -1))
+
+
+def dequantize_kv(codes: torch.Tensor, scales: torch.Tensor, dtype) -> torch.Tensor:
+    """Packed payload → [..., hd] values in ``dtype``, through B4b on a CUDA
+    tensor."""
+    lead = codes.shape[:-1]
+    out = kv_dequant_unpack(codes.reshape(-1, codes.shape[-1]),
+                            scales.reshape(-1, scales.shape[-1]), dtype)
+    return out.reshape(*lead, -1)
+
+
 def gather_pages(pool: dict, tables: torch.Tensor, dtype: torch.dtype):
-    """Pool pages → dense stacked KV ``(k, v)`` [L, B, P·ps, Hkv, hd] through
-    tables [B, P], dequantizing a packed pool.  A test oracle: the serving
-    steps attend over the pool directly and never build this view."""
-    idx = tables.long()
-
-    def one(codes, scales=None):
-        g = codes[:, idx]  # [L, B, P, ps, H, ...]
-        if scales is not None:
-            g = unpack_dequant(g, scales[:, idx], quant_block(codes.shape[-1] * 2))
-        return g.reshape(*g.shape[:2], -1, *g.shape[4:]).to(dtype)
-
+    """Pool pages → dense stacked KV ``(k, v)`` [L, B, P·ps, Hkv, hd]
+    through tables int32 [B, P]: a packed pool dequantized into ``dtype``
+    (B4b fused with the gather, one launch each for K and V), a dense pool
+    in its own dtype (the model's compute dtype), as in the reference.  The
+    ``decode_backend="gather"`` steps attend over this view; the paged
+    backend never builds it."""
     if "k" in pool:
+        idx = tables.long()
+
+        def one(leaf):
+            g = leaf[:, idx]  # [L, B, P, ps, H, hd]
+            return g.reshape(*g.shape[:2], -1, *g.shape[4:])
+
         return one(pool["k"]), one(pool["v"])
-    return (one(pool["k_codes"], pool["k_scales"]),
-            one(pool["v_codes"], pool["v_scales"]))
+    return (kv_gather_dequant(pool["k_codes"], pool["k_scales"], tables, dtype),
+            kv_gather_dequant(pool["v_codes"], pool["v_scales"], tables, dtype))
+
+
+def scatter_tokens(pool: dict, page_ids: torch.Tensor, offsets: torch.Tensor,
+                   k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
+    """Write one token per (page, offset) pair into every layer of the pool,
+    in place.  page_ids/offsets [N]; k_new/v_new [L, N, Hkv, hd].
+    Quantize-on-write in packed mode (B4a fused with the scatter, one
+    launch each for K and V).  Duplicate pairs (masked lanes redirected to
+    the scratch page) resolve arbitrarily; scratch contents are never
+    read."""
+    if "k" in pool:
+        pid, off = page_ids.long(), offsets.long()
+        pool["k"][:, pid, off] = k_new.to(pool["k"].dtype)
+        pool["v"][:, pid, off] = v_new.to(pool["v"].dtype)
+        return pool
+    kv_quant_scatter(pool["k_codes"], pool["k_scales"], page_ids, offsets, k_new)
+    kv_quant_scatter(pool["v_codes"], pool["v_scales"], page_ids, offsets, v_new)
+    return pool
 
 
 def reservation_sizing(n_slots: int, max_len: int, page_size: int) -> tuple[int, int]:

@@ -1,4 +1,4 @@
-"""PyTorch port vs the JAX reference: the serving and training kernels.
+"""PyTorch port vs the JAX reference: the serving, training and evaluation kernels.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; these tests
 hold that plain version against the reference's Pallas kernel, run in
@@ -11,7 +11,11 @@ plain versions' butterfly Hadamard and halving sums land on the reference's
 bits on these sweeps; the backward's uniforms are the same counter hash);
 the GEMM takes the reference test's rtol 1e-6 / atol 1e-5 (exact
 per-group integer products, f32 sums in another order); attention takes
-atol 1e-5 in f32 (online vs full softmax, another summation order).
+atol 1e-5 in f32 (online vs full softmax, another summation order), flash
+attention the reference test's rtol = atol = 1e-5.  KV quantize-pack and
+unpack-dequantize are bit-exact, except that near √2·2^k the reference's
+float ``log2`` can misround an E8M0 scale (ROADMAP C2): there every
+disagreement must be such a misround.
 """
 
 import jax
@@ -23,14 +27,19 @@ import torch
 from repro.core.quartet import QuartetConfig as JQuartetConfig
 from repro.core.quartet import quartet_linear as jquartet_linear
 from repro.core import fastrng as JR
+from repro.kernels import ops as JOPS
 from repro.kernels import paged_attention as JPA
+from repro.kernels.flash_attention import flash_attention as jflash
+from repro.kernels.flash_attention import mha_flash as jmha_flash
 from repro.kernels import ref as JREF
 from repro.kernels.hadamard_quant import hadamard_quest_quantize as jhq
 from repro.kernels.mxfp4_matmul import mxfp4_matmul as jmm
 from repro.kernels.sr_hadamard_quant import sr_hadamard_quantize as jsr
 from repro_torch.core.hadamard import hadamard_transform
 from repro_torch.core.quartet import QuartetConfig, quartet_linear
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import hadamard_quant as HQ
+from repro_torch.kernels import kv_pack as KV
 from repro_torch.kernels import sr_hadamard_quant as SR
 from repro_torch.kernels import mxfp4_matmul as MM
 from repro_torch.kernels import ops
@@ -263,6 +272,141 @@ def test_paged_attention_batched_prefill_vs_reference(mode):
 
 
 # ---------------------------------------------------------------------------
+# KV quantize-pack / unpack-dequantize (B4a, B4b)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(17, 96), (48, 32), (24, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kv_quant_pack_plain_bit_exact_vs_reference(shape, dtype):
+    """(17, 96) is the reference test's shape; (48, 32) and (24, 128) are
+    pool rows (tokens × heads, hd) of the reduced and the full qwen3."""
+    x = (np.random.default_rng(11).standard_normal(shape) * 1.7).astype(np.float32)
+    x[0, :32] = 0.0  # an all-zero group
+    jc, js = JOPS.kv_quant_pack(jnp.asarray(x).astype(getattr(jnp, dtype)))
+    tc, ts = ops.kv_quant_pack(torch.from_numpy(x).to(getattr(torch, dtype)))
+    np.testing.assert_array_equal(tc.numpy(), _np(jc))
+    np.testing.assert_array_equal(ts.numpy(), _np(js))
+
+
+def kv_edge_rows() -> np.ndarray:
+    """Rows of two groups whose first group's absmax/6 lies within ±8 ulps
+    of √2·2^k or exactly at 2^k (k in [-20, 20]), plus all-zero rows."""
+    rng = np.random.default_rng(12)
+    amax = []
+    for k in range(-20, 21):
+        a0 = np.float32(np.sqrt(2.0) * 2.0**k * 6.0)
+        amax.extend((a0.view(np.int32) + np.arange(-8, 9, dtype=np.int32)).view(np.float32))
+        amax.append(np.float32(6.0 * 2.0**k))
+    amax = np.asarray(amax, np.float32)
+    x = np.zeros((amax.size + 4, 64), np.float32)
+    x[:amax.size, 1:32] = rng.uniform(-0.9, 0.9, (amax.size, 31)) * amax[:, None]
+    x[:amax.size, 0] = amax * np.where(rng.random(amax.size) < 0.5, -1, 1)
+    x[:amax.size, 32:] = rng.standard_normal((amax.size, 32))
+    return x
+
+
+def test_kv_quant_pack_edge_rows_misround_only_in_reference():
+    x = kv_edge_rows()
+    jc, js = (_np(a) for a in JOPS.kv_quant_pack(jnp.asarray(x)))
+    tc, ts = (a.numpy() for a in KV.kv_quant_pack(torch.from_numpy(x)))
+    amax6 = np.maximum(np.abs(x).reshape(-1, 2, 32).max(-1) / np.float32(6.0),
+                       np.float32(2.0**-126))
+    exact = np.clip(np.round(np.log2(amax6.astype(np.float64))), -126, 127) + 127
+    np.testing.assert_array_equal(ts, exact.astype(np.uint8))  # the port is exact
+    bad = (ts != js) | (tc.reshape(-1, 2, 16) != jc.reshape(-1, 2, 16)).any(-1)
+    assert np.all(js[bad] != exact[bad])  # every disagreement: a reference misround
+    assert not bad[-4:].any() and not bad[:, 1].any()
+
+
+def test_kv_dequant_unpack_plain_bit_exact_and_bf16_exact():
+    """Every scale code 1..254.  The one exception: XLA:CPU flushes subnormal
+    results (0.5 × 2^-126 under scale code 1) to zero, while the port (and
+    the card, which does not flush) keeps them exact."""
+    rng = np.random.default_rng(13)
+    codes = rng.integers(0, 256, (40, 64), dtype=np.uint8)
+    scales = rng.integers(1, 255, (40, 4), dtype=np.uint8)
+    want = _np(JOPS.kv_dequant_unpack(jnp.asarray(codes), jnp.asarray(scales)))
+    got = ops.kv_dequant_unpack(torch.from_numpy(codes), torch.from_numpy(scales))
+    diff = got.numpy().view(np.int32) != want.view(np.int32)
+    assert np.all(want[diff] == 0) and np.all(np.abs(got.numpy()[diff]) == 2.0**-127)
+    sub = np.abs(got.numpy()) < 2.0**-126
+    np.testing.assert_array_equal(diff, sub & (got.numpy() != 0))
+    bf = ops.kv_dequant_unpack(torch.from_numpy(codes), torch.from_numpy(scales),
+                               torch.bfloat16)
+    assert torch.equal(bf.view(torch.int16), got.to(torch.bfloat16).view(torch.int16))
+    assert torch.equal(bf.float(), got)  # writing bf16 directly is exact
+
+
+def test_kv_scatter_and_gather_forms_equal_the_2d_forms():
+    """The fused forms (pool leaf in place; through page tables) equal the
+    2-d quantize / dequantize of the same rows, for one layer and for all."""
+    rng = np.random.default_rng(14)
+    L, n_pages, ps, H, hd = 2, 6, 4, 2, 64
+    codes = torch.zeros((L, n_pages, ps, H, hd // 2), dtype=torch.uint8)
+    scales = torch.zeros((L, n_pages, ps, H, hd // 32), dtype=torch.uint8)
+    pid = torch.tensor([3, 1, 5, 3], dtype=torch.int32)
+    off = torch.tensor([0, 2, 3, 1], dtype=torch.int32)
+    x = torch.from_numpy(rng.standard_normal((L, 4, H, hd)).astype(np.float32))
+    KV.kv_quant_scatter(codes, scales, pid, off, x)
+    c2, s2 = KV.kv_quant_pack(x.reshape(-1, hd))
+    assert torch.equal(codes[:, pid.long(), off.long()].reshape(-1, hd // 2), c2)
+    assert torch.equal(scales[:, pid.long(), off.long()].reshape(-1, hd // 32), s2)
+    one_c, one_s = codes[1].clone(), scales[1].clone()
+    KV.kv_quant_scatter(one_c, one_s, pid, off, x[1] * 3)
+    assert torch.equal(one_c[pid.long(), off.long()].reshape(-1, hd // 2),
+                       KV.kv_quant_pack(x[1].reshape(-1, hd) * 3)[0])
+    tables = torch.tensor([[3, 1], [5, 0]], dtype=torch.int32)
+    dense = KV.kv_gather_dequant(codes, scales, tables, torch.float32)
+    assert dense.shape == (L, 2, 2 * ps, H, hd)
+    want = KV.kv_dequant_unpack(codes[:, tables.long()].reshape(-1, hd // 2),
+                                scales[:, tables.long()].reshape(-1, hd // 32))
+    assert torch.equal(dense.reshape(-1, hd), want)
+    with pytest.raises(ValueError, match="does not fit"):
+        KV.kv_quant_scatter(codes, scales, pid, off, x[:, :3])
+
+
+# ---------------------------------------------------------------------------
+# flash attention (B6)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s,t,causal", [(128, 128, True), (128, 128, False),
+                                        (256, 384, False), (100, 150, False),
+                                        (64, 64, True)])
+def test_flash_attention_plain_vs_reference(s, t, causal):
+    """The reference test's sweep (tests/test_kernels.py), 64-blocks."""
+    rng = np.random.default_rng(15)
+    q, k, v = (rng.standard_normal((4, n, 64)).astype(np.float32) for n in (s, t, t))
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                  block_q=64, block_k=64)
+    got = FA.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                             causal=causal)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (8, 2), (6, 3), (4, 4)])
+def test_mha_flash_gqa_vs_reference(hq, hkv):
+    rng = np.random.default_rng(16)
+    B, S, hd = 2, 80, 32
+    q = rng.standard_normal((B, S, hq, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, hkv, hd)).astype(np.float32) for _ in range(2))
+    want = jmha_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True)
+    got = ops.mha_flash(*(torch.from_numpy(a) for a in (q, k, v)), causal=True)
+    assert got.shape == (B, S, hq, hd)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=1e-5)
+
+
+def test_flash_attention_raises_under_grad():
+    q = torch.randn(1, 8, 2, 32, requires_grad=True)
+    k = torch.randn(1, 8, 2, 32)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        FA.mha_flash(q, k, k)
+    with torch.no_grad():  # evaluation: no graph, so the op runs
+        assert FA.mha_flash(q, k, k).shape == (1, 8, 2, 32)
+
+
+# ---------------------------------------------------------------------------
 # dispatch and counters
 # ---------------------------------------------------------------------------
 
@@ -277,13 +421,22 @@ def test_wrappers_take_plain_only_on_cpu_and_count_only_launches():
     assert torch.equal(sc.reshape(8, 64), SR.sr_hadamard_quantize_plain(x, torch.ones(64), 3,
                                                                         salt=1)[0])
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+    ops.kv_dequant_unpack(*ops.kv_quant_pack(x))
+    ops.mha_flash(x.reshape(1, 8, 2, 32), x.reshape(1, 8, 2, 32), x.reshape(1, 8, 2, 32))
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
     assert set(ops.KERNELS) == {"hadamard_quest_quantize", "sr_hadamard_quantize",
-                                "mxfp4_matmul", "paged_attention"}
+                                "mxfp4_matmul", "paged_attention", "kv_quant_pack",
+                                "kv_dequant_unpack", "flash_attention"}
     meta = torch.empty((8, 64), device="meta")
+    u8 = meta.to(torch.uint8)
     for call in (lambda: HQ.hadamard_quest_quantize(meta),
                  lambda: SR.sr_hadamard_quantize(meta, torch.ones(64), 0),
                  lambda: MM.mxfp4_matmul(meta.to(torch.int8), meta[:, :2], meta.t(),
-                                         meta[:, :2].t())):
+                                         meta[:, :2].t()),
+                 lambda: KV.kv_quant_pack(meta),
+                 lambda: KV.kv_dequant_unpack(u8[:, :32], u8[:, :2]),
+                 lambda: FA.mha_flash(meta.reshape(1, 8, 2, 32), meta.reshape(1, 8, 2, 32),
+                                      meta.reshape(1, 8, 2, 32))):
         with pytest.raises(RuntimeError, match="unsupported device"):
             call()
 
@@ -320,4 +473,17 @@ def test_kernels_match_plain_on_card():
         tb = torch.from_numpy(tables).to(dev)
         torch.testing.assert_close(PA.paged_attention(q, tpool, tb, ln),
                                    PA.paged_attention_plain(q, tpool, tb, ln),
+                                   rtol=0, atol=2e-5)
+    xe = torch.from_numpy(kv_edge_rows()).to(dev)
+    for t in (xe, x, x.float()):
+        for a, b in zip(KV.kv_quant_pack(t), KV.kv_quant_pack_plain(t)):
+            assert torch.equal(a, b)
+    c, s = KV.kv_quant_pack(x)
+    for dt in (torch.float32, torch.bfloat16):
+        assert torch.equal(KV.kv_dequant_unpack(c, s, dt), KV.kv_dequant_unpack_plain(c, s, dt))
+    for S, T, hq, hkv, causal in ((130, 130, 4, 2, True), (70, 150, 2, 1, False)):
+        q = torch.randn((2, S, hq, 64), generator=gen, device=dev)
+        k, v = (torch.randn((2, T, hkv, 64), generator=gen, device=dev) for _ in range(2))
+        want = FA.mha_flash(q.cpu(), k.cpu(), v.cpu(), causal=causal)
+        torch.testing.assert_close(FA.mha_flash(q, k, v, causal=causal).cpu(), want,
                                    rtol=0, atol=2e-5)
