@@ -4,16 +4,18 @@
 
 1. Prints the card's name and power limit, then builds every kernel of the
    serving, training and evaluation paths from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, all started together: 6 libraries, 7 kernels).
+   ``nvcc`` per source, all started together: 6 libraries, 7 kernels), and
+   prints each entry's registers, shared memory and spills (-Xptxas -v).
 2. Checks each kernel against its plain PyTorch version on the card at the
    full-width qwen3-1.7b shapes of the serving path and the full-width
    llama-paper-200m shapes of a training step (16 x 512 tokens): B4a
    (KV quantize-pack and its pool scatter) and B4b (unpack-dequantize and
-   its page gather) bit for bit, with an E8M0 edge sweep; B6 (flash
-   attention) at the evaluation shape, qwen3-1.7b's GQA at 4096 and a
-   ragged f32 case, with SDPA as a second reading; and one full-width
-   ``quartet_linear`` backward on the kernels against the same backward on
-   the plain versions (a mismatch raises).
+   its page gather) bit for bit, with an E8M0 edge sweep; B3 (MXFP4 GEMM)
+   bit for bit at ragged M and N and at E8M0-edge scales; B6 (flash
+   attention) at the evaluation shape, qwen3-1.7b's GQA at 4096, a ragged
+   f32 case and a ragged hd-64 bf16 case, with SDPA as a second reading;
+   and one full-width ``quartet_linear`` backward on the kernels against
+   the same backward on the plain versions (a mismatch raises).
 3. Serves 8 requests with the port's ``Engine`` on full-width, full-depth
    qwen3-1.7b (random weights from a seed, MXFP4 KV pool, paged attention,
    greedy decoding, Quartet linears through the kernels), with every launch
@@ -252,6 +254,24 @@ def check_kernels(torch, cfg, device="cuda"):
             worst = max(worst, float((got - want).abs().max()))
     err["mxfp4_matmul"] = worst
 
+    # mxfp4_matmul bit for bit at ragged M and N (every tile configuration:
+    # decode M <= 16, prefill, training) and at the E8M0 edges
+    for m in (8, 100, 1100):
+        x = torch.randn((m, cfg.d_model), generator=gen, device=device).to(torch.bfloat16)
+        w = (torch.randn((cfg.d_model, 1000), generator=gen, device=device)
+             / cfg.d_model**0.5).to(torch.bfloat16)
+        ac, as_, _ = HQ.hadamard_quest_quantize(x)
+        wc, ws, _ = HQ.hadamard_quest_quantize(w.t())
+        cases = [(f"ragged M={m} N=1000", (ac, as_, wc.t(), ws.t()))]
+        cases += [(f"E8M0 {name} M={m}", args)
+                  for name, args in mxfp4_edge_operands(torch, gen, device, m)]
+        for name, args in cases:
+            got, want = MM.mxfp4_matmul(*args), MM.mxfp4_matmul_plain(*args)
+            if not torch.equal(got, want):
+                bad = got != want
+                raise AssertionError(f"mxfp4_matmul {name}: differs at {int(bad.sum())} places, "
+                                     f"e.g. {got[bad][:4].tolist()} vs {want[bad][:4].tolist()}")
+
     # paged_attention: both pool kinds, S = 1 (decode) and S = C (prefill
     # chunk), f32 queries (tolerance 2e-5: online vs full softmax, another
     # summation order) and bf16 queries (the engine's type: one bf16
@@ -281,6 +301,38 @@ def check_kernels(torch, cfg, device="cuda"):
     err["paged_attention"] = worst
     torch.cuda.synchronize()
     return err
+
+
+def mxfp4_edge_operands(torch, gen, device, m: int, k: int = 256, n: int = 200):
+    """B3 operands [m, k] x [k, n] (B K-major, as the call sites pass it) at
+    the E8M0 edges, half-codes from the E2M1 grid.  "low": signed codes and
+    scale codes 1, 2 (2^-126, 2^-125) beside 100 and 127, so terms underflow
+    to zero or round in f32's subnormal range; "high": codes >= 0 and scale
+    codes 253, 254 (2^126, 2^127) beside 1, 2, 120, 127 and 134, so terms
+    overflow to +inf (never inf - inf, so no NaN); "fold limits": scale codes
+    67 and 177 (2^-60, 2^50), the bounds of the kernel's folded-scale path."""
+    grid = torch.tensor([0, 1, 2, 3, 4, 6, 8, 12], dtype=torch.int8, device=device)
+
+    def codes(shape, signed):
+        c = grid[torch.randint(0, 8, shape, generator=gen, device=device)]
+        if signed:
+            c = c * (torch.randint(0, 2, shape, generator=gen, device=device) * 2 - 1).to(torch.int8)
+        return c
+
+    def scales(shape, e8m0):
+        e = torch.tensor(e8m0, dtype=torch.int32, device=device)
+        pick = e[torch.randint(0, len(e8m0), shape, generator=gen, device=device)]
+        return (pick << 23).view(torch.float32)  # 2^(code - 127), built from the bits
+
+    out = []
+    for name, kk, signed, ea, eb in (
+            ("low", k, True, (1, 2, 100, 127), (1, 2, 100, 127)),
+            # two groups, so that most outputs stay finite beside the +inf ones
+            ("high", 64, False, (253, 254, 127, 127, 120, 1), (1, 2, 127, 127, 134, 254)),
+            ("fold limits", k, True, (67, 177, 127), (67, 177, 127))):
+        out.append((name, (codes((m, kk), signed), scales((m, kk // 32), ea),
+                           codes((n, kk), signed).t(), scales((n, kk // 32), eb).t())))
+    return out
 
 
 def kv_edge_rows(np):
@@ -334,13 +386,16 @@ def sdpa(torch, q, k, v, causal):
 
 def flash_shapes(cfg, tcfg):
     """(name, B, S, T, Hq, Hkv, hd, causal, dtype name) of B6's checks: the
-    evaluation shape, qwen3-1.7b's GQA at 4096 and a ragged f32 case."""
+    evaluation shape, qwen3-1.7b's GQA at 4096, a ragged f32 case and a
+    ragged bf16 case at hd 64 with S != T (the tensor-core body's other
+    head size)."""
     return [("eval", EVAL_BATCH, TRAIN_SEQ, TRAIN_SEQ, tcfg.num_heads, tcfg.num_kv_heads,
              tcfg.head_dim_, True, "bfloat16"),
             ("gqa4096", 1, 4096, 4096, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, True,
              "bfloat16"),
             ("f32_1000", 2, 1000, 1000, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, False,
-             "float32")]
+             "float32"),
+            ("hd64_700x1000", 2, 700, 1000, 4, 2, 64, False, "bfloat16")]
 
 
 def check_kv_and_flash(torch, cfg, tcfg, device="cuda"):
@@ -1132,7 +1187,7 @@ def evaluate_full_width(torch, ops, model, state, device="cuda"):
 
 KERNEL_NAMES = {"hadamard_quest_kernel": "hadamard_quest_quantize",
                 "sr_hadamard_kernel": "sr_hadamard_quantize",
-                "mxfp4_matmul_kernel": "mxfp4_matmul", "paged_attention": "paged_attention"}
+                "mxfp4_mma_kernel": "mxfp4_matmul", "paged_attention": "paged_attention"}
 
 
 def _kind(name: str) -> str:
@@ -1326,8 +1381,8 @@ def main() -> int:
     reports = _build.build_all()
     log(f"[build] {len(_build.SOURCES)} kernels in {time.perf_counter() - t0:.1f} s (sm_90a)")
     for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+        for line in rep.splitlines():  # -Xptxas -v: each entry, its registers and spills
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
     cfg = get_config("qwen3-1.7b")

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its own
 into ``build/kernels/<name>-<hash>.so`` at the repository root (listed in
-``.gitignore``); the hash covers the source and the flags, so an edited
-source never loads a stale library.  :func:`build_all` starts one ``nvcc``
-per source and waits for all of them, so the whole set builds in the time of
-the slowest file.  Nothing here runs at import time.
+``.gitignore``); the hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source never loads a stale
+library.  :func:`build_all` starts one ``nvcc`` per source and waits for
+all of them, so the whole set builds in the time of the slowest file.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -41,18 +41,19 @@ def mxfp4_matmul_plain(a_codes, a_scales, b_codes, b_scales) -> torch.Tensor:
 def _entry():
     fn = _build.load("mxfp4_matmul").mxfp4_matmul
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def mxfp4_matmul(a_codes, a_scales, b_codes, b_scales) -> torch.Tensor:
     """(A codes [M, K], scales [M, K/32]) × (B codes [K, N], scales
-    [K/32, N]) → f32 [M, N].  B and its scales may be any strided view (the
-    transposed weight codes cost no copy).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel; anything else raises."""
+    [K/32, N]) → f32 [M, N].  On the card B must be K-major (the transposed
+    view of [N, K] codes, as every call site passes it: no copy) with a
+    16-byte aligned base and row stride, and A contiguous and 16-byte
+    aligned; its scales may be any strided view.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel; anything else raises."""
     dev = a_codes.device
     if dev.type == "cpu":
         return mxfp4_matmul_plain(a_codes, a_scales, b_codes, b_scales)
@@ -66,15 +67,18 @@ def mxfp4_matmul(a_codes, a_scales, b_codes, b_scales) -> torch.Tensor:
           and a_scales.dtype == b_scales.dtype == torch.float32
           and all(t.device == dev for t in (a_scales, b_codes, b_scales))
           and a_codes.is_contiguous() and a_scales.is_contiguous()
-          and a_codes.data_ptr() % 4 == 0)
+          and a_codes.data_ptr() % 16 == 0
+          and b_codes.stride(0) == 1 and b_codes.stride(1) % 16 == 0
+          and b_codes.data_ptr() % 16 == 0)
     if not ok:
         raise ValueError(
             f"mxfp4_matmul: bad operands A {tuple(a_codes.shape)} {a_codes.dtype} "
             f"{tuple(a_scales.shape)}, B {tuple(b_codes.shape)} {b_codes.dtype} "
-            f"{tuple(b_scales.shape)}")
+            f"{tuple(b_scales.shape)} (B strides {b_codes.stride()}): the kernel takes int8 "
+            f"codes with K % 32 == 0, A contiguous and B K-major, both 16-byte aligned")
     c = torch.empty((m, n), dtype=torch.float32, device=dev)
     status = _entry()(a_codes.data_ptr(), a_scales.data_ptr(), m, k,
-                      b_codes.data_ptr(), b_codes.stride(0), b_codes.stride(1),
+                      b_codes.data_ptr(), b_codes.stride(1),
                       b_scales.data_ptr(), b_scales.stride(0), b_scales.stride(1), n,
                       c.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "mxfp4_matmul")

@@ -86,6 +86,67 @@ def test_mxfp4_matmul_plain_vs_reference(m, k, n):
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-6, atol=1e-5)
 
 
+# the card's B3 design, emulated in PyTorch: each operand dequantized to
+# bf16 with its scale folded in, each 32-group's product in f32 from those
+# bf16 values, the group terms added in group order
+_E2M1_HALF_CODES = np.array([0, 1, 2, 3, 4, 6, 8, 12], np.int8)
+
+
+def _b3_operands(m, k, n, seed, binades=40):
+    rng = np.random.default_rng(seed)
+
+    def codes(shape):
+        return _E2M1_HALF_CODES[rng.integers(0, 8, shape)] * rng.choice(
+            np.array([-1, 1], np.int8), shape)
+
+    def scales(shape):
+        e = rng.integers(-binades, binades + 1, shape)
+        return np.ldexp(np.float32(1), e).astype(np.float32)
+
+    a, sa = codes((m, k)), scales((m, k // 32))
+    bt, sbt = codes((n, k)), scales((n, k // 32))  # B as the call sites hold it: [N, K]
+    return (torch.from_numpy(a), torch.from_numpy(sa), torch.from_numpy(bt).t(),
+            torch.from_numpy(sbt).t())
+
+
+def _b3_tensor_core_emulation(a_codes, a_scales, b_codes, b_scales):
+    m, k = a_codes.shape
+    n = b_codes.shape[1]
+    af = a_codes.float().reshape(m, k // 32, 32) * (0.5 * a_scales)[..., None]
+    bf = b_codes.float().reshape(k // 32, 32, n) * (0.5 * b_scales)[:, None, :]
+    a16, b16 = af.to(torch.bfloat16), bf.to(torch.bfloat16)
+    # the fold is exact: at most 2 significant bits times a power of two
+    assert torch.equal(a16.float(), af) and torch.equal(b16.float(), bf)
+    acc = torch.zeros((m, n), dtype=torch.float32)
+    for g in range(k // 32):
+        acc = acc + a16[:, g].float() @ b16[g].float()
+    return acc
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 1024), (100, 96, 50), (64, 256, 3456)])
+def test_mxfp4_matmul_tensor_core_arithmetic_is_bit_exact(m, k, n):
+    """Scale codes swept over ±40 binades: the folded bf16 products and the
+    group-order f32 sum land on the plain version's bits."""
+    args = _b3_operands(m, k, n, seed=m + k + n)
+    assert torch.equal(_b3_tensor_core_emulation(*args), MM.mxfp4_matmul_plain(*args))
+
+
+def test_mxfp4_matmul_int8_to_bf16_byte_arithmetic():
+    """The kernel's int8 → bf16 step for every code in [-64, 63]: per byte
+    (c ^ 0x80) - 64 = c + 64, the bf16 0x43·· with that mantissa is c + 192,
+    and c + 192 minus 192, times a power of two, is c·s exactly (one
+    rounding, as the bf16x2 FMA)."""
+    c = np.arange(-64, 64, dtype=np.int8)
+    t = ((c.view(np.uint8) ^ 0x80).astype(np.int32) - 0x40).astype(np.uint16)
+    assert t.min() >= 0 and t.max() <= 0x7F  # no borrow into the next byte
+    v = torch.from_numpy((0x4300 | t).view(np.int16)).view(torch.bfloat16).float()
+    assert torch.equal(v, torch.from_numpy(c.astype(np.float32)) + 192)
+    for e in (-60, -1, 0, 50):
+        s = 2.0**e
+        folded = (v.double() * s - 192 * s).to(torch.bfloat16)
+        assert torch.equal(folded.double(), torch.from_numpy(c.astype(np.float64)) * s)
+
+
 @pytest.mark.parametrize("use_kernels", [False, True])
 def test_quartet_linear_forward_vs_reference(use_kernels):
     rng = np.random.default_rng(2)
@@ -397,6 +458,74 @@ def test_mha_flash_gqa_vs_reference(hq, hkv):
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=1e-5)
 
 
+def _b6_tensor_core_emulation(q, k, v, causal, q_heads=1, kv_heads=1, split=True):
+    """The card's bf16 B6 design in PyTorch: unscaled scores from the bf16
+    operands in f32, p = 2^(s·c − m·c) with c = scale·log2 e and m the
+    running max of unscaled scores; the online softmax over 64-key blocks;
+    P split into hi = bf16(p) and lo = bf16(p - hi), both products taken
+    (``split=False``: P rounded once to bf16, the design the kernel avoids)."""
+    bh, s, hd = q.shape
+    t = k.shape[1]
+    rows = torch.arange(bh)
+    kv_row = (rows // q_heads) * kv_heads + (rows % q_heads) // (q_heads // kv_heads)
+    kf, vf = k.float()[kv_row], v.float()[kv_row]
+    qf = q.float()
+    out = torch.empty_like(q)
+    c = FA._scale(hd) * 1.4426950408889634
+    for q0 in range(0, s, 64):
+        qb = qf[:, q0:q0 + 64]
+        q_pos = torch.arange(q0, q0 + qb.shape[1])[:, None]
+        m = torch.full(qb.shape[:2], FA.NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qb)
+        for k0 in range(0, t, 64):
+            if causal and k0 > q0 + 63:
+                break
+            sc = torch.einsum("bqd,bkd->bqk", qb, kf[:, k0:k0 + 64])
+            k_pos = torch.arange(k0, min(k0 + 64, t))[None, :]
+            mask = (q_pos >= k_pos) if causal else torch.ones_like(sc[0], dtype=torch.bool)
+            sc = torch.where(mask, sc, torch.full_like(sc, FA.NEG_INF))
+            m_new = torch.maximum(m, sc.amax(-1))
+            p = torch.exp2(sc * c - (m_new * c)[..., None])
+            corr = torch.exp2((m - m_new) * c)
+            l = l * corr + p.sum(-1)
+            hi = p.to(torch.bfloat16).float()
+            lo = (p - hi).to(torch.bfloat16).float() if split else torch.zeros_like(p)
+            vb = vf[:, k0:k0 + 64]
+            acc = acc * corr[..., None] + (hi @ vb + lo @ vb)
+            m = m_new
+        out[:, q0:q0 + 64] = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    return out
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s,t,causal,hq,hkv", [(192, 192, True, 2, 2), (100, 150, False, 4, 2),
+                                               (130, 70, False, 2, 1)])
+def test_flash_attention_split_p_arithmetic_within_bf16_check(hd, s, t, causal, hq, hkv):
+    """The kernel's bf16 arithmetic against the plain version, held to the
+    card check's bf16 tolerance, |Δ| <= 1e-5 + 2^-7·|plain|."""
+    rng = np.random.default_rng(hd + s + t)
+    q = torch.from_numpy(rng.standard_normal((2 * hq, s, hd)).astype(np.float32)).to(torch.bfloat16)
+    k, v = (torch.from_numpy(rng.standard_normal((2 * hkv, t, hd)).astype(np.float32))
+            .to(torch.bfloat16) for _ in range(2))
+    got = _b6_tensor_core_emulation(q, k, v, causal, hq, hkv).float()
+    want = FA.flash_attention_plain(q, k, v, causal, q_heads=hq, kv_heads=hkv).float()
+    assert torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= 1e-5 + 2**-7 * want.abs()).all())
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_unsplit_p_fails_bf16_check(hd):
+    """Why the kernel splits P: rounded once to bf16, P moves outputs past
+    the same check (outputs near zero, sums of terms of both signs)."""
+    rng = np.random.default_rng(hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal((4, 192, hd)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    want = FA.flash_attention_plain(q, k, v, True).float()
+    got = _b6_tensor_core_emulation(q, k, v, True, split=False).float()
+    assert bool(((got - want).abs() > 1e-5 + 2**-7 * want.abs()).any())
+
+
 def test_flash_attention_raises_under_grad():
     q = torch.randn(1, 8, 2, 32, requires_grad=True)
     k = torch.randn(1, 8, 2, 32)
@@ -465,6 +594,17 @@ def test_kernels_match_plain_on_card():
     torch.testing.assert_close(MM.mxfp4_matmul(ac, asc, bc.t(), bsc.t()),
                                MM.mxfp4_matmul_plain(ac, asc, bc.t(), bsc.t()),
                                rtol=1e-6, atol=1e-5)
+    # bit for bit at ragged shapes (each tile configuration) and at scale
+    # codes 1, 2, 253, 254 (the E8M0 edges) beside normal ones
+    for m, k, n in ((8, 256, 1000), (100, 96, 50), (1100, 64, 130)):
+        args = tuple(t.to(dev) for t in _b3_operands(m, k, n, seed=m))
+        assert torch.equal(MM.mxfp4_matmul(*args), MM.mxfp4_matmul_plain(*args))
+        a, sa, b, sb = args
+        edge = torch.tensor([1, 2, 253, 254, 127], dtype=torch.int32, device=dev)
+        ea, eb = ((edge[torch.randint(0, 5, t.shape, generator=gen, device=dev)] << 23)
+                  .view(torch.float32) for t in (sa, sb))
+        a, b = a.abs(), b.abs()  # no inf - inf: terms are +inf, finite or 0
+        assert torch.equal(MM.mxfp4_matmul(a, ea, b, eb), MM.mxfp4_matmul_plain(a, ea, b, eb))
     for mode in ("dense", "mxfp4"):
         _, tpool, tables = _pools(mode, [9, 30, 1], 8, 2, 64, 5, seed=3)
         tpool = {n: t.to(dev) for n, t in tpool.items()}
@@ -487,3 +627,11 @@ def test_kernels_match_plain_on_card():
         want = FA.mha_flash(q.cpu(), k.cpu(), v.cpu(), causal=causal)
         torch.testing.assert_close(FA.mha_flash(q, k, v, causal=causal).cpu(), want,
                                    rtol=0, atol=2e-5)
+    # bf16 on the tensor-core body, hd 64 and 128: one bf16 step of the plain version
+    for S, T, hq, hkv, hd, causal in ((700, 1000, 4, 2, 64, False), (130, 130, 2, 2, 128, True)):
+        q = torch.randn((1, S, hq, hd), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((1, T, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        got = FA.mha_flash(q, k, v, causal=causal).float().cpu()
+        want = FA.mha_flash(q.cpu(), k.cpu(), v.cpu(), causal=causal).float()
+        assert bool(((got - want).abs() <= 1e-5 + 2**-7 * want.abs()).all())
