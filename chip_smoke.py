@@ -8,7 +8,11 @@
    prints each entry's registers, shared memory and spills (-Xptxas -v).
 2. Checks each kernel against its plain PyTorch version on the card at the
    full-width qwen3-1.7b shapes of the serving path and the full-width
-   llama-paper-200m shapes of a training step (16 x 512 tokens): B4a
+   llama-paper-200m shapes of a training step (16 x 512 tokens): B1 (QuEST
+   quantize) bit for bit, with an E8M0 edge sweep; B5 (paged attention) on
+   both pools at decode and prefill shapes and at the edges of its split
+   over CTAs (lengths 1, 16, 32, a full table, a page of E8M0 scale codes
+   1 and 2); B4a
    (KV quantize-pack and its pool scatter) and B4b (unpack-dequantize and
    its page gather) bit for bit, with an E8M0 edge sweep; B3 (MXFP4 GEMM)
    bit for bit at ragged M and N and at E8M0-edge scales; B6 (flash
@@ -20,7 +24,8 @@
    qwen3-1.7b (random weights from a seed, MXFP4 KV pool, paged attention,
    greedy decoding, Quartet linears through the kernels), with every launch
    counter set to 0 just before and read just after, against the predicted
-   counts; then the first 4 requests on the gather backend (per-slot
+   counts (and every B1 launch on its vector body, on every path); then
+   the first 4 requests on the gather backend (per-slot
    prefill, gather-dequantize, dense attention, scatter back), its launches
    against the per-slot schedule and its first-token log-probs against the
    paged run's; then holds a reduced model's engine tokens against its own
@@ -36,8 +41,10 @@
    launches), the two nll values held to a stated tolerance.
 5. Times each kernel (CUDA events, median, L2 flushed before each launch)
    beside its plain version and, where one PyTorch call computes the same
-   function, that call, at serving, training and evaluation shapes; prints
-   the engine's tok/s and TTFT.
+   function, that call, at serving, training and evaluation shapes; B1 and
+   B5 also as a CUDA-graph replay (device time without the host gaps), B1's
+   serving layer also as its 7 weight and its 7 activation calls apart;
+   prints the engine's tok/s and TTFT.
 6. Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -65,6 +72,7 @@ H100_INT8_OPS = 1979e12
 
 # serving traffic of the engine phase
 N_SLOTS, PAGE_SIZE, MAX_LEN, PREFILL_CHUNK = 8, 16, 640, 64
+LONG_CONTEXT = 32768  # qwen3-1.7b's published context: B5's widest table checked
 N_REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW = 8, 128, 512, 32
 SEED = 0
 
@@ -121,6 +129,18 @@ class Timer:
             times.append(a.elapsed_time(b))
         times.sort()
         return times[len(times) // 2]
+
+    def device(self, fn) -> float:
+        """Device time of ``fn``'s launches without the host between them:
+        ``fn`` captured once in a CUDA graph (after a warm-up call, so that
+        one-time set-up stays outside), the graph's replay timed as above."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return self(graph.replay)
 
 
 # ---------------------------------------------------------------------------
@@ -298,9 +318,66 @@ def check_kernels(torch, cfg, device="cuda"):
                         f"elements off, max |Δ| {float((got - want).abs().max())}")
                 if dtype == torch.float32:
                     worst = max(worst, float((got - want).abs().max()))
+    worst = max(worst, check_paged_edges(torch, cfg, gen, device))
     err["paged_attention"] = worst
     torch.cuda.synchronize()
     return err
+
+
+def check_paged_edges(torch, cfg, gen, device):
+    """B5 at the edges of the split over CTAs, both pool kinds, f32 and bf16,
+    S = 1 and S = 64: slots of length 1 (one visible key), 16 and 32 (page
+    multiples: the last chunk's tail empty), one whose rows pass the end of a
+    full table (clamped at n_pp) and long ones; on the packed pool slot 0's
+    first page and slot 5's second carry E8M0 scale codes 1 and 2 (2^-126,
+    2^-125: subnormal bf16 operands, which the tensor core may flush, far
+    below the atol).  Then the same over a table of 32768 positions
+    (qwen3-1.7b's published context), where the split's chunk cap gives
+    each CTA several sub-blocks.  Raises on a mismatch; returns the f32 max
+    |Δ|."""
+    from repro_torch.kernels import paged_attention as PA
+
+    worst = 0.0
+    tables = ((MAX_LEN // PAGE_SIZE + 1,
+               lambda full, S: [1, 16, 32, full - S // 2, 1, 300, full - 16 * 7 - S + 1, 17]),
+              (LONG_CONTEXT // PAGE_SIZE,
+               lambda full, S: [1, 700, full - S // 2, 9000, 16, 20000, 4096, 33]))
+    for n_pp, lengths in tables:
+        worst = max(worst, _check_paged_edges_at(torch, PA, cfg, gen, device, n_pp, lengths))
+    return worst
+
+
+def _check_paged_edges_at(torch, PA, cfg, gen, device, n_pp, lengths):
+    full = n_pp * PAGE_SIZE
+    worst = 0.0
+    for packed in (True, False):
+        for dtype, rtol, atol in ((torch.float32, 0.0, 2e-5), (torch.bfloat16, 2**-7, 1e-5)):
+            for S in (1, PREFILL_CHUNK):
+                lens = lengths(full, S)
+                pool, tables = make_pool(torch, cfg, [min(n + S - 1, full) for n in lens],
+                                         packed, dtype, gen, device, n_pp)
+                if packed:
+                    for b, p in ((0, 0), (5, 1)):
+                        page = int(tables[b, p])
+                        for name in ("k_scales", "v_scales"):
+                            pick = torch.randint(1, 3, pool[name][page].shape, generator=gen,
+                                                 device=device, dtype=torch.int32)
+                            pool[name][page] = pick.to(torch.uint8)
+                q = torch.randn((N_SLOTS, S, cfg.num_heads, cfg.head_dim_), generator=gen,
+                                device=device).to(dtype)
+                q = q[:, 0] if S == 1 else q
+                ln = torch.tensor(lens, dtype=torch.int32, device=device)
+                got = PA.paged_attention(q, pool, tables, ln).float()
+                want = PA.paged_attention_plain(q, pool, tables, ln).float()
+                bad = (got - want).abs() > atol + rtol * want.abs()
+                if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(
+                        f"paged_attention edges n_pp={n_pp} packed={packed} {dtype} S={S}: "
+                        f"{int(bad.sum())} elements off, max |Δ| "
+                        f"{float((got - want).abs().max())}")
+                if dtype == torch.float32:
+                    worst = max(worst, float((got - want).abs().max()))
+    return worst
 
 
 def mxfp4_edge_operands(torch, gen, device, m: int, k: int = 256, n: int = 200):
@@ -552,6 +629,8 @@ def serve_full_width(torch, ops, device="cuda"):
     from repro_torch.serve import Engine, EngineConfig
 
     cfg = kernel_config(get_config("qwen3-1.7b"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()  # the engine's own peak, not the checks'
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
     torch.cuda.synchronize()
@@ -598,6 +677,7 @@ def serve_full_width(torch, ops, device="cuda"):
     ops.reset_launch_counts()
     eng, reqs, wall, _, _, calls = run(True)
     counts = ops.launch_counts()
+    vec = ops.vector_launches()
     # per forward (one step call): 2 B1 and 1 B3 in each of the 7 quantized
     # linears of a layer (the tied lm-head stays bf16), 1 B5 and 2 B4a (K,
     # then V) per layer
@@ -622,6 +702,7 @@ def serve_full_width(torch, ops, device="cuda"):
                "decode_ticks": len(ticks["decode"]),
                "decode_tick_ms_median": 1e3 * sorted(ticks["decode"])[len(ticks["decode"]) // 2],
                "step_calls": calls, "predicted_launches": predicted,
+               "b1_vector_launches": vec,
                "kv_pool_bytes": eng.cache_bytes(),
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
@@ -631,6 +712,7 @@ def serve_full_width(torch, ops, device="cuda"):
     ops.reset_launch_counts()
     geng, greqs, gwall, gfirst, _, gcalls = run(True, "gather", g_prompts, GATHER_NEW)
     gcounts = ops.launch_counts()
+    gvec = ops.vector_launches()
     n_pre, n_dec = gather_schedule([p.size for p in g_prompts], GATHER_NEW, PREFILL_CHUNK)
     if gcalls != {"prefill_chunk": n_pre, "decode_all": n_dec}:
         raise AssertionError(f"gather step calls {gcalls} != predicted "
@@ -674,6 +756,7 @@ def serve_full_width(torch, ops, device="cuda"):
                 "tokens": gtoks, "wall_s": gwall, "tok_per_s": gtoks / gwall,
                 "ttft_mean_s": float(np.mean(gttft)), "ttft_max_s": gttft[-1],
                 "steps": geng.steps, "step_calls": gcalls, "predicted_launches": gpredicted,
+                "b1_vector_launches": gvec,
                 "first_token_logprob_max_abs_vs_paged": [x for x, _ in lp],
                 "first_token_logprob_mean_abs_vs_paged": [y for _, y in lp],
                 "first_token_logprob_vs_teacher_forced": tf,
@@ -771,12 +854,24 @@ def time_kernels(torch, cfg, timer, device="cuda"):
         def hq(fn):
             return lambda: [fn(t) for pair in zip(xs, ws) for t in (pair[0], pair[1].t())]
 
-        nbytes = sum(x.numel() * (2 + 2) + x.numel() // 32 * 4 for x in xs + ws)
+        def hq_bytes(ts):  # 2 B read, 1 B code and 1 B mask written per element
+            return sum(t.numel() * (2 + 2) + t.numel() // 32 * 4 for t in ts)
+
         rec[("hadamard_quest_quantize", tag)] = dict(
             ms=timer(hq(HQ.hadamard_quest_quantize)),
+            device_ms=timer.device(hq(HQ.hadamard_quest_quantize)),
             plain_ms=timer(hq(HQ.hadamard_quest_quantize_plain)),
-            bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
-            launches_per_layer=2 * len(xs))
+            bound_ms=hq_bytes(xs + ws) / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None, launches_per_layer=2 * len(xs))
+        # the same layer's calls apart: the 7 weight views (device time) and
+        # the 7 activations (small: the wrapper's host time)
+        for part, ts in (("weights", [w.t() for w in ws]), ("activations", xs)):
+            rec[("hadamard_quest_quantize", f"{tag} {part}")] = dict(
+                ms=timer(lambda ts=ts: [HQ.hadamard_quest_quantize(t) for t in ts]),
+                device_ms=timer.device(lambda ts=ts: [HQ.hadamard_quest_quantize(t) for t in ts]),
+                plain_ms=timer(lambda ts=ts: [HQ.hadamard_quest_quantize_plain(t) for t in ts]),
+                bound_ms=hq_bytes(ts) / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+                library_ms=None, launches_per_layer=len(ts))
 
         args = [(a[0], a[1], w[0].t(), w[1].t()) for a, w in zip(qa, qw)]
         deq = [(_deq(torch, a[0], a[1]).to(torch.bfloat16),
@@ -787,6 +882,7 @@ def time_kernels(torch, cfg, timer, device="cuda"):
         bound = max(nbytes / H100_BYTES_PER_S, nops / H100_INT8_OPS) * 1e3
         rec[("mxfp4_matmul", tag)] = dict(
             ms=timer(lambda: [MM.mxfp4_matmul(*a) for a in args]),
+            device_ms=timer.device(lambda: [MM.mxfp4_matmul(*a) for a in args]),
             plain_ms=timer(lambda: [MM.mxfp4_matmul_plain(*a) for a in args]),
             bound_ms=bound,
             bound_by="bytes" if nbytes / H100_BYTES_PER_S >= nops / H100_INT8_OPS
@@ -808,6 +904,7 @@ def time_kernels(torch, cfg, timer, device="cuda"):
         lib = _sdpa_operands(torch, cfg, q, pool, tables, ln)
         rec[("paged_attention", tag)] = dict(
             ms=timer(lambda: PA.paged_attention(q, pool, tables, ln)),
+            device_ms=timer.device(lambda: PA.paged_attention(q, pool, tables, ln)),
             plain_ms=timer(lambda: PA.paged_attention_plain(q, pool, tables, ln)),
             bound_ms=bound,
             bound_by="bytes" if nbytes / H100_BYTES_PER_S >= nops / H100_BF16_OPS
@@ -843,6 +940,8 @@ def time_kv_and_flash(torch, cfg, tcfg, timer, device="cuda"):
         rec[("kv_quant_pack", tag)] = dict(
             ms=timer(lambda: [KV.kv_quant_scatter(leaves[0][0], leaves[1][0], pid, off, x)
                               for x in kv]),
+            device_ms=timer.device(lambda: [KV.kv_quant_scatter(leaves[0][0], leaves[1][0],
+                                                                pid, off, x) for x in kv]),
             plain_ms=timer(lambda: [plain_quant_scatter(torch, *leaves, pid, off, x[None])
                                     for x in kv]),
             bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
@@ -1110,6 +1209,7 @@ def train_full_width(torch, ops, device="cuda"):
                         log_fn=lambda m: log("  " + m))
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    vec = ops.vector_launches()
     peak = torch.cuda.max_memory_allocated() / 1e9
     del params
     losses = [h["loss"] for h in hist]
@@ -1140,7 +1240,8 @@ def train_full_width(torch, ops, device="cuda"):
                "median_step_s": med, "tokens_per_s_median_step": TRAIN_BATCH * TRAIN_SEQ / med,
                "tokens_per_s_run": TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / wall,
                "wall_s": wall, "peak_mem_gb": peak,
-               "launches": counts, "predicted_launches": predicted}
+               "launches": counts, "predicted_launches": predicted,
+               "b1_vector_launches": vec}
     summary["breakdown"] = profile_train_step(torch, model, opt, state, batcher, device)
     summary["eval"], eval_counts = evaluate_full_width(torch, ops, model, state, device)
     del state
@@ -1173,6 +1274,7 @@ def evaluate_full_width(torch, ops, model, state, device="cuda"):
         out[f"nll_{backend}"] = evaluate(m, state, batcher, EVAL_BATCHES, device=device)
         out[f"wall_s_{backend}"] = time.perf_counter() - t0  # evaluate ends in host reads
         counts[backend] = ops.launch_counts()
+        out[f"b1_vector_launches_{backend}"] = ops.vector_launches()
     out["nll_diff"] = out["nll_flash"] - out["nll_blocked"]
     out["launches_blocked"], out["launches_flash"] = counts["blocked"], counts["flash"]
     log(f"  evaluation: {json.dumps(out)} (tolerance |Δnll| <= 0.01)")
@@ -1185,7 +1287,7 @@ def evaluate_full_width(torch, ops, model, state, device="cuda"):
     return out, counts["flash"]
 
 
-KERNEL_NAMES = {"hadamard_quest_kernel": "hadamard_quest_quantize",
+KERNEL_NAMES = {"hadamard_quest_": "hadamard_quest_quantize",  # tile, rows and cols bodies
                 "sr_hadamard_kernel": "sr_hadamard_quantize",
                 "mxfp4_mma_kernel": "mxfp4_matmul", "paged_attention": "paged_attention"}
 
@@ -1278,6 +1380,8 @@ def time_training_kernels(torch, cfg, timer, device="cuda"):
     n = x.numel() + w.numel()
     rec[("hadamard_quest_quantize", "train")] = dict(
         ms=timer(lambda: (HQ.hadamard_quest_quantize(x), HQ.hadamard_quest_quantize(w.t()))),
+        device_ms=timer.device(lambda: (HQ.hadamard_quest_quantize(x),
+                                        HQ.hadamard_quest_quantize(w.t()))),
         plain_ms=timer(lambda: (HQ.hadamard_quest_quantize_plain(x),
                                 HQ.hadamard_quest_quantize_plain(w.t()))),
         bound_ms=n * (2 + 1 + 1 + 4 / 32) / H100_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -1387,7 +1491,7 @@ def main() -> int:
 
     cfg = get_config("qwen3-1.7b")
     tcfg = get_config(TRAIN_ARCH)
-    err, counts, rec = {}, {}, {}
+    err, counts, rec, vectors = {}, {}, {}, {}
     if "kernels" in phases:
         t0 = time.perf_counter()
         err = check_kernels(torch, cfg)
@@ -1399,6 +1503,8 @@ def main() -> int:
     if "engine" in phases:
         t0 = time.perf_counter()
         summary, counts["engine"], gsummary, counts["gather"] = serve_full_width(torch, ops)
+        vectors["engine"] = summary["b1_vector_launches"]
+        vectors["gather"] = gsummary["b1_vector_launches"]
         log(f"[engine] launches on the main path (paged backend): {counts['engine']}")
         log(f"[engine] launches on the gather backend: {counts['gather']}")
         missing = [k for k in ("hadamard_quest_quantize", "mxfp4_matmul", "paged_attention",
@@ -1415,6 +1521,8 @@ def main() -> int:
         t0 = time.perf_counter()
         train_reduced_card_vs_cpu(torch)
         summary, counts["train"], counts["eval"] = train_full_width(torch, ops)
+        vectors["train"] = summary["b1_vector_launches"]
+        vectors["eval"] = summary["eval"]["b1_vector_launches_flash"]
         log(f"[train] launches on the training path: {counts['train']} "
             f"(predicted {summary['predicted_launches']})")
         log(f"[train] launches on the flash evaluation path: {counts['eval']}")
@@ -1427,6 +1535,13 @@ def main() -> int:
             raise AssertionError("flash_attention launched during training")
         log(f"[train] {json.dumps(summary)}")
         log(f"[train] done in {time.perf_counter() - t0:.1f} s")
+    if vectors:
+        # every B1 call on the main paths reads and writes through the vector
+        # body (16-byte loads, 8-byte stores)
+        b1 = {p: (vectors[p], counts[p]["hadamard_quest_quantize"]) for p in vectors}
+        log(f"[b1] vector-body launches / all launches, by path: {json.dumps(b1)}")
+        if any(v != n or n == 0 for v, n in b1.values()):
+            raise AssertionError(f"hadamard_quest_quantize took its tile body on a main path: {b1}")
     if "times" in phases:
         t0 = time.perf_counter()
         timer = Timer(torch)
@@ -1452,6 +1567,8 @@ def main() -> int:
                             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                             "launches_by_path": {p: c[name] for p, c in counts.items()}})
+            if name == "hadamard_quest_quantize":
+                kernels[-1]["vector_launches_by_path"] = vectors
         log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

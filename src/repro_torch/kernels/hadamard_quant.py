@@ -1,10 +1,12 @@
 """Forward Stage 1: fused grouped Hadamard + QuEST → MXFP4 half-codes.
 
 Port of ``repro.kernels.hadamard_quant``.  On a CUDA tensor the wrapper
-launches ``csrc/hadamard_quant.cu``; on a CPU tensor it runs
-:func:`hadamard_quest_quantize_plain`, which performs the kernel's arithmetic
-in the kernel's order (butterfly Hadamard, halving sums), so the two agree
-bit for bit on the card.
+launches ``csrc/hadamard_quant.cu`` — its vector body (one thread per whole
+32-group, 16-byte loads and stores) when :func:`vector_ok` holds, as it does
+at every call site of the serving, training and evaluation paths, else its
+tile body; on a CPU tensor it runs :func:`hadamard_quest_quantize_plain`, which
+performs the kernel's arithmetic in the kernel's order (butterfly Hadamard,
+halving sums), so the two agree bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ _E2M1_MAX = 6.0
 _H_SCALE = 0.1767766922712326
 
 
+@functools.cache
 def _clip_c() -> float:
     """c* for MXFP4 rounded to f32 (the kernels multiply in f32)."""
     return float(torch.tensor(F.gaussian_optimal_clip("mxfp4"), dtype=torch.float32))
@@ -69,12 +72,29 @@ def hadamard_quest_quantize_plain(x: torch.Tensor):
     return codes.reshape(m, k), scale, mask.reshape(m, k)
 
 
+def vector_ok(x: torch.Tensor) -> bool:
+    """Whether the kernel's vector body can read ``x`` [M, K] with 16-byte
+    runs: a 16-byte aligned base, and either unit stride along K with
+    16-byte aligned rows (activations) or unit stride along M with M % 8 == 0
+    and 16-byte aligned columns (the transposed weight view Wᵀ)."""
+    m, _ = x.shape
+    sm, sk = x.stride()
+    es = x.element_size()
+    if x.data_ptr() % 16:
+        return False
+    if sk == 1:
+        return m == 1 or sm * es % 16 == 0
+    if sm == 1:
+        return m % 8 == 0 and sk * es % 16 == 0
+    return False
+
+
 @functools.cache
 def _entry():
     fn = _build.load("hadamard_quant").hadamard_quest_quantize
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -82,7 +102,8 @@ def _entry():
 def hadamard_quest_quantize(x: torch.Tensor):
     """x [M, K] (any strides; f32 or bf16) → (codes int8 [M, K], scales f32
     [M, K/32], mask bool [M, K]).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel; anything else raises."""
+    tensors launch the kernel (``.launches`` counts every launch,
+    ``.vector_launches`` those of the vector body); anything else raises."""
     if x.device.type == "cpu":
         return hadamard_quest_quantize_plain(x)
     if x.device.type != "cuda":
@@ -96,13 +117,16 @@ def hadamard_quest_quantize(x: torch.Tensor):
     codes = torch.empty((m, k), dtype=torch.int8, device=x.device)
     scales = torch.empty((m, k // GROUP), dtype=torch.float32, device=x.device)
     mask = torch.empty((m, k), dtype=torch.bool, device=x.device)
+    vector = vector_ok(x)
     status = _entry()(x.data_ptr(), int(x.dtype == torch.bfloat16), m, k,
                       x.stride(0), x.stride(1), codes.data_ptr(), scales.data_ptr(),
-                      mask.data_ptr(), _clip_c(),
+                      mask.data_ptr(), _clip_c(), int(vector),
                       torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "hadamard_quest_quantize")
     hadamard_quest_quantize.launches += 1
+    hadamard_quest_quantize.vector_launches += vector
     return codes, scales, mask
 
 
 hadamard_quest_quantize.launches = 0
+hadamard_quest_quantize.vector_launches = 0

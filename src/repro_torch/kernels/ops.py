@@ -45,6 +45,14 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    _hq_fn.vector_launches = 0
+
+
+def vector_launches() -> int:
+    """Launches of B1's vector body (16-byte accesses) since the last reset;
+    the rest of ``launch_counts()["hadamard_quest_quantize"]`` took its tile
+    body."""
+    return _hq_fn.vector_launches
 
 
 def hadamard_quest_quantize(x: torch.Tensor, group: int = GROUP):

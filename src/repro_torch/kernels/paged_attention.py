@@ -7,7 +7,9 @@ dense (``k``/``v`` [n_pages, ps, Hkv, hd]) — addressed through int32 page
 tables [B, P].  Page 0 is the scratch page that masked writes land on.
 
 On a CUDA tensor :func:`paged_attention` launches
-``csrc/paged_attention.cu``; on a CPU tensor it runs
+``csrc/paged_attention.cu`` (bf16 queries at hd 64 / 128: the flash-decoding
+body on the tensor cores, each slot's pages split across CTAs as
+:func:`split_plan` says; f32 queries: the FMA body); on a CPU tensor it runs
 :func:`paged_attention_plain`.  Quantize-on-write (:func:`scatter_token`)
 goes through ``kernels.kv_pack.kv_quant_scatter`` (B4a fused with the page
 scatter: one launch for K and one for V); the reference quantizes there
@@ -127,12 +129,82 @@ def paged_attention_plain(q: torch.Tensor, pool: dict, tables: torch.Tensor,
     return out if multi else out[:, 0]
 
 
+CHUNK_KEYS = 64  # keys per sub-block of the tensor-core body
+MAX_CHUNKS = 32  # chunks per (slot, head, query tile) at most
+
+
+class SplitPlan(NamedTuple):
+    """How the tensor-core body cuts one call: each (slot, KV head) has
+    ``n_tiles`` query tiles of ``rows`` rows and ``n_chunks`` chunks of
+    ``blocks`` sub-blocks of 64 keys; each chunk's CTA has 4 warps, ``4 //
+    wk`` query tiles of 16 rows x ``wk`` key parts, walks its sub-blocks
+    with an online softmax, and each warp writes one partial: ``n_splits`` =
+    ``n_chunks · wk`` per row."""
+
+    wk: int
+    blocks: int
+    rows: int
+    n_tiles: int
+    n_chunks: int
+    n_splits: int
+
+
+def split_plan(S: int, Hq: int, Hkv: int, ps: int, n_pp: int) -> SplitPlan:
+    """The tensor-core body's split for R = S·group query rows per (slot,
+    head) over a table of ``n_pp`` pages of ``ps``: at decode (R <= 16) one
+    16-row tile and four 16-key parts per CTA, one sub-block a CTA (the most
+    CTAs); above that four 16-row tiles and one 64-key part, four sub-blocks
+    (256 keys a CTA: few partials to merge).  Wider tables take more
+    sub-blocks a CTA, so that there are never more than ``MAX_CHUNKS``
+    chunks and the merge's table of partials fits the CTA's shared memory at
+    any table width.  Sized from the table width, never from the lengths,
+    so planning never reads the device."""
+    R = S * (Hq // Hkv)
+    wk = 4 if R <= 16 else 1
+    keys = n_pp * ps
+    blocks = max(4 // wk, -(-keys // (MAX_CHUNKS * CHUNK_KEYS)))
+    rows = 16 * (4 // wk)
+    n_chunks = -(-keys // (blocks * CHUNK_KEYS))
+    return SplitPlan(wk, blocks, rows, -(-R // rows), n_chunks, n_chunks * wk)
+
+
+_tickets: dict[int, torch.Tensor] = {}
+
+
+def _ticket_buffer(dev: torch.device, n: int) -> torch.Tensor:
+    """The combine's int32 counters on ``dev``: zeroed once, left zero by
+    every launch (the last CTA of each group resets its own), so reused
+    without a memset; replaced by a larger zeroed buffer when a call needs
+    more.  Calls on one stream only: two streams would share counters."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    buf = _tickets.get(idx)
+    if buf is None or buf.numel() < n:
+        buf = _tickets[idx] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+    return buf
+
+
+def _mma_ok(q: torch.Tensor, leaves: list, packed: bool, hd: int, ps: int) -> bool:
+    """Whether the call takes the tensor-core body: bf16 queries, hd 64 or
+    128, a page size dividing 64 and 16-byte aligned operands (every call of
+    the engine with bf16 activations)."""
+    if q.dtype != torch.bfloat16 or hd not in (64, 128) or CHUNK_KEYS % ps:
+        return False
+    if q.data_ptr() % 16:
+        return False
+    if packed:
+        return (leaves[0].data_ptr() % 16 == 0 and leaves[2].data_ptr() % 16 == 0
+                and leaves[1].data_ptr() % (hd // GROUP) == 0
+                and leaves[3].data_ptr() % (hd // GROUP) == 0)
+    return all(t.data_ptr() % 16 == 0 for t in leaves)
+
+
 @functools.cache
 def _entry():
     fn = _build.load("paged_attention").paged_attention
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
                    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -181,10 +253,21 @@ def paged_attention(q: torch.Tensor, pool: dict, tables: torch.Tensor,
     out = torch.empty_like(q4)
     kc, ks, vc, vs = (t.data_ptr() for t in leaves) if packed else (None,) * 4
     kd, vd = (None, None) if packed else (leaves[0].data_ptr(), leaves[1].data_ptr())
+    n_pp = tables.shape[1]
+    part = tickets = None
+    wk = blocks = 0
+    if _mma_ok(q4, leaves, packed, hd, ps):
+        plan = split_plan(S, Hq, Hkv, ps, n_pp)
+        wk, blocks = plan.wk, plan.blocks
+        n_rows = B * Hkv * S * (Hq // Hkv) * plan.n_splits
+        part = torch.empty(n_rows * (hd + 2), dtype=torch.float32, device=dev)
+        tickets = _ticket_buffer(dev, B * Hkv * plan.n_tiles)
     status = _entry()(q4.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
                       int(packed), kc, ks, vc, vs, kd, vd, tables.data_ptr(),
-                      lengths.data_ptr(), B, S, Hq, Hkv, hd, ps, tables.shape[1],
+                      lengths.data_ptr(), B, S, Hq, Hkv, hd, ps, n_pp,
                       float(np.float32(1.0 / np.sqrt(hd))),
+                      None if part is None else part.data_ptr(),
+                      None if tickets is None else tickets.data_ptr(), wk, blocks,
                       torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "paged_attention")
     paged_attention.launches += 1

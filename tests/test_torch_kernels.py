@@ -35,6 +35,7 @@ from repro.kernels import ref as JREF
 from repro.kernels.hadamard_quant import hadamard_quest_quantize as jhq
 from repro.kernels.mxfp4_matmul import mxfp4_matmul as jmm
 from repro.kernels.sr_hadamard_quant import sr_hadamard_quantize as jsr
+from repro_torch.core import formats as F
 from repro_torch.core.hadamard import hadamard_transform
 from repro_torch.core.quartet import QuartetConfig, quartet_linear
 from repro_torch.kernels import flash_attention as FA
@@ -69,6 +70,62 @@ def test_hadamard_quest_plain_bit_exact_vs_reference(shape, dtype):
     got_t = HQ.hadamard_quest_quantize(torch.from_numpy(np.ascontiguousarray(x.T)).t())
     for g, w in zip(got_t, HQ.hadamard_quest_quantize_plain(torch.from_numpy(x))):
         assert torch.equal(g, w)
+
+
+def test_hadamard_quest_reciprocal_scale_bit_exact():
+    """The vector body divides by the E8M0 scale 2^e as a multiply by 2^-e
+    built from the bits (2^-127 as a subnormal) and by the RTN's binade as a
+    multiply by its reciprocal: for every e in [-126, 127] and values whose
+    quotients span the normal and subnormal range, the bits equal the
+    division's."""
+    rng = np.random.default_rng(0)
+    v = torch.from_numpy((rng.standard_normal(4096) * np.exp2(rng.uniform(-40, 40, 4096)))
+                         .astype(np.float32))
+    v = torch.cat([v, torch.tensor([0.0, -0.0, 1e-38, -3e-39, 6.0, 3.4e38])])
+    for e in range(-126, 128):
+        scale = F.exp2i(torch.tensor(e))
+        inv = (torch.tensor((127 - e) << 23, dtype=torch.int32).view(torch.float32) if e < 127
+               else torch.tensor(0x00400000, dtype=torch.int32).view(torch.float32))
+        assert float(inv) * 2.0 ** e == 1.0
+        assert torch.equal((v * inv).view(torch.int32), (v / scale).view(torch.int32))
+    a = torch.linspace(1.0, 6.0, 2001)
+    for pw in (1.0, 2.0, 4.0):
+        assert torch.equal(a / pw, a * (1.0 / pw))
+
+
+def test_hadamard_quest_half_code_arithmetic_bit_exact():
+    """The vector body's half-code, rint(|q|·2/pw)·pw with q's sign (pw = 1,
+    2, 4 by binade of min(|q|, 6)), equals the plain version's
+    round(2·RTN_E2M1(clip(q, ±6))) at every tie, binade edge and beyond."""
+    grid = torch.linspace(-7.5, 7.5, 600001)
+    ties = torch.tensor([0.25, 0.75, 1.25, 1.75, 2.5, 3.5, 5.0, 1.0, 2.0, 4.0, 6.0, 1e-40, 0.0])
+    q = torch.cat([grid, ties, -ties, torch.nextafter(ties, torch.full_like(ties, 9.0)),
+                   torch.nextafter(ties, torch.zeros_like(ties))])
+    a = torch.clamp(q.abs(), max=6.0)
+    s = torch.where(a >= 4, 0.5, torch.where(a >= 2, 1.0, 2.0))
+    pw = torch.where(a >= 4, 4.0, torch.where(a >= 2, 2.0, 1.0))
+    mag = (torch.round(a * s) * pw).to(torch.int32)
+    got = torch.where(q < 0, -mag, mag).to(torch.int8)
+    want = torch.round(F.rtn_e2m1(torch.clamp(q, -6.0, 6.0)) * 2.0).to(torch.int8)
+    assert torch.equal(got, want)
+
+
+def test_hadamard_quest_vector_body_taken_at_every_call_site():
+    """Activations (row-major) and every Wᵀ view of the serving and training
+    linears take the vector body; views that 16-byte runs cannot read do not."""
+    for dt in (torch.bfloat16, torch.float32):
+        for K, N in ((2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048),
+                     (1280, 3456), (3456, 1280), (32, 64)):
+            w = torch.zeros((K, N), dtype=dt)
+            assert HQ.vector_ok(w.t()) and HQ.vector_ok(torch.zeros((8, K), dtype=dt))
+            assert HQ.vector_ok(torch.zeros((1, K), dtype=dt))
+        base = torch.zeros((64, 1000), dtype=dt)
+        assert HQ.vector_ok(base[:, :992].t())  # 992 rows of Wᵀ: M % 8 == 0
+        assert not HQ.vector_ok(base[:, 1:993].t())  # base off 16 bytes
+        assert not HQ.vector_ok(base[:, 3:3 + 224])
+        assert HQ.vector_ok(torch.zeros((36, 64), dtype=dt)[:, :32].t())  # M = 32 of Wᵀ
+        assert not HQ.vector_ok(torch.zeros((64, 36), dtype=dt).t()[:, :32])  # M % 8 != 0
+        assert not HQ.vector_ok(torch.zeros((64, 64), dtype=dt)[::2, ::2][:, :32])
 
 
 @pytest.mark.parametrize("m,k,n", [(32, 32, 32), (64, 128, 96), (100, 64, 50),
@@ -332,6 +389,165 @@ def test_paged_attention_batched_prefill_vs_reference(mode):
                                    rtol=0, atol=1e-5)
 
 
+def _b5_split_emulation(q, pool, tables, lengths, tensor_core=True):
+    """The card's split B5 design in PyTorch.  Positions cut into chunks of
+    ``blocks`` sub-blocks of 64 keys and each sub-block into ``wk`` key parts
+    (``PA.split_plan``).  Per chunk, part and row, over the chunk's
+    sub-blocks in order, an online softmax: m = max of the visible scores so
+    far (-1e30 before any), corr = 2^(m_old·c − m·c), p = 2^(s·c − m·c) (0
+    where masked: past the row's bound or on a page at or past n_visit), l
+    = l·corr + Σp, acc = acc·corr + P·V; a chunk past n_visit (except chunk
+    0) writes nothing.  Merge in chunk order: M = max m over parts with l >
+    0, w = 2^(m·c − M·c), out = Σ w·acc / max(Σ l·w, 1e-30).
+    ``tensor_core``: K and V rounded to bf16 (exact for the pool's values),
+    scores unscaled from the bf16 queries in f32, c = scale·log2 e; P split
+    into bf16 hi + lo for P·V.  Otherwise all f32, scores scaled first."""
+    multi = q.dim() == 4
+    q4 = q if multi else q[:, None]
+    B, S, Hq, hd = q4.shape
+    k, v = PA._gather_kv(pool, tables)  # f32 [B, n_pp·ps, Hkv, hd]
+    Hkv = k.shape[2]
+    ps = next(iter(pool.values())).shape[1]
+    n_pp = tables.shape[1]
+    if tensor_core:
+        assert torch.equal(k.to(torch.bfloat16).float(), k)  # dequantized K/V are bf16-exact
+        assert torch.equal(v.to(torch.bfloat16).float(), v)
+    plan = PA.split_plan(S, Hq, Hkv, ps, n_pp)
+    group, R = Hq // Hkv, S * (Hq // Hkv)
+    chunk_keys = plan.blocks * PA.CHUNK_KEYS
+    pad = plan.n_chunks * chunk_keys - k.shape[1]
+    k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+    scale = float(np.float32(1.0 / np.sqrt(hd)))
+    qr = q4.float().reshape(B, S, Hkv, group, hd).transpose(1, 2).reshape(B, Hkv, R, hd)
+    if tensor_core:
+        s_all = torch.einsum("bhrd,bthd->bhrt", qr, k)  # unscaled
+        c = scale * 1.4426950408889634
+    else:
+        s_all = torch.einsum("bhrd,bthd->bhrt", qr * scale, k)
+        c = 1.4426950408889634
+    lens = lengths.long()
+    q_pos = lens[:, None] - 1 + torch.arange(R)[None, :] // group  # [B, R]
+    kv_end = torch.clamp((lens + S - 1 + ps - 1) // ps, max=n_pp) * ps
+    n_cta = torch.clamp((kv_end + chunk_keys - 1) // chunk_keys, min=1)
+    kpos = torch.arange(plan.n_chunks * chunk_keys)
+    vis = (kpos[None, None, :] <= q_pos[:, :, None]) & (kpos[None, None, :] < kv_end[:, None, None])
+    vis = vis[:, None].expand(B, Hkv, R, -1)  # [B, Hkv, R, T]
+    nk = PA.CHUNK_KEYS // plan.wk
+    neg = PA.NEG_INF
+    parts = []
+    for split in range(plan.n_splits):
+        chunk, part = divmod(split, plan.wk)
+        m = torch.full((B, Hkv, R), neg)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, Hkv, R, hd))
+        for j in range(plan.blocks):
+            k0 = chunk * chunk_keys + j * PA.CHUNK_KEYS + part * nk
+            sc, vv = s_all[..., k0:k0 + nk], vis[..., k0:k0 + nk]
+            m_new = torch.maximum(m, torch.where(vv, sc, torch.full_like(sc, neg)).amax(-1))
+            corr = torch.exp2((m - m_new) * c)
+            p = torch.where(vv, torch.exp2(sc * c - (m_new * c)[..., None]), torch.zeros_like(sc))
+            vb = v[:, k0:k0 + nk].transpose(1, 2)  # [B, Hkv, nk, hd]
+            if tensor_core:
+                hi = p.to(torch.bfloat16).float()
+                lo = (p - hi).to(torch.bfloat16).float()
+                pv = hi @ vb + lo @ vb
+            else:
+                pv = p @ vb
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        used = (chunk < n_cta)[:, None, None]  # [B, 1, 1]
+        l = torch.where(used, l, torch.zeros_like(l))
+        parts.append((torch.where(l > 0, m * c, torch.full_like(m, neg)), l, acc))
+    M = torch.full_like(parts[0][1], -torch.inf)
+    for mc, l, _ in parts:
+        M = torch.where(l > 0, torch.maximum(M, mc), M)
+    L = torch.zeros_like(M)
+    out = torch.zeros_like(parts[0][2])
+    for mc, l, acc in parts:  # in chunk order
+        w = torch.where(l > 0, torch.exp2(mc - M), torch.zeros_like(M))
+        L = L + l * w
+        out = out + w[..., None] * torch.where((l > 0)[..., None], acc, torch.zeros_like(acc))
+    out = out / torch.clamp(L, min=1e-30)[..., None]
+    out = out.reshape(B, Hkv, S, group, hd).transpose(1, 2).reshape(B, S, Hq, hd).to(q.dtype)
+    return out if multi else out[:, 0]
+
+
+# (pool, ps, group, S, hd, lengths, n_pp): one visible key, page multiples
+# (16, 32), rows past a full table (clamped at n_pp), chunks of a wide table
+# with no visible key, both splits of the plan (wk 4 and 1, the latter also
+# with R = 24 in one partial tile), several chunks of several sub-blocks,
+# and tables wide enough that the chunk cap adds sub-blocks: a decode over
+# 32768 positions (qwen3-1.7b's published context; 16 sub-blocks a CTA) and
+# a multi-query call over 8800 (5 a CTA)
+B5_SPLIT_CASES = [("mxfp4", 16, 2, 1, 128, [1, 16, 32, 100], 8),
+                  ("mxfp4", 16, 2, 64, 128, [1, 16, 40, 70], 8),
+                  ("dense", 16, 2, 12, 128, [1, 16, 33, 250], 20),
+                  ("mxfp4", 8, 4, 3, 64, [5, 8, 64, 24], 12),
+                  ("dense", 32, 2, 1, 64, [1, 32, 64, 200], 8),
+                  ("mxfp4", 8, 2, 20, 64, [300, 5, 520, 64], 72),
+                  ("mxfp4", 16, 2, 1, 64, [1, 700, 32768, 9000], 2048),
+                  ("dense", 8, 2, 20, 64, [9000, 1, 8781, 300], 1100)]
+
+
+@pytest.mark.parametrize("mode,ps,group,S,hd,lens,n_pp", B5_SPLIT_CASES)
+def test_paged_attention_split_arithmetic_within_bf16_check(mode, ps, group, S, hd, lens, n_pp):
+    """The card's bf16 B5 arithmetic against the plain version, held to the
+    card check's bf16 tolerance, |Δ| <= 1e-5 + 2^-7·|plain|."""
+    Hkv = 2
+    written = [min(n + S - 1, n_pp * ps) for n in lens]
+    _, pool, tables = _pools(mode, written, ps, Hkv, hd, n_pp, seed=ps + S)
+    pool = {n: t.to(torch.bfloat16) if mode == "dense" else t for n, t in pool.items()}
+    tables = torch.from_numpy(tables)
+    rng = np.random.default_rng(S + hd)
+    q = torch.from_numpy(rng.standard_normal((len(lens), S, Hkv * group, hd))
+                         .astype(np.float32)).to(torch.bfloat16)
+    ln = torch.tensor(lens, dtype=torch.int32)
+    got = _b5_split_emulation(q, pool, tables, ln).float()
+    want = PA.paged_attention_plain(q, pool, tables, ln).float()
+    assert torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= 1e-5 + 2**-7 * want.abs()).all())
+
+
+@pytest.mark.parametrize("mode,ps,group,S,hd,lens,n_pp", B5_SPLIT_CASES)
+def test_paged_attention_split_f32_within_atol(mode, ps, group, S, hd, lens, n_pp):
+    """The split and its chunk-order merge alone, in f32, agree with the
+    plain version's one softmax over the whole table within atol 2e-5."""
+    Hkv = 2
+    written = [min(n + S - 1, n_pp * ps) for n in lens]
+    _, pool, tables = _pools(mode, written, ps, Hkv, hd, n_pp, seed=ps + S + 1)
+    tables = torch.from_numpy(tables)
+    rng = np.random.default_rng(S + hd + 1)
+    q = torch.from_numpy(rng.standard_normal((len(lens), S, Hkv * group, hd))
+                         .astype(np.float32))
+    ln = torch.tensor(lens, dtype=torch.int32)
+    got = _b5_split_emulation(q, pool, tables, ln, tensor_core=False)
+    want = PA.paged_attention_plain(q, pool, tables, ln)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+def test_paged_attention_split_plan():
+    """Decode tiles one 16-row query tile over four 16-key parts, one
+    64-key sub-block a CTA; more than 16 rows take four 16-row tiles over
+    one 64-key part, four sub-blocks a CTA; chunks come from the table width
+    (qwen3-1.7b's engine: 41 columns of 16), and wider tables take more
+    sub-blocks a CTA so that no plan has more than MAX_CHUNKS chunks (at
+    32768 positions too)."""
+    assert PA.split_plan(1, 16, 8, 16, 41) == PA.SplitPlan(4, 1, 16, 1, 11, 44)
+    assert PA.split_plan(64, 16, 8, 16, 41) == PA.SplitPlan(1, 4, 64, 2, 3, 3)
+    assert PA.split_plan(12, 16, 8, 16, 40) == PA.SplitPlan(1, 4, 64, 1, 3, 3)
+    assert PA.split_plan(3, 8, 2, 8, 12) == PA.SplitPlan(4, 1, 16, 1, 2, 8)
+    assert PA.split_plan(1, 16, 8, 16, 128) == PA.SplitPlan(4, 1, 16, 1, 32, 128)
+    assert PA.split_plan(1, 16, 8, 16, 129) == PA.SplitPlan(4, 2, 16, 1, 17, 68)
+    assert PA.split_plan(1, 16, 8, 16, 2048) == PA.SplitPlan(4, 16, 16, 1, 32, 128)
+    assert PA.split_plan(64, 16, 8, 16, 2049) == PA.SplitPlan(1, 17, 64, 2, 31, 31)
+    for S in (1, 8, 9, 64):
+        for n_pp in range(1, 5000, 37):
+            plan = PA.split_plan(S, 16, 8, 16, n_pp)
+            assert plan.n_chunks <= PA.MAX_CHUNKS
+            assert plan.n_chunks * plan.blocks * PA.CHUNK_KEYS >= n_pp * 16
+
+
 # ---------------------------------------------------------------------------
 # KV quantize-pack / unpack-dequantize (B4a, B4b)
 # ---------------------------------------------------------------------------
@@ -570,6 +786,57 @@ def test_wrappers_take_plain_only_on_cpu_and_count_only_launches():
             call()
 
 
+def _mha_flash_plain(q, k, v, causal):
+    """B6's plain version over [B, S, Hq, hd] x [B, T, Hkv, hd] on the
+    operands' own device (``mha_flash`` runs it for CPU tensors)."""
+    B, S, Hq, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    o = FA.flash_attention_plain(*(t.transpose(1, 2).reshape(-1, t.shape[1], hd)
+                                   for t in (q, k, v)), causal, q_heads=Hq, kv_heads=Hkv)
+    return o.reshape(B, Hq, S, hd).transpose(1, 2)
+
+
+def _attention_f64(q, k, v, causal):
+    """Softmax attention over [B, S, Hq, hd] x [B, T, Hkv, hd] in float64,
+    one softmax over all keys (GQA: query head j reads KV head j // group;
+    causal: query s sees keys t <= s)."""
+    B, S, Hq, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    kk, vv = (t.double().repeat_interleave(Hq // Hkv, dim=2) for t in (k, v))
+    s = torch.einsum("bshd,bthd->bhst", q.double(), kk) / np.sqrt(hd)
+    if causal:
+        pos = torch.arange(max(S, T), device=q.device)
+        s = s.masked_fill(pos[None, :T] > pos[:S, None], -torch.inf)
+    return torch.einsum("bhst,bthd->bshd", torch.softmax(s, dim=-1), vv)
+
+
+def _check_b5_bf16(mode, hd, S, lens, n_pp, seed, gen):
+    """B5 with bf16 queries (the tensor-core body) on the card against its
+    plain version, |Δ| <= 1e-5 + 2^-7·|plain|: group 2, 4 slots, pages of
+    16, the table ``n_pp`` wide (default: one page past the longest slot);
+    on the packed pool slot 2's second page carries E8M0 scale codes 1 and
+    2."""
+    dev = "cuda"
+    written = [n + S - 1 for n in lens]
+    _, tpool, tables = _pools(mode, written, 16, 2, hd, n_pp or -(-max(written) // 16) + 1,
+                              seed=seed)
+    tpool = {n: (t.to(torch.bfloat16) if mode == "dense" else t).to(dev)
+             for n, t in tpool.items()}
+    if mode == "mxfp4":
+        page = int(tables[2, 1])
+        for name in ("k_scales", "v_scales"):
+            tpool[name][page] = torch.randint(1, 3, tpool[name][page].shape,
+                                              generator=gen, device=dev).to(torch.uint8)
+    q = torch.randn((4, S, 4, hd), generator=gen, device=dev).to(torch.bfloat16)
+    q = q[:, 0] if S == 1 else q
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tb = torch.from_numpy(tables).to(dev)
+    got = PA.paged_attention(q, tpool, tb, ln).float()
+    want = PA.paged_attention_plain(q, tpool, tb, ln).float()
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= 1e-5 + 2**-7 * want.abs()).all()), (mode, hd, S, n_pp)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """Each kernel against its plain version on the card (small shapes; the
@@ -583,6 +850,17 @@ def test_kernels_match_plain_on_card():
     for t in (x, w.t()):
         for a, b in zip(HQ.hadamard_quest_quantize(t), HQ.hadamard_quest_quantize_plain(t)):
             assert torch.equal(a, b)
+    # B1 bit for bit on its vector body at ragged M (a 1000-row Wᵀ), K = 32
+    # and f32, and on its tile body for views that are not 16-byte aligned
+    w1000 = torch.randn((256, 1000), generator=gen, device=dev).to(torch.bfloat16)
+    x37 = torch.randn((37, 32), generator=gen, device=dev).mul_(3.0)
+    for t, vector in ((w1000.t(), True), (x37, True), (x37.to(torch.bfloat16), True),
+                      (w[:32].t(), True), (w1000.t().float(), True),
+                      (x[:, 3:3 + 224], False), (w1000[:, 1:993].t(), False)):
+        before = HQ.hadamard_quest_quantize.vector_launches
+        for a, b in zip(HQ.hadamard_quest_quantize(t), HQ.hadamard_quest_quantize_plain(t)):
+            assert torch.equal(a, b)
+        assert HQ.hadamard_quest_quantize.vector_launches - before == int(vector)
     signs = torch.where(torch.rand(256, generator=gen, device=dev) < 0.5, -1.0, 1.0)
     for t in (x.float(), x, x.t().contiguous().t(), w.t().float()):
         s = signs[:t.shape[1]]
@@ -614,6 +892,22 @@ def test_kernels_match_plain_on_card():
         torch.testing.assert_close(PA.paged_attention(q, tpool, tb, ln),
                                    PA.paged_attention_plain(q, tpool, tb, ln),
                                    rtol=0, atol=2e-5)
+    # B5 bf16 on the tensor-core body: hd 128, group 2, S = 1 and 64, both
+    # pools, lengths 1, 16, 33, 100, and a page with E8M0 scale codes 1 and 2
+    lens = [1, 16, 33, 100]
+    for mode in ("dense", "mxfp4"):
+        for S in (1, 64):
+            _check_b5_bf16(mode, 128, S, lens, None, S, gen)
+    # and (own generator, so the draws above and below stay as they were) at
+    # hd 64, S = 1 (wk 4), 12 (wk 1, 24 rows in one partial tile) and 64, and
+    # over a table of 32768 positions (qwen3-1.7b's published context: 16
+    # sub-blocks a CTA under the chunk cap) with short and long slots
+    gen_b5 = torch.Generator(device=dev).manual_seed(1)
+    cases = [(64, S, lens, None) for S in (1, 12, 64)] + [(128, 12, lens, None)]
+    cases += [(128, S, [1, 700, 32768 - S + 1, 9000], 2048) for S in (1, 64)]
+    for hd, S, ln, n_pp in cases:
+        for mode in ("dense", "mxfp4"):
+            _check_b5_bf16(mode, hd, S, ln, n_pp, S + hd, gen_b5)
     xe = torch.from_numpy(kv_edge_rows()).to(dev)
     for t in (xe, x, x.float()):
         for a, b in zip(KV.kv_quant_pack(t), KV.kv_quant_pack_plain(t)):
@@ -621,17 +915,22 @@ def test_kernels_match_plain_on_card():
     c, s = KV.kv_quant_pack(x)
     for dt in (torch.float32, torch.bfloat16):
         assert torch.equal(KV.kv_dequant_unpack(c, s, dt), KV.kv_dequant_unpack_plain(c, s, dt))
+    # B6 against its plain version run on the card: on the host CPU of the
+    # card's machine that version now and then came out ~6e-5 off a float64
+    # reference (the card's result within 5e-7), and differently when run
+    # again (ROADMAP Queue C).  A float64 evaluation is the second witness.
     for S, T, hq, hkv, causal in ((130, 130, 4, 2, True), (70, 150, 2, 1, False)):
         q = torch.randn((2, S, hq, 64), generator=gen, device=dev)
         k, v = (torch.randn((2, T, hkv, 64), generator=gen, device=dev) for _ in range(2))
-        want = FA.mha_flash(q.cpu(), k.cpu(), v.cpu(), causal=causal)
-        torch.testing.assert_close(FA.mha_flash(q, k, v, causal=causal).cpu(), want,
+        got = FA.mha_flash(q, k, v, causal=causal)
+        torch.testing.assert_close(got, _mha_flash_plain(q, k, v, causal), rtol=0, atol=2e-5)
+        torch.testing.assert_close(got.double(), _attention_f64(q, k, v, causal),
                                    rtol=0, atol=2e-5)
     # bf16 on the tensor-core body, hd 64 and 128: one bf16 step of the plain version
     for S, T, hq, hkv, hd, causal in ((700, 1000, 4, 2, 64, False), (130, 130, 2, 2, 128, True)):
         q = torch.randn((1, S, hq, hd), generator=gen, device=dev).to(torch.bfloat16)
         k, v = (torch.randn((1, T, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
                 for _ in range(2))
-        got = FA.mha_flash(q, k, v, causal=causal).float().cpu()
-        want = FA.mha_flash(q.cpu(), k.cpu(), v.cpu(), causal=causal).float()
+        got = FA.mha_flash(q, k, v, causal=causal).float()
+        want = _mha_flash_plain(q, k, v, causal).float()
         assert bool(((got - want).abs() <= 1e-5 + 2**-7 * want.abs()).all())
