@@ -13,8 +13,11 @@
    both pools at decode and prefill shapes and at the edges of its split
    over CTAs (lengths 1, 16, 32, a full table, a page of E8M0 scale codes
    1 and 2); B4a
-   (KV quantize-pack and its pool scatter) and B4b (unpack-dequantize and
-   its page gather) bit for bit, with an E8M0 edge sweep; B3 (MXFP4 GEMM)
+   (KV quantize-pack and its pool scatter, K and V in one launch, strided
+   inputs) and B4b (unpack-dequantize and its page gather) bit for bit,
+   with an E8M0 edge sweep; B2 (SR-Hadamard quantize) bit for bit at the
+   four backward operands of the up and down projections as the training
+   path lays them out; B3 (MXFP4 GEMM)
    bit for bit at ragged M and N and at E8M0-edge scales; B6 (flash
    attention) at the evaluation shape, qwen3-1.7b's GQA at 4096, a ragged
    f32 case and a ragged hd-64 bf16 case, with SDPA as a second reading;
@@ -24,7 +27,8 @@
    qwen3-1.7b (random weights from a seed, MXFP4 KV pool, paged attention,
    greedy decoding, Quartet linears through the kernels), with every launch
    counter set to 0 just before and read just after, against the predicted
-   counts (and every B1 launch on its vector body, on every path); then
+   counts (B4a one launch per layer write, and every B1 launch on its
+   vector body, on every path); then
    the first 4 requests on the gather backend (per-slot
    prefill, gather-dequantize, dense attention, scatter back), its launches
    against the per-slot schedule and its first-token log-probs against the
@@ -35,16 +39,17 @@
    full-depth llama-paper-200m 5 steps through ``train.loop.train`` (batch
    32 x 512, 2 microbatches, Quartet on every transformer linear), with every
    launch counter set to 0 just before and read just after, beside the
-   predicted counts; prints tokens/s, the median step time and peak memory;
+   predicted counts (every B2 launch on its vector body); prints tokens/s,
+   the median step time and peak memory;
    then evaluates the trained state on 4 held-out batches of 16 x 512 with
    the training model (blocked attention) and a flash-built one (B6, 40
    launches), the two nll values held to a stated tolerance.
 5. Times each kernel (CUDA events, median, L2 flushed before each launch)
    beside its plain version and, where one PyTorch call computes the same
-   function, that call, at serving, training and evaluation shapes; B1 and
-   B5 also as a CUDA-graph replay (device time without the host gaps), B1's
-   serving layer also as its 7 weight and its 7 activation calls apart;
-   prints the engine's tok/s and TTFT.
+   function, that call, at serving, training and evaluation shapes; B1, B2,
+   B3, B4a, B4b and B5 also as a CUDA-graph replay (device time without the
+   host gaps), B1's serving layer also as its 7 weight and its 7 activation
+   calls apart; B4a as the layer's KV write through ``scatter_token``.
 6. Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -69,6 +74,29 @@ SRC = os.path.join(HERE, "src")
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_OPS = 989e12  # dense tensor-core peak
 H100_INT8_OPS = 1979e12
+# one instruction a lane outside the tensor cores: f32 at 128 a clock a SM
+# (the data sheet's 67 TFLOP/s of f32 counts an FMA as two flops), int32 at
+# 64 a clock a SM, half that (CUDA C++ Programming Guide, throughput of the
+# arithmetic instructions, compute capability 9.0); a SM issues at most 128
+# instructions a clock in all (one warp instruction a scheduler)
+H100_F32_OPS = 67e12 / 2
+H100_INT32_OPS = H100_F32_OPS / 2
+
+# B2's operations per element, the fewest its exact form needs (the vector
+# body's arithmetic in csrc/sr_hadamard_quant.cu), by the unit that runs
+# them.  f32 (add, multiply, compare, min/max, select, conversion): the sign
+# (1), the butterfly (5), the two prescalings (2), the absmax (1), v·2^-e
+# (1); the uniform's int -> float and ·2^-24 (2); the SR's max(|v|, 1),
+# |v|·2^(1-E), floor, x - floor, the compare with u, + 1, the select, ·2^E
+# and the min with 12 (9); the code byte's + 1.5·2^23 (1).  int32: the
+# index (1), two murmur3 fmix rounds (2 x (3 shifts, 3 xors, 2
+# multiplies)), the hash's constant add and its shift by 8 (2); the SR's
+# exponent mask, 2^(1-E) from it and the sign copy (3); 3 byte permutes
+# for a word of 4 codes (0.75).  The per-group division and E8M0 rounding
+# are 1/32 of that and left out.  The bound is the larger of the int32
+# work at its rate and all of it at the issue rate.
+B2_F32_OPS = 1 + 5 + 2 + 1 + 1 + 2 + 9 + 1
+B2_INT32_OPS = 1 + 16 + 2 + 3 + 0.75
 
 # serving traffic of the engine phase
 N_SLOTS, PAGE_SIZE, MAX_LEN, PREFILL_CHUNK = 8, 16, 640, 64
@@ -98,6 +126,31 @@ def nvidia_smi_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_counts(path: str, key: str) -> dict[str, int]:
+    """Static SASS instruction count of each entry of the built library at
+    ``path`` whose (mangled) name contains ``key`` (``cuobjdump -sass``);
+    empty where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                         timeout=120).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1) if key in m.group(1) else None
+            if name:
+                counts[name] = 0
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            counts[name] += 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -488,35 +541,51 @@ def check_kv_and_flash(torch, cfg, tcfg, device="cuda"):
     err = {}
 
     # B4a, bit-exact: the 2-d form on a [4096, 1024] block and the E8M0 edge
-    # sweep; the scatter form at a decode write (8 tokens) and a prefill
-    # write (8 x 64 tokens) of the engine, one layer's leaves and all layers'
+    # sweep; the one-launch K+V scatter at a decode write (8 tokens) and a
+    # prefill write (8 x 64 tokens) of the engine, one layer's leaves (as
+    # scatter_token passes them) and all layers' (as scatter_tokens does), K
+    # a strided slice of a dense cache (as the gather backend passes it), V
+    # holding the E8M0 edge rows; the one-leaf form at a decode write
+    edge = torch.from_numpy(kv_edge_rows(np)).to(device)
     blocks = [("x[4096,1024] bf16", torch.randn((4096, 1024), generator=gen, device=device)
-               .mul_(1.7).to(torch.bfloat16)),
-              ("edge sweep f32", torch.from_numpy(kv_edge_rows(np)).to(device))]
+               .mul_(1.7).to(torch.bfloat16)), ("edge sweep f32", edge)]
     for name, x in blocks:
         for g, w_, what in zip(KV.kv_quant_pack(x), KV.kv_quant_pack_plain(x), ("codes", "scales")):
             if not torch.equal(g, w_):
                 raise AssertionError(f"kv_quant_pack {name}: {what} differ at "
                                      f"{int((g != w_).sum())} places")
     n_pages = 1 + N_SLOTS * (MAX_LEN // PAGE_SIZE)
-    for n_tok, layers in ((N_SLOTS, 1), (N_SLOTS * PREFILL_CHUNK, 1), (N_SLOTS, L)):
+    edge = edge.reshape(-1, hd).to(torch.bfloat16)
+    for n_tok, layers in ((N_SLOTS, 1), (N_SLOTS * PREFILL_CHUNK, 1), (N_SLOTS, L),
+                          (N_SLOTS * PREFILL_CHUNK, L)):
         shape = (layers, n_pages, PAGE_SIZE, Hkv)
-        pools = [[torch.zeros((*shape, hd // 2), dtype=torch.uint8, device=device),
-                  torch.zeros((*shape, hd // 32), dtype=torch.uint8, device=device)]
-                 for _ in range(2)]
+        pools = [[torch.zeros((*shape, w), dtype=torch.uint8, device=device)
+                  for w in (hd // 2, hd // 32, hd // 2, hd // 32)] for _ in range(2)]
         perm = torch.randperm((n_pages - 1) * PAGE_SIZE, generator=gen, device=device)[:n_tok]
         pid = (1 + perm // PAGE_SIZE).to(torch.int32)
         off = (perm % PAGE_SIZE).to(torch.int32)
-        x = (torch.randn((layers, n_tok, Hkv, hd), generator=gen, device=device) * 1.5
+        cache = (torch.randn((layers, 2, n_tok + 5, Hkv, hd), generator=gen, device=device)
+                 * 1.5).to(torch.bfloat16)
+        k = cache[:, 1, 3:3 + n_tok]
+        v = (torch.randn((layers, n_tok, Hkv, hd), generator=gen, device=device) * 1.5
              ).to(torch.bfloat16)
-        if layers == 1:  # one layer's leaves, as scatter_token passes them
-            KV.kv_quant_scatter(pools[0][0][0], pools[0][1][0], pid, off, x[0])
+        rows = min(edge.shape[0], v.numel() // hd)
+        v.view(-1, hd)[:rows] = edge[:rows]
+        if layers == 1:
+            KV.kv_quant_scatter_kv(*(t[0] for t in pools[0]), pid, off, k[0], v[0])
         else:
-            KV.kv_quant_scatter(pools[0][0], pools[0][1], pid, off, x)
-        plain_quant_scatter(torch, pools[1][0], pools[1][1], pid, off, x)
-        for g, w_, what in zip(pools[0], pools[1], ("codes", "scales")):
+            KV.kv_quant_scatter_kv(*pools[0], pid, off, k, v)
+        plain_quant_scatter(torch, pools[1][0], pools[1][1], pid, off, k)
+        plain_quant_scatter(torch, pools[1][2], pools[1][3], pid, off, v)
+        if n_tok == N_SLOTS and layers == 1:
+            one = [torch.zeros_like(t) for t in pools[0][:2]]
+            KV.kv_quant_scatter(one[0][0], one[1][0], pid, off, v[0])
+            pools[0] += one
+            pools[1] += pools[1][2:]
+        for g, w_, what in zip(pools[0], pools[1], ("K codes", "K scales", "V codes", "V scales",
+                                                    "codes (one leaf)", "scales (one leaf)")):
             if not torch.equal(g, w_):
-                raise AssertionError(f"kv_quant_scatter {n_tok} tokens x {layers} layers: "
+                raise AssertionError(f"kv_quant_scatter_kv {n_tok} tokens x {layers} layers: "
                                      f"{what} differ at {int((g != w_).sum())} places")
     err["kv_quant_pack"] = 0.0
 
@@ -679,11 +748,11 @@ def serve_full_width(torch, ops, device="cuda"):
     counts = ops.launch_counts()
     vec = ops.vector_launches()
     # per forward (one step call): 2 B1 and 1 B3 in each of the 7 quantized
-    # linears of a layer (the tied lm-head stays bf16), 1 B5 and 2 B4a (K,
-    # then V) per layer
+    # linears of a layer (the tied lm-head stays bf16), 1 B5 and 1 B4a (K and
+    # V in one launch) per layer
     n = sum(calls.values())
     predicted = {"hadamard_quest_quantize": 14 * L * n, "mxfp4_matmul": 7 * L * n,
-                 "paged_attention": L * n, "kv_quant_pack": 2 * L * n}
+                 "paged_attention": L * n, "kv_quant_pack": L * n}
     predicted = {k: predicted.get(k, 0) for k in counts}
     log(f"  main-path run: {len(reqs)} requests x {MAX_NEW} tokens, prompts "
         f"{[int(p.size) for p in prompts]}, {eng.steps} steps, step calls {calls}, "
@@ -702,7 +771,7 @@ def serve_full_width(torch, ops, device="cuda"):
                "decode_ticks": len(ticks["decode"]),
                "decode_tick_ms_median": 1e3 * sorted(ticks["decode"])[len(ticks["decode"]) // 2],
                "step_calls": calls, "predicted_launches": predicted,
-               "b1_vector_launches": vec,
+               "vector_launches": vec,
                "kv_pool_bytes": eng.cache_bytes(),
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
@@ -718,10 +787,10 @@ def serve_full_width(torch, ops, device="cuda"):
         raise AssertionError(f"gather step calls {gcalls} != predicted "
                              f"{{'prefill_chunk': {n_pre}, 'decode_all': {n_dec}}}")
     # per forward: 14 B1 and 7 B3 per layer as above; per step call one
-    # gather (2 B4b, all layers) and one scatter (2 B4a, all layers)
+    # gather (2 B4b, all layers) and one scatter (1 B4a, all layers, K and V)
     n = n_pre + n_dec
     gpredicted = {"hadamard_quest_quantize": 14 * L * n, "mxfp4_matmul": 7 * L * n,
-                  "kv_quant_pack": 2 * n, "kv_dequant_unpack": 2 * n}
+                  "kv_quant_pack": n, "kv_dequant_unpack": 2 * n}
     gpredicted = {k: gpredicted.get(k, 0) for k in gcounts}
     if gcounts != gpredicted:
         raise AssertionError(f"gather run launches {gcounts} != predicted {gpredicted}")
@@ -756,7 +825,7 @@ def serve_full_width(torch, ops, device="cuda"):
                 "tokens": gtoks, "wall_s": gwall, "tok_per_s": gtoks / gwall,
                 "ttft_mean_s": float(np.mean(gttft)), "ttft_max_s": gttft[-1],
                 "steps": geng.steps, "step_calls": gcalls, "predicted_launches": gpredicted,
-                "b1_vector_launches": gvec,
+                "vector_launches": gvec,
                 "first_token_logprob_max_abs_vs_paged": [x for x, _ in lp],
                 "first_token_logprob_mean_abs_vs_paged": [y for _, y in lp],
                 "first_token_logprob_vs_teacher_forced": tf,
@@ -915,38 +984,46 @@ def time_kernels(torch, cfg, timer, device="cuda"):
 
 
 def time_kv_and_flash(torch, cfg, tcfg, timer, device="cuda"):
-    """B4a over one layer's K and V writes of a decode tick (8 tokens) and a
-    prefill tick (8 x 64 tokens); B4b over one decode tick's gather (K and
-    V, 28 layers, 8 slots x 640 positions, bf16 out); B6 at the evaluation
-    shape and at qwen3-1.7b's GQA at 4096.  Each beside its plain version,
-    its least time on the H100 and, for B6, one SDPA call."""
+    """B4a over one layer's KV write (``scatter_token``: K and V) of a decode
+    tick (8 tokens) and a prefill tick (8 x 64 tokens); B4b over one decode
+    tick's gather (K and V, 28 layers, 8 slots x 640 positions, bf16 out); B6
+    at the evaluation shape and at qwen3-1.7b's GQA at 4096.  Each beside its
+    plain version, its least time on the H100 and, for B6, one SDPA call."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import kv_pack as KV
+    from repro_torch.kernels.paged_attention import scatter_token
 
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     Hkv, hd, L = cfg.num_kv_heads, cfg.head_dim_, cfg.num_layers
     n_pages = 1 + N_SLOTS * (MAX_LEN // PAGE_SIZE)
     rec = {}
-    leaves = [torch.zeros((1, n_pages, PAGE_SIZE, Hkv, w), dtype=torch.uint8, device=device)
-              for w in (hd // 2, hd // 32)]
+    pool = {n: torch.zeros((n_pages, PAGE_SIZE, Hkv, w), dtype=torch.uint8, device=device)
+            for n, w in (("k_codes", hd // 2), ("k_scales", hd // 32), ("v_codes", hd // 2),
+                         ("v_scales", hd // 32))}
     for n_tok, tag in ((N_SLOTS, "decode"), (N_SLOTS * PREFILL_CHUNK, "prefill")):
         perm = torch.randperm((n_pages - 1) * PAGE_SIZE, generator=gen, device=device)[:n_tok]
         pid = (1 + perm // PAGE_SIZE).to(torch.int32)
         off = (perm % PAGE_SIZE).to(torch.int32)
-        kv = [(torch.randn((n_tok, Hkv, hd), generator=gen, device=device) * 1.5)
-              .to(torch.bfloat16) for _ in range(2)]
-        # 2 B read per bf16 element, 0.5 + 1/32 B written, 8 B of ids per token
-        nbytes = 2 * (n_tok * Hkv * hd * (2 + 0.5 + 1 / 32) + 8 * n_tok)
+        k, v = [(torch.randn((n_tok, Hkv, hd), generator=gen, device=device) * 1.5)
+                .to(torch.bfloat16) for _ in range(2)]
+        # K and V: 2 B read per bf16 element, 0.5 + 1/32 B written; 8 B of
+        # ids per token
+        nbytes = 2 * n_tok * Hkv * hd * (2 + 0.5 + 1 / 32) + 8 * n_tok
+        before = KV.kv_quant_pack.launches
+        scatter_token(pool, pid, off, k, v)
+        per_write = KV.kv_quant_pack.launches - before
+
+        def plain():
+            for x, c, sc in ((k, "k_codes", "k_scales"), (v, "v_codes", "v_scales")):
+                plain_quant_scatter(torch, pool[c][None], pool[sc][None], pid, off, x[None])
+
         rec[("kv_quant_pack", tag)] = dict(
-            ms=timer(lambda: [KV.kv_quant_scatter(leaves[0][0], leaves[1][0], pid, off, x)
-                              for x in kv]),
-            device_ms=timer.device(lambda: [KV.kv_quant_scatter(leaves[0][0], leaves[1][0],
-                                                                pid, off, x) for x in kv]),
-            plain_ms=timer(lambda: [plain_quant_scatter(torch, *leaves, pid, off, x[None])
-                                    for x in kv]),
+            ms=timer(lambda: scatter_token(pool, pid, off, k, v)),
+            device_ms=timer.device(lambda: scatter_token(pool, pid, off, k, v)),
+            plain_ms=timer(plain),
             bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
-            launches_per_layer=2)
-    del leaves
+            launches_per_layer=per_write)
+    del pool
 
     pool = [torch.randint(0, 256, (L, n_pages, PAGE_SIZE, Hkv, w), generator=gen,
                           device=device, dtype=torch.uint8) for w in (hd // 2, hd // 32)]
@@ -959,6 +1036,8 @@ def time_kv_and_flash(torch, cfg, tcfg, timer, device="cuda"):
     idx = tables.long()
     rec[("kv_dequant_unpack", "gather")] = dict(
         ms=timer(lambda: [KV.kv_gather_dequant(*pool, tables, torch.bfloat16) for _ in range(2)]),
+        device_ms=timer.device(lambda: [KV.kv_gather_dequant(*pool, tables, torch.bfloat16)
+                                        for _ in range(2)]),
         plain_ms=timer(lambda: [KV.kv_dequant_unpack_plain(pool[0][:, idx], pool[1][:, idx],
                                                            torch.bfloat16) for _ in range(2)]),
         bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
@@ -1042,8 +1121,9 @@ class PlainOps:
 def backward_operands(torch, K, N, gen, device="cuda"):
     """The four backward Stage-1 operands of one full-width linear [K, N]
     over one microbatch, as ``quartet._backward_kernels`` passes them:
-    dy [T, N] (bf16), the dequantized weight [K, N] (f32), and the two
-    transposed views xqᵀ [K, T] (f32) and dyᵀ [N, T] (bf16)."""
+    dy [T, N] (bf16, row-major), and three views with unit stride along
+    their rows: the dequantized weight Wq [K, N] (f32, the transpose of the
+    [N, K] codes' values), xqᵀ [K, T] (f32) and dyᵀ [N, T] (bf16)."""
     from repro_torch.core.quartet import _dequant_codes
     from repro_torch.kernels import hadamard_quant as HQ
 
@@ -1053,7 +1133,7 @@ def backward_operands(torch, K, N, gen, device="cuda"):
     dy = (torch.randn((T, N), generator=gen, device=device) * 1e-3).to(torch.bfloat16)
     xc, xs, _ = HQ.hadamard_quest_quantize(x)
     wc, ws, _ = HQ.hadamard_quest_quantize(w.t())
-    return {"dy": dy, "Wq": _dequant_codes(wc, ws, 32).t().contiguous(),
+    return {"dy": dy, "Wq": _dequant_codes(wc, ws, 32).t(),
             "xqᵀ": _dequant_codes(xc, xs, 32).t(), "dyᵀ": dy.t()}
 
 
@@ -1069,32 +1149,34 @@ def check_training_kernels(torch, cfg, device="cuda"):
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     seed = 12345
     err = {}
-    # sr_hadamard_quantize: the up projection's four operands (K 1280, N
-    # 3456), codes and scales bit-exact, transposed views included
+    # sr_hadamard_quantize: the four operands of the up projection (K 1280,
+    # N 3456) and of the down projection (K 3456, N 1280), codes and scales
+    # bit-exact, at the training path's layouts (three of them views with
+    # unit stride along M)
     d, f = cfg.d_model, cfg.d_ff
     codes = {}
-    for salt, (name, x) in enumerate(backward_operands(torch, d, f, gen, device).items(), 1):
-        signs = fastrng.rademacher(seed, x.shape[1], salt=11 if salt < 3 else 12, device=device)
-        got = SR.sr_hadamard_quantize(x, signs, seed, salt=salt)
-        want = SR.sr_hadamard_quantize_plain(x, signs, seed, salt=salt)
-        for g, w_, what in zip(got, want, ("codes", "scales")):
-            if not torch.equal(g, w_):
-                raise AssertionError(f"sr_hadamard_quantize {name} {tuple(x.shape)} "
-                                     f"(strides {x.stride()}): {what} differ at "
-                                     f"{int((g != w_).sum())} places")
-        codes[name] = got
+    for proj, K, N in (("up", d, f), ("down", f, d)):
+        for salt, (name, x) in enumerate(backward_operands(torch, K, N, gen, device).items(), 1):
+            signs = fastrng.rademacher(seed, x.shape[1], salt=11 if salt < 3 else 12,
+                                       device=device)
+            got = SR.sr_hadamard_quantize(x, signs, seed, salt=salt)
+            want = SR.sr_hadamard_quantize_plain(x, signs, seed, salt=salt)
+            for g, w_, what in zip(got, want, ("codes", "scales")):
+                if not torch.equal(g, w_):
+                    raise AssertionError(f"sr_hadamard_quantize {proj} {name} {tuple(x.shape)} "
+                                         f"(strides {x.stride()}): {what} differ at "
+                                         f"{int((g != w_).sum())} places")
+            codes[proj, name] = got
     err["sr_hadamard_quantize"] = 0.0
 
     # mxfp4_matmul at the backward's operand layouts: dx [T, N]·[N, K] and
     # dW [K, T]·[T, N] with B the transposed view of the SR codes, and the
     # down projection's dW (M = d_ff rows, 8192-token contraction)
-    down = backward_operands(torch, f, d, gen, device)
-    sb = fastrng.rademacher(seed, TRAIN_TOKENS_MB, salt=12, device=device)
-    dc = SR.sr_hadamard_quantize(down["xqᵀ"], sb, seed, salt=3)
-    dg = SR.sr_hadamard_quantize(down["dyᵀ"], sb, seed, salt=4)
-    cases = {"dx": (*codes["dy"], codes["Wq"][0].t(), codes["Wq"][1].t()),
-             "dW": (*codes["xqᵀ"], codes["dyᵀ"][0].t(), codes["dyᵀ"][1].t()),
-             "dW down": (*dc, dg[0].t(), dg[1].t())}
+    def gemm(a, b):
+        return (*codes[a], codes[b][0].t(), codes[b][1].t())
+
+    cases = {"dx": gemm(("up", "dy"), ("up", "Wq")), "dW": gemm(("up", "xqᵀ"), ("up", "dyᵀ")),
+             "dW down": gemm(("down", "xqᵀ"), ("down", "dyᵀ"))}
     worst = 0.0
     for name, args in cases.items():
         got, want = MM.mxfp4_matmul(*args), MM.mxfp4_matmul_plain(*args)
@@ -1241,7 +1323,7 @@ def train_full_width(torch, ops, device="cuda"):
                "tokens_per_s_run": TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / wall,
                "wall_s": wall, "peak_mem_gb": peak,
                "launches": counts, "predicted_launches": predicted,
-               "b1_vector_launches": vec}
+               "vector_launches": vec}
     summary["breakdown"] = profile_train_step(torch, model, opt, state, batcher, device)
     summary["eval"], eval_counts = evaluate_full_width(torch, ops, model, state, device)
     del state
@@ -1274,7 +1356,7 @@ def evaluate_full_width(torch, ops, model, state, device="cuda"):
         out[f"nll_{backend}"] = evaluate(m, state, batcher, EVAL_BATCHES, device=device)
         out[f"wall_s_{backend}"] = time.perf_counter() - t0  # evaluate ends in host reads
         counts[backend] = ops.launch_counts()
-        out[f"b1_vector_launches_{backend}"] = ops.vector_launches()
+        out[f"vector_launches_{backend}"] = ops.vector_launches()
     out["nll_diff"] = out["nll_flash"] - out["nll_blocked"]
     out["launches_blocked"], out["launches_flash"] = counts["blocked"], counts["flash"]
     log(f"  evaluation: {json.dumps(out)} (tolerance |Δnll| <= 0.01)")
@@ -1288,7 +1370,7 @@ def evaluate_full_width(torch, ops, model, state, device="cuda"):
 
 
 KERNEL_NAMES = {"hadamard_quest_": "hadamard_quest_quantize",  # tile, rows and cols bodies
-                "sr_hadamard_kernel": "sr_hadamard_quantize",
+                "sr_hadamard_": "sr_hadamard_quantize",  # tile, rows and cols bodies
                 "mxfp4_mma_kernel": "mxfp4_matmul", "paged_attention": "paged_attention"}
 
 
@@ -1389,18 +1471,29 @@ def time_training_kernels(torch, cfg, timer, device="cuda"):
 
     # backward Stage 1: the four operands (each element read once at its
     # width, 2 B for dy and dyᵀ, 4 B for Wq and xqᵀ; written as a 1 B code
-    # and 4/32 B of scale)
+    # and 4/32 B of scale), and B2_F32_OPS + B2_INT32_OPS operations an
+    # element, bound by the int32 work at H100_INT32_OPS or by all of it at
+    # the issue rate H100_F32_OPS, whichever is longer
     opnds = backward_operands(torch, d, f, gen, device)
     signs = {k: fastrng.rademacher(7, v.shape[1], salt=11, device=device)
              for k, v in opnds.items()}
     nbytes = sum(v.numel() * (v.element_size() + 1 + 4 / 32) for v in opnds.values())
+    n_el = sum(v.numel() for v in opnds.values())
+    by_bytes = nbytes / H100_BYTES_PER_S
+    by_ops = max(n_el * B2_INT32_OPS / H100_INT32_OPS,
+                 n_el * (B2_F32_OPS + B2_INT32_OPS) / H100_F32_OPS)
 
     def sr(fn):
         return lambda: [fn(v, signs[k], 7, 0.75, i) for i, (k, v) in enumerate(opnds.items(), 1)]
 
     rec[("sr_hadamard_quantize", "train")] = dict(
-        ms=timer(sr(SR.sr_hadamard_quantize)), plain_ms=timer(sr(SR.sr_hadamard_quantize_plain)),
-        bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+        ms=timer(sr(SR.sr_hadamard_quantize)),
+        device_ms=timer.device(sr(SR.sr_hadamard_quantize)),
+        plain_ms=timer(sr(SR.sr_hadamard_quantize_plain)),
+        bound_ms=max(by_bytes, by_ops) * 1e3, bytes_ms=by_bytes * 1e3, ops_ms=by_ops * 1e3,
+        bound_by="bytes" if by_bytes >= by_ops else "operations",
+        device_ms_by_operand={k: timer.device(lambda k=k, i=i, v=v: SR.sr_hadamard_quantize(
+            v, signs[k], 7, 0.75, i)) for i, (k, v) in enumerate(opnds.items(), 1)},
         library_ms=None, launches_per_linear_bwd=4)
 
     # the three GEMMs: forward, dx, dW, at their operand layouts
@@ -1488,6 +1581,11 @@ def main() -> int:
         for line in rep.splitlines():  # -Xptxas -v: each entry, its registers and spills
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    # B2's vector bodies hold one 32-group a thread in straight-line code:
+    # their static SASS count over 32 reads the instructions an element
+    sass = sass_counts(str(_build.library_path("sr_hadamard_quant")), "sr_hadamard_")
+    log(f"[build] sr_hadamard_quant SASS instructions by entry (per element = n / 32): "
+        f"{json.dumps(sass) if sass else 'not measured (no cuobjdump)'}")
 
     cfg = get_config("qwen3-1.7b")
     tcfg = get_config(TRAIN_ARCH)
@@ -1503,8 +1601,8 @@ def main() -> int:
     if "engine" in phases:
         t0 = time.perf_counter()
         summary, counts["engine"], gsummary, counts["gather"] = serve_full_width(torch, ops)
-        vectors["engine"] = summary["b1_vector_launches"]
-        vectors["gather"] = gsummary["b1_vector_launches"]
+        vectors["engine"] = summary["vector_launches"]
+        vectors["gather"] = gsummary["vector_launches"]
         log(f"[engine] launches on the main path (paged backend): {counts['engine']}")
         log(f"[engine] launches on the gather backend: {counts['gather']}")
         missing = [k for k in ("hadamard_quest_quantize", "mxfp4_matmul", "paged_attention",
@@ -1521,8 +1619,8 @@ def main() -> int:
         t0 = time.perf_counter()
         train_reduced_card_vs_cpu(torch)
         summary, counts["train"], counts["eval"] = train_full_width(torch, ops)
-        vectors["train"] = summary["b1_vector_launches"]
-        vectors["eval"] = summary["eval"]["b1_vector_launches_flash"]
+        vectors["train"] = summary["vector_launches"]
+        vectors["eval"] = summary["eval"]["vector_launches_flash"]
         log(f"[train] launches on the training path: {counts['train']} "
             f"(predicted {summary['predicted_launches']})")
         log(f"[train] launches on the flash evaluation path: {counts['eval']}")
@@ -1536,12 +1634,16 @@ def main() -> int:
         log(f"[train] {json.dumps(summary)}")
         log(f"[train] done in {time.perf_counter() - t0:.1f} s")
     if vectors:
-        # every B1 call on the main paths reads and writes through the vector
-        # body (16-byte loads, 8-byte stores)
-        b1 = {p: (vectors[p], counts[p]["hadamard_quest_quantize"]) for p in vectors}
-        log(f"[b1] vector-body launches / all launches, by path: {json.dumps(b1)}")
-        if any(v != n or n == 0 for v, n in b1.values()):
-            raise AssertionError(f"hadamard_quest_quantize took its tile body on a main path: {b1}")
+        # every B1 call on the main paths, and every B2 call on the training
+        # path, reads and writes through the vector body (a thread per group,
+        # 16-byte loads and stores)
+        for tag, name, paths in (("b1", "hadamard_quest_quantize", list(vectors)),
+                                 ("b2", "sr_hadamard_quantize", ["train"] if "train" in vectors
+                                  else [])):
+            vs = {p: (vectors[p][name], counts[p][name]) for p in paths}
+            log(f"[{tag}] vector-body launches / all launches, by path: {json.dumps(vs)}")
+            if any(v != n or n == 0 for v, n in vs.values()):
+                raise AssertionError(f"{name} took its tile body on a main path: {vs}")
     if "times" in phases:
         t0 = time.perf_counter()
         timer = Timer(torch)
@@ -1567,8 +1669,8 @@ def main() -> int:
                             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                             "launches_by_path": {p: c[name] for p, c in counts.items()}})
-            if name == "hadamard_quest_quantize":
-                kernels[-1]["vector_launches_by_path"] = vectors
+            if name in ("hadamard_quest_quantize", "sr_hadamard_quantize"):
+                kernels[-1]["vector_launches_by_path"] = {p: v[name] for p, v in vectors.items()}
         log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

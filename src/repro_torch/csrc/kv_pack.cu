@@ -15,16 +15,26 @@
 //
 // Bound on H100: bytes.  Quantize reads 2 or 4 B per element and writes
 // 0.5 + 1/32 B; dequantize reads 0.5 + 1/32 B and writes 2 or 4 B; a few
-// integer and float operations per element.
+// integer and float operations per element.  At the engine's shapes (a
+// layer's K and V rows of one decode or prefill tick: 32 KB to 2 MB of bf16
+// input) a launch takes far longer than its bytes, so the KV write of a
+// layer is one launch: one grid over both sources (K and V), the source
+// picked by blockIdx.y.
 //
-// Design.  Quantize: one warp per 32-group, one element per lane; the
-// absmax by __shfl_xor_sync; the exponent from the bits of amax/6 (the
-// mantissa compared with sqrt(2)'s, never log2f, which misrounds near
-// sqrt(2)·2^k); the scaling multiplies by 2^-e built from the bits, which
-// equals the IEEE division by 2^e, so the round-to-nearest ties fall as in
-// the plain version.  The odd lane's nibble reaches the even lane by one
-// shuffle.  With page ids, row (l, n, h) of the [L, N, H, K] input lands at
+// Design.  Quantize: one thread owns a whole 32-group in registers — four
+// (bf16) or eight (f32) 16-byte loads (group_quant.cuh's load_group, shared
+// with the grouped Hadamard quantizers), read through the input's strides
+// (the gather backend's strided slices of its dense caches are not copied);
+// the absmax; the exponent from the bits of amax/6 (the mantissa compared
+// with sqrt(2)'s, never log2f, which misrounds near sqrt(2)·2^k), once a
+// group; the scaling multiplies by 2^-e built from the bits, which equals
+// the IEEE division by 2^e, so the round-to-nearest ties fall as in the
+// plain version; the RTN as rint(|q|·2/pw) in the binade of pw, each step
+// exact.  The group's 32 nibbles leave as one 16-byte store and its scale as
+// one byte.  With page ids, row (l, n, h) of the [L, N, H, K] input lands at
 // ((l·n_pages + page[n])·ps + offset[n])·H + h of the pool leaf, in place.
+// Inputs that 16-byte loads cannot read take the same body with scalar
+// loads.
 // Dequantize: one thread per packed byte (two outputs); the output is cut
 // into equal chunks (a page of one layer when gathering) and chunk c reads
 // the source chunk (c / (B·P))·n_pages + tables[c % (B·P)].
@@ -33,42 +43,29 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "group_quant.cuh"
+
 namespace {
 
-constexpr int kGroup = 32;
+using group_quant::kGroup;
+using group_quant::to_f32;
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr float kMinScale = 1.17549435082228750797e-38f;  // 2^-126
 constexpr int kSqrt2Mantissa = 0x3504f4;  // mantissa of the smallest f32 above sqrt(2)
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// E2M1 round-to-nearest-even of v in [-6, 6]: one mantissa bit per binade.
-__device__ __forceinline__ float rtn_e2m1(float v) {
-  const float a = fabsf(v);
-  const float pw = a >= 4.f ? 4.f : (a >= 2.f ? 2.f : 1.f);
-  const float q_norm = __fmul_rn(__fmul_rn(rintf(__fmul_rn(__fdiv_rn(a, pw), 2.f)), 0.5f), pw);
-  const float q_sub = __fmul_rn(rintf(__fmul_rn(a, 2.f)), 0.5f);
-  const float q = a >= 1.f ? q_norm : q_sub;
-  return v < 0.f ? -q : q;
-}
-
-// on-grid E2M1 value -> 4-bit code, bit 3 = sign (negative zero -> 0)
-__device__ __forceinline__ int e2m1_nibble(float q) {
-  const float a = fabsf(q);
-  int idx;
-  if (a >= 1.f) {
-    const float pw = a >= 4.f ? 4.f : (a >= 2.f ? 2.f : 1.f);
-    const int e = (a >= 2.f) + (a >= 4.f);
-    idx = 2 + 2 * e + static_cast<int>(__fmul_rn(__fdiv_rn(a, pw), 2.f)) - 2;
-  } else {
-    idx = static_cast<int>(__fmul_rn(a, 2.f));
-  }
-  return idx | (q < 0.f ? 8 : 0);
+// The 4-bit code S|EE|M of RTN_E2M1(clip(v, ±6)) (ties to even; a value
+// that rounds to zero has code 0, its sign dropped).  In the binade of pw
+// (1 below 2, also for |v| < 1, then 2, then 4), r = rint(|v|·2/pw) is exact
+// and the grid index is r + 2·log2(pw): 0..4 below 2 (0, 0.5, 1, 1.5, 2),
+// 4..6 in [2, 4) (2, 3, 4), 6..7 from 4 (4, 6).
+__device__ __forceinline__ uint32_t e2m1_nibble(float v) {
+  const float a = fminf(fabsf(v), 6.f);
+  const float s = a >= 4.f ? 0.5f : (a >= 2.f ? 1.f : 2.f);
+  const int idx = static_cast<int>(rintf(__fmul_rn(a, s))) + (a >= 4.f ? 4 : (a >= 2.f ? 2 : 0));
+  return static_cast<uint32_t>(idx | (v < 0.f && idx != 0 ? 8 : 0));
 }
 
 // 4-bit code -> E2M1 value
@@ -79,22 +76,48 @@ __device__ __forceinline__ float e2m1_value(int nib) {
   return (nib & 8) ? -mag : mag;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) kv_quant_kernel(
-    const T* __restrict__ x, long long n_groups, int gpr, const int* __restrict__ page_ids,
-    const int* __restrict__ offsets, int N, int H, long long n_pages, int ps,
-    uint8_t* __restrict__ codes, uint8_t* __restrict__ scales) {
-  const long long w = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (w >= n_groups) return;  // warp-uniform
-  const int lane = threadIdx.x & 31;
-  const long long m = w / gpr;
-  const int g = static_cast<int>(w % gpr);
-  const long long K = static_cast<long long>(gpr) * kGroup;
-  const float v = to_f32(x[m * K + g * kGroup + lane]);
+// One source of a quantize launch: x [L, N, H, K] at element strides (sl,
+// sn, sh) with unit stride along K, into codes [.., K/2] and scales [..,
+// K/32] (pool leaves [L, n_pages, ps, H, ..] with page ids, else [L·N·H, ..]).
+struct KvSource {
+  const void* x;
+  long long sl, sn, sh;
+  uint8_t* codes;
+  uint8_t* scales;
+};
 
-  float amax = fabsf(v);
+struct KvSources {
+  KvSource s[2];
+};
+
+constexpr int kQuantThreads = 128;
+
+// thread t of source blockIdx.y quantizes group t (row t / gpr, group t %
+// gpr; row = (l·N + n)·H + h), index math in 32 bits (the entry refuses
+// 2^31 groups or more); VEC: x, its strides and its rows are 16-byte aligned
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kQuantThreads) kv_quant_kernel(
+    const KvSources src, unsigned n_groups, unsigned gpr, const int* __restrict__ page_ids,
+    const int* __restrict__ offsets, unsigned N, unsigned H, long long n_pages, int ps) {
+  const KvSource s = blockIdx.y ? src.s[1] : src.s[0];  // no dynamic index into the params
+  const unsigned t = blockIdx.x * kQuantThreads + threadIdx.x;
+  if (t >= n_groups) return;
+  const unsigned row = t / gpr, g = t % gpr;
+  const unsigned lr = row / H, h = row % H;  // lr = l·N + n
+  const unsigned l = lr / N, n = lr % N;
+  const T* x = static_cast<const T*>(s.x) + l * s.sl + n * s.sn + h * s.sh + g * kGroup;
+
+  float v[kGroup];
+  if constexpr (VEC) {
+    group_quant::load_group<T>(x, v);
+  } else {
 #pragma unroll
-  for (int o = 16; o >= 1; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(kFull, amax, o));
+    for (int i = 0; i < kGroup; ++i) v[i] = to_f32(x[i]);
+  }
+
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) amax = fmaxf(amax, fabsf(v[i]));
   const float raw = fmaxf(__fdiv_rn(amax, 6.f), kMinScale);
   const int bits = __float_as_int(raw);
   int e = ((bits >> 23) & 0xff) - 127 + ((bits & 0x7fffff) >= kSqrt2Mantissa ? 1 : 0);
@@ -102,21 +125,17 @@ __global__ void __launch_bounds__(kThreads) kv_quant_kernel(
   // 2^-e: normal for e <= 126, the subnormal 2^-127 for e = 127
   const float inv = e == 127 ? __int_as_float(0x00400000) : __int_as_float((127 - e) << 23);
 
-  const float q = rtn_e2m1(fminf(fmaxf(__fmul_rn(v, inv), -6.f), 6.f));
-  const int nib = e2m1_nibble(q);
-  const int odd = __shfl_down_sync(kFull, nib, 1);
+  // byte j = (nibble 2j << 4) | nibble 2j + 1, little-endian in word j / 4
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i)
+    w[i / 8] |= e2m1_nibble(__fmul_rn(v[i], inv)) << (8 * ((i / 2) % 4) + (i % 2 ? 0 : 4));
 
-  long long dest = m;
-  if (page_ids != nullptr) {
-    const long long nh = static_cast<long long>(N) * H;
-    const long long l = m / nh, r = m % nh;
-    const int n = static_cast<int>(r / H), h = static_cast<int>(r % H);
-    dest = ((l * n_pages + page_ids[n]) * ps + offsets[n]) * H + h;
-  }
-  if ((lane & 1) == 0)
-    codes[dest * (K / 2) + g * (kGroup / 2) + lane / 2] =
-        static_cast<uint8_t>((nib << 4) | (odd & 0xf));
-  if (lane == 0) scales[dest * gpr + g] = static_cast<uint8_t>(e + 127);
+  long long dest = row;
+  if (page_ids != nullptr) dest = ((l * n_pages + page_ids[n]) * ps + offsets[n]) * H + h;
+  *reinterpret_cast<uint4*>(s.codes + dest * (gpr * kGroup / 2) + g * (kGroup / 2)) =
+      make_uint4(w[0], w[1], w[2], w[3]);
+  s.scales[dest * gpr + g] = static_cast<uint8_t>(e + 127);
 }
 
 template <typename T>
@@ -136,31 +155,51 @@ __global__ void __launch_bounds__(kThreads) kv_dequant_kernel(
   }
 }
 
+template <typename T>
+int launch_quant(const KvSources& src, int n_src, bool vec, unsigned n_groups, unsigned gpr,
+                 const int* pid, const int* off, unsigned N, unsigned H, long long n_pages, int ps,
+                 cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>((n_groups + kQuantThreads - 1) / kQuantThreads),
+                  static_cast<unsigned>(n_src));
+  if (vec)
+    kv_quant_kernel<T, true><<<grid, kQuantThreads, 0, s>>>(src, n_groups, gpr, pid, off, N, H,
+                                                            n_pages, ps);
+  else
+    kv_quant_kernel<T, false><<<grid, kQuantThreads, 0, s>>>(src, n_groups, gpr, pid, off, N, H,
+                                                             n_pages, ps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// x [rows, K] contiguous (f32 or bf16), rows = L·N·H, K % 32 == 0.  Without
-// page ids (page_ids = NULL) writes codes u8 [rows, K/2] and scales u8
-// [rows, K/32]; with page ids/offsets int32 [N] writes row (l, n, h) into
-// the pool leaves [L, n_pages, ps, H, K/2] and [L, n_pages, ps, H, K/32].
-extern "C" int kv_quant_scatter(const void* x, int is_bf16, long long rows, int K,
-                                const void* page_ids, const void* offsets, int N, int H,
-                                long long n_pages, int ps, void* codes, void* scales,
-                                void* stream) {
+// n_src (1 or 2) sources in one launch, each x_i [L, N, H, K] (f32 or bf16,
+// element strides (sl_i, sn_i, sh_i), unit stride along K, K % 32 == 0,
+// fewer than 2^31 groups of 32)
+// into codes_i / scales_i (16-byte aligned).  Without page ids (page_ids =
+// NULL) row (l, n, h) is written at row (l·N + n)·H + h of codes u8
+// [.., K/2] and scales u8 [.., K/32]; with page ids/offsets int32 [N] at
+// ((l·n_pages + page[n])·ps + offset[n])·H + h of the pool leaves [L,
+// n_pages, ps, H, K/2] and [L, n_pages, ps, H, K/32].  vec = 1: every x_i
+// and its strides are 16-byte aligned (16-byte loads).
+extern "C" int kv_quant_scatter(int n_src, const void* const* x, const long long* strides,
+                                int is_bf16, int vec, int L, int N, int H, int K,
+                                const void* page_ids, const void* offsets, long long n_pages,
+                                int ps, void* const* codes, void* const* scales, void* stream) {
+  if (n_src < 1 || n_src > 2) return static_cast<int>(cudaErrorInvalidValue);
+  KvSources src = {};
+  for (int i = 0; i < n_src; ++i)
+    src.s[i] = {x[i], strides[3 * i], strides[3 * i + 1], strides[3 * i + 2],
+                static_cast<uint8_t*>(codes[i]), static_cast<uint8_t*>(scales[i])};
   const int gpr = K / kGroup;
-  const long long n_groups = rows * gpr;
-  const dim3 grid(static_cast<unsigned>((n_groups + kWarps - 1) / kWarps));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n_groups = static_cast<long long>(L) * N * H * gpr;
+  if (n_groups >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   const auto* pid = static_cast<const int*>(page_ids);
   const auto* off = static_cast<const int*>(offsets);
-  auto* c = static_cast<uint8_t*>(codes);
-  auto* sc = static_cast<uint8_t*>(scales);
-  if (is_bf16)
-    kv_quant_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), n_groups, gpr, pid, off, N, H, n_pages, ps, c, sc);
-  else
-    kv_quant_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), n_groups, gpr, pid, off, N, H, n_pages, ps, c, sc);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_quant<__nv_bfloat16>(src, n_src, vec, n_groups, gpr, pid, off, N, H,
+                                               n_pages, ps, s)
+                 : launch_quant<float>(src, n_src, vec, n_groups, gpr, pid, off, N, H, n_pages,
+                                       ps, s);
 }
 
 // Output [n_out_chunks · chunk · 2] values (f32 or bf16); chunk = packed

@@ -8,12 +8,14 @@ to ``core.quantizers.kv_quantize`` / ``kv_dequantize``.
 
 On a CUDA tensor each wrapper launches ``csrc/kv_pack.cu``; on a CPU tensor
 it runs the plain version.  Besides the 2-D forms of the reference, the
-engine calls two fused forms: :func:`kv_quant_scatter` quantizes new K or V
-rows straight into their (page, offset) slots of a pool leaf, and
+engine calls two fused forms: :func:`kv_quant_scatter_kv` quantizes a
+write's new K and V rows straight into their (page, offset) slots of the
+pool leaves, both in one launch (:func:`kv_quant_scatter` does the same for
+one leaf pair), reading the rows through their strides; and
 :func:`kv_gather_dequant` reads pages through the page tables into the dense
 ``[L, B, T, Hkv, hd]`` view in the compute dtype (bf16 is written directly:
 every dequantized value has at most 2 significant bits, so it equals the f32
-result cast to bf16).  Both fused forms count as launches of their kernel:
+result cast to bf16).  The fused forms count as launches of their kernel:
 ``kv_quant_pack.launches`` and ``kv_dequant_unpack.launches``.
 """
 
@@ -77,10 +79,11 @@ def kv_dequant_unpack_plain(codes: torch.Tensor, scales: torch.Tensor,
 def _entries():
     lib = _build.load("kv_pack")
     quant = lib.kv_quant_scatter
-    quant.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_void_p]
+    ptrs = ctypes.POINTER(ctypes.c_void_p)
+    quant.argtypes = [ctypes.c_int, ptrs, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ptrs,
+                      ptrs, ctypes.c_void_p]
     quant.restype = ctypes.c_int
     deq = lib.kv_gather_dequant
     deq.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -105,28 +108,59 @@ def _check_block(name: str, k: int, n_scales: int) -> None:
                          f"elements, got K={k} with {n_scales} scales per row")
 
 
-def _launch_quant(name, x, page_ids, offsets, n, h, n_pages, ps, codes, scales):
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{name}: need f32/bf16 input, got {x.dtype}")
-    if not all(t.dtype == torch.uint8 and t.is_contiguous() and t.device == x.device
-               for t in (codes, scales)):
-        raise ValueError(f"{name}: the outputs must be contiguous uint8 on {x.device}")
-    x = x.contiguous()
-    k = x.shape[-1]
-    _check_block(name, k, scales.shape[-1])
-    rows = x.numel() // k
-    if rows == 0:
+_PTRS = ctypes.c_void_p * 2
+_STRIDES = ctypes.c_longlong * 6
+
+
+def _as_i32(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.int32 and t.is_contiguous() else t.to(torch.int32).contiguous()
+
+
+def _launch_quant(name, sources, lead, page_ids, offsets, n_pages, ps):
+    """One launch quantizing each (x, codes, scales) of ``sources`` (one or
+    two, alike in shape and dtype).  ``lead`` = (L, N, H): x is [L, N, H, K]
+    or, with L = 1, [N, H, K]; with page ids [N] row (l, n, h) lands at (l,
+    page_ids[n], offsets[n], h) of pool leaves [L, n_pages, ps, H, ..], else
+    at row (l·N + n)·H + h of [L·N·H, ..].  Builds no tensor views: this
+    runs once a layer on every serving step."""
+    L, N, H = lead
+    x0 = sources[0][0]
+    if x0.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: need f32/bf16 input, got {x0.dtype}")
+    k = x0.shape[-1]
+    xs, strides = [], []  # xs holds any contiguous copy until the launch
+    for x, codes, scales in sources:
+        if x.shape != x0.shape or x.dtype != x0.dtype or x.device != x0.device:
+            raise ValueError(f"{name}: K and V rows differ: {tuple(x.shape)} {x.dtype} vs "
+                             f"{tuple(x0.shape)} {x0.dtype}")
+        if not (codes.dtype == scales.dtype == torch.uint8 and codes.is_contiguous()
+                and scales.is_contiguous() and codes.device == scales.device == x.device) \
+                or codes.data_ptr() % 16:
+            raise ValueError(f"{name}: the outputs must be contiguous uint8 on {x.device}, "
+                             f"the codes 16-byte aligned")
+        _check_block(name, k, scales.shape[-1])
+        xs.append(x if x.stride(-1) == 1 else x.contiguous())
+        st = xs[-1].stride()
+        # element strides of (l, n, h); a dimension of size 1 is never stepped
+        strides += (st[0] if L > 1 else 0, st[-3] if N > 1 else 0, st[-2] if H > 1 else 0)
+    if L * N * H == 0:
         return
+    ptrs = [x.data_ptr() for x in xs]
+    es = x0.element_size()
+    vec = not any(p % 16 for p in ptrs) and not any(st * es % 16 for st in strides)
     pid = off = None
     if page_ids is not None:
-        pid, off = page_ids.to(torch.int32).contiguous(), offsets.to(torch.int32).contiguous()
-        if pid.device != x.device or off.device != x.device or pid.shape != off.shape:
-            raise ValueError(f"{name}: page ids and offsets must be [N] tensors on {x.device}")
-    status = _entries()[0](x.data_ptr(), int(x.dtype == torch.bfloat16), rows, k,
-                           None if pid is None else pid.data_ptr(),
-                           None if off is None else off.data_ptr(), n, h, n_pages, ps,
-                           codes.data_ptr(), scales.data_ptr(),
-                           torch.cuda.current_stream(x.device).cuda_stream)
+        pid, off = _as_i32(page_ids), _as_i32(offsets)
+        if pid.device != x0.device or off.device != x0.device or pid.numel() != N \
+                or off.numel() != N:
+            raise ValueError(f"{name}: page ids and offsets must be [N] tensors on {x0.device}")
+    status = _entries()[0](
+        len(ptrs), _PTRS(*ptrs), _STRIDES(*strides), int(x0.dtype == torch.bfloat16), int(vec),
+        L, N, H, k, None if pid is None else pid.data_ptr(),
+        None if off is None else off.data_ptr(), n_pages, ps,
+        _PTRS(*(c.data_ptr() for _, c, _ in sources)),
+        _PTRS(*(s.data_ptr() for _, _, s in sources)),
+        torch.cuda.current_stream(x0.device).cuda_stream)
     _build.check(status, name)
     kv_quant_pack.launches += 1
 
@@ -143,11 +177,35 @@ def kv_quant_pack(x: torch.Tensor, block: int = GROUP):
     m, k = x.shape
     codes = torch.empty((m, k // 2), dtype=torch.uint8, device=x.device)
     scales = torch.empty((m, k // GROUP), dtype=torch.uint8, device=x.device)
-    _launch_quant("kv_quant_pack", x, None, None, m, 1, 0, 0, codes, scales)
+    _launch_quant("kv_quant_pack", [(x[:, None], codes, scales)], (1, m, 1), None, None, 0, 0)
     return codes, scales
 
 
 kv_quant_pack.launches = 0
+
+
+def _scatter(name: str, leaves, page_ids: torch.Tensor, offsets: torch.Tensor) -> None:
+    """Quantize each (codes, scales, x) of ``leaves`` into its pool leaves, in
+    place; on the card all of them in one launch."""
+    shape = leaves[0][0].shape
+    one_layer = len(shape) == 4
+    L, n_pages, ps, H, kh = (1, *shape) if one_layer else shape
+    n = page_ids.numel()
+    want = (n, H, 2 * kh) if one_layer else (L, n, H, 2 * kh)
+    for codes, scales, x in leaves:
+        if codes.shape != shape or scales.shape[:-1] != shape[:-1] or x.shape != want:
+            raise ValueError(f"{name}: x {tuple(x.shape)} does not fit the pool leaves "
+                             f"{tuple(codes.shape)} / {tuple(scales.shape)} with {n} page ids")
+    if not _device(name, leaves[0][2]):
+        pid, off = page_ids.reshape(-1).long(), offsets.reshape(-1).long()
+        idx = (pid, off) if one_layer else (slice(None), pid, off)
+        for codes, scales, x in leaves:
+            c, s = kv_quant_pack_plain(x.reshape(-1, 2 * kh), 2 * kh // scales.shape[-1])
+            codes[idx] = c.reshape(*want[:-1], -1)
+            scales[idx] = s.reshape(*want[:-1], -1)
+        return
+    _launch_quant(name, [(x, c, s) for c, s, x in leaves], (L, n, H), page_ids, offsets,
+                  n_pages, ps)
 
 
 def kv_quant_scatter(pool_codes: torch.Tensor, pool_scales: torch.Tensor,
@@ -157,27 +215,24 @@ def kv_quant_scatter(pool_codes: torch.Tensor, pool_scales: torch.Tensor,
 
     One layer: leaves [n_pages, ps, H, K/2] and [n_pages, ps, H, K/block],
     x [N, H, K].  All layers: leaves with a leading [L] axis and x
-    [L, N, H, K].  page_ids/offsets [N].  Duplicate (page, offset) pairs
-    resolve arbitrarily (only the scratch page takes them)."""
-    one_layer = pool_codes.dim() == 4
-    pc = pool_codes.unsqueeze(0) if one_layer else pool_codes
-    ps_ = pool_scales.unsqueeze(0) if one_layer else pool_scales
-    xs = x.unsqueeze(0) if one_layer else x
-    L, n_pages, ps, H, kh = pc.shape
-    n, k = page_ids.numel(), 2 * kh
-    if xs.shape != (L, n, H, k) or ps_.shape[:4] != (L, n_pages, ps, H):
-        raise ValueError(f"kv_quant_scatter: x {tuple(x.shape)} does not fit the pool leaves "
-                         f"{tuple(pool_codes.shape)} / {tuple(pool_scales.shape)} with "
-                         f"{n} page ids")
-    if not _device("kv_quant_scatter", x):
-        block = k // ps_.shape[-1]
-        codes, scales = kv_quant_pack_plain(xs.reshape(-1, k), block)
-        pid, off = page_ids.reshape(-1).long(), offsets.reshape(-1).long()
-        pc[:, pid, off] = codes.reshape(L, n, H, kh)
-        ps_[:, pid, off] = scales.reshape(L, n, H, -1)
-        return
-    _launch_quant("kv_quant_scatter", xs, page_ids.reshape(-1), offsets.reshape(-1), n, H,
-                  n_pages, ps, pc, ps_)
+    [L, N, H, K].  page_ids/offsets [N].  ``x`` may be any strided view.
+    Duplicate (page, offset) pairs resolve arbitrarily (only the scratch
+    page takes them).
+
+    The package's KV writes all take :func:`kv_quant_scatter_kv` (K and V
+    in one launch); this one-leaf form is what the tests and
+    ``chip_smoke.py`` hold that form against, one call per leaf."""
+    _scatter("kv_quant_scatter", [(pool_codes, pool_scales, x)], page_ids, offsets)
+
+
+def kv_quant_scatter_kv(k_codes: torch.Tensor, k_scales: torch.Tensor, v_codes: torch.Tensor,
+                        v_scales: torch.Tensor, page_ids: torch.Tensor, offsets: torch.Tensor,
+                        k: torch.Tensor, v: torch.Tensor) -> None:
+    """:func:`kv_quant_scatter` of ``k`` into the K leaves and of ``v`` into
+    the V leaves (both one layer's, or both all layers'), in one launch on
+    the card."""
+    _scatter("kv_quant_scatter_kv", [(k_codes, k_scales, k), (v_codes, v_scales, v)],
+             page_ids, offsets)
 
 
 def _launch_dequant(name, codes, scales, tables, n_out_chunks, chunk, n_tbl, n_pages, dtype,

@@ -4,10 +4,10 @@ Port of ``repro.kernels.ops``.  The Quartet forward runs
 ``hadamard_quest_quantize`` then ``mxfp4_matmul``; its backward runs
 ``sr_hadamard_quantize`` on four operands then ``mxfp4_matmul`` for dx and
 dW; serving attends with ``paged_attention``, writes the packed KV pool
-with ``kv_quant_pack`` (fused into the scatter) and, on the gather backend,
-reads it with ``kv_dequant_unpack`` (fused into the gather); a model built
-with ``attn_backend="flash"`` attends with ``flash_attention`` in its
-cache-free forward.  Device dispatch lives in each
+with ``kv_quant_pack`` (fused into the scatter, K and V in one launch)
+and, on the gather backend, reads it with ``kv_dequant_unpack`` (fused into
+the gather); a model built with ``attn_backend="flash"`` attends with
+``flash_attention`` in its cache-free forward.  Device dispatch lives in each
 kernel wrapper: a CPU tensor runs the plain PyTorch version, a CUDA tensor
 launches the hand-written kernel (or raises).  Each wrapper counts its own
 launches in ``<wrapper>.launches``; :func:`launch_counts` reads them so a
@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kv_pack as _kv
+from repro_torch.kernels.kv_pack import kv_quant_scatter_kv  # noqa: F401  (re-export)
 from repro_torch.kernels.hadamard_quant import hadamard_quest_quantize as _hq_fn
 from repro_torch.kernels.mxfp4_matmul import mxfp4_matmul as _mm_fn
 from repro_torch.kernels.paged_attention import paged_attention
@@ -42,17 +43,22 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+# the kernels with a vector body (a thread per 32-group, 16-byte accesses)
+# beside their tile body
+VECTOR_KERNELS = {"hadamard_quest_quantize": _hq_fn, "sr_hadamard_quantize": _sr_fn}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-    _hq_fn.vector_launches = 0
+    for fn in VECTOR_KERNELS.values():
+        fn.vector_launches = 0
 
 
-def vector_launches() -> int:
-    """Launches of B1's vector body (16-byte accesses) since the last reset;
-    the rest of ``launch_counts()["hadamard_quest_quantize"]`` took its tile
-    body."""
-    return _hq_fn.vector_launches
+def vector_launches() -> dict[str, int]:
+    """Launches of B1's and B2's vector bodies since the last reset; the rest
+    of each kernel's ``launch_counts()`` took its tile body."""
+    return {name: fn.vector_launches for name, fn in VECTOR_KERNELS.items()}
 
 
 def hadamard_quest_quantize(x: torch.Tensor, group: int = GROUP):

@@ -11,9 +11,9 @@ On a CUDA tensor :func:`paged_attention` launches
 body on the tensor cores, each slot's pages split across CTAs as
 :func:`split_plan` says; f32 queries: the FMA body); on a CPU tensor it runs
 :func:`paged_attention_plain`.  Quantize-on-write (:func:`scatter_token`)
-goes through ``kernels.kv_pack.kv_quant_scatter`` (B4a fused with the page
-scatter: one launch for K and one for V); the reference quantizes there
-with ``kv_quantize``, which computes the same bits.
+goes through ``kernels.kv_pack.kv_quant_scatter_kv`` (B4a fused with the
+page scatter: one launch for K and V); the reference quantizes there with
+``kv_quantize``, which computes the same bits.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.kv_pack import kv_quant_scatter, unpack_dequant
+from repro_torch.kernels.kv_pack import kv_quant_scatter_kv, unpack_dequant
 
 GROUP = 32
 NEG_INF = -1e30
@@ -52,7 +52,7 @@ def scatter_token(pool: dict, page_ids: torch.Tensor, offsets: torch.Tensor,
 
     ``page_ids``/``offsets`` share a leading shape ``[...]``; ``k_new`` /
     ``v_new`` are ``[..., Hkv, hd]``.  Quantize-on-write in packed mode,
-    fused with the scatter (two launches of B4a: K, then V).  Duplicate
+    fused with the scatter (one launch of B4a for K and V).  Duplicate
     (page, offset) pairs — masked lanes redirected to scratch page 0 —
     resolve arbitrarily; scratch contents are never read."""
     page_ids, offsets = page_ids.reshape(-1), offsets.reshape(-1)
@@ -64,8 +64,8 @@ def scatter_token(pool: dict, page_ids: torch.Tensor, offsets: torch.Tensor,
         pool["k"].index_put_(idx, k_new.to(pool["k"].dtype))
         pool["v"].index_put_(idx, v_new.to(pool["v"].dtype))
         return pool
-    kv_quant_scatter(pool["k_codes"], pool["k_scales"], page_ids, offsets, k_new)
-    kv_quant_scatter(pool["v_codes"], pool["v_scales"], page_ids, offsets, v_new)
+    kv_quant_scatter_kv(pool["k_codes"], pool["k_scales"], pool["v_codes"], pool["v_scales"],
+                        page_ids, offsets, k_new, v_new)
     return pool
 
 

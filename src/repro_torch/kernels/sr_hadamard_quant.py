@@ -3,10 +3,15 @@
 Port of ``repro.kernels.sr_hadamard_quant``: per 32-group of a row,
 xh = ¾·(x ⊙ ξ)·H₃₂, scale = E8M0-ceil(absmax(xh)/6), codes = int8(2·SR(xh /
 scale)) with unbiased stochastic rounding onto the E2M1 grid.  On a CUDA
-tensor the wrapper launches ``csrc/sr_hadamard_quant.cu``; on a CPU tensor
+tensor the wrapper launches ``csrc/sr_hadamard_quant.cu`` — its vector body
+(one thread per whole 32-group, 16-byte loads and stores) when
+:func:`~repro_torch.kernels.hadamard_quant.vector_ok` holds, as it does for
+all four operands of the training path, else its tile body; on a CPU tensor
 it runs :func:`sr_hadamard_quantize_plain`, which performs the kernel's
 arithmetic in the kernel's order (butterfly Hadamard, bit-derived
-exponents), so the two agree bit for bit on the card.
+exponents), so the two agree bit for bit on the card.  The kernel divides
+only once a group (absmax / 6); its divisions by powers of two are
+multiplies by exact reciprocals, which give the plain version's bits.
 
 The uniforms are not an operand, as they are in the reference's kernel: the
 kernel hashes (seed, salt, row · K + col) in registers with
@@ -25,7 +30,7 @@ import torch
 from repro_torch.core import fastrng
 from repro_torch.core import formats as F
 from repro_torch.kernels import _build
-from repro_torch.kernels.hadamard_quant import _H_SCALE, _butterfly32
+from repro_torch.kernels.hadamard_quant import _H_SCALE, _butterfly32, vector_ok
 
 GROUP = 32
 _E2M1_MAX = 6.0
@@ -74,7 +79,7 @@ def _entry():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_uint32,
                    ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -83,7 +88,9 @@ def sr_hadamard_quantize(x: torch.Tensor, signs: torch.Tensor, seed: int,
                          prescale: float = 0.75, salt: int = 0):
     """x [M, K] (any strides; f32 or bf16), signs [K] → (codes int8 [M, K],
     scales f32 [M, K/32], both contiguous).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel; anything else raises."""
+    version; CUDA tensors launch the kernel (``.launches`` counts every
+    launch, ``.vector_launches`` those of the vector body); anything else
+    raises."""
     if x.device.type == "cpu":
         return sr_hadamard_quantize_plain(x, signs, seed, prescale, salt)
     if x.device.type != "cuda":
@@ -96,15 +103,20 @@ def sr_hadamard_quantize(x: torch.Tensor, signs: torch.Tensor, seed: int,
         raise ValueError(f"sr_hadamard_quantize: bad shapes x {tuple(x.shape)}, "
                          f"signs {tuple(signs.shape)}")
     signs = signs.to(device=x.device, dtype=torch.float32).contiguous()
+    if signs.data_ptr() % 16:  # the vector body reads the signs 16 bytes at a time
+        signs = signs.clone()
     codes = torch.empty((m, k), dtype=torch.int8, device=x.device)
     scales = torch.empty((m, k // GROUP), dtype=torch.float32, device=x.device)
+    vector = vector_ok(x)
     status = _entry()(x.data_ptr(), int(x.dtype == torch.bfloat16), m, k, x.stride(0),
                       x.stride(1), signs.data_ptr(), seed & 0xFFFFFFFF, salt & 0xFFFFFFFF,
-                      prescale, codes.data_ptr(), scales.data_ptr(),
+                      prescale, codes.data_ptr(), scales.data_ptr(), int(vector),
                       torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "sr_hadamard_quantize")
     sr_hadamard_quantize.launches += 1
+    sr_hadamard_quantize.vector_launches += vector
     return codes, scales
 
 
 sr_hadamard_quantize.launches = 0
+sr_hadamard_quantize.vector_launches = 0

@@ -28,7 +28,7 @@ from repro_torch.kernels.kv_pack import (
     kv_dequant_unpack,
     kv_gather_dequant,
     kv_quant_pack,
-    kv_quant_scatter,
+    kv_quant_scatter_kv,
 )
 from repro_torch.kernels.paged_attention import (  # noqa: F401  (re-exports)
     PagedKV,
@@ -79,16 +79,16 @@ def scatter_tokens(pool: dict, page_ids: torch.Tensor, offsets: torch.Tensor,
     """Write one token per (page, offset) pair into every layer of the pool,
     in place.  page_ids/offsets [N]; k_new/v_new [L, N, Hkv, hd].
     Quantize-on-write in packed mode (B4a fused with the scatter, one
-    launch each for K and V).  Duplicate pairs (masked lanes redirected to
-    the scratch page) resolve arbitrarily; scratch contents are never
-    read."""
+    launch for K and V, strided views read in place).  Duplicate pairs
+    (masked lanes redirected to the scratch page) resolve arbitrarily;
+    scratch contents are never read."""
     if "k" in pool:
         pid, off = page_ids.long(), offsets.long()
         pool["k"][:, pid, off] = k_new.to(pool["k"].dtype)
         pool["v"][:, pid, off] = v_new.to(pool["v"].dtype)
         return pool
-    kv_quant_scatter(pool["k_codes"], pool["k_scales"], page_ids, offsets, k_new)
-    kv_quant_scatter(pool["v_codes"], pool["v_scales"], page_ids, offsets, v_new)
+    kv_quant_scatter_kv(pool["k_codes"], pool["k_scales"], pool["v_codes"], pool["v_scales"],
+                        page_ids, offsets, k_new, v_new)
     return pool
 
 

@@ -767,8 +767,12 @@ def test_wrappers_take_plain_only_on_cpu_and_count_only_launches():
                                                                         salt=1)[0])
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
     ops.kv_dequant_unpack(*ops.kv_quant_pack(x))
+    leaves = [torch.zeros((3, 2, 1, w), dtype=torch.uint8) for w in (32, 2, 32, 2)]
+    ops.kv_quant_scatter_kv(*leaves, torch.tensor([1, 2]), torch.tensor([0, 1]),
+                            x[:2, None], x[2:4, None])
     ops.mha_flash(x.reshape(1, 8, 2, 32), x.reshape(1, 8, 2, 32), x.reshape(1, 8, 2, 32))
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+    assert ops.vector_launches() == {"hadamard_quest_quantize": 0, "sr_hadamard_quantize": 0}
     assert set(ops.KERNELS) == {"hadamard_quest_quantize", "sr_hadamard_quantize",
                                 "mxfp4_matmul", "paged_attention", "kv_quant_pack",
                                 "kv_dequant_unpack", "flash_attention"}
@@ -780,6 +784,9 @@ def test_wrappers_take_plain_only_on_cpu_and_count_only_launches():
                                          meta[:, :2].t()),
                  lambda: KV.kv_quant_pack(meta),
                  lambda: KV.kv_dequant_unpack(u8[:, :32], u8[:, :2]),
+                 lambda: ops.kv_quant_scatter_kv(*(u8[:, None, None, :w] for w in (32, 2, 32, 2)),
+                                                 u8[:1, 0], u8[:1, 0], meta[:1, None],
+                                                 meta[:1, None]),
                  lambda: FA.mha_flash(meta.reshape(1, 8, 2, 32), meta.reshape(1, 8, 2, 32),
                                       meta.reshape(1, 8, 2, 32))):
         with pytest.raises(RuntimeError, match="unsupported device"):
