@@ -5,7 +5,8 @@
 1. Prints the card's name and power limit, then builds every kernel of the
    serving, training and evaluation paths from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together: 6 libraries, 7 kernels), and
-   prints each entry's registers, shared memory and spills (-Xptxas -v).
+   prints each entry's registers, shared memory and spills (-Xptxas -v);
+   B4b's body must use no stack and spill nothing.
 2. Checks each kernel against its plain PyTorch version on the card at the
    full-width qwen3-1.7b shapes of the serving path and the full-width
    llama-paper-200m shapes of a training step (16 x 512 tokens): B1 (QuEST
@@ -14,11 +15,12 @@
    over CTAs (lengths 1, 16, 32, a full table, a page of E8M0 scale codes
    1 and 2); B4a
    (KV quantize-pack and its pool scatter, K and V in one launch, strided
-   inputs) and B4b (unpack-dequantize and its page gather) bit for bit,
-   with an E8M0 edge sweep; B2 (SR-Hadamard quantize) bit for bit at the
-   four backward operands of the up and down projections as the training
-   path lays them out; B3 (MXFP4 GEMM)
-   bit for bit at ragged M and N and at E8M0-edge scales; B6 (flash
+   inputs) bit for bit, with an E8M0 edge sweep; B4b (unpack-dequantize
+   and its page gather, K and V in one launch) bit for bit over every
+   (byte, scale code) pair and over ragged page tables; B2 (SR-Hadamard
+   quantize) bit for bit at the four backward operands of the up and down
+   projections as the training path lays them out; B3 (MXFP4 GEMM) bit for
+   bit at ragged M and N and at E8M0-edge scales; B6 (flash
    attention) at the evaluation shape, qwen3-1.7b's GQA at 4096, a ragged
    f32 case and a ragged hd-64 bf16 case, with SDPA as a second reading;
    and one full-width ``quartet_linear`` backward on the kernels against
@@ -151,6 +153,26 @@ def sass_counts(path: str, key: str) -> dict[str, int]:
         elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
             counts[name] += 1
     return counts
+
+
+def entry_resources(report: str, key: str) -> dict[str, dict[str, int]]:
+    """Registers, stack frame and spill bytes of each entry whose (mangled)
+    name contains ``key``, from an ``-Xptxas -v`` report."""
+    import re
+
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if key in m.group(1) else None
+            if name:
+                out[name] = {}
+        elif name and "stack frame" in line:
+            st, ss, sl = (int(x) for x in re.findall(r"(\d+) bytes", line)[:3])
+            out[name].update(stack=st, spill_stores=ss, spill_loads=sl)
+        elif name and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -483,6 +505,22 @@ def kv_edge_rows(np):
     return x
 
 
+def every_pair(torch, shape_codes, shape_scales, shift, device):
+    """B4b operands holding every (byte, scale code) pair once in every 4096
+    consecutive groups of 16 code bytes: byte f of the flat codes is (f +
+    16·shift) mod 256, group g's scale code (g // 16 + shift) mod 256 (0 and
+    255, the zero and infinite scales, included)."""
+    nc, ns = math.prod(shape_codes), math.prod(shape_scales)
+    codes = ((torch.arange(nc, device=device) + 16 * shift) % 256).to(torch.uint8)
+    scales = ((torch.arange(ns, device=device) // 16 + shift) % 256).to(torch.uint8)
+    return codes.reshape(shape_codes), scales.reshape(shape_scales)
+
+
+def bit_pattern(torch, x):
+    """x's bits as integers of its width (``torch.equal`` is false on NaN)."""
+    return x.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}[x.dtype])
+
+
 def plain_quant_scatter(torch, codes, scales, page_ids, offsets, x):
     """B4a's scatter form from its plain version: quantize the rows, then
     write them with PyTorch indexing (leaves with a leading [L] axis)."""
@@ -526,6 +564,59 @@ def flash_shapes(cfg, tcfg):
             ("f32_1000", 2, 1000, 1000, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, False,
              "float32"),
             ("hd64_700x1000", 2, 700, 1000, 4, 2, 64, False, "bfloat16")]
+
+
+def check_gather_dequant(torch, cfg, gen, device="cuda"):
+    """B4b against its plain version, bit-exact in f32 and bf16 (compared
+    by bit pattern: NaN included); raises on a mismatch.  The gather of a
+    full-width decode tick (28 layers, 8 slots x 40 pages of 16), K's leaves
+    holding every (byte, scale code) pair, V's random bytes at the scale
+    codes of real data; the one-launch K+V form against the one-leaf form and
+    the plain version, also over ragged tables (the scratch page 0, a page
+    read twice, P = 1); the 2-d form over every pair, with a short last
+    chunk, with rows longer than a tile, and over a whole pool's rows."""
+    from repro_torch.kernels import kv_pack as KV
+
+    Hkv, hd, L = cfg.num_kv_heads, cfg.head_dim_, cfg.num_layers
+    n_pages = 1 + N_SLOTS * (MAX_LEN // PAGE_SIZE)
+    leaves = list(every_pair(torch, (L, n_pages, PAGE_SIZE, Hkv, hd // 2),
+                             (L, n_pages, PAGE_SIZE, Hkv, hd // 32), 0, device))
+    leaves.append(torch.randint(0, 256, (L, n_pages, PAGE_SIZE, Hkv, hd // 2), generator=gen,
+                                device=device, dtype=torch.uint8))
+    leaves.append(torch.randint(100, 155, (L, n_pages, PAGE_SIZE, Hkv, hd // 32), generator=gen,
+                                device=device, dtype=torch.uint8))
+    tick = (1 + torch.randperm(n_pages - 1, generator=gen, device=device)
+            ).to(torch.int32).reshape(N_SLOTS, -1)
+    ragged = torch.tensor([[7, 1, 0, 0, 0], [n_pages - 1, 3, 3, 9, 0], [2, 0, 0, 0, 0]],
+                          dtype=torch.int32, device=device)
+    for tables in (tick, ragged, ragged[:, :1].contiguous()):
+        idx = tables.long()
+        for dt in (torch.float32, torch.bfloat16):
+            before = KV.kv_dequant_unpack.launches
+            got = KV.kv_gather_dequant_kv(*leaves, tables, dt)
+            if KV.kv_dequant_unpack.launches - before != 1:
+                raise AssertionError("kv_gather_dequant_kv: not one launch for K and V")
+            for name, g, (c, sc) in (("K", got[0], leaves[:2]), ("V", got[1], leaves[2:])):
+                want = KV.kv_dequant_unpack_plain(c[:, idx], sc[:, idx], dt).reshape(g.shape)
+                one = KV.kv_gather_dequant(c, sc, tables, dt)
+                for what, x in (("kv_gather_dequant_kv", g), ("kv_gather_dequant", one)):
+                    if not torch.equal(bit_pattern(torch, x), bit_pattern(torch, want)):
+                        raise AssertionError(
+                            f"{what} {name} {dt} tables {tuple(tables.shape)}: differ at "
+                            f"{int((bit_pattern(torch, x) != bit_pattern(torch, want)).sum())} "
+                            f"places")
+                del want, one
+            del got
+    del leaves
+    for m, kh in ((4096, 256), (1000, 48), (5, 2 * KV.TILE + 64),
+                  (L * n_pages * PAGE_SIZE * Hkv, hd // 2)):
+        flat_c, flat_s = every_pair(torch, (m, kh), (m, kh // 16), 5, device)
+        for dt in (torch.float32, torch.bfloat16):
+            got = KV.kv_dequant_unpack(flat_c, flat_s, dt)
+            want = KV.kv_dequant_unpack_plain(flat_c, flat_s, dt)
+            if not torch.equal(bit_pattern(torch, got), bit_pattern(torch, want)):
+                raise AssertionError(f"kv_dequant_unpack [{m}, {kh}] {dt}: differs from its "
+                                     f"plain version")
 
 
 def check_kv_and_flash(torch, cfg, tcfg, device="cuda"):
@@ -589,26 +680,7 @@ def check_kv_and_flash(torch, cfg, tcfg, device="cuda"):
                                      f"{what} differ at {int((g != w_).sum())} places")
     err["kv_quant_pack"] = 0.0
 
-    # B4b, bit-exact in f32 and bf16: the gather of a full-width decode tick
-    # (28 layers, 8 slots x 40 pages of 16) and the 2-d form
-    codes = torch.randint(0, 256, (L, n_pages, PAGE_SIZE, Hkv, hd // 2), generator=gen,
-                          device=device, dtype=torch.uint8)
-    scales = torch.randint(100, 155, (L, n_pages, PAGE_SIZE, Hkv, hd // 32), generator=gen,
-                           device=device, dtype=torch.uint8)
-    tables = (1 + torch.randperm(n_pages - 1, generator=gen, device=device)
-              ).to(torch.int32).reshape(N_SLOTS, -1)
-    for dt in (torch.float32, torch.bfloat16):
-        got = KV.kv_gather_dequant(codes, scales, tables, dt)
-        want = KV.kv_dequant_unpack_plain(codes[:, tables.long()], scales[:, tables.long()],
-                                          dt).reshape(got.shape)
-        if not torch.equal(got, want):
-            raise AssertionError(f"kv_gather_dequant {dt}: differ at "
-                                 f"{int((got != want).sum())} places")
-        flat_c, flat_s = codes[0].reshape(-1, hd // 2), scales[0].reshape(-1, hd // 32)
-        if not torch.equal(KV.kv_dequant_unpack(flat_c, flat_s, dt),
-                           KV.kv_dequant_unpack_plain(flat_c, flat_s, dt)):
-            raise AssertionError(f"kv_dequant_unpack {dt}: differs from its plain version")
-        del got, want
+    check_gather_dequant(torch, cfg, gen, device)
     err["kv_dequant_unpack"] = 0.0
 
     # B6: f32 to atol 2e-5 (another summation order and expf); bf16 to one
@@ -787,10 +859,11 @@ def serve_full_width(torch, ops, device="cuda"):
         raise AssertionError(f"gather step calls {gcalls} != predicted "
                              f"{{'prefill_chunk': {n_pre}, 'decode_all': {n_dec}}}")
     # per forward: 14 B1 and 7 B3 per layer as above; per step call one
-    # gather (2 B4b, all layers) and one scatter (1 B4a, all layers, K and V)
+    # gather (1 B4b, all layers, K and V) and one scatter (1 B4a, all
+    # layers, K and V)
     n = n_pre + n_dec
     gpredicted = {"hadamard_quest_quantize": 14 * L * n, "mxfp4_matmul": 7 * L * n,
-                  "kv_quant_pack": n, "kv_dequant_unpack": 2 * n}
+                  "kv_quant_pack": n, "kv_dequant_unpack": n}
     gpredicted = {k: gpredicted.get(k, 0) for k in gcounts}
     if gcounts != gpredicted:
         raise AssertionError(f"gather run launches {gcounts} != predicted {gpredicted}")
@@ -986,12 +1059,14 @@ def time_kernels(torch, cfg, timer, device="cuda"):
 def time_kv_and_flash(torch, cfg, tcfg, timer, device="cuda"):
     """B4a over one layer's KV write (``scatter_token``: K and V) of a decode
     tick (8 tokens) and a prefill tick (8 x 64 tokens); B4b over one decode
-    tick's gather (K and V, 28 layers, 8 slots x 640 positions, bf16 out); B6
+    tick's gather (``gather_pages``: K and V, 28 layers, 8 slots x 640
+    positions, bf16 out); B6
     at the evaluation shape and at qwen3-1.7b's GQA at 4096.  Each beside its
     plain version, its least time on the H100 and, for B6, one SDPA call."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import kv_pack as KV
     from repro_torch.kernels.paged_attention import scatter_token
+    from repro_torch.serve.paged_cache import gather_pages
 
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     Hkv, hd, L = cfg.num_kv_heads, cfg.head_dim_, cfg.num_layers
@@ -1025,23 +1100,30 @@ def time_kv_and_flash(torch, cfg, tcfg, timer, device="cuda"):
             launches_per_layer=per_write)
     del pool
 
-    pool = [torch.randint(0, 256, (L, n_pages, PAGE_SIZE, Hkv, w), generator=gen,
-                          device=device, dtype=torch.uint8) for w in (hd // 2, hd // 32)]
-    pool[1].clamp_(100, 154)
+    # B4b through the gather backend's entry point (gather_pages: K and V)
+    pool = {n: torch.randint(0, 256, (L, n_pages, PAGE_SIZE, Hkv, w), generator=gen,
+                             device=device, dtype=torch.uint8)
+            for n, w in (("k_codes", hd // 2), ("k_scales", hd // 32), ("v_codes", hd // 2),
+                         ("v_scales", hd // 32))}
+    pool["k_scales"].clamp_(100, 154)
+    pool["v_scales"].clamp_(100, 154)
     tables = (1 + torch.arange(n_pages - 1, device=device, dtype=torch.int32)
               ).reshape(N_SLOTS, -1)
     n_el = L * tables.numel() * PAGE_SIZE * Hkv * hd
     # per K and V: 0.5 + 1/32 B read and 2 B (bf16) written per element
-    nbytes = 2 * n_el * (0.5 + 1 / 32 + 2) + 2 * 4 * tables.numel()
+    nbytes = 2 * n_el * (0.5 + 1 / 32 + 2) + 4 * tables.numel()
     idx = tables.long()
+    before = KV.kv_dequant_unpack.launches
+    gather_pages(pool, tables, torch.bfloat16)
+    per_tick = KV.kv_dequant_unpack.launches - before
     rec[("kv_dequant_unpack", "gather")] = dict(
-        ms=timer(lambda: [KV.kv_gather_dequant(*pool, tables, torch.bfloat16) for _ in range(2)]),
-        device_ms=timer.device(lambda: [KV.kv_gather_dequant(*pool, tables, torch.bfloat16)
-                                        for _ in range(2)]),
-        plain_ms=timer(lambda: [KV.kv_dequant_unpack_plain(pool[0][:, idx], pool[1][:, idx],
-                                                           torch.bfloat16) for _ in range(2)]),
+        ms=timer(lambda: gather_pages(pool, tables, torch.bfloat16)),
+        device_ms=timer.device(lambda: gather_pages(pool, tables, torch.bfloat16)),
+        plain_ms=timer(lambda: [KV.kv_dequant_unpack_plain(pool[c][:, idx], pool[sc][:, idx],
+                                                           torch.bfloat16)
+                                for c, sc in (("k_codes", "k_scales"), ("v_codes", "v_scales"))]),
         bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
-        launches_per_tick=2)
+        launches_per_tick=per_tick)
     del pool
 
     for name, B, S, T, hq, hkv, d, causal, dtn in flash_shapes(cfg, tcfg)[:2]:
@@ -1581,6 +1663,13 @@ def main() -> int:
         for line in rep.splitlines():  # -Xptxas -v: each entry, its registers and spills
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    # B4b's body (a CTA per page, 16-byte stores): no stack, no spills
+    deq = entry_resources(reports.get("kv_pack", ""), "kv_dequant")
+    log(f"[build] kv_dequant bodies (registers, stack and spill bytes): "
+        f"{json.dumps(deq) if deq else 'not built in this run'}")
+    if "kernels" in phases and any(r.get("stack", 0) or r.get("spill_stores", 0)
+                                   or r.get("spill_loads", 0) for r in deq.values()):
+        raise AssertionError(f"kv_dequant bodies use a stack or spill: {deq}")
     # B2's vector bodies hold one 32-group a thread in straight-line code:
     # their static SASS count over 32 reads the instructions an element
     sass = sass_counts(str(_build.library_path("sr_hadamard_quant")), "sr_hadamard_")

@@ -10,8 +10,10 @@
 // RTN_E2M1(clip(x·2^-e, ±6)) with ties to even; the 4-bit code S|EE|M, two
 // per byte with the even element in the high nibble; the scale byte e + 127.
 // Dequantize: |v| = 2^((i-2)>>1)·(1 + (i&1)/2) for i >= 2, i/2 below, the
-// sign from bit 3, times 2^(code-127); written as f32 or bf16 (exact: the
-// value has at most 2 significant bits and f32's exponent range).
+// sign from bit 3, times 2^(code-127) built from the bits (code 0 gives 0,
+// code 255 +inf); one f32 multiply, as the plain version does, then f32 or
+// one rounding to bf16 (exact: the value has at most 2 significant bits and
+// f32's exponent range, subnormals kept).
 //
 // Bound on H100: bytes.  Quantize reads 2 or 4 B per element and writes
 // 0.5 + 1/32 B; dequantize reads 0.5 + 1/32 B and writes 2 or 4 B; a few
@@ -19,7 +21,10 @@
 // layer's K and V rows of one decode or prefill tick: 32 KB to 2 MB of bf16
 // input) a launch takes far longer than its bytes, so the KV write of a
 // layer is one launch: one grid over both sources (K and V), the source
-// picked by blockIdx.y.
+// picked by blockIdx.y.  The gather of a decode tick (all layers' pages of
+// every slot, K and V: 0.59 GB of bf16 at qwen3-1.7b) is bound by its
+// stores, so it too is one launch over both sources, and its stores are
+// whole 16-byte vectors, consecutive across a warp.
 //
 // Design.  Quantize: one thread owns a whole 32-group in registers — four
 // (bf16) or eight (f32) 16-byte loads (group_quant.cuh's load_group, shared
@@ -35,13 +40,24 @@
 // ((l·n_pages + page[n])·ps + offset[n])·H + h of the pool leaf, in place.
 // Inputs that 16-byte loads cannot read take the same body with scalar
 // loads.
-// Dequantize: one thread per packed byte (two outputs); the output is cut
-// into equal chunks (a page of one layer when gathering) and chunk c reads
-// the source chunk (c / (B·P))·n_pages + tables[c % (B·P)].
+// Dequantize: the output is cut into equal chunks (a page of one layer of
+// one slot when gathering: ps·H·K/2 code bytes, 8192 at qwen3-1.7b; whole
+// rows of at most kTile bytes in the 2-d form) and a CTA takes one tile of
+// at most kTile code bytes of one chunk, of source blockIdx.y.  It finds
+// its source chunk once, (c / (B·P))·n_pages + tables[c % (B·P)] (the one
+// runtime division, and the one 64-bit offset, of the CTA), stages the
+// tile's scale bytes and the 16 signed E2M1 values in shared memory, and
+// then each thread takes 16 bytes of output at a time (4 code bytes for
+// bf16, 2 for f32): one 4- or 2-byte load, one scale byte, an f32 multiply
+// an element, one 16-byte store; consecutive threads on consecutive
+// vectors, so a warp's stores cover 512 contiguous bytes.  Index math inside
+// the tile is 32-bit, by compile-time shifts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "group_quant.cuh"
 
@@ -53,8 +69,23 @@ constexpr int kThreads = 256;
 constexpr float kMinScale = 1.17549435082228750797e-38f;  // 2^-126
 constexpr int kSqrt2Mantissa = 0x3504f4;  // mantissa of the smallest f32 above sqrt(2)
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+// 16 bytes of output from 4 f32 values, or from 8 rounded once to bf16
+// (cvt.rn.bf16x2.f32: subnormals kept); the first value at the lowest address
+template <typename T>
+__device__ __forceinline__ uint4 pack16(const float* v) {
+  if constexpr (sizeof(T) == 4) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                      __float_as_uint(v[3]));
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
 
 // The 4-bit code S|EE|M of RTN_E2M1(clip(v, ±6)) (ties to even; a value
 // that rounds to zero has code 0, its sign dropped).  In the binade of pw
@@ -138,20 +169,76 @@ __global__ void __launch_bounds__(kQuantThreads) kv_quant_kernel(
   s.scales[dest * gpr + g] = static_cast<uint8_t>(e + 127);
 }
 
+// One source of a dequantize launch: codes [.., chunk] and scales [..,
+// chunk / 16] in source chunks, out [n_out_chunks · chunk · 2] (f32 or bf16).
+struct DeqSource {
+  const uint8_t* codes;
+  const uint8_t* scales;
+  void* out;
+};
+
+struct DeqSources {
+  DeqSource s[2];
+};
+
+constexpr int kTile = 8192;  // code bytes of a CTA at most: a qwen3-1.7b page of one layer
+constexpr int kDeqUnroll = 4;  // loads in flight a thread before its first store
+
+// CTA (blockIdx.x, blockIdx.y) dequantizes tile blockIdx.x % tiles of output
+// chunk c = blockIdx.x / tiles of source blockIdx.y.  Chunk c reads source
+// chunk (c / n_tbl)·n_pages + tables[c % n_tbl], or c without tables; the
+// output ends after ``total`` code bytes (the 2-d form's last chunk may be
+// short).  A thread's vector: W (u32 for bf16, u16 for f32) of codes -> 16
+// bytes of output.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) kv_dequant_kernel(
-    const uint8_t* __restrict__ codes, const uint8_t* __restrict__ scales,
-    const int* __restrict__ tables, long long total, long long chunk, int n_tbl,
-    long long n_pages, T* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < total;
-       i += stride) {
-    const long long c = i / chunk, j = i % chunk;
-    const long long src = tables != nullptr ? (c / n_tbl) * n_pages + tables[c % n_tbl] : c;
-    const int byte = codes[src * chunk + j];
-    const float sc = __int_as_float(static_cast<int>(scales[src * (chunk / 16) + j / 16]) << 23);
-    store(out + 2 * i, e2m1_value(byte >> 4) * sc);
-    store(out + 2 * i + 1, e2m1_value(byte & 0xf) * sc);
+    const DeqSources src, const int* __restrict__ tables, int n_tbl, long long n_pages,
+    unsigned chunk, unsigned tiles, long long total) {
+  constexpr int kBytes = 8 / sizeof(T);  // code bytes a thread-vector: 4 (bf16) or 2 (f32)
+  using W = typename std::conditional<kBytes == 4, uint32_t, uint16_t>::type;
+  __shared__ float lut[16];
+  __shared__ uint8_t sc[kTile / 16];
+  const DeqSource s = blockIdx.y ? src.s[1] : src.s[0];  // no dynamic index into the params
+  const unsigned c = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const long long out_base = static_cast<long long>(c) * chunk + tile * kTile;
+  const long long left = total - out_base;
+  if (left <= 0) return;  // past the 2-d form's short last chunk: the whole CTA
+  const unsigned n = static_cast<unsigned>(
+      min(static_cast<long long>(min(static_cast<unsigned>(kTile), chunk - tile * kTile)), left));
+  const unsigned nt = static_cast<unsigned>(n_tbl);
+  const long long src_chunk = tables != nullptr ? (c / nt) * n_pages + tables[c % nt]
+                                                : static_cast<long long>(c);
+  const long long in_base = src_chunk * chunk + tile * kTile;
+  const uint8_t* scales = s.scales + in_base / 16;
+  for (unsigned i = threadIdx.x; i < n / 16; i += kThreads) sc[i] = scales[i];
+  if (threadIdx.x < 16) lut[threadIdx.x] = e2m1_value(threadIdx.x);
+  __syncthreads();
+
+  const W* codes = reinterpret_cast<const W*>(s.codes + in_base);
+  uint4* out = reinterpret_cast<uint4*>(static_cast<T*>(s.out) + 2 * out_base);
+  const unsigned items = n / kBytes;
+  for (unsigned base = threadIdx.x; base < items; base += kDeqUnroll * kThreads) {
+    W w[kDeqUnroll];
+#pragma unroll
+    for (int u = 0; u < kDeqUnroll; ++u) {
+      const unsigned i = base + u * kThreads;
+      w[u] = i < items ? __ldg(codes + i) : W(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kDeqUnroll; ++u) {
+      const unsigned i = base + u * kThreads;
+      if (i >= items) break;
+      // the vector's 2·kBytes outputs lie in one 32-group (16 code bytes)
+      const float scale = __int_as_float(static_cast<int>(sc[i * kBytes / 16]) << 23);
+      float v[2 * kBytes];
+#pragma unroll
+      for (int j = 0; j < kBytes; ++j) {  // byte j: high nibble first
+        const unsigned byte = (static_cast<unsigned>(w[u]) >> (8 * j)) & 0xffu;
+        v[2 * j] = lut[byte >> 4] * scale;
+        v[2 * j + 1] = lut[byte & 0xfu] * scale;
+      }
+      out[i] = pack16<T>(v);
+    }
   }
 }
 
@@ -202,27 +289,35 @@ extern "C" int kv_quant_scatter(int n_src, const void* const* x, const long long
                                        ps, s);
 }
 
-// Output [n_out_chunks · chunk · 2] values (f32 or bf16); chunk = packed
-// bytes per chunk (a multiple of 16).  Without tables, chunk c reads source
-// chunk c; with tables int32 [n_tbl] (B·P entries), chunk c reads
-// (c / n_tbl)·n_pages + tables[c % n_tbl] of codes [.., chunk] and scales
-// [.., chunk / 16].
-extern "C" int kv_gather_dequant(const void* codes, const void* scales, const void* tables,
-                                 long long n_out_chunks, long long chunk, int n_tbl,
-                                 long long n_pages, void* out, int out_bf16, void* stream) {
-  const long long total = n_out_chunks * chunk;
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;
-  if (blocks < 1) blocks = 1;
+// n_src (1 or 2) sources in one launch, each out_i [n_out_chunks · chunk ·
+// 2] values (f32 or bf16, 16-byte aligned) from codes_i (4-byte aligned)
+// and scales_i, ending after ``total`` code bytes (<= n_out_chunks ·
+// chunk; chunk and total multiples of 16, chunk < 2^31).  Without tables,
+// chunk c reads source chunk c; with tables int32 [n_tbl] (B·P entries),
+// chunk c reads (c / n_tbl)·n_pages + tables[c % n_tbl] of codes_i [..,
+// chunk] and scales_i [.., chunk / 16].
+extern "C" int kv_gather_dequant(int n_src, const void* const* codes, const void* const* scales,
+                                 void* const* out, const void* tables, long long n_out_chunks,
+                                 long long chunk, long long total, int n_tbl, long long n_pages,
+                                 int out_bf16, void* stream) {
+  if (n_src < 1 || n_src > 2 || chunk <= 0 || chunk % 16 || chunk >= (1LL << 31) || total % 16 ||
+      total > n_out_chunks * chunk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (chunk + kTile - 1) / kTile;
+  if (n_out_chunks * tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  if (total == 0) return 0;
+  DeqSources src = {};
+  for (int i = 0; i < n_src; ++i)
+    src.s[i] = {static_cast<const uint8_t*>(codes[i]), static_cast<const uint8_t*>(scales[i]),
+                out[i]};
+  const dim3 grid(static_cast<unsigned>(n_out_chunks * tiles), static_cast<unsigned>(n_src));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* c = static_cast<const uint8_t*>(codes);
-  const auto* sc = static_cast<const uint8_t*>(scales);
   const auto* t = static_cast<const int*>(tables);
   if (out_bf16)
-    kv_dequant_kernel<__nv_bfloat16><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        c, sc, t, total, chunk, n_tbl, n_pages, static_cast<__nv_bfloat16*>(out));
+    kv_dequant_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        src, t, n_tbl, n_pages, static_cast<unsigned>(chunk), static_cast<unsigned>(tiles), total);
   else
-    kv_dequant_kernel<float><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        c, sc, t, total, chunk, n_tbl, n_pages, static_cast<float*>(out));
+    kv_dequant_kernel<float><<<grid, kThreads, 0, s>>>(
+        src, t, n_tbl, n_pages, static_cast<unsigned>(chunk), static_cast<unsigned>(tiles), total);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,11 +12,13 @@ engine calls two fused forms: :func:`kv_quant_scatter_kv` quantizes a
 write's new K and V rows straight into their (page, offset) slots of the
 pool leaves, both in one launch (:func:`kv_quant_scatter` does the same for
 one leaf pair), reading the rows through their strides; and
-:func:`kv_gather_dequant` reads pages through the page tables into the dense
-``[L, B, T, Hkv, hd]`` view in the compute dtype (bf16 is written directly:
-every dequantized value has at most 2 significant bits, so it equals the f32
-result cast to bf16).  The fused forms count as launches of their kernel:
-``kv_quant_pack.launches`` and ``kv_dequant_unpack.launches``.
+:func:`kv_gather_dequant_kv` reads K's and V's pages through the page tables
+into the dense ``[L, B, T, Hkv, hd]`` views in the compute dtype, both in one
+launch (:func:`kv_gather_dequant` does the same for one leaf pair; bf16 is
+written directly: every dequantized value has at most 2 significant bits, so
+it equals the f32 result cast to bf16).  The fused forms count as launches
+of their kernel: ``kv_quant_pack.launches`` and
+``kv_dequant_unpack.launches``.
 """
 
 from __future__ import annotations
@@ -86,8 +88,8 @@ def _entries():
                       ptrs, ctypes.c_void_p]
     quant.restype = ctypes.c_int
     deq = lib.kv_gather_dequant
-    deq.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                    ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+    deq.argtypes = [ctypes.c_int, ptrs, ptrs, ptrs, ctypes.c_void_p, ctypes.c_longlong,
+                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_int, ctypes.c_void_p]
     deq.restype = ctypes.c_int
     return quant, deq
@@ -235,59 +237,102 @@ def kv_quant_scatter_kv(k_codes: torch.Tensor, k_scales: torch.Tensor, v_codes: 
              page_ids, offsets)
 
 
-def _launch_dequant(name, codes, scales, tables, n_out_chunks, chunk, n_tbl, n_pages, dtype,
+TILE = 8192  # code bytes a CTA dequantizes at most (kTile in csrc/kv_pack.cu)
+
+
+def row_chunks(m: int, kh: int) -> tuple[int, int, int]:
+    """(chunks, chunk bytes, total bytes) of the 2-d form over [m, kh] codes:
+    whole rows, as many as fit in ``TILE`` bytes (one row if it is longer;
+    the kernel then splits it into tiles), the last chunk short."""
+    rows = max(1, TILE // kh) if kh else 1
+    return -(-m // rows), rows * kh, m * kh
+
+
+def _launch_dequant(name, sources, tables, n_out_chunks, chunk, total, n_tbl, n_pages, dtype,
                     out_shape):
+    """One launch dequantizing each (codes, scales) of ``sources`` (one or
+    two, alike) into a new ``out_shape`` tensor each; output chunk c reads
+    source chunk c, or with ``tables`` [n_tbl] int32 source chunk (c //
+    n_tbl)·n_pages + tables[c % n_tbl] (chunks of ``chunk`` code bytes, the
+    output ending after ``total``)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: output dtype must be f32 or bf16, got {dtype}")
-    if not all(t.dtype == torch.uint8 and t.is_contiguous() for t in (codes, scales)):
-        raise ValueError(f"{name}: codes and scales must be contiguous uint8")
-    if tables is not None and (tables.dtype != torch.int32 or tables.device != codes.device):
-        raise ValueError(f"{name}: tables must be int32 on {codes.device}")
-    _check_block(name, codes.shape[-1] * 2, scales.shape[-1])
-    out = torch.empty(out_shape, dtype=dtype, device=codes.device)
-    if out.numel() == 0:
-        return out
-    status = _entries()[1](codes.data_ptr(), scales.data_ptr(),
-                           None if tables is None else tables.data_ptr(), n_out_chunks, chunk,
-                           n_tbl, n_pages, out.data_ptr(), int(dtype == torch.bfloat16),
-                           torch.cuda.current_stream(codes.device).cuda_stream)
+    dev = sources[0][0].device
+    ptrs = []  # codes 4-byte aligned for the kernel's word loads; a copy lives until the launch
+    for codes, scales in sources:
+        if not all(t.dtype == torch.uint8 and t.is_contiguous() and t.device == dev
+                   for t in (codes, scales)):
+            raise ValueError(f"{name}: codes and scales must be contiguous uint8 on {dev}")
+        _check_block(name, codes.shape[-1] * 2, scales.shape[-1])
+        ptrs.append((codes if codes.data_ptr() % 4 == 0 else codes.clone(), scales))
+    if tables is not None and (tables.dtype != torch.int32 or tables.device != dev):
+        raise ValueError(f"{name}: tables must be int32 on {dev}")
+    outs = [torch.empty(out_shape, dtype=dtype, device=dev) for _ in sources]
+    if total == 0:
+        return outs
+    status = _entries()[1](
+        len(sources), _PTRS(*(c.data_ptr() for c, _ in ptrs)),
+        _PTRS(*(s.data_ptr() for _, s in ptrs)), _PTRS(*(o.data_ptr() for o in outs)),
+        None if tables is None else tables.data_ptr(), n_out_chunks, chunk, total, n_tbl,
+        n_pages, int(dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, name)
     kv_dequant_unpack.launches += 1
-    return out
+    return outs
 
 
 def kv_dequant_unpack(codes: torch.Tensor, scales: torch.Tensor,
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(codes u8 [M, K/2], scales u8 [M, K/32]) → [M, K] in ``dtype``.
-    CPU tensors take the plain version; CUDA tensors launch the kernel;
-    anything else raises."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (chunks of whole rows, :func:`row_chunks`); anything else raises."""
     if not _device("kv_dequant_unpack", codes):
         return kv_dequant_unpack_plain(codes, scales, dtype)
-    if codes.dim() != 2 or scales.dim() != 2 or codes.shape[0] != scales.shape[0] \
-            or scales.device != codes.device:
+    if codes.dim() != 2 or scales.dim() != 2 or codes.shape[0] != scales.shape[0]:
         raise ValueError(f"kv_dequant_unpack: bad operands {tuple(codes.shape)} / "
                          f"{tuple(scales.shape)}")
     m, kh = codes.shape
-    return _launch_dequant("kv_dequant_unpack", codes, scales, None, 1, m * kh, 1, 0, dtype,
-                           (m, 2 * kh))
+    return _launch_dequant("kv_dequant_unpack", [(codes, scales)], None, *row_chunks(m, kh), 1,
+                           0, dtype, (m, 2 * kh))[0]
 
 
 kv_dequant_unpack.launches = 0
+
+
+def _gather(name: str, leaves, tables: torch.Tensor, dtype: torch.dtype):
+    """Each (codes, scales) of ``leaves`` read through ``tables`` into a dense
+    [L, B, P·ps, H, K] tensor; on the card all of them in one launch."""
+    shape = leaves[0][0].shape
+    L, n_pages, ps, H, kh = shape
+    B, P = tables.shape
+    for codes, scales in leaves:
+        if codes.shape != shape or scales.shape[:4] != shape[:4]:
+            raise ValueError(f"{name}: codes {tuple(codes.shape)} and scales "
+                             f"{tuple(scales.shape)} do not match the leaves {tuple(shape)}")
+    if not _device(name, leaves[0][0]):
+        idx = tables.long()
+        return [kv_dequant_unpack_plain(c[:, idx], s[:, idx], dtype).reshape(
+            L, B, P * ps, H, 2 * kh) for c, s in leaves]
+    n_out, chunk = L * B * P, ps * H * kh
+    return _launch_dequant(name, leaves, tables.contiguous(), n_out, chunk, n_out * chunk, B * P,
+                           n_pages, dtype, (L, B, P * ps, H, 2 * kh))
 
 
 def kv_gather_dequant(codes: torch.Tensor, scales: torch.Tensor, tables: torch.Tensor,
                       dtype: torch.dtype) -> torch.Tensor:
     """Pool leaves [L, n_pages, ps, H, K/2] and [L, n_pages, ps, H,
     K/block] read through ``tables`` int32 [B, P] → dense [L, B, P·ps, H,
-    K] in ``dtype``."""
-    L, n_pages, ps, H, kh = codes.shape
-    B, P = tables.shape
-    if not _device("kv_gather_dequant", codes):
-        g = codes[:, tables.long()]  # [L, B, P, ps, H, K/2]
-        vals = kv_dequant_unpack_plain(g, scales[:, tables.long()], dtype)
-        return vals.reshape(L, B, P * ps, H, 2 * kh)
-    if scales.shape[:4] != (L, n_pages, ps, H):
-        raise ValueError(f"kv_gather_dequant: scales {tuple(scales.shape)} do not match "
-                         f"codes {tuple(codes.shape)}")
-    return _launch_dequant("kv_gather_dequant", codes, scales, tables.contiguous(), L * B * P,
-                           ps * H * kh, B * P, n_pages, dtype, (L, B, P * ps, H, 2 * kh))
+    K] in ``dtype``.
+
+    The package's gathers all take :func:`kv_gather_dequant_kv` (K and V in
+    one launch); this one-leaf form is what the tests and ``chip_smoke.py``
+    hold that form against, one call per leaf."""
+    return _gather("kv_gather_dequant", [(codes, scales)], tables, dtype)[0]
+
+
+def kv_gather_dequant_kv(k_codes: torch.Tensor, k_scales: torch.Tensor, v_codes: torch.Tensor,
+                         v_scales: torch.Tensor, tables: torch.Tensor, dtype: torch.dtype):
+    """(:func:`kv_gather_dequant` of the K leaves, of the V leaves), both
+    alike in shape, in one launch on the card."""
+    k, v = _gather("kv_gather_dequant_kv", [(k_codes, k_scales), (v_codes, v_scales)], tables,
+                   dtype)
+    return k, v

@@ -6,8 +6,9 @@ Port of ``repro.kernels.ops``.  The Quartet forward runs
 dW; serving attends with ``paged_attention``, writes the packed KV pool
 with ``kv_quant_pack`` (fused into the scatter, K and V in one launch)
 and, on the gather backend, reads it with ``kv_dequant_unpack`` (fused into
-the gather); a model built with ``attn_backend="flash"`` attends with
-``flash_attention`` in its cache-free forward.  Device dispatch lives in each
+the gather, K and V in one launch); a model built with
+``attn_backend="flash"`` attends with ``flash_attention`` in its cache-free
+forward.  Device dispatch lives in each
 kernel wrapper: a CPU tensor runs the plain PyTorch version, a CUDA tensor
 launches the hand-written kernel (or raises).  Each wrapper counts its own
 launches in ``<wrapper>.launches``; :func:`launch_counts` reads them so a

@@ -26,7 +26,7 @@ import torch
 from repro_torch.core.quantizers import PackedQuant
 from repro_torch.kernels.kv_pack import (
     kv_dequant_unpack,
-    kv_gather_dequant,
+    kv_gather_dequant_kv,
     kv_quant_pack,
     kv_quant_scatter_kv,
 )
@@ -58,7 +58,7 @@ def dequantize_kv(codes: torch.Tensor, scales: torch.Tensor, dtype) -> torch.Ten
 def gather_pages(pool: dict, tables: torch.Tensor, dtype: torch.dtype):
     """Pool pages → dense stacked KV ``(k, v)`` [L, B, P·ps, Hkv, hd]
     through tables int32 [B, P]: a packed pool dequantized into ``dtype``
-    (B4b fused with the gather, one launch each for K and V), a dense pool
+    (B4b fused with the gather, one launch for K and V), a dense pool
     in its own dtype (the model's compute dtype), as in the reference.  The
     ``decode_backend="gather"`` steps attend over this view; the paged
     backend never builds it."""
@@ -70,8 +70,8 @@ def gather_pages(pool: dict, tables: torch.Tensor, dtype: torch.dtype):
             return g.reshape(*g.shape[:2], -1, *g.shape[4:])
 
         return one(pool["k"]), one(pool["v"])
-    return (kv_gather_dequant(pool["k_codes"], pool["k_scales"], tables, dtype),
-            kv_gather_dequant(pool["v_codes"], pool["v_scales"], tables, dtype))
+    return kv_gather_dequant_kv(pool["k_codes"], pool["k_scales"], pool["v_codes"],
+                                pool["v_scales"], tables, dtype)
 
 
 def scatter_tokens(pool: dict, page_ids: torch.Tensor, offsets: torch.Tensor,
