@@ -13,7 +13,7 @@
    quantize) bit for bit, with an E8M0 edge sweep; B5 (paged attention) on
    both pools at decode and prefill shapes and at the edges of its split
    over CTAs (lengths 1, 16, 32, a full table, a page of E8M0 scale codes
-   1 and 2); B4a
+   1 and 2) and at the speculative verify's S = k + 1 for k = 1, 4, 7; B4a
    (KV quantize-pack and its pool scatter, K and V in one launch, strided
    inputs) bit for bit, with an E8M0 edge sweep; B4b (unpack-dequantize
    and its page gather, K and V in one launch) bit for bit over every
@@ -36,8 +36,22 @@
    against the per-slot schedule and its first-token log-probs against the
    paged run's; then holds a reduced model's engine tokens against its own
    teacher-forced forward and the gather tokens against the paged ones.
+3b. Features, on the same model and requests (paged backend, MXFP4 pool):
+   sampled decoding (temperature 0.8, top-k 50, top-p 0.95, seeds 0-7) run
+   twice, the streams equal; speculative decoding at k = 4 with the self,
+   n-gram and draft proposers (the draft: full-width qwen3-1.7b at the
+   target's seed), launches against the count of target and draft step
+   calls, acceptance, tokens per verify call and tok/s; every proposer's
+   tokens equal to the non-speculative run's, self-speculation's verify rows
+   equal to its decode rows bit for bit and its log-probs against the
+   teacher-forced forward, and sampled self-speculation equal to the
+   sampled stream; the prefix cache on 8 prompts sharing 256 tokens,
+   cold and warm, its counts against the schedule's, warm tokens and
+   first-token log-probs against cold, the pool audited after every tick.
 4. Trains: a reduced Llama 3 steps on the card (kernels) and on the CPU
-   (plain versions), losses and grad-norms compared; then full-width,
+   (plain versions), losses and grad-norms compared; checkpoint and resume
+   at full width, 2 layers deep (two unbroken runs and one stopped and
+   started again; the checkpoint's bytes and write time); then full-width,
    full-depth llama-paper-200m 5 steps through ``train.loop.train`` (batch
    32 x 512, 2 microbatches, Quartet on every transformer linear), with every
    launch counter set to 0 just before and read just after, beside the
@@ -51,7 +65,8 @@
    function, that call, at serving, training and evaluation shapes; B1, B2,
    B3, B4a, B4b and B5 also as a CUDA-graph replay (device time without the
    host gaps), B1's serving layer also as its 7 weight and its 7 activation
-   calls apart; B4a as the layer's KV write through ``scatter_token``.
+   calls apart; B4a as the layer's KV write through ``scatter_token``; B5
+   also at a verify tick (S = k + 1 = 5).
 6. Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -106,6 +121,12 @@ LONG_CONTEXT = 32768  # qwen3-1.7b's published context: B5's widest table checke
 N_REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW = 8, 128, 512, 32
 SEED = 0
 
+# the features phase: speculation at k = SPEC_K; sampling; the prefix
+# cache's shared prefix (16 full pages) and its prompts' tail lengths
+SPEC_K = 4
+SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+PREFIX_TOKENS, MIN_TAIL, MAX_TAIL = 256, 64, 200
+
 # the gather-backend run of the engine phase: the first GATHER_REQUESTS of
 # the phase's requests, GATHER_NEW new tokens each
 GATHER_REQUESTS, GATHER_NEW = 4, 16
@@ -117,6 +138,8 @@ EVAL_BATCHES, EVAL_BATCH = 4, 16
 # of 512 sequences would be --microbatch 32 at the same per-microbatch size)
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = "llama-paper-200m", 5, 32, 512, 2
 TRAIN_TOKENS_MB = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ  # 8192 tokens per microbatch
+# the train phase's resume check: full width, depth cut to RESUME_LAYERS
+RESUME_LAYERS, RESUME_STEPS = 2, 4
 
 
 def log(*a):
@@ -394,6 +417,7 @@ def check_kernels(torch, cfg, device="cuda"):
                 if dtype == torch.float32:
                     worst = max(worst, float((got - want).abs().max()))
     worst = max(worst, check_paged_edges(torch, cfg, gen, device))
+    worst = max(worst, check_paged_verify(torch, cfg, gen, device))
     err["paged_attention"] = worst
     torch.cuda.synchronize()
     return err
@@ -422,12 +446,27 @@ def check_paged_edges(torch, cfg, gen, device):
     return worst
 
 
-def _check_paged_edges_at(torch, PA, cfg, gen, device, n_pp, lengths):
+def check_paged_verify(torch, cfg, gen, device):
+    """B5 at the speculative verify's shape, S = k + 1 query rows a slot
+    (R = 2·S at qwen3's group of 2) for k in 1, 4 and 7, over the verify's
+    table (MAX_LEN + k positions: 41 pages), at lengths 1, 16 and 32, one
+    slot whose last row reads the full table, and others; both pool kinds,
+    f32 and bf16, with the tolerances above.  Returns the f32 max |Δ|."""
+    from repro_torch.kernels import paged_attention as PA
+
+    n_pp = -(-(MAX_LEN + 7) // PAGE_SIZE)
+    return _check_paged_edges_at(
+        torch, PA, cfg, gen, device, n_pp,
+        lambda full, S: [1, 16, 32, full - S + 1, 1, 300, 17, MAX_LEN - S], S_values=(2, 5, 8))
+
+
+def _check_paged_edges_at(torch, PA, cfg, gen, device, n_pp, lengths,
+                          S_values=(1, PREFILL_CHUNK)):
     full = n_pp * PAGE_SIZE
     worst = 0.0
     for packed in (True, False):
         for dtype, rtol, atol in ((torch.float32, 0.0, 2e-5), (torch.bfloat16, 2**-7, 1e-5)):
-            for S in (1, PREFILL_CHUNK):
+            for S in S_values:
                 lens = lengths(full, S)
                 pool, tables = make_pool(torch, cfg, [min(n + S - 1, full) for n in lens],
                                          packed, dtype, gen, device, n_pp)
@@ -970,6 +1009,270 @@ def check_reduced_engine(torch, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the engine's features (sampling, speculation, prefix cache)
+# ---------------------------------------------------------------------------
+
+
+def run_engine(torch, model, params, waves, *, spec=None, prefix=False, keep_logits=False,
+               max_new=MAX_NEW):
+    """The full-width engine (paged backend, MXFP4 pool) over ``waves`` of
+    (prompt, SamplingParams | None), each wave submitted at once and drained
+    before the next.  Step calls are counted by kind (the draft proposer's
+    apart); every request must end with ``max_new`` tokens in range and
+    finite logits.  With ``prefix`` the allocator audits itself after every
+    mutation and the pool is audited again after every tick."""
+    import numpy as np
+
+    from repro_torch.serve import Engine, EngineConfig
+
+    eng = Engine(model, params, EngineConfig(
+        n_slots=N_SLOTS, max_len=MAX_LEN, page_size=PAGE_SIZE, kv_dtype="mxfp4",
+        prefill_chunk=PREFILL_CHUNK, keep_logits=keep_logits, spec=spec, prefix_cache=prefix,
+        debug_cache=prefix))
+    calls = _count_step_calls(eng)
+    draft_calls = _count_step_calls(eng.proposer) if hasattr(eng.proposer, "_steps") else {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs, ttft = [], {}
+    for wave in waves:
+        w0 = time.perf_counter()
+        wreqs = [eng.submit(p, max_new, arrival_time=w0 - t0, sampling=sp) for p, sp in wave]
+        reqs += wreqs
+        while eng.sched.pending:
+            eng.step(now=time.perf_counter() - t0)
+            if prefix:
+                eng.cache.check_invariants()
+            for r in wreqs:
+                if r.tokens and r.rid not in ttft:
+                    ttft[r.rid] = time.perf_counter() - w0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    V = model.cfg.vocab_size
+    for r in reqs:
+        if len(r.tokens) != max_new or r.finish_reason != "max_tokens":
+            raise AssertionError(f"request {r.rid} finished with {len(r.tokens)} tokens "
+                                 f"({r.finish_reason!r})")
+        if not all(0 <= t < V for t in r.tokens):
+            raise AssertionError(f"request {r.rid}: token out of range")
+        for row in r.logits_trace:
+            if row.shape != (V,) or not np.isfinite(row).all():
+                raise AssertionError(f"request {r.rid}: non-finite or misshapen logits")
+    toks = sum(len(r.tokens) for r in reqs)
+    return {"eng": eng, "reqs": reqs, "wall": wall, "ttft": ttft, "calls": calls,
+            "draft_calls": draft_calls, "tok_per_s": toks / wall}
+
+
+def _first_divergence(a: list, b: list):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _logprob_diff(torch, rows_a, rows_b) -> tuple[float, float]:
+    import numpy as np
+
+    a = torch.log_softmax(torch.as_tensor(np.stack(rows_a)).float(), -1)
+    b = torch.log_softmax(torch.as_tensor(np.stack(rows_b)).float(), -1)
+    d = (a - b).abs()
+    return float(d.max()), float(d.mean())
+
+
+def _teacher_forced_rows(torch, model, params, req, device="cuda"):
+    """Log-prob rows of the model's teacher-forced forward (no cache,
+    unquantized K/V) at the positions that produced ``req``'s tokens."""
+    import numpy as np
+
+    seq = np.concatenate([req.prompt, np.asarray(req.tokens[:-1], np.int32)])
+    with torch.inference_mode():
+        feats, _ = model.forward(params, torch.from_numpy(seq)[None].to(device), 0,
+                                 features_only=True)
+        rows = model.head(params, feats[:, req.prompt_len - 1:], 0)[0]
+    return list(rows.float().cpu().numpy())
+
+
+def serve_features(torch, ops, device="cuda"):
+    """Sampled decoding, speculative decoding and the prefix cache on
+    full-width, full-depth qwen3-1.7b (the engine phase's 8 requests, paged
+    backend, MXFP4 pool).  Returns (summary, launch counts by path, vector-body
+    launches by path)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import init_params
+    from repro_torch.launch.serve_engine import kernel_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import SamplingParams, SpecConfig
+    from repro_torch.serve.sampling import sample_row
+    from repro_torch.serve.spec import aggregate_stats
+
+    cfg = kernel_config(get_config("qwen3-1.7b"))
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    model = build_model(cfg)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(MIN_PROMPT, MAX_PROMPT + 1)))
+               .astype(np.int32) for _ in range(N_REQUESTS)]
+    L = cfg.num_layers
+    out, counts, vectors = {}, {}, {}
+
+    def check_launches(tag, run):
+        """Per forward of the target or the draft (every step call): 14 B1
+        and 7 B3 a layer, 1 B5 and 1 B4a a layer, whatever its S."""
+        got = ops.launch_counts()
+        n = sum(run["calls"].values()) + sum(run["draft_calls"].values())
+        want = {"hadamard_quest_quantize": 14 * L * n, "mxfp4_matmul": 7 * L * n,
+                "paged_attention": L * n, "kv_quant_pack": L * n}
+        want = {k: want.get(k, 0) for k in got}
+        if got != want:
+            raise AssertionError(f"{tag}: launches {got} != predicted {want} "
+                                 f"(step calls {run['calls']}, draft {run['draft_calls']})")
+        counts[tag] = got
+        vectors[tag] = ops.vector_launches()
+        return {"step_calls": run["calls"], "draft_step_calls": run["draft_calls"],
+                "launches": got}
+
+    greedy = [[(p, None) for p in prompts]]
+    base = run_engine(torch, model, params, greedy, keep_logits=True)
+    again = run_engine(torch, model, params, greedy, keep_logits=True)
+    out["nonspec_rows_equal_run_to_run"] = [
+        all(np.array_equal(x, y) for x, y in zip(r.logits_trace, b.logits_trace))
+        for r, b in zip(again["reqs"], base["reqs"])]
+    del again
+
+    # 1. sampled decoding, twice: the same streams
+    sps = [SamplingParams(**SAMPLING, seed=i) for i in range(N_REQUESTS)]
+    sampled = [[(p, sp) for p, sp in zip(prompts, sps)]]
+    ops.reset_launch_counts()
+    s1 = run_engine(torch, model, params, sampled, keep_logits=True)
+    rec = check_launches("sampled", s1)
+    s2 = run_engine(torch, model, params, sampled)
+    streams = [r.tokens for r in s1["reqs"]]
+    if streams != [r.tokens for r in s2["reqs"]]:
+        raise AssertionError("sampled streams differ between two runs with the same seeds")
+    # the first two requests' tokens drawn again on the host (CPU log, same
+    # keys) from their rows
+    redraw = sum(int(sample_row(torch.from_numpy(row), sp, 0, t) == tok)
+                 for r, sp in zip(s1["reqs"][:2], sps)
+                 for t, (row, tok) in enumerate(zip(r.logits_trace, r.tokens)))
+    out["sampled"] = {**rec, "tok_per_s": s1["tok_per_s"], "tok_per_s_second_run":
+                      s2["tok_per_s"], "streams_equal_across_runs": True,
+                      "host_redraw_agrees": f"{redraw}/{2 * MAX_NEW}",
+                      "tokens_differing_from_greedy": sum(
+                          int(a != b) for r, g in zip(s1["reqs"], base["reqs"])
+                          for a, b in zip(r.tokens, g.tokens))}
+    log(f"  sampled: {json.dumps(out['sampled'])}")
+
+    # 2. speculative decoding, k = SPEC_K, three proposers (greedy)
+    specs = {"self": SpecConfig(k=SPEC_K, proposer="self"),
+             "ngram": SpecConfig(k=SPEC_K, proposer="ngram", ngram=2),
+             "draft": SpecConfig(k=SPEC_K, proposer="draft", draft_arch="qwen3-1.7b",
+                                 draft_reduced=False, draft_seed=SEED)}
+    for name, spec in specs.items():
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        run = run_engine(torch, model, params, greedy, spec=spec, keep_logits=name == "self")
+        rec = check_launches(f"spec_{name}", run)
+        agg = aggregate_stats(run["reqs"])
+        rec.update(tok_per_s=run["tok_per_s"], wall_s=run["wall"],
+                   acceptance=agg["acceptance_rate"],
+                   tokens_per_verify_call=agg["tokens_per_decode_call"],
+                   first_divergence_from_nonspec=[
+                       _first_divergence(r.tokens, b.tokens)
+                       for r, b in zip(run["reqs"], base["reqs"])])
+        if name == "self":
+            # every emitted token is the argmax of the logits row (prefill or
+            # verify) that produced it
+            for r, b in zip(run["reqs"], base["reqs"]):
+                picks = [int(np.argmax(row)) for row in r.logits_trace]
+                if picks != r.tokens:
+                    raise AssertionError(f"self-spec request {r.rid}: emitted tokens are not "
+                                         f"the picks of their verify rows")
+                # and each of those rows equals, bit for bit, the non-spec
+                # run's decode row at the same position (the verify's norms
+                # and head round each row as a decode step does)
+                same = [np.array_equal(x, y) for x, y in zip(r.logits_trace, b.logits_trace)]
+                if not all(same):
+                    raise AssertionError(f"self-spec request {r.rid}: verify rows differ from "
+                                         f"the decode rows, first at token {same.index(False)}")
+            # teacher-forced log-probs (unquantized K/V) against the rows
+            # that produced each token: max |Δ| < 5.0, mean < 1.0, the
+            # gather-vs-paged bound (an MXFP4 pool against unquantized K/V);
+            # the non-spec run's own reading beside
+            tf = {}
+            for tag, reqs in (("self", run["reqs"]), ("nonspec", base["reqs"])):
+                tf[tag] = [_logprob_diff(torch, r.logits_trace,
+                                         _teacher_forced_rows(torch, model, params, r, device))
+                           for r in reqs]
+            rec["teacher_forced_logprob_max_mean"] = tf
+            if not all(x < 5.0 and y < 1.0 for x, y in tf["self"]):
+                raise AssertionError(f"self-spec log-probs vs teacher-forced out of "
+                                     f"tolerance: {tf['self']}")
+        out[f"spec_{name}"] = rec
+        log(f"  spec {name}: {json.dumps(rec)}")
+        # speculation changes the schedule, never a greedy token
+        if any(d is not None for d in rec["first_divergence_from_nonspec"]):
+            raise AssertionError(f"spec {name}: tokens differ from the non-spec run")
+        del run
+    # sampled self-speculation against the sampled non-spec streams
+    run = run_engine(torch, model, params, sampled, spec=specs["self"])
+    agg = aggregate_stats(run["reqs"])
+    out["spec_self_sampled"] = {
+        "tok_per_s": run["tok_per_s"], "acceptance": agg["acceptance_rate"],
+        "tokens_per_verify_call": agg["tokens_per_decode_call"],
+        "equals_sampled_nonspec": [r.tokens == t for r, t in zip(run["reqs"], streams)],
+        "first_divergence": [_first_divergence(r.tokens, t)
+                             for r, t in zip(run["reqs"], streams)]}
+    log(f"  spec self, sampled: {json.dumps(out['spec_self_sampled'])}")
+    if not all(out["spec_self_sampled"]["equals_sampled_nonspec"]):
+        raise AssertionError("sampled self-speculation differs from the sampled stream")
+
+    # 3. the prefix cache: 8 prompts sharing a 256-token prefix (16 full
+    # pages), tails of 64-200 tokens; request 0 alone first, then the 7
+    # others at once
+    rng = np.random.default_rng(SEED)
+    shared = rng.integers(0, cfg.vocab_size, PREFIX_TOKENS).astype(np.int32)
+    pprompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, int(
+        rng.integers(MIN_TAIL, MAX_TAIL + 1))).astype(np.int32)]) for _ in range(N_REQUESTS)]
+    waves = [[(pprompts[0], None)], [(p, None) for p in pprompts[1:]]]
+    ops.reset_launch_counts()
+    cold = run_engine(torch, model, params, waves, keep_logits=True)
+    check_launches("prefix_cold", cold)
+    ops.reset_launch_counts()
+    warm = run_engine(torch, model, params, waves, prefix=True, keep_logits=True)
+    check_launches("prefix_warm", warm)
+    # the schedule's counts: 8 lookups, 7 hits of the 16 prefix pages (no
+    # full-prompt hit, so no copy-on-write), no eviction (the pool holds
+    # 320 pages); request 0 publishes every full page of its prompt and
+    # consumed tokens, each other request those past the prefix
+    pages = [(p.size + MAX_NEW - 1) // PAGE_SIZE for p in pprompts]
+    want = {"prefix_lookups": N_REQUESTS, "prefix_hit_requests": N_REQUESTS - 1,
+            "prefix_shared_tokens": (N_REQUESTS - 1) * PREFIX_TOKENS,
+            "prefix_inserted_pages": pages[0] + sum(n - PREFIX_TOKENS // PAGE_SIZE
+                                                    for n in pages[1:]),
+            "prefix_evicted_pages": 0, "prefix_cow_pages": 0, "spec_acceptance_rate": 0}
+    if warm["eng"].counters != want:
+        raise AssertionError(f"prefix counts {warm['eng'].counters} != predicted {want}")
+    # warm against cold: the same tokens (the CPU twin is token-exact on the
+    # paged backend), and first-token log-probs predicted equal (each row's
+    # arithmetic does not depend on the other rows of its call, and the
+    # warm tail starts at a chunk boundary of the cold run); held to 1e-3
+    lp = [_logprob_diff(torch, w.logits_trace[:1], c.logits_trace[:1])
+          for w, c in zip(warm["reqs"], cold["reqs"])]
+    ttft = {tag: float(np.mean([run["ttft"][r.rid] for r in run["reqs"][1:]]))
+            for tag, run in (("cold", cold), ("warm", warm))}
+    out["prefix"] = {"prompts": [int(p.size) for p in pprompts], "counts": warm["eng"].counters,
+                     "step_calls": {"cold": cold["calls"], "warm": warm["calls"]},
+                     "ttft_mean_s_wave2": ttft, "tok_per_s": {"cold": cold["tok_per_s"],
+                                                              "warm": warm["tok_per_s"]},
+                     "first_token_logprob_max_abs_warm_vs_cold": [x for x, _ in lp],
+                     "tokens_equal": [w.tokens == c.tokens
+                                      for w, c in zip(warm["reqs"], cold["reqs"])]}
+    log(f"  prefix: {json.dumps(out['prefix'])}")
+    if not all(out["prefix"]["tokens_equal"]) or max(x for x, _ in lp) > 1e-3:
+        raise AssertionError(f"prefix cache: warm differs from cold: {out['prefix']}")
+    del params, base, s1, s2, run, cold, warm
+    torch.cuda.empty_cache()
+    return out, counts, vectors
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -977,7 +1280,8 @@ def check_reduced_engine(torch, device="cuda"):
 def time_kernels(torch, cfg, timer, device="cuda"):
     """Each kernel over one layer's decode-step launches (8 slots), beside its
     plain version, its least time on the H100 and, where one exists, one
-    PyTorch call computing the same function.  Also one prefill chunk's."""
+    PyTorch call computing the same function.  Also one prefill chunk's, and
+    B5 also at a verify tick's S = SPEC_K + 1."""
     from repro_torch.kernels import hadamard_quant as HQ
     from repro_torch.kernels import mxfp4_matmul as MM
     from repro_torch.kernels import paged_attention as PA
@@ -1032,7 +1336,9 @@ def time_kernels(torch, cfg, timer, device="cuda"):
             library_ms=timer(lambda: [torch.matmul(a, b) for a, b in deq]),
             launches_per_layer=len(args))
 
-        S = 1 if tag == "decode" else PREFILL_CHUNK
+    # B5 at a decode tick (S = 1), a prefill tick (S = 64) and a verify tick
+    # (S = SPEC_K + 1: R = 10 query rows a slot and KV head)
+    for tag, S in (("decode", 1), ("prefill", PREFILL_CHUNK), ("verify", SPEC_K + 1)):
         lengths = [MIN_PROMPT + (MAX_PROMPT + MAX_NEW - MIN_PROMPT) * i // (N_SLOTS - 1)
                    for i in range(N_SLOTS)]
         lens = [max(n - S + 1, 1) for n in lengths]
@@ -1342,6 +1648,103 @@ def train_reduced_card_vs_cpu(torch, device="cuda"):
     return rel
 
 
+def _named_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{path}.{k}" if path else k)
+    else:
+        yield path, tree
+
+
+def _state_diff(torch, x, y) -> dict[str, float]:
+    """Max |Δ| of every tensor leaf (params and AdamW moments) that differs
+    between two train states, by leaf name."""
+    out = {}
+    for (name, a), (_, b) in zip(_named_leaves({"params": x.params, "opt": x.opt_state}),
+                                 _named_leaves({"params": y.params, "opt": y.opt_state})):
+        if isinstance(a, torch.Tensor) and not torch.equal(a, b):
+            out[name] = float((a.float() - b.float()).abs().max())
+    return out
+
+
+def train_resume_check(torch, device="cuda"):
+    """Checkpoint and resume on the card: llama-paper-200m at full width with
+    its depth cut to RESUME_LAYERS layers (to keep the phase short), batches
+    of TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO microbatches, a checkpoint every
+    2 steps.  Two unbroken runs of RESUME_STEPS steps, and one stopped after
+    step 2's checkpoint and started again with the same arguments (it
+    resumes from the checkpoint).  If the two unbroken runs are bit-identical
+    the resumed one must be too; if they are not, the leaves that differ
+    name the op, and the resumed run may differ from the first by no more
+    than the second does.  Also the checkpoint's bytes and the seconds to
+    write it (blocking, and the host copy of an asynchronous save)."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.configs.llama_paper import LEARNING_RATES
+    from repro_torch.data.pipeline import SyntheticC4Dataset, TokenBatcher
+    from repro_torch.launch.serve_engine import kernel_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.train.loop import train
+
+    cfg = dataclasses.replace(kernel_config(get_config(TRAIN_ARCH)), num_layers=RESUME_LAYERS)
+    model = build_model(cfg)
+    batcher = TokenBatcher(SyntheticC4Dataset(cfg.vocab_size, seed=SEED), TRAIN_BATCH, TRAIN_SEQ)
+    opt = adamw(cosine_warmup(LEARNING_RATES[TRAIN_ARCH], RESUME_STEPS))
+    root = os.path.join(HERE, "build", "resume_check")
+    shutil.rmtree(root, ignore_errors=True)
+    logs = []
+
+    def run(name, steps):
+        return train(model, opt, batcher, steps, microbatch=TRAIN_MICRO, seed=SEED,
+                     device=device, checkpoint_dir=os.path.join(root, name),
+                     checkpoint_every=2, log_every=0, log_fn=logs.append)
+
+    a, ha = run("a", RESUME_STEPS)
+    b, hb = run("b", RESUME_STEPS)
+    run("c", 2)
+    c, hc = run("c", RESUME_STEPS)
+    if logs[-1] != f"[resume] restored step 2 from {os.path.join(root, 'c')}" or len(hc) != 2:
+        raise AssertionError(f"the second start did not resume at step 2: {logs[-1:]}, "
+                             f"{len(hc)} steps")
+    if not (c.step == c.opt_state["step"] == RESUME_STEPS):
+        raise AssertionError(f"resumed step counters {c.step}, {c.opt_state['step']}")
+    d_ab, d_ac = _state_diff(torch, a, b), _state_diff(torch, a, c)
+    loss_ab = [x["loss"] - y["loss"] for x, y in zip(ha, hb)]
+    loss_ac = [x["loss"] - y["loss"] for x, y in zip(ha[2:], hc)]
+    step_dir = os.path.join(root, "a", f"step_{RESUME_STEPS:09d}")
+    nbytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+    ck = Checkpointer(os.path.join(root, "timed"))
+    t0 = time.perf_counter()
+    ck.save(RESUME_STEPS, a, blocking=True)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck.save(RESUME_STEPS + 1, a)
+    copy_s = time.perf_counter() - t0
+    ck.wait()
+    async_s = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"layers": RESUME_LAYERS, "steps": RESUME_STEPS, "losses": [h["loss"] for h in ha],
+           "unbroken_vs_unbroken": {"leaves_differing": d_ab, "loss_diff": loss_ab},
+           "unbroken_vs_resumed": {"leaves_differing": d_ac, "loss_diff": loss_ac},
+           "checkpoint_bytes": nbytes, "checkpoint_write_s_blocking": write_s,
+           "checkpoint_host_copy_s_async": copy_s, "checkpoint_write_s_async": async_s}
+    log(f"  resume: {json.dumps(out)}")
+    if not d_ab:
+        if d_ac or any(loss_ac):
+            raise AssertionError(f"unbroken runs are bit-identical but the resumed one "
+                                 f"differs: {d_ac}, losses {loss_ac}")
+    elif set(d_ac) - set(d_ab) or any(d_ac[k] > d_ab[k] for k in d_ac):
+        raise AssertionError(f"the resumed run differs beyond the unbroken runs' own "
+                             f"nondeterminism: {d_ac} vs {d_ab}")
+    del a, b, c
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_full_width(torch, ops, device="cuda"):
     """Full-width, full-depth llama-paper-200m through ``train.loop.train``:
     TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens in TRAIN_MICRO
@@ -1629,8 +2032,8 @@ PATH_OF = {"hadamard_quest_quantize": ("train", "train"),
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,engine,train,times",
-                    help="comma-separated subset of kernels,engine,train,times")
+    ap.add_argument("--phases", default="kernels,engine,features,train,times",
+                    help="comma-separated subset of kernels,engine,features,train,times")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -1704,10 +2107,25 @@ def main() -> int:
         log(f"[engine] gather {json.dumps(gsummary)}")
         check_reduced_engine(torch)
         log(f"[engine] done in {time.perf_counter() - t0:.1f} s")
+    if "features" in phases:
+        t0 = time.perf_counter()
+        summary, fcounts, fvectors = serve_features(torch, ops)
+        counts.update(fcounts)
+        vectors.update(fvectors)
+        for path, c in fcounts.items():
+            log(f"[features] launches on the {path} path: {c}")
+            missing = [k for k in ("hadamard_quest_quantize", "mxfp4_matmul", "paged_attention",
+                                   "kv_quant_pack") if c[k] == 0]
+            if missing:
+                raise AssertionError(f"kernels never launched on the {path} path: {missing}")
+        log(f"[features] {json.dumps(summary)}")
+        log(f"[features] done in {time.perf_counter() - t0:.1f} s")
     if "train" in phases:
         t0 = time.perf_counter()
         train_reduced_card_vs_cpu(torch)
+        resume = train_resume_check(torch)
         summary, counts["train"], counts["eval"] = train_full_width(torch, ops)
+        summary["resume"] = resume
         vectors["train"] = summary["vector_launches"]
         vectors["eval"] = summary["eval"]["vector_launches_flash"]
         log(f"[train] launches on the training path: {counts['train']} "

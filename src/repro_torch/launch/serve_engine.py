@@ -12,6 +12,13 @@ requests are submitted the moment the clock passes their arrival time.
 Weights are random, drawn from ``--seed``.  The Quartet linears run through
 the Hopper kernels (``use_kernels=True``); the run is on the card unless
 ``--device cpu`` is given.
+
+``--spec {self,ngram,draft} --spec-k 4`` turns on speculative decoding
+(``--draft-arch`` names the draft model of the ``draft`` proposer) and
+reports tokens per verify call and draft acceptance;
+``--temperature/--top-k/--top-p/--sample-seed`` turn on per-request
+sampling; ``--prefix-cache`` shares the pages of cached prompt prefixes
+(``--debug-cache`` audits the allocator after every mutation).
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ import torch
 from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.convert import init_params
 from repro_torch.models import build_model
-from repro_torch.serve import Engine, EngineConfig
+from repro_torch.serve import Engine, EngineConfig, SamplingParams, SpecConfig
+from repro_torch.serve.spec import aggregate_stats
 
 
 def poisson_workload(rng: np.random.Generator, n: int, rate: float,
@@ -40,14 +48,14 @@ def poisson_workload(rng: np.random.Generator, n: int, rate: float,
     return out
 
 
-def run_workload(engine: Engine, workload, verbose: bool = True):
+def run_workload(engine: Engine, workload, verbose: bool = True, sampling=None):
     """Drive the engine on a virtual clock; returns (requests, elapsed)."""
     pending = list(workload)
     clock, t0 = 0.0, time.perf_counter()
     while pending or engine.sched.pending:
         while pending and pending[0][0] <= clock:
             at, prompt, max_new = pending.pop(0)
-            engine.submit(prompt, max_new, arrival_time=at)
+            engine.submit(prompt, max_new, arrival_time=at, sampling=sampling)
         if not engine.sched.pending:  # idle gap: jump to the next arrival
             clock = pending[0][0]
             continue
@@ -81,9 +89,26 @@ def main():
     ap.add_argument("--kv", default="mxfp4", choices=["mxfp4", "dense"])
     ap.add_argument("--decode-backend", default=None, choices=["paged", "gather"],
                     help="paged: attend over the pool (default); gather: dense oracle")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache: admissions alias the pages of cached shared "
+                         "prefixes (copy-on-write, LRU-evicted) and prefill only the tail")
+    ap.add_argument("--debug-cache", action="store_true",
+                    help="check the page allocator's invariants after every pool mutation")
     ap.add_argument("--method", default="quartet", choices=["quartet", "bf16"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    # speculative decoding
+    ap.add_argument("--spec", default=None, choices=["self", "ngram", "draft"],
+                    help="enable speculative decoding with this proposer")
+    ap.add_argument("--spec-k", type=int, default=4, help="drafted tokens per verify call")
+    ap.add_argument("--ngram", type=int, default=2, help="ngram proposer: suffix length")
+    ap.add_argument("--draft-arch", default=None,
+                    help="draft proposer: registry arch of the draft model")
+    # per-request sampling (greedy argmax when temperature is 0)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--sample-seed", type=int, default=0)
     args = ap.parse_args()
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -96,20 +121,40 @@ def main():
     rng = np.random.default_rng(args.seed)
     workload = poisson_workload(rng, args.requests, args.rate, args.min_prompt,
                                 args.max_prompt, args.max_new, cfg.vocab_size)
+    spec = None
+    if args.spec is not None:
+        spec = SpecConfig(k=args.spec_k, proposer=args.spec, ngram=args.ngram,
+                          draft_arch=args.draft_arch, draft_reduced=args.reduced)
+    sampling = None
+    if args.temperature > 0:
+        sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                                  top_p=args.top_p, seed=args.sample_seed)
+    elif args.top_k or args.top_p < 1.0 or args.sample_seed:
+        ap.error("--top-k/--top-p/--sample-seed require --temperature > 0 "
+                 "(temperature 0 is greedy argmax and ignores them)")
     engine = Engine(model, params, EngineConfig(
         n_slots=args.slots, max_len=args.max_len, page_size=args.page_size,
         kv_dtype=args.kv, prefill_chunk=args.prefill_chunk, method=args.method,
-        decode_backend=args.decode_backend))
-    done, elapsed = run_workload(engine, workload)
+        decode_backend=args.decode_backend, prefix_cache=args.prefix_cache,
+        debug_cache=args.debug_cache, spec=spec))
+    done, elapsed = run_workload(engine, workload, sampling=sampling)
 
     total_tokens = sum(len(r.tokens) for r in done)
     ttfts = [r.ttft() for r in done]
     where = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
     print(f"\n{cfg.name} [{cfg.family}] kv={args.kv} decode={engine.decode_backend} "
-          f"slots={args.slots} on {where}")
+          f"slots={args.slots} on {where}"
+          + (f" spec={args.spec}(k={args.spec_k})" if spec else ""))
     print(f"  {len(done)} requests, {total_tokens} tokens in {elapsed:.2f}s wall "
           f"→ {total_tokens / elapsed:.1f} tok/s, mean TTFT {np.mean(ttfts):.3f}s "
           f"(virtual clock), KV pool {engine.cache_bytes()} bytes")
+    if spec is not None:
+        agg = aggregate_stats(done)
+        print(f"  spec: {agg['tokens_per_decode_call']} tok/verify-call, "
+              f"acceptance {agg['acceptance_rate']} "
+              f"({agg['drafts_accepted']}/{agg['drafts_proposed']} drafts)")
+    if args.prefix_cache:
+        print(f"  prefix cache: {engine.counters}")
 
 
 if __name__ == "__main__":

@@ -10,6 +10,9 @@ memmap token file, ``--data``), with AdamW on a cosine schedule with 10%
 warmup at the paper's learning rate.  On ``cuda`` (the default) the
 Quartet linears run on the Hopper kernels; without a GPU it exits non-zero
 unless ``--device cpu`` is given, which runs the kernels' plain versions.
+With ``--checkpoint-dir`` the state is saved every ``--checkpoint-every``
+steps and at the end; the same command started again resumes from the
+latest checkpoint there.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ def main():
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--data", default="synthetic")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=100)
     ap.add_argument("--microbatch", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -55,13 +60,17 @@ def main():
     t0 = time.perf_counter()
     _, history = train(model, opt, batcher, args.steps, method=args.method,
                        microbatch=args.microbatch, seed=args.seed, device=args.device,
-                       log_every=1)
+                       checkpoint_dir=args.checkpoint_dir,
+                       checkpoint_every=args.checkpoint_every, log_every=1)
     wall = time.perf_counter() - t0
     where = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
-    tokens = args.steps * args.batch * args.seq
-    print(f"\n{cfg.name}: {args.steps} steps x {args.batch} x {args.seq} tokens on {where}, "
-          f"{wall:.2f} s wall (init included) -> {tokens / wall:.1f} tok/s; "
-          f"final loss {history[-1]['loss']:.4f}")
+    if not history:
+        print(f"\n{cfg.name}: nothing to run, the checkpoint is at step {args.steps}")
+        return
+    tokens = len(history) * args.batch * args.seq
+    print(f"\n{cfg.name}: steps {history[0]['step']}..{history[-1]['step']} x {args.batch} x "
+          f"{args.seq} tokens on {where}, {wall:.2f} s wall (init included) -> "
+          f"{tokens / wall:.1f} tok/s; final loss {history[-1]['loss']:.4f}")
 
 
 if __name__ == "__main__":

@@ -53,9 +53,23 @@ def init_rmsnorm(d: int, dtype, device) -> dict:
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
+def _mean_square(xf: torch.Tensor) -> torch.Tensor:
+    """Mean of squares over the last dim, keepdim.  On the card a single
+    reduction over the row picks its split across threads from the number of
+    rows in the call, so a row's bits would depend on the call's shape (a
+    speculative verify's [B, k+1] rows against a decode's [B, 1]); there the
+    row is summed in 32-wide partials and then their sum, an order fixed by
+    the row length alone."""
+    d = xf.shape[-1]
+    if xf.is_cuda and d % 32 == 0:
+        part = (xf * xf).reshape(*xf.shape[:-1], d // 32, 32).sum(-1)
+        return part.sum(-1, keepdim=True) / d
+    return torch.mean(xf * xf, dim=-1, keepdim=True)
+
+
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = _mean_square(xf)
     out = xf * torch.rsqrt(var + eps)
     return (out * params["scale"].to(torch.float32)).to(x.dtype)
 

@@ -19,6 +19,7 @@ import dataclasses
 import itertools
 from collections import deque
 from enum import Enum
+from typing import Any
 
 import numpy as np
 
@@ -37,6 +38,7 @@ class Request:
     rid: int
     prompt: np.ndarray  # [P] int32
     max_new: int
+    sampling: Any = None  # SamplingParams | None (None → greedy argmax)
     state: RequestState = RequestState.QUEUED
     slot: int = -1
     prefill_pos: int = 0  # prompt tokens consumed so far
@@ -46,7 +48,11 @@ class Request:
     first_token_time: float | None = None
     finish_time: float | None = None
     finish_reason: str = ""
-    decode_calls: int = 0  # batched decode invocations that fed this slot
+    # decode-phase accounting (speculative decoding emits a variable number
+    # of tokens per batched call; these make that visible)
+    decode_calls: int = 0  # batched decode/verify invocations that fed this slot
+    draft_proposed: int = 0  # drafted tokens scored on this request's behalf
+    draft_accepted: int = 0  # drafted tokens the target model agreed with
 
     @property
     def prompt_len(self) -> int:
@@ -56,9 +62,24 @@ class Request:
     def done(self) -> bool:
         return self.state is RequestState.DONE
 
+    def latency(self) -> float | None:
+        return None if self.finish_time is None else self.finish_time - self.arrival_time
+
     def ttft(self) -> float | None:
         return (None if self.first_token_time is None
                 else self.first_token_time - self.arrival_time)
+
+    def acceptance_rate(self) -> float | None:
+        """Fraction of drafted tokens accepted (None without speculation)."""
+        return (self.draft_accepted / self.draft_proposed
+                if self.draft_proposed else None)
+
+    def tokens_per_decode_call(self) -> float | None:
+        """Decode-phase tokens per batched call: 1.0 for plain decoding, up
+        to k+1 with speculation (the prefill's token rides on a prefill
+        call and is excluded)."""
+        return (max(len(self.tokens) - 1, 0) / self.decode_calls
+                if self.decode_calls else None)
 
 
 class Scheduler:
@@ -75,8 +96,8 @@ class Scheduler:
         self.free_slots = deque(range(n_slots))
         self._ids = itertools.count()
 
-    def submit(self, prompt: np.ndarray, max_new: int,
-               arrival_time: float = 0.0) -> Request:
+    def submit(self, prompt: np.ndarray, max_new: int, arrival_time: float = 0.0,
+               sampling: Any = None) -> Request:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -86,7 +107,7 @@ class Scheduler:
             raise ValueError(
                 f"prompt({prompt.size}) + max_new({max_new}) exceeds max_len {self.max_len}")
         req = Request(rid=next(self._ids), prompt=prompt, max_new=max_new,
-                      arrival_time=arrival_time)
+                      sampling=sampling, arrival_time=arrival_time)
         self.queue.append(req)
         return req
 

@@ -15,8 +15,20 @@ gather-dequantizes the slots' pages into dense ``[L, B, T, Hkv, hd]``
 caches (B4b), runs the dense-cache forward, and quantize-scatters the new
 tokens' K/V back into the pool (B4a): ``decode_all`` for every slot, and a
 per-slot ``prefill_chunk`` (``[1, C]`` chunks, then ``[1, 1]`` remainders;
-``prefill_all`` is None).  ``prefill_chunk`` exists on both backends.  The
-gather ``verify_all`` arrives with speculative decoding.
+``prefill_all`` is None).  ``prefill_chunk`` exists on both backends.
+
+``verify_all`` scores S = k + 1 tokens for every slot in one call (the
+speculative verify) and returns all ``[B, S, V]`` logits: on the paged
+backend directly over the pool through the multi-query paged kernel (per-row
+causal bounds), on the gather backend over the gathered dense view, its S
+new tokens' K/V scattered back.  ``prefill_all`` and the paged
+``verify_all`` are the same device computation at different S.  The verify
+applies the head to one column of rows at a time, ``[B, 1]`` as a decode
+step does: on the card the head's f32 GEMM rounds a row otherwise at
+``B·S`` rows than at ``B`` (rmsnorm's row sum is kept shape-free there by
+``models.layers``, and the kernels' rows are independent of S), so a
+verify row's logits equal, bit for bit, those of a decode step over the
+same prefix, and speculation never changes a greedy token.
 
 Masked lanes follow the engine invariants: positions are clamped to 0 and
 table rows zeroed, so their writes land on the scratch page and their
@@ -59,6 +71,8 @@ class PagedSteps(NamedTuple):
     prefill_all: Callable | None
     # (params, tokens [1,C], start: int, table_row [P], pool) -> logits [1,V]
     prefill_chunk: Callable
+    # (params, tokens [B,S], start [B], pool, tables, mask) -> logits [B,S,V]
+    verify_all: Callable
 
 
 def build_paged_steps(model: Model, *, method: str, page_size: int,
@@ -74,11 +88,27 @@ def build_paged_steps(model: Model, *, method: str, page_size: int,
     def _masked(tables, mask):
         return torch.where(mask[:, None], tables, torch.zeros_like(tables))
 
+    def _head_by_column(params, feats):
+        """[B, S, D] features → [B, S, V] logits, one [B, 1] column at a time."""
+        return torch.cat([model.head(params, feats[:, s:s + 1], 0, method)
+                          for s in range(feats.shape[1])], dim=1)
+
     def decode_all(params, tokens, positions, pool, tables, mask):
         """One decode step for every slot over the packed pool."""
         pos_safe = torch.where(mask, positions, torch.zeros_like(positions))
         logits, _, _ = decode(params, tokens, pos_safe, PagedKV(pool, _masked(tables, mask)))
         return logits
+
+    def verify_all(params, tokens, start, pool, tables, mask):
+        """Score S = k + 1 tokens per slot (the last accepted token and the
+        drafts) at ``start .. start + S − 1`` in one call over the pool; row
+        s sees positions ≤ start + s.  Positions past a slot's mapped pages
+        fall on zero table columns, so their writes land on the scratch
+        page."""
+        pos_safe = torch.where(mask, start, torch.zeros_like(start))
+        feats, _ = verify(params, tokens, pos_safe, PagedKV(pool, _masked(tables, mask)),
+                          features_only=True)
+        return _head_by_column(params, feats)
 
     def prefill_all(params, tokens, start, n_valid, pool, tables, mask):
         """Advance every prefilling slot by one ragged [B, C] chunk in one
@@ -109,7 +139,7 @@ def build_paged_steps(model: Model, *, method: str, page_size: int,
         return logits
 
     if decode_backend == "paged":
-        return PagedSteps(decode_all, prefill_all, prefill_chunk)
+        return PagedSteps(decode_all, prefill_all, prefill_chunk, verify_all)
 
     def gather_decode_all(params, tokens, positions, pool, tables, mask):
         """One decode step for every slot over the gathered dense view; the
@@ -123,4 +153,21 @@ def build_paged_steps(model: Model, *, method: str, page_size: int,
         P.scatter_tokens(pool, page_ids, pos_safe % ps, k2[:, bidx, pos], v2[:, bidx, pos])
         return logits
 
-    return PagedSteps(gather_decode_all, None, prefill_chunk)
+    def gather_verify_all(params, tokens, start, pool, tables, mask):
+        """Gather-backend verify: the dense view in, the S new tokens' K/V
+        of every slot scattered back (masked lanes to the scratch page)."""
+        B, S = tokens.shape
+        pos_safe = torch.where(mask, start, torch.zeros_like(start))
+        kv = P.gather_pages(pool, tables, dtype)
+        feats, (k2, v2) = verify(params, tokens, pos_safe, kv, features_only=True)
+        bidx = torch.arange(B, device=tokens.device)[:, None]
+        pos = (pos_safe[:, None] + torch.arange(S, device=tokens.device)[None, :]).long()
+        page_ids = torch.where(mask[:, None], tables[bidx, pos // ps],
+                               torch.zeros_like(pos, dtype=tables.dtype))
+        L = k2.shape[0]
+        k_new = k2[:, bidx, pos].reshape(L, B * S, *k2.shape[3:])
+        v_new = v2[:, bidx, pos].reshape(L, B * S, *v2.shape[3:])
+        P.scatter_tokens(pool, page_ids.reshape(-1), (pos % ps).reshape(-1), k_new, v_new)
+        return _head_by_column(params, feats)
+
+    return PagedSteps(gather_decode_all, None, prefill_chunk, gather_verify_all)

@@ -1,11 +1,11 @@
-"""The training loop: straggler monitoring and eval.
+"""The training loop: checkpoint/restart, straggler monitoring and eval.
 
 Port of ``repro.train.loop``.  ``train(...)`` is the single entry point of
-the launcher.  Its state is (params, optimizer state, step) and the data
-position is the step, so the run is deterministic given the seed.
-Checkpoint/restart (``checkpoint/checkpointer.py``) is not ported yet: it
-heads the port's next slice (ROADMAP, Queue A), and until then
-``checkpoint_dir`` raises.
+the launcher.  It is restart-safe: the state (params, optimizer state,
+step) is saved every ``checkpoint_every`` steps and at the end, and the data
+position is the step, so a killed run started again with the same
+arguments restores the latest checkpoint and continues bit for bit (the
+per-step rounding seed is derived from the step counter).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.convert import init_params
 from repro_torch.data.pipeline import TokenBatcher
 from repro_torch.models.registry import Model
@@ -37,6 +38,7 @@ def train(
     method: str = "quartet",
     master_dtype: str = "float32",
     checkpoint_dir: str | None = None,
+    checkpoint_every: int = 500,
     eval_batcher: TokenBatcher | None = None,
     eval_every: int = 0,
     eval_batches: int = 8,
@@ -47,25 +49,30 @@ def train(
     params: dict | None = None,
     device="cuda",
 ) -> tuple[TrainState, list[dict]]:
-    """Train ``total_steps`` steps from ``params`` (or random weights drawn
-    from ``seed``) on ``device``.  Returns the final state and one metrics
-    dict per step (loss, grad_norm, nll, tokens, step, dt in seconds)."""
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "train(checkpoint_dir=...): checkpoint/checkpointer.py is not ported yet; "
-            "it heads the port's next slice (ROADMAP, Queue A)")
+    """Train up to step ``total_steps`` from ``params`` (or random weights
+    drawn from ``seed``) on ``device``, or from the latest checkpoint in
+    ``checkpoint_dir`` when it holds one.  Returns the final state and one
+    metrics dict per step run (loss, grad_norm, nll, tokens, step, dt in
+    seconds)."""
     if params is None:
         params = init_params(model.cfg, torch.Generator(device=device).manual_seed(seed),
                              device)
     state = make_train_state(params, optimizer, master_dtype)
     del params
 
+    ckpt = Checkpointer(checkpoint_dir) if checkpoint_dir else None
+    start_step = 0
+    if ckpt and ckpt.latest_step() is not None:
+        state, meta = ckpt.restore(state, device=device)
+        start_step = int(meta["step"])
+        log_fn(f"[resume] restored step {start_step} from {checkpoint_dir}")
+
     step_fn = make_train_step(model, optimizer, method=method, microbatch=microbatch)
     monitor = StragglerMonitor(
         on_straggler=lambda s, dt, mu: log_fn(
             f"[straggler] step {s}: {dt:.2f}s vs ewma {mu:.2f}s"))
     history = []
-    for step in range(total_steps):
+    for step in range(start_step, total_steps):
         batch = _to_device(batcher.batch(step), device)
         monitor.step_start()
         state, metrics = step_fn(state, batch)
@@ -79,6 +86,10 @@ def train(
         if eval_batcher and eval_every and step and step % eval_every == 0:
             loss = evaluate(model, state, eval_batcher, eval_batches, method, device)
             log_fn(f"step {step:6d} eval_loss {loss:.4f}")
+        if ckpt and checkpoint_every and (step + 1) % checkpoint_every == 0:
+            ckpt.save(step + 1, state)
+    if ckpt:
+        ckpt.save(total_steps, state, blocking=True)
     return state, history
 
 

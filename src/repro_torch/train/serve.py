@@ -1,7 +1,8 @@
 """Serving steps over the model forward: prefill, decode and multi-token.
 
 Port of ``init_cache``, ``make_chunk_prefill_step``, ``make_prefill_step``,
-``make_decode_step`` and ``make_verify_step`` from ``repro.train.serve``.
+``make_decode_step``, ``make_verify_step`` and ``greedy_generate`` from
+``repro.train.serve``.
 Each step runs the model forward with explicit per-token positions over a
 cache that it updates in place: dense caches ``(K, V)`` [L, B, T, Hkv, hd]
 written at ``cache_index`` (the gather serving backend and whole-prompt
@@ -10,8 +11,9 @@ The reference builds the multi-token step on a model with
 ``attn_rows_shared=False``; the port always computes causal bounds and rope
 angles per row, so no second model exists.  Seeds are 0, as in the
 reference's serving steps.  The steps run under ``torch.inference_mode``:
-serving never differentiates.  ``greedy_generate`` is not ported: it is no
-token oracle (ROADMAP C1), and it arrives with sampled decoding.
+serving never differentiates.  The reference's ``greedy_generate`` is no
+token oracle on jax 0.9.0 (ROADMAP C1); the port's is held against the
+argmax of its own teacher-forced forward.
 """
 
 from __future__ import annotations
@@ -92,3 +94,36 @@ def make_verify_step(model: Model, *, method: str = "quartet") -> Callable:
         return out, caches
 
     return verify
+
+
+def greedy_generate(model: Model, params, prompt: torch.Tensor, max_new: int, max_len: int,
+                    method: str = "quartet", sampling=None) -> torch.Tensor:
+    """Reference generation loop: prefill ``prompt`` [B, P] into dense
+    caches of ``max_len`` positions, then ``max_new − 1`` decode steps →
+    int32 tokens [B, max_new].  ``sampling`` (a
+    :class:`~repro_torch.serve.sampling.SamplingParams`; None or temperature
+    0 is greedy argmax) draws token t of batch row b with
+    ``row_key(seed, b, t)``, the engine's keys, so a one-row sampled
+    generate equals an engine request with the same parameters."""
+    if max_new < 1:
+        raise ValueError(f"max_new must be >= 1, got {max_new}")
+    B = prompt.shape[0]
+    if sampling is not None and not sampling.greedy:
+        from repro_torch.serve.sampling import sample_row
+
+        def pick(logits, t):
+            return torch.tensor([[sample_row(logits[b], sampling, b, t)] for b in range(B)],
+                                dtype=torch.int32, device=logits.device)
+    else:
+        def pick(logits, t):
+            return torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+
+    prefill = make_prefill_step(model, method=method)
+    decode = make_decode_step(model, method=method)
+    caches = init_cache(model, B, max_len, prompt.device)
+    logits, caches, pos = prefill(params, prompt, caches)
+    out = [pick(logits, 0)]
+    for t in range(1, max_new):
+        logits, caches, pos = decode(params, out[-1], pos, caches)
+        out.append(pick(logits, t))
+    return torch.cat(out, dim=1)

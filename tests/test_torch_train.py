@@ -315,11 +315,12 @@ def test_params_from_jax_carries_llama_tree(tiny_pair):
         params_from_jax(bad, tm.cfg, "cpu")
 
 
-def test_train_loop_and_launcher_on_cpu(tiny_pair, monkeypatch, capsys):
+def test_train_loop_and_launcher_on_cpu(tiny_pair, monkeypatch, capsys, tmp_path):
     """``train`` runs the port's steps and reports finite metrics;
-    ``evaluate`` scores held-out batches; the launcher runs the reduced
-    config on the CPU and refuses ``cuda`` without a GPU; checkpointing is
-    not ported yet."""
+    ``evaluate`` scores held-out batches; with ``checkpoint_dir`` a second
+    call resumes from the first's checkpoint (tests/test_torch_checkpoint.py
+    holds resume bit for bit); the launcher runs the reduced config on the
+    CPU and refuses ``cuda`` without a GPU."""
     _, _, tm, tp, _ = tiny_pair
     batcher = TD.TokenBatcher(TD.SyntheticC4Dataset(VOCAB, seed=0), 2, SEQ)
     opt = adamw(cosine_warmup(1e-3, 3))
@@ -327,8 +328,12 @@ def test_train_loop_and_launcher_on_cpu(tiny_pair, monkeypatch, capsys):
     assert state.step == 3 and [h["step"] for h in hist] == [0, 1, 2]
     assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist)
     assert np.isfinite(evaluate(tm, state, batcher, 2, device="cpu"))
-    with pytest.raises(NotImplementedError, match="checkpointer"):
-        train(tm, opt, batcher, 1, params=tp, device="cpu", checkpoint_dir="ckpt")
+    ck = str(tmp_path / "ckpt")
+    _, first = train(tm, opt, batcher, 1, params=tp, device="cpu", checkpoint_dir=ck,
+                     log_fn=lambda *_: None)
+    again, rest = train(tm, opt, batcher, 1, params=tp, device="cpu", checkpoint_dir=ck,
+                        log_fn=lambda *_: None)
+    assert len(first) == 1 and rest == [] and again.step == again.opt_state["step"] == 1
     monkeypatch.setattr(sys, "argv", ["train", "--reduced", "--device", "cpu", "--steps", "2",
                                       "--batch", "2", "--seq", "16"])
     train_launcher.main()
