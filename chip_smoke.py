@@ -48,6 +48,20 @@
    sampled stream; the prefix cache on 8 prompts sharing 256 tokens,
    cold and warm, its counts against the schedule's, warm tokens and
    first-token log-probs against cold, the pool audited after every tick.
+3c. MoE serving (``--phases moe``): the expert-axis B1 and B3 against
+   their plain versions and E launches of the 2-d kernels, bit for bit, at a
+   full-width MoE layer's decode and prefill shapes, its stacked weights'
+   transposed views and B1's E8M0 edge rows; B5 at the MoE's group of 16 at
+   R = 16, 80 and 1024 query rows a head; then the engine phase's traffic
+   on qwen3-moe-235b-a22b at its published widths, 8 of its 94 layers
+   (random weights from a seed; MXFP4 pool, paged backend, greedy), its
+   launches against the per-step-call prediction (14 B1, 7 B3, 1 B5, 1 B4a
+   a layer), its log-probs against the teacher-forced forward, tok/s, TTFT,
+   tick times, pool, weight and peak bytes; self-speculation at k = 4
+   token-exact with verify rows equal to decode rows; the expert-axis
+   kernels timed on layer 0's experts at a decode and a prefill tick; and
+   reduced qwen3-moe and arctic on the card against the CPU and their own
+   teacher-forced forward, paged against gather.
 4. Trains: a reduced Llama 3 steps on the card (kernels) and on the CPU
    (plain versions), losses and grad-norms compared; checkpoint and resume
    at full width, 2 layers deep (two unbroken runs and one stopped and
@@ -78,6 +92,8 @@ when run outside a checkout of the repository.  ``--phases`` runs a subset
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -126,6 +142,11 @@ SEED = 0
 SPEC_K = 4
 SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
 PREFIX_TOKENS, MIN_TAIL, MAX_TAIL = 256, 64, 200
+
+# the moe phase: qwen3-moe-235b-a22b at its published widths, its depth cut
+# to MOE_LAYERS of 94 (4.98 GB of bf16 weights a layer: 8 layers and the
+# untied embedding and head hold ~42 GB of the card's 80; all 94, 468 GB)
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8
 
 # the gather-backend run of the engine phase: the first GATHER_REQUESTS of
 # the phase's requests, GATHER_NEW new tokens each
@@ -1018,7 +1039,9 @@ def run_engine(torch, model, params, waves, *, spec=None, prefix=False, keep_log
     """The full-width engine (paged backend, MXFP4 pool) over ``waves`` of
     (prompt, SamplingParams | None), each wave submitted at once and drained
     before the next.  Step calls are counted by kind (the draft proposer's
-    apart); every request must end with ``max_new`` tokens in range and
+    apart), and each tick's host time by kind (a tick with a queued or
+    prefilling request counts as prefill); every request must end with
+    ``max_new`` tokens in range and
     finite logits.  With ``prefix`` the allocator audits itself after every
     mutation and the pool is audited again after every tick."""
     import numpy as np
@@ -1033,13 +1056,16 @@ def run_engine(torch, model, params, waves, *, spec=None, prefix=False, keep_log
     draft_calls = _count_step_calls(eng.proposer) if hasattr(eng.proposer, "_steps") else {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    reqs, ttft = [], {}
+    reqs, ttft, ticks = [], {}, {"prefill": [], "decode": []}
     for wave in waves:
         w0 = time.perf_counter()
         wreqs = [eng.submit(p, max_new, arrival_time=w0 - t0, sampling=sp) for p, sp in wave]
         reqs += wreqs
         while eng.sched.pending:
-            eng.step(now=time.perf_counter() - t0)
+            kind = "prefill" if eng.sched.queue or eng.sched.prefilling() else "decode"
+            s0 = time.perf_counter()
+            eng.step(now=s0 - t0)
+            ticks[kind].append(time.perf_counter() - s0)  # each tick ends in a host read
             if prefix:
                 eng.cache.check_invariants()
             for r in wreqs:
@@ -1059,7 +1085,7 @@ def run_engine(torch, model, params, waves, *, spec=None, prefix=False, keep_log
                 raise AssertionError(f"request {r.rid}: non-finite or misshapen logits")
     toks = sum(len(r.tokens) for r in reqs)
     return {"eng": eng, "reqs": reqs, "wall": wall, "ttft": ttft, "calls": calls,
-            "draft_calls": draft_calls, "tok_per_s": toks / wall}
+            "draft_calls": draft_calls, "tok_per_s": toks / wall, "ticks": ticks}
 
 
 def _first_divergence(a: list, b: list):
@@ -1209,6 +1235,13 @@ def serve_features(torch, ops, device="cuda"):
         # speculation changes the schedule, never a greedy token
         if any(d is not None for d in rec["first_divergence_from_nonspec"]):
             raise AssertionError(f"spec {name}: tokens differ from the non-spec run")
+        # the draft proposer with the target's weights: its cache holds the
+        # target's bits at every accepted position (the prompt synced in the
+        # target's prefill chunks, generated positions through decode steps),
+        # so its drafts are the target's own
+        if name == "draft" and rec["acceptance"] < 0.95:
+            raise AssertionError(f"spec draft (the target's weights): acceptance "
+                                 f"{rec['acceptance']} < 0.95")
         del run
     # sampled self-speculation against the sampled non-spec streams
     run = run_engine(torch, model, params, sampled, spec=specs["self"])
@@ -1273,6 +1306,400 @@ def serve_features(torch, ops, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: MoE serving (qwen3-moe-235b-a22b at full width, MOE_LAYERS deep)
+# ---------------------------------------------------------------------------
+
+
+def moe_config():
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_engine import kernel_config
+
+    return kernel_config(dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS))
+
+
+def check_moe_kernels(torch, cfg, device="cuda"):
+    """The expert-axis B1 and B3 against their plain versions and against E
+    launches of the 2-d kernels, bit for bit, at a full-width MoE layer's
+    shapes: the dispatched tokens x [128, 8 | 64, 4096] and h [128, 8 | 64,
+    1536] of a decode and a prefill tick, the transposed views of the
+    stacked gate, up and down weights (read in place), B1's E8M0 edge rows
+    on an expert axis, and two small stacks that B1 takes in its tile body; then B5 at the MoE's group of 16 (64 query heads over
+    4 KV heads) at S = 1, SPEC_K + 1 and PREFILL_CHUNK (R = 16, 80 and 1024
+    query rows a head) at the split's edges, within the tolerances of the
+    dense checks.  Returns {kernel: max abs error}."""
+    from repro_torch.kernels import hadamard_quant as HQ
+    from repro_torch.kernels import mxfp4_matmul as MM
+    from repro_torch.kernels import paged_attention as PA
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    E, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+
+    def quantize(name, x):
+        got = HQ.hadamard_quest_quantize_experts(x)
+        want = HQ.hadamard_quest_quantize_experts_plain(x)
+        for e in range(x.shape[0]):
+            for g, w, p, what in zip(got, want, HQ.hadamard_quest_quantize(x[e]),
+                                     ("codes", "scales", "mask")):
+                if not torch.equal(g[e], w[e]):
+                    raise AssertionError(f"B1 experts {name}: expert {e}'s {what} differ from "
+                                         f"the plain version at {int((g[e] != w[e]).sum())}")
+                if not torch.equal(g[e], p):
+                    raise AssertionError(f"B1 experts {name}: expert {e}'s {what} differ from "
+                                         f"a 2-d launch at {int((g[e] != p).sum())}")
+        return got[0], got[1]
+
+    edge = e8m0_edge_rows(torch, gen, device)  # 793 rows = 13 experts x 61
+    quantize("E8M0 edge rows", edge.reshape(13, -1, edge.shape[1]))
+    # the tile body: rows 2 bytes off a 16-byte boundary, and a transposed
+    # view whose columns are 72 bytes apart
+    x = torch.randn((4, 24, 72), generator=gen, device=device).to(torch.bfloat16)[..., 1:65]
+    w = torch.randn((4, 64, 36), generator=gen, device=device).to(torch.bfloat16)
+    before = HQ.hadamard_quest_quantize.vector_launches
+    quantize("tile body, rows off 16 B", x)
+    quantize("tile body, Wᵀ columns of 72 B", w.transpose(-1, -2))
+    if HQ.hadamard_quest_quantize.vector_launches != before:
+        raise AssertionError("B1 experts: a tile-body case took the vector body")
+    weights = {}
+    for name, (K, N) in (("gate", (d, f)), ("up", (d, f)), ("down", (f, d))):
+        w = (torch.randn((E, K, N), generator=gen, device=device) / K**0.5).to(torch.bfloat16)
+        weights[name] = quantize(f"W_{name}ᵀ [{E}, {N}, {K}]", w.transpose(-1, -2))
+        del w
+    for c in (N_SLOTS, PREFILL_CHUNK):
+        acts = {K: quantize(f"x [{E}, {c}, {K}]", (torch.randn((E, c, K), generator=gen,
+                                                               device=device) * 1.9)
+                            .to(torch.bfloat16)) for K in (d, f)}
+        for name, (wc, ws) in weights.items():
+            ac, as_ = acts[wc.shape[2]]
+            args = (ac, as_, wc.transpose(-1, -2), ws.transpose(-1, -2))
+            got, want = MM.mxfp4_matmul_experts(*args), MM.mxfp4_matmul_experts_plain(*args)
+            if not torch.equal(got, want):
+                raise AssertionError(f"B3 experts {name} c={c}: differs from the plain version "
+                                     f"at {int((got != want).sum())}")
+            for e in range(E):
+                if not torch.equal(got[e], MM.mxfp4_matmul(*(t[e] for t in args))):
+                    raise AssertionError(f"B3 experts {name} c={c}: expert {e} differs from a "
+                                         f"2-d launch")
+        del acts
+    del weights
+    n_pp = MAX_LEN // PAGE_SIZE + 1
+    worst = _check_paged_edges_at(
+        torch, PA, cfg, gen, device, n_pp,
+        lambda full, S: [1, 16, 32, full - S + 1, 1, 300, 17, MAX_LEN - S],
+        S_values=(1, SPEC_K + 1, PREFILL_CHUNK))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"hadamard_quest_quantize": 0.0, "mxfp4_matmul": 0.0, "paged_attention": worst}
+
+
+def check_reduced_moe(torch, device="cuda"):
+    """The MoE family's oracle at a small size: reduced qwen3-moe-235b-a22b
+    and reduced arctic-480b (dense residual), f32, the port's weights made
+    on the CPU and copied to the card.  Under the bf16 method with a dense
+    pool the card's greedy tokens equal the argmax of its teacher-forced
+    forward on the paged backend, the gather backend's equal the paged
+    ones, and both equal the CPU run's tokens, whose first-token logits the
+    card's hold to 1e-4 (f32 sums in another order on each device; a flipped
+    routing choice would move them by far more).  With the MXFP4 pool and
+    the Quartet kernels the engine's tokens and every logits row equal, bit
+    for bit, those of the same engine with the Quartet linears on the
+    kernels' plain versions on the card (B1 and B3 equal them bit for bit,
+    and nothing else differs).  Its first-token log-probs against the
+    teacher-forced ones are held to 5.0 / 1.0, the full-width checks' bound
+    (top-2-of-8 routing can turn one MXFP4 rounding into another expert
+    choice: on the CPU these prompts read a mean of 0.36–0.47); beside them
+    the reading of a planted fault, the engine given every layer's ``down``
+    experts shifted by one (a wrong expert's output), is printed."""
+    import numpy as np
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.convert import init_params
+    from repro_torch.core import quartet as QC
+    from repro_torch.launch.serve_engine import kernel_config
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import moe_ffn
+
+    out = {}
+    for arch in ("qwen3-moe-235b-a22b", "arctic-480b"):
+        cfg = kernel_config(get_reduced_config(arch, dtype="float32"))
+        model = build_model(cfg)
+        host = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        card = {"cpu": host, device: _tree_map(lambda t: t.to(device), host)}
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (7, 19, 33)]
+        runs, mx, tf_first = {}, [], []
+        for dev, kv, method, backend in ((device, "dense", "bf16", "paged"),
+                                         (device, "dense", "bf16", "gather"),
+                                         ("cpu", "dense", "bf16", "paged"),
+                                         (device, "mxfp4", "quartet", "paged")):
+            params = card[dev]
+            reqs = _reduced_moe_run(model, params, prompts, kv, method, backend)
+            runs[dev, kv, backend] = reqs
+            if dev == "cpu":
+                continue
+            for p, r in zip(prompts, reqs):
+                seq = torch.tensor(np.concatenate([p, r.tokens[:-1]])[None], device=dev)
+                with torch.inference_mode():
+                    tf, _ = model.forward(params, seq, 0, method=method)
+                tf = tf[0, p.size - 1:].float().cpu()
+                if kv == "dense":
+                    if r.tokens != tf.argmax(-1).tolist():
+                        raise AssertionError(f"reduced {arch} {backend} tokens {r.tokens} != "
+                                             f"teacher-forced argmax {tf.argmax(-1).tolist()}")
+                else:
+                    tf_first.append(torch.log_softmax(tf[0], -1))
+                    d = (tf_first[-1]
+                         - torch.log_softmax(torch.from_numpy(r.logits_trace[0]), -1)).abs()
+                    mx.append((float(d.max()), float(d.mean())))
+                    if mx[-1][0] >= 5.0 or mx[-1][1] >= 1.0:
+                        raise AssertionError(f"reduced {arch} mxfp4 first-token log-probs off "
+                                             f"by (max, mean) {mx[-1]}")
+        # the same MXFP4 engine with the Quartet linears on the kernels'
+        # plain versions, on the card
+        plain_ops, kernel_ops = PlainOps(), QC._kernel_ops
+        QC._kernel_ops = lambda ops: plain_ops
+        try:
+            plain = _reduced_moe_run(model, card[device], prompts, "mxfp4", "quartet", "paged")
+        finally:
+            QC._kernel_ops = kernel_ops
+        kern = runs[device, "mxfp4", "paged"]
+        kernels_equal_plain = all(
+            a.tokens == b.tokens and len(a.logits_trace) == len(b.logits_trace)
+            and all(np.array_equal(x, y) for x, y in zip(a.logits_trace, b.logits_trace))
+            for a, b in zip(kern, plain))
+        # a planted fault: every layer's down experts shifted by one
+        moe = card[device]["layers"]["moe"]
+        faulty = {**card[device], "layers": {**card[device]["layers"], "moe": {
+            **moe, "down": torch.roll(moe["down"], 1, dims=1)}}}
+        fault = []
+        for lp, r in zip(tf_first, _reduced_moe_run(model, faulty, prompts, "mxfp4", "quartet",
+                                                   "paged")):
+            d = (lp - torch.log_softmax(torch.from_numpy(r.logits_trace[0]), -1)).abs()
+            fault.append((float(d.max()), float(d.mean())))
+        # routing, dispatch and the combine read nothing back to the host
+        # (one MoE layer at a prefill chunk's 2 x 8 tokens, a padding lane)
+        layer0 = _tree_map(lambda t: t[0], moe)
+        x = torch.randn((2, 8, cfg.d_model), generator=torch.Generator(device=device)
+                        .manual_seed(SEED), device=device)
+        valid = torch.ones((2, 8), dtype=torch.bool, device=device)
+        valid[1, 5:] = False
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            moe_ffn(layer0, x, 0, cfg, "quartet", token_valid=valid)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        tok = {k: [r.tokens for r in v] for k, v in runs.items()}
+        paged, gather, cpu = (tok[device, "dense", "paged"], tok[device, "dense", "gather"],
+                              tok["cpu", "dense", "paged"])
+        dlog = max(float(np.abs(a.logits_trace[0] - b.logits_trace[0]).max())
+                   for a, b in zip(runs[device, "dense", "paged"], runs["cpu", "dense", "paged"]))
+        out[arch] = {"gather_equals_paged": gather == paged, "card_equals_cpu": paged == cpu,
+                     "first_token_logits_max_abs_card_vs_cpu": dlog,
+                     "mxfp4_kernels_equal_plain_bitwise": kernels_equal_plain,
+                     "mxfp4_first_token_logprob_max_mean_vs_teacher_forced": mx,
+                     "planted_fault_logprob_max_mean_vs_teacher_forced": fault,
+                     "moe_ffn_syncs_with_host": False}
+        if gather != paged or paged != cpu or dlog > 1e-4 or not kernels_equal_plain:
+            raise AssertionError(f"reduced {arch}: {out[arch]}")
+    log(f"  reduced MoE oracle: {json.dumps(out)}")
+    return out
+
+
+def _reduced_moe_run(model, params, prompts, kv, method, backend):
+    """The reduced MoE oracle's engine: 2 slots, 6 new tokens a prompt."""
+    from repro_torch.serve import Engine, EngineConfig
+
+    eng = Engine(model, params, EngineConfig(n_slots=2, max_len=48, page_size=8, kv_dtype=kv,
+                                             prefill_chunk=8, method=method, keep_logits=True,
+                                             decode_backend=backend))
+    reqs = [eng.submit(p, 6) for p in prompts]
+    eng.drain()
+    return reqs
+
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def serve_moe(torch, ops, device="cuda"):
+    """The engine phase's traffic on qwen3-moe-235b-a22b at full width,
+    MOE_LAYERS of its 94 layers (random weights from SEED, MXFP4 pool, paged
+    backend, greedy, the Quartet linears and the expert-axis kernels): the
+    launches of every step call against the prediction, the log-probs
+    against the teacher-forced forward, a timed run, then self-speculation
+    at k = SPEC_K token-exact with its verify rows equal to the decode rows
+    bit for bit; then the expert-axis B1 and B3 timed on layer 0's experts.
+    Returns (summary, launch counts by path, vector-body launches by path)."""
+    import numpy as np
+
+    from repro_torch.convert import init_params
+    from repro_torch.models import build_model
+    from repro_torch.serve import SpecConfig
+
+    cfg = moe_config()
+    gc.collect()  # a speculating engine and its proposer hold each other
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    init = {"params": sum(t.numel() for t in _leaves(params)), "weight_bytes": weight_bytes,
+            "init_s": time.perf_counter() - t0,
+            "peak_mem_gb_init": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  init: {json.dumps(init)}")
+    model = build_model(cfg)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(MIN_PROMPT, MAX_PROMPT + 1)))
+               .astype(np.int32) for _ in range(N_REQUESTS)]
+    greedy = [[(p, None) for p in prompts]]
+    L = cfg.num_layers
+
+    def check_launches(tag, run):
+        # per step call, per layer: 14 B1 (x and Wᵀ of q, k, v, o and of the
+        # three expert linears, each of those one launch over all experts),
+        # 7 B3, 1 B5, 1 B4a (K and V); the router and the untied head are bf16
+        counts = ops.launch_counts()
+        n = sum(run["calls"].values())
+        want = dict.fromkeys(counts, 0)
+        want.update(hadamard_quest_quantize=14 * L * n, mxfp4_matmul=7 * L * n,
+                    paged_attention=L * n, kv_quant_pack=L * n)
+        if counts != want:
+            raise AssertionError(f"{tag}: launches {counts} != predicted {want} "
+                                 f"(step calls {run['calls']})")
+        return counts
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    base = run_engine(torch, model, params, greedy, keep_logits=True)
+    counts, vectors = {}, {}
+    counts["moe"] = check_launches("moe", base)
+    vectors["moe"] = ops.vector_launches()
+    tf = [_logprob_diff(torch, r.logits_trace,
+                        _teacher_forced_rows(torch, model, params, r, device))
+          for r in base["reqs"]]
+    if not all(x < 5.0 and y < 1.0 for x, y in tf):
+        raise AssertionError(f"MoE log-probs vs teacher-forced out of tolerance: {tf}")
+    timed = run_engine(torch, model, params, greedy)
+    ttft = sorted(timed["ttft"].values())
+    med = lambda v: 1e3 * sorted(v)[len(v) // 2]  # noqa: E731
+    summary = {"arch": cfg.name, "layers": f"{L} of 94", "prompts": [int(p.size) for p in prompts],
+               **init, "step_calls": base["calls"], "tok_per_s": timed["tok_per_s"],
+               "wall_s": timed["wall"], "ttft_mean_s": float(np.mean(ttft)),
+               "ttft_median_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+               "prefill_ticks": len(timed["ticks"]["prefill"]),
+               "prefill_tick_ms_median": med(timed["ticks"]["prefill"]),
+               "decode_ticks": len(timed["ticks"]["decode"]),
+               "decode_tick_ms_median": med(timed["ticks"]["decode"]),
+               "kv_pool_bytes": timed["eng"].cache_bytes(),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "teacher_forced_logprob_max_mean": tf, "launches": counts["moe"]}
+    log(f"  full width: {json.dumps(summary)}")
+
+    # self-speculation, k = SPEC_K: the non-spec tokens, and every verify row
+    # equal bit for bit to the decode row at the same position (the paged
+    # kernel's split, the router and the norms round a row alike at R = 16
+    # and R = 80 rows a head)
+    ops.reset_launch_counts()
+    spec = run_engine(torch, model, params, greedy, spec=SpecConfig(k=SPEC_K, proposer="self"),
+                      keep_logits=True)
+    counts["moe_spec"] = check_launches("moe_spec", spec)
+    vectors["moe_spec"] = ops.vector_launches()
+    from repro_torch.serve.spec import aggregate_stats
+
+    agg = aggregate_stats(spec["reqs"])
+    rec = {"tok_per_s": spec["tok_per_s"], "acceptance": agg["acceptance_rate"],
+           "tokens_per_verify_call": agg["tokens_per_decode_call"], "step_calls": spec["calls"],
+           "first_divergence_from_nonspec": [_first_divergence(r.tokens, b.tokens)
+                                             for r, b in zip(spec["reqs"], base["reqs"])]}
+    for r, b in zip(spec["reqs"], base["reqs"]):
+        same = [np.array_equal(x, y) for x, y in zip(r.logits_trace, b.logits_trace)]
+        rec.setdefault("verify_rows_equal_decode_rows", []).append(all(same))
+    summary["spec_self"] = rec
+    log(f"  self-speculation: {json.dumps(rec)}")
+    if any(d is not None for d in rec["first_divergence_from_nonspec"]):
+        raise AssertionError("MoE self-speculation: tokens differ from the non-spec run")
+    if not all(rec["verify_rows_equal_decode_rows"]):
+        raise AssertionError("MoE self-speculation: verify rows differ from the decode rows")
+    # layer 0's expert weights alone for the kernel times: the plain
+    # versions' f32 temporaries need the room the model held
+    experts = {n: params["layers"]["moe"][n][0].clone() for n in ("gate", "up", "down")}
+    del base, timed, spec, params
+    gc.collect()  # the speculating engine and its proposer hold each other
+    torch.cuda.empty_cache()
+    summary["times"] = time_moe_kernels(torch, cfg, experts, device)
+    return summary, counts, vectors
+
+
+def time_moe_kernels(torch, cfg, ws, device="cuda"):
+    """The expert-axis B1 and B3 over one MoE layer's experts (``ws``: layer
+    0's stacked gate, up and down weights [E, K, N]) at a decode tick (8 tokens: 8 rows an expert, as dispatch pads
+    them) and a prefill tick (8 x 64 tokens: 64 rows an expert), each beside
+    its bound, its plain version (timed once: it runs seconds) and, for B3,
+    one ``torch.bmm`` in bf16 on the dequantized operands; B5 at the MoE's
+    group of 16 at a decode, a prefill and a verify tick."""
+    from repro_torch.kernels import hadamard_quant as HQ
+    from repro_torch.kernels import mxfp4_matmul as MM
+
+    timer, once = Timer(torch), Timer(torch, reps=1)
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    wq = {n: HQ.hadamard_quest_quantize_experts(w.transpose(-1, -2))[:2] for n, w in ws.items()}
+    E, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    rec = {}
+
+    def b1_bytes(ts):  # 2 B read, 1 B code and 1 B mask written per element, 4 B a group
+        return sum(t.numel() * (2 + 2) + t.numel() // 32 * 4 for t in ts)
+
+    for c, tag in ((N_SLOTS, "moe decode"), (PREFILL_CHUNK, "moe prefill")):
+        x = (torch.randn((E, c, d), generator=gen, device=device) * 1.9).to(torch.bfloat16)
+        h = (torch.randn((E, c, f), generator=gen, device=device) * 1.9).to(torch.bfloat16)
+        # the layer's six expert-axis B1 calls: x for gate and up, h for
+        # down, and each weight's transposed view
+        calls = [x, ws["gate"].transpose(-1, -2), x, ws["up"].transpose(-1, -2), h,
+                 ws["down"].transpose(-1, -2)]
+        for part, ts in (("", calls), (" weights", calls[1::2])):
+            rec[("hadamard_quest_quantize_experts", tag + part)] = dict(
+                ms=timer(lambda ts=ts: [HQ.hadamard_quest_quantize_experts(t) for t in ts]),
+                device_ms=timer.device(
+                    lambda ts=ts: [HQ.hadamard_quest_quantize_experts(t) for t in ts]),
+                plain_ms=once(lambda ts=ts: [HQ.hadamard_quest_quantize_experts_plain(t)
+                                             for t in ts]),
+                bound_ms=b1_bytes(ts) / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+                library_ms=None, launches_per_layer=len(ts))
+        xq = HQ.hadamard_quest_quantize_experts(x)[:2]
+        hq = HQ.hadamard_quest_quantize_experts(h)[:2]
+        args = [(*a, w[0].transpose(-1, -2), w[1].transpose(-1, -2))
+                for a, w in ((xq, wq["gate"]), (xq, wq["up"]), (hq, wq["down"]))]
+        deq = [(_deq3(torch, a, s), _deq3(torch, b.transpose(-1, -2), t.transpose(-1, -2))
+                .transpose(-1, -2)) for a, s, b, t in args]
+        nbytes = sum(a.numel() + s.numel() * 4 + b.numel() + t.numel() * 4
+                     + a.shape[0] * a.shape[1] * b.shape[2] * 4 for a, s, b, t in args)
+        nops = sum(2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2] for a, _, b, _ in args)
+        rec[("mxfp4_matmul_experts", tag)] = dict(
+            ms=timer(lambda: [MM.mxfp4_matmul_experts(*a) for a in args]),
+            device_ms=timer.device(lambda: [MM.mxfp4_matmul_experts(*a) for a in args]),
+            plain_ms=once(lambda: [MM.mxfp4_matmul_experts_plain(*a) for a in args]),
+            bound_ms=max(nbytes / H100_BYTES_PER_S, nops / H100_INT8_OPS) * 1e3,
+            bound_by="bytes" if nbytes / H100_BYTES_PER_S >= nops / H100_INT8_OPS
+            else "operations",
+            library_ms=timer(lambda: [torch.bmm(a, b) for a, b in deq]),
+            launches_per_layer=len(args))
+        del x, h, xq, hq, args, deq
+    rec.update(time_paged_attention(torch, cfg, timer, gen, device, prefix="moe "))
+    for (name, tag), r in rec.items():
+        log(f"  [times] {name} {tag} (one MoE layer, NVIDIA H100 figures of this run): "
+            f"{json.dumps(r)}")
+    torch.cuda.empty_cache()
+    return {f"{name} {tag}": r for (name, tag), r in rec.items()}
+
+
+def _deq3(torch, codes, scales):
+    """Half-codes [E, M, K] and scales [E, M, K/32] → bf16 values (exact)."""
+    e, m, k = codes.shape
+    v = codes.float().reshape(e, m, k // 32, 32) * (0.5 * scales)[..., None]
+    return v.reshape(e, m, k).to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -1284,7 +1711,6 @@ def time_kernels(torch, cfg, timer, device="cuda"):
     B5 also at a verify tick's S = SPEC_K + 1."""
     from repro_torch.kernels import hadamard_quant as HQ
     from repro_torch.kernels import mxfp4_matmul as MM
-    from repro_torch.kernels import paged_attention as PA
 
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     rec = {}
@@ -1338,6 +1764,17 @@ def time_kernels(torch, cfg, timer, device="cuda"):
 
     # B5 at a decode tick (S = 1), a prefill tick (S = 64) and a verify tick
     # (S = SPEC_K + 1: R = 10 query rows a slot and KV head)
+    rec.update(time_paged_attention(torch, cfg, timer, gen, device))
+    return rec
+
+
+def time_paged_attention(torch, cfg, timer, gen, device="cuda", prefix=""):
+    """B5 over one layer's pool at a decode tick (S = 1), a prefill tick
+    (S = 64) and a verify tick (S = SPEC_K + 1), the engine phase's slot
+    lengths, beside its plain version, its bound and one SDPA call."""
+    from repro_torch.kernels import paged_attention as PA
+
+    rec = {}
     for tag, S in (("decode", 1), ("prefill", PREFILL_CHUNK), ("verify", SPEC_K + 1)):
         lengths = [MIN_PROMPT + (MAX_PROMPT + MAX_NEW - MIN_PROMPT) * i // (N_SLOTS - 1)
                    for i in range(N_SLOTS)]
@@ -1350,7 +1787,7 @@ def time_kernels(torch, cfg, timer, device="cuda"):
         nbytes, nops = attention_bytes_ops(cfg, lens, S, True, 2)
         bound = max(nbytes / H100_BYTES_PER_S, nops / H100_BF16_OPS) * 1e3
         lib = _sdpa_operands(torch, cfg, q, pool, tables, ln)
-        rec[("paged_attention", tag)] = dict(
+        rec[("paged_attention", prefix + tag)] = dict(
             ms=timer(lambda: PA.paged_attention(q, pool, tables, ln)),
             device_ms=timer.device(lambda: PA.paged_attention(q, pool, tables, ln)),
             plain_ms=timer(lambda: PA.paged_attention_plain(q, pool, tables, ln)),
@@ -1504,6 +1941,12 @@ class PlainOps:
         out = self.MM.mxfp4_matmul_plain(a.reshape(-1, a.shape[-1]),
                                           sa.reshape(-1, sa.shape[-1]), b, sb)
         return out.reshape(*lead, -1)
+
+    def hadamard_quest_quantize_experts(self, x, group=32):
+        return self.HQ.hadamard_quest_quantize_experts_plain(x)
+
+    def mxfp4_matmul_experts(self, a, sa, b, sb):
+        return self.MM.mxfp4_matmul_experts_plain(a, sa, b, sb)
 
 
 def backward_operands(torch, K, N, gen, device="cuda"):
@@ -2032,8 +2475,8 @@ PATH_OF = {"hadamard_quest_quantize": ("train", "train"),
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,engine,features,train,times",
-                    help="comma-separated subset of kernels,engine,features,train,times")
+    ap.add_argument("--phases", default="kernels,engine,features,moe,train,times",
+                    help="comma-separated subset of kernels,engine,features,moe,train,times")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -2120,6 +2563,22 @@ def main() -> int:
                 raise AssertionError(f"kernels never launched on the {path} path: {missing}")
         log(f"[features] {json.dumps(summary)}")
         log(f"[features] done in {time.perf_counter() - t0:.1f} s")
+    if "moe" in phases:
+        t0 = time.perf_counter()
+        merr = check_moe_kernels(torch, moe_config())
+        for name, e in merr.items():
+            err[name] = max(err.get(name, 0.0), e)
+        log(f"[moe] expert-axis B1 and B3 equal their plain versions and E 2-d launches bit "
+            f"for bit; B5 at group 16 (R = 16, 80, 1024) max |Δ| {merr['paged_attention']} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        summary, mcounts, mvectors = serve_moe(torch, ops)
+        counts.update(mcounts)
+        vectors.update(mvectors)
+        for path, c in mcounts.items():
+            log(f"[moe] launches on the {path} path: {c}")
+        summary["reduced_oracle"] = check_reduced_moe(torch)
+        log(f"[moe] {json.dumps(summary)}")
+        log(f"[moe] done in {time.perf_counter() - t0:.1f} s")
     if "train" in phases:
         t0 = time.perf_counter()
         train_reduced_card_vs_cpu(torch)

@@ -2,7 +2,8 @@
 
 One ``ModelConfig`` per architecture, with the published dimensions, plus a
 ``reduced()`` variant for CPU tests.  The port serves and trains the dense
-family; the other families' fields arrive with their slices.
+family and serves the MoE family; the other families' fields arrive with
+their slices.
 """
 
 from __future__ import annotations
@@ -33,6 +34,13 @@ class ModelConfig:
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
 
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_dense_residual: bool = False  # arctic: dense FFN in parallel with MoE
+    capacity_factor: float = 1.25
+    router_zloss: float = 1e-3
+
     # numerics / technique
     quartet: QuartetConfig = QUARTET_CONFIG
     quantize_lm_head: bool = False  # the paper quantizes transformer linears
@@ -56,13 +64,18 @@ class ModelConfig:
         return self.family in ("dense", "moe", "ssm", "hybrid", "vlm")
 
     def n_params(self, non_embedding: bool = True) -> int:
-        """Analytic parameter count of the dense family."""
-        if self.family != "dense":
+        """Analytic parameter count of the dense and MoE families."""
+        if self.family not in ("dense", "moe"):
             raise NotImplementedError(f"n_params for family {self.family!r} is not ported yet")
         d, f, hd = self.d_model, self.d_ff, self.head_dim_
         attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
         ffn = (3 if self.mlp == "swiglu" else 2) * d * f
-        total = self.num_layers * (attn + ffn)
+        per_layer = attn + ffn
+        if self.family == "moe":
+            per_layer = attn + self.num_experts * ffn + d * self.num_experts
+            if self.moe_dense_residual:
+                per_layer += ffn
+        total = self.num_layers * per_layer
         if not non_embedding:
             total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return total

@@ -8,6 +8,8 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
     "qwen3-1.7b": "repro_torch.configs.qwen3_1p7b",
 }
 

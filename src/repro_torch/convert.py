@@ -3,7 +3,10 @@ params carried over leaf by leaf.
 
 The port keeps the reference's tree paths and its stacked ``[L, ...]`` layer
 leaves, so a JAX param tree (as numpy arrays, e.g. from ``jax.device_get``)
-maps onto the port's by converting each leaf.  bfloat16 leaves arrive as
+maps onto the port's by converting each leaf.  A MoE layer's leaves sit
+under ``layers.moe`` (``router.w``, ``gate``, ``up``, ``down`` with
+``[L, E, …]`` expert leaves, and arctic's ``dense_mlp``), on the
+reference's paths.  bfloat16 leaves arrive as
 ``ml_dtypes.bfloat16`` numpy arrays; their bits are reinterpreted, not
 rounded.
 """
@@ -47,4 +50,12 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> dict:
     want = (cfg.num_layers, cfg.d_model, cfg.num_heads * cfg.head_dim_)
     if tuple(wq.shape) != want:
         raise ValueError(f"layers.attn.wq.w is {tuple(wq.shape)}, config {cfg.name} needs {want}")
+    if cfg.family == "moe":
+        moe = params["layers"].get("moe", {})
+        want = (cfg.num_layers, cfg.num_experts, cfg.d_model, cfg.d_ff)
+        got = tuple(moe["gate"].shape) if "gate" in moe else None
+        if got != want or ("dense_mlp" in moe) != cfg.moe_dense_residual:
+            raise ValueError(f"layers.moe.gate is {got} (dense_mlp: {'dense_mlp' in moe}), "
+                             f"config {cfg.name} needs {want} (dense_mlp: "
+                             f"{cfg.moe_dense_residual})")
     return params

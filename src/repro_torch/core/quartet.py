@@ -19,6 +19,12 @@ backward Stage 1 ``kernels.sr_hadamard_quant`` on dy, Wq, xqᵀ and dyᵀ (salts
 reference's dequantize-then-multiply formulation in PyTorch and saves the
 QDQ values and masks.  Both mirror ``repro.core.quartet`` step for step, with
 the same seeds and salts, so on the CPU they agree with the reference.
+
+:func:`quartet_linear_experts` is the forward of a stack of E independent
+linears (a MoE layer's experts: x [E, T, K], w [E, K, N]), the port's
+counterpart of the reference's ``jax.vmap`` of ``quartet_linear``: on the
+kernels one expert-axis launch per Stage, on the plain path the same
+arithmetic batched.  Its backward (MoE training) is not ported yet.
 """
 
 from __future__ import annotations
@@ -247,3 +253,59 @@ def quartet_linear(x: torch.Tensor, w: torch.Tensor, seed: int,
     (Python int) that drives the backward's stochastic rounding."""
     _check(cfg)
     return _QuartetLinear.apply(x, w, seed & 0xFFFFFFFF, cfg)
+
+
+# ---------------------------------------------------------------------------
+# stacked experts (forward only)
+# ---------------------------------------------------------------------------
+
+
+def _forward_experts_kernels(x, w, cfg, ops=None):
+    """Stage 1 on x [E, T, K] and on the weights' transposed view [E, N, K]
+    (read in place), then the block-scaled GEMM: three launches for all E
+    experts."""
+    K = _kernel_ops(ops)
+    xc, xs, _ = K.hadamard_quest_quantize_experts(x, group=cfg.group)
+    wtc, wts, _ = K.hadamard_quest_quantize_experts(w.transpose(-1, -2), group=cfg.group)
+    return K.mxfp4_matmul_experts(xc, xs, wtc.transpose(-1, -2), wts.transpose(-1, -2))
+
+
+def _forward_experts_plain(x, w, cfg):
+    xh = hadamard_transform(x.to(torch.float32), g=cfg.group, dim=-1)
+    wh = hadamard_transform(w.to(torch.float32), g=cfg.group, dim=-2)
+    xq = Q.quest(xh, cfg.fwd_fmt)
+    wq = Q.quest(wh.transpose(-1, -2), cfg.fwd_fmt)  # blocks along K
+    return torch.bmm(xq.values, wq.values.transpose(-1, -2))
+
+
+class _QuartetLinearExperts(torch.autograd.Function):
+    """y[e] = Quartet(x[e]) @ Quartet(w[e]) for every expert; forward only."""
+
+    @staticmethod
+    def forward(ctx, x, w, seeds, cfg):
+        if cfg.fwd_quantizer == "none":
+            y = torch.bmm(x.to(torch.float32), w.to(torch.float32))
+        elif cfg.use_kernels:
+            y = _forward_experts_kernels(x, w, cfg)
+        else:
+            y = _forward_experts_plain(x, w, cfg)
+        ctx.seeds = seeds
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        raise NotImplementedError(
+            "the backward of the stacked-expert Quartet linear (MoE training) is not ported "
+            "yet: ROADMAP A5b")
+
+
+def quartet_linear_experts(x: torch.Tensor, w: torch.Tensor, seeds: torch.Tensor,
+                           cfg: QuartetConfig) -> torch.Tensor:
+    """y [E, T, N] = Quartet(x[e]) @ Quartet(w[e]) for x [E, T, K], w
+    [E, K, N].  ``seeds`` [E] (uint32 values in int64) are the experts'
+    stochastic-rounding seeds, folded as the reference folds them; they drive
+    only the backward, which a later slice ports."""
+    _check(cfg)
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
+        raise ValueError(f"quartet_linear_experts: x {tuple(x.shape)}, w {tuple(w.shape)}")
+    return _QuartetLinearExperts.apply(x, w, seeds, cfg)

@@ -27,6 +27,11 @@
 // Every output leaves as 16-byte stores paired across lanes, so that each
 // store instruction writes whole 32-byte sectors (store_pair).  launch()
 // picks the walker; vector_ok() is what their 16-byte accesses need.
+// An expert axis (a stack of E operands [M, K], x's slice e at element
+// offset e·se, each output's at e·M·K and the scales' at e·M·K/32) rides on
+// blockIdx.z: each CTA offsets its pointers once (expert_slice) and walks
+// its slice exactly as it walks a 2-d operand, so slice e's outputs are
+// bit for bit those of a 2-d launch on it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -102,11 +107,25 @@ __device__ __forceinline__ void store_pair(uint8_t* __restrict__ base, const uin
         odd ? make_uint4(w[4], w[5], w[6], w[7]) : make_uint4(y[0], y[1], y[2], y[3]);
 }
 
+// the functor with its outputs moved to expert e's slice
+template <class Q>
+__device__ __forceinline__ Q expert_slice(const Q& q, long long M, long long K) {
+  Q qe = q;
+  const long long e = blockIdx.z;
+#pragma unroll
+  for (int o = 0; o < Q::kOuts; ++o) qe.out[o] += e * M * K;
+  qe.scales += e * M * (K / kGroup);
+  return qe;
+}
+
 // group t of the row-major [M, K] operand (row t / (K/32)): its outputs at
 // byte t·32 of each (rows of K bytes), its scale at t
 template <typename T, class Q>
 __global__ void __launch_bounds__(kRowThreads) rows_kernel(const T* __restrict__ x, long long M,
-                                                           long long K, long long sm, const Q q) {
+                                                           long long K, long long sm,
+                                                           long long se, const Q q_all) {
+  x += blockIdx.z * se;
+  const Q q = expert_slice(q_all, M, K);
   const long long n_g = K / kGroup, n = M * n_g;
   const long long t = static_cast<long long>(blockIdx.x) * kRowThreads + threadIdx.x;
   const bool active = t < n;  // inactive lanes still take part in the pair stores
@@ -127,8 +146,10 @@ __global__ void __launch_bounds__(kRowThreads) rows_kernel(const T* __restrict__
 template <typename T, class Q>
 __global__ void __launch_bounds__(kColThreads, 4) cols_kernel(const T* __restrict__ x,
                                                               long long M, long long K,
-                                                              long long sk, const Q q,
-                                                              int groups_per_cta) {
+                                                              long long sk, long long se,
+                                                              const Q q_all, int groups_per_cta) {
+  x += blockIdx.z * se;
+  const Q q = expert_slice(q_all, M, K);
   constexpr int EPV = 16 / sizeof(T);     // elements per 16-byte copy
   constexpr int CPR = kColThreads / EPV;  // 16-byte chunks of one k of the tile
   __shared__ __align__(16) T tile[2][kGroup][kColThreads];
@@ -193,23 +214,27 @@ inline bool vector_ok(const void* x, int es, long long M, long long sm, long lon
   return false;
 }
 
-// x [M, K] at element strides (sm, sk), satisfying vector_ok: the rows
-// walker for sk == 1, else the cols walker over about 8 CTAs a SM, each
-// walking its run of columns
+// x [E, M, K] at element strides (se, sm, sk), each slice satisfying
+// vector_ok: the rows walker for sk == 1, else the cols walker over about 8
+// CTAs a SM in all, each walking its run of columns of one slice; E = 1 is
+// the 2-d operand
 template <typename T, class Q>
 int launch(const void* x, long long M, long long K, long long sm, long long sk, const Q& q,
-           cudaStream_t s) {
+           cudaStream_t s, long long E = 1, long long se = 0) {
   const auto* x_ = static_cast<const T*>(x);
+  const unsigned ez = static_cast<unsigned>(E);
   if (sk == 1) {
     const long long threads = M * (K / kGroup);
-    rows_kernel<T, Q><<<static_cast<unsigned>((threads + kRowThreads - 1) / kRowThreads),
-                        kRowThreads, 0, s>>>(x_, M, K, sm, q);
+    const dim3 grid(static_cast<unsigned>((threads + kRowThreads - 1) / kRowThreads), 1, ez);
+    rows_kernel<T, Q><<<grid, kRowThreads, 0, s>>>(x_, M, K, sm, se, q);
   } else {
     const long long row_blocks = (M + kColThreads - 1) / kColThreads, n_g = K / kGroup;
-    const long long per = (row_blocks * n_g + resident_col_ctas() - 1) / resident_col_ctas();
-    const int gpc = static_cast<int>(per < 1 ? 1 : per);
-    const dim3 grid(static_cast<unsigned>(row_blocks), static_cast<unsigned>((n_g + gpc - 1) / gpc));
-    cols_kernel<T, Q><<<grid, kColThreads, 0, s>>>(x_, M, K, sk, q, gpc);
+    const long long per =
+        (E * row_blocks * n_g + resident_col_ctas() - 1) / resident_col_ctas();
+    const int gpc = static_cast<int>(per < 1 ? 1 : (per > n_g ? n_g : per));
+    const dim3 grid(static_cast<unsigned>(row_blocks),
+                    static_cast<unsigned>((n_g + gpc - 1) / gpc), ez);
+    cols_kernel<T, Q><<<grid, kColThreads, 0, s>>>(x_, M, K, sk, se, q, gpc);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -44,6 +44,16 @@
 // has unit stride into shared memory; each warp quantizes whole groups, one
 // element per lane, the Hadamard as 5 __shfl_xor_sync butterfly stages, the
 // rms as a butterfly warp sum.
+//
+// The expert axis (hadamard_quest_quantize_experts): a stack x [E, M, K] of
+// E operands at expert stride se, as a MoE layer's stacked expert weights
+// (the view Wᵀ of [E, K, N], strides (K·N, 1, N), which no 2-d view
+// expresses) and its dispatched tokens [E, c, D] give it.  One launch, the
+// expert on blockIdx.z; each CTA moves its pointers to its expert's slice
+// and runs the 2-d body on it unchanged, so expert e's codes, scales and
+// mask are bit for bit those of a 2-d launch on x[e].  It replaces the
+// vmapped Pallas call of the reference's MoE (repro/models/moe.py,
+// _expert_ffn), whose vmap puts the expert on the kernel's grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,9 +107,16 @@ __device__ __forceinline__ int e2m1_half_code(float q) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads) hadamard_quest_kernel(
     const T* __restrict__ x, long long M, long long K, long long sm, long long sk,
-    int8_t* __restrict__ codes, float* __restrict__ scales, bool* __restrict__ mask,
-    float clip_c) {
+    long long se, int8_t* __restrict__ codes, float* __restrict__ scales,
+    bool* __restrict__ mask, float clip_c) {
   __shared__ float tile[kRows][kGroup + 1];
+  {  // expert blockIdx.z's slice
+    const long long e = blockIdx.z;
+    x += e * se;
+    codes += e * M * K;
+    mask += e * M * K;
+    scales += e * M * (K / kGroup);
+  }
   const long long m0 = static_cast<long long>(blockIdx.x) * kRows;
   const long long k0 = static_cast<long long>(blockIdx.y) * kGroup;
   const int tid = threadIdx.x;
@@ -198,6 +215,39 @@ struct hadamard_quest_group {
 
 }  // namespace
 
+namespace {
+
+// x [E, M, K] at element strides (se, sm, sk); outputs contiguous [E, M, K],
+// [E, M, K/32], [E, M, K]
+int quantize(const void* x, int is_bf16, long long E, long long M, long long K, long long se,
+             long long sm, long long sk, void* codes, void* scales, void* mask, float clip_c,
+             int vector, cudaStream_t s) {
+  if (vector) {
+    const int es = is_bf16 ? 2 : 4;
+    if (!group_quant::vector_ok(x, es, M, sm, sk) || (se * es) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const hadamard_quest_group q = {
+        {static_cast<uint8_t*>(codes), static_cast<uint8_t*>(mask)}, static_cast<float*>(scales),
+        clip_c};
+    return is_bf16 ? group_quant::launch<__nv_bfloat16>(x, M, K, sm, sk, q, s, E, se)
+                   : group_quant::launch<float>(x, M, K, sm, sk, q, s, E, se);
+  }
+  const dim3 grid(static_cast<unsigned>((M + kRows - 1) / kRows),
+                  static_cast<unsigned>(K / kGroup), static_cast<unsigned>(E));
+  if (is_bf16) {
+    hadamard_quest_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), M, K, sm, sk, se, static_cast<int8_t*>(codes),
+        static_cast<float*>(scales), static_cast<bool*>(mask), clip_c);
+  } else {
+    hadamard_quest_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), M, K, sm, sk, se, static_cast<int8_t*>(codes),
+        static_cast<float*>(scales), static_cast<bool*>(mask), clip_c);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // x [M, K] with element strides (sm, sk), f32 (is_bf16 = 0) or bf16; writes
 // codes int8 [M, K], scales f32 [M, K/32], mask bool [M, K] (all contiguous,
 // 16-byte aligned).  vector = 1 runs the vector body (x must satisfy
@@ -205,26 +255,21 @@ struct hadamard_quest_group {
 extern "C" int hadamard_quest_quantize(const void* x, int is_bf16, long long M, long long K,
                                        long long sm, long long sk, void* codes, void* scales,
                                        void* mask, float clip_c, int vector, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vector) {
-    if (!group_quant::vector_ok(x, is_bf16 ? 2 : 4, M, sm, sk))
-      return static_cast<int>(cudaErrorInvalidValue);
-    const hadamard_quest_group q = {
-        {static_cast<uint8_t*>(codes), static_cast<uint8_t*>(mask)}, static_cast<float*>(scales),
-        clip_c};
-    return is_bf16 ? group_quant::launch<__nv_bfloat16>(x, M, K, sm, sk, q, s)
-                   : group_quant::launch<float>(x, M, K, sm, sk, q, s);
-  }
-  const dim3 grid(static_cast<unsigned>((M + kRows - 1) / kRows),
-                  static_cast<unsigned>(K / kGroup));
-  if (is_bf16) {
-    hadamard_quest_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), M, K, sm, sk, static_cast<int8_t*>(codes),
-        static_cast<float*>(scales), static_cast<bool*>(mask), clip_c);
-  } else {
-    hadamard_quest_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), M, K, sm, sk, static_cast<int8_t*>(codes),
-        static_cast<float*>(scales), static_cast<bool*>(mask), clip_c);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return quantize(x, is_bf16, 1, M, K, 0, sm, sk, codes, scales, mask, clip_c, vector,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The expert axis: x [E, M, K] with element strides (se, sm, sk); writes
+// codes [E, M, K], scales [E, M, K/32], mask [E, M, K] (contiguous, 16-byte
+// aligned) in one launch.  vector = 1 needs every slice to satisfy
+// vector_ok (x 16-byte aligned and se a multiple of 16 bytes), else
+// cudaErrorInvalidValue.
+extern "C" int hadamard_quest_quantize_experts(const void* x, int is_bf16, long long E,
+                                               long long M, long long K, long long se,
+                                               long long sm, long long sk, void* codes,
+                                               void* scales, void* mask, float clip_c,
+                                               int vector, void* stream) {
+  if (E < 1 || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  return quantize(x, is_bf16, E, M, K, se, sm, sk, codes, scales, mask, clip_c, vector,
+                  static_cast<cudaStream_t>(stream));
 }

@@ -61,6 +61,15 @@
 // 2048-wide projection launches 64 CTAs and each keeps 28 KB of weight
 // bytes in flight (decode is bound by those bytes).
 //
+// The expert axis (mxfp4_matmul_experts): E independent products
+// C[e] = A[e] · B[e], f32 [E, M, N], as a MoE layer's expert linear gives
+// them (the dispatched tokens' codes [E, c, D] against each expert's weight
+// codes, K-major per expert).  One launch, the expert on blockIdx.z: each
+// CTA moves its pointers to its expert's operands at their expert strides
+// and runs the 2-d body unchanged, tiles chosen by M as above, so C[e] is
+// bit for bit a 2-d launch's.  It replaces the vmapped Pallas call of the
+// reference's MoE (repro/models/moe.py, _expert_ffn).
+//
 // Hazards.  Hopper's bf16 MMA on subnormal operands never arises on the
 // folded path (those stages take the unscaled one).  Two bf16 products per
 // 32-group cost 2·M·N·K tensor-core operations at half the int8 rate, and
@@ -134,8 +143,17 @@ template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES>
 __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32) mxfp4_mma_kernel(
     const int8_t* __restrict__ a, const float* __restrict__ as, int M, int K,
     const int8_t* __restrict__ b, long long sbn, const float* __restrict__ bs, long long ssk,
-    long long ssn, int N, float* __restrict__ c) {
+    long long ssn, int N, float* __restrict__ c, long long sae, long long sase, long long sbe,
+    long long sbse) {
   using L = Layout<BM, BN>;
+  {  // expert blockIdx.z's operands (all strides 0 for a 2-d product)
+    const long long e = blockIdx.z;
+    a += e * sae;
+    as += e * sase;
+    b += e * sbe;
+    bs += e * sbse;
+    c += e * M * static_cast<long long>(N);
+  }
   constexpr int NT = WARPS_M * WARPS_N * 32;
   constexpr int KB = L::KB;
   constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
@@ -370,9 +388,15 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32) mxfp4_mma_kernel(
     }
 }
 
+// expert strides of A, its scales, B and its scales (elements)
+struct ExpertStrides {
+  long long E, a, as, b, bs;
+};
+
 template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES>
 int launch(const int8_t* a, const float* as, int M, int K, const int8_t* b, long long sbn,
-           const float* bs, long long ssk, long long ssn, int N, float* c, cudaStream_t s) {
+           const float* bs, long long ssk, long long ssn, int N, float* c,
+           const ExpertStrides& ex, cudaStream_t s) {
   auto kernel = mxfp4_mma_kernel<BM, BN, WARPS_M, WARPS_N, STAGES>;
   constexpr size_t smem = Layout<BM, BN>::bytes(STAGES);
   static int ready_device = -1;  // the dynamic shared-memory limit is set once per device
@@ -385,9 +409,27 @@ int launch(const int8_t* a, const float* as, int M, int K, const int8_t* b, long
     if (err != cudaSuccess) return static_cast<int>(err);
     ready_device = dev;
   }
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  kernel<<<grid, WARPS_M * WARPS_N * 32, smem, s>>>(a, as, M, K, b, sbn, bs, ssk, ssn, N, c);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, static_cast<unsigned>(ex.E));
+  kernel<<<grid, WARPS_M * WARPS_N * 32, smem, s>>>(a, as, M, K, b, sbn, bs, ssk, ssn, N, c,
+                                                    ex.a, ex.as, ex.b, ex.bs);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the M-bucketed tiles: decode (M <= 16), prefill (M <= 1024), training
+int dispatch(const void* a, const void* as, long long M, long long K, const void* b,
+             long long sbn, const void* bs, long long ssk, long long ssn, long long N, void* c,
+             const ExpertStrides& ex, cudaStream_t s) {
+  const auto* a8 = static_cast<const int8_t*>(a);
+  const auto* b8 = static_cast<const int8_t*>(b);
+  const auto* asf = static_cast<const float*>(as);
+  const auto* bsf = static_cast<const float*>(bs);
+  auto* cf = static_cast<float*>(c);
+  const int m = static_cast<int>(M), k = static_cast<int>(K), n = static_cast<int>(N);
+  if (M <= 16)
+    return launch<16, 32, 1, 2, 8>(a8, asf, m, k, b8, sbn, bsf, ssk, ssn, n, cf, ex, s);
+  if (M <= 1024)
+    return launch<64, 128, 2, 4, 4>(a8, asf, m, k, b8, sbn, bsf, ssk, ssn, n, cf, ex, s);
+  return launch<128, 128, 2, 4, 4>(a8, asf, m, k, b8, sbn, bsf, ssk, ssn, n, cf, ex, s);
 }
 
 }  // namespace
@@ -399,16 +441,20 @@ int launch(const int8_t* a, const float* as, int M, int K, const int8_t* b, long
 extern "C" int mxfp4_matmul(const void* a, const void* as, long long M, long long K,
                             const void* b, long long sbn, const void* bs, long long ssk,
                             long long ssn, long long N, void* c, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* a8 = static_cast<const int8_t*>(a);
-  const auto* b8 = static_cast<const int8_t*>(b);
-  const auto* asf = static_cast<const float*>(as);
-  const auto* bsf = static_cast<const float*>(bs);
-  auto* cf = static_cast<float*>(c);
-  const int m = static_cast<int>(M), k = static_cast<int>(K), n = static_cast<int>(N);
-  if (M <= 16)
-    return launch<16, 32, 1, 2, 8>(a8, asf, m, k, b8, sbn, bsf, ssk, ssn, n, cf, s);
-  if (M <= 1024)
-    return launch<64, 128, 2, 4, 4>(a8, asf, m, k, b8, sbn, bsf, ssk, ssn, n, cf, s);
-  return launch<128, 128, 2, 4, 4>(a8, asf, m, k, b8, sbn, bsf, ssk, ssn, n, cf, s);
+  return dispatch(a, as, M, K, b, sbn, bs, ssk, ssn, N, c, ExpertStrides{1, 0, 0, 0, 0},
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The expert axis: E products in one launch.  Expert e's A is a + e·sae
+// ([M, K], contiguous rows of K), its scales as + e·sase ([M, K/32]), its B
+// b + e·sbe (K-major as above; sbe a multiple of 16), its B scales bs +
+// e·sbse (strides ssk, ssn), and its C c + e·M·N; c [E, M, N] contiguous.
+extern "C" int mxfp4_matmul_experts(const void* a, const void* as, long long E, long long M,
+                                    long long K, long long sae, long long sase, const void* b,
+                                    long long sbn, long long sbe, const void* bs, long long ssk,
+                                    long long ssn, long long sbse, long long N, void* c,
+                                    void* stream) {
+  if (E < 1 || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(a, as, M, K, b, sbn, bs, ssk, ssn, N, c, ExpertStrides{E, sae, sase, sbe, sbse},
+                  static_cast<cudaStream_t>(stream));
 }

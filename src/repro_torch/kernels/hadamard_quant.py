@@ -7,6 +7,10 @@ at every call site of the serving, training and evaluation paths, else its
 tile body; on a CPU tensor it runs :func:`hadamard_quest_quantize_plain`, which
 performs the kernel's arithmetic in the kernel's order (butterfly Hadamard,
 halving sums), so the two agree bit for bit on the card.
+:func:`hadamard_quest_quantize_experts` takes a stack ``[E, M, K]`` (a MoE
+layer's dispatched tokens, or its stacked expert weights' transposed view)
+in one launch of the kernel's expert-axis entry; expert e's outputs equal
+a 2-d call on ``x[e]``, bit for bit.
 """
 
 from __future__ import annotations
@@ -89,12 +93,37 @@ def vector_ok(x: torch.Tensor) -> bool:
     return False
 
 
+def vector_ok_experts(x: torch.Tensor) -> bool:
+    """:func:`vector_ok` for every slice of a stack ``x`` [E, M, K]: the
+    slices' 2-d rule, and an expert stride of whole 16-byte runs."""
+    return vector_ok(x[0]) and x.stride(0) * x.element_size() % 16 == 0
+
+
 @functools.cache
 def _entry():
     fn = _build.load("hadamard_quant").hadamard_quest_quantize
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _device(name: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise RuntimeError(f"{name}: unsupported device {t.device}")
+    return True
+
+
+@functools.cache
+def _experts_entry():
+    fn = _build.load("hadamard_quant").hadamard_quest_quantize_experts
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 6 + [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -130,3 +159,39 @@ def hadamard_quest_quantize(x: torch.Tensor):
 
 hadamard_quest_quantize.launches = 0
 hadamard_quest_quantize.vector_launches = 0
+
+
+def hadamard_quest_quantize_experts_plain(x: torch.Tensor):
+    """x [E, M, K] → codes [E, M, K], scales [E, M, K/32], mask [E, M, K]:
+    the 2-d plain version on every row (rows are independent)."""
+    e, m, k = x.shape
+    codes, scales, mask = hadamard_quest_quantize_plain(x.reshape(e * m, k))
+    return codes.reshape(e, m, k), scales.reshape(e, m, -1), mask.reshape(e, m, k)
+
+
+def hadamard_quest_quantize_experts(x: torch.Tensor):
+    """x [E, M, K] (any strides: the transposed view of stacked weights
+    [E, K, N] is read in place) → (codes int8 [E, M, K], scales f32
+    [E, M, K/32], mask bool [E, M, K]) in one launch, counted in
+    ``hadamard_quest_quantize.launches`` (and ``.vector_launches`` when it
+    takes the vector body).  CPU tensors take the plain version."""
+    if not _device("hadamard_quest_quantize_experts", x):
+        return hadamard_quest_quantize_experts_plain(x)
+    if x.dim() != 3 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"hadamard_quest_quantize_experts: need 3-d f32/bf16, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    e, m, k = x.shape
+    if k % GROUP != 0 or m == 0 or not 1 <= e <= 65535:
+        raise ValueError(f"hadamard_quest_quantize_experts: bad shape {tuple(x.shape)}")
+    codes = torch.empty((e, m, k), dtype=torch.int8, device=x.device)
+    scales = torch.empty((e, m, k // GROUP), dtype=torch.float32, device=x.device)
+    mask = torch.empty((e, m, k), dtype=torch.bool, device=x.device)
+    vector = vector_ok_experts(x)
+    status = _experts_entry()(x.data_ptr(), int(x.dtype == torch.bfloat16), e, m, k,
+                              x.stride(0), x.stride(1), x.stride(2), codes.data_ptr(),
+                              scales.data_ptr(), mask.data_ptr(), _clip_c(), int(vector),
+                              torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, "hadamard_quest_quantize_experts")
+    hadamard_quest_quantize.launches += 1
+    hadamard_quest_quantize.vector_launches += vector
+    return codes, scales, mask

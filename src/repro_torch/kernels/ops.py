@@ -8,7 +8,9 @@ with ``kv_quant_pack`` (fused into the scatter, K and V in one launch)
 and, on the gather backend, reads it with ``kv_dequant_unpack`` (fused into
 the gather, K and V in one launch); a model built with
 ``attn_backend="flash"`` attends with ``flash_attention`` in its cache-free
-forward.  Device dispatch lives in each
+forward.  A MoE layer's expert linears run the expert-axis forms
+:func:`hadamard_quest_quantize_experts` and :func:`mxfp4_matmul_experts`:
+one launch for all experts, where the reference vmaps its kernels.  Device dispatch lives in each
 kernel wrapper: a CPU tensor runs the plain PyTorch version, a CUDA tensor
 launches the hand-written kernel (or raises).  Each wrapper counts its own
 launches in ``<wrapper>.launches``; :func:`launch_counts` reads them so a
@@ -23,7 +25,9 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kv_pack as _kv
 from repro_torch.kernels.kv_pack import kv_quant_scatter_kv  # noqa: F401  (re-export)
 from repro_torch.kernels.hadamard_quant import hadamard_quest_quantize as _hq_fn
+from repro_torch.kernels.hadamard_quant import hadamard_quest_quantize_experts as _hq_experts
 from repro_torch.kernels.mxfp4_matmul import mxfp4_matmul as _mm_fn
+from repro_torch.kernels.mxfp4_matmul import mxfp4_matmul_experts as _mm_experts
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.sr_hadamard_quant import sr_hadamard_quantize as _sr_fn
 
@@ -89,6 +93,19 @@ def mxfp4_matmul(a_codes, a_scales, b_codes, b_scales) -> torch.Tensor:
     out = _mm_fn(a_codes.reshape(-1, a_codes.shape[-1]),
                  a_scales.reshape(-1, a_scales.shape[-1]), b_codes, b_scales)
     return out.reshape(*lead, -1)
+
+
+def hadamard_quest_quantize_experts(x: torch.Tensor, group: int = GROUP):
+    """[E, M, K] (any strides) → (codes [E, M, K] int8, scales [E, M, K/32]
+    f32, mask [E, M, K] bool) in one launch."""
+    if group != GROUP:
+        raise ValueError("kernels are specialized to the MXFP4 group of 32")
+    return _hq_experts(x)
+
+
+def mxfp4_matmul_experts(a_codes, a_scales, b_codes, b_scales) -> torch.Tensor:
+    """[E, M, K] codes × [E, K, N] codes → f32 [E, M, N] in one launch."""
+    return _mm_experts(a_codes, a_scales, b_codes, b_scales)
 
 
 def kv_quant_pack(x: torch.Tensor):

@@ -130,42 +130,48 @@ def paged_attention_plain(q: torch.Tensor, pool: dict, tables: torch.Tensor,
 
 
 CHUNK_KEYS = 64  # keys per sub-block of the tensor-core body
-MAX_CHUNKS = 32  # chunks per (slot, head, query tile) at most
+KEY_PARTS = 4  # 16-key parts of a sub-block, one a warp
+MAX_CHUNKS = 32  # chunks per (slot, head, row group) at most
+MAX_TILES = 2  # 16-row query tiles a CTA walks at most (tools/b5_tiles_probe.py)
 
 
 class SplitPlan(NamedTuple):
     """How the tensor-core body cuts one call: each (slot, KV head) has
-    ``n_tiles`` query tiles of ``rows`` rows and ``n_chunks`` chunks of
-    ``blocks`` sub-blocks of 64 keys; each chunk's CTA has 4 warps, ``4 //
-    wk`` query tiles of 16 rows x ``wk`` key parts, walks its sub-blocks
-    with an online softmax, and each warp writes one partial: ``n_splits`` =
-    ``n_chunks · wk`` per row."""
+    ``n_tiles`` query tiles of 16 rows and ``n_chunks`` chunks of ``blocks``
+    sub-blocks of 64 keys; a CTA of 4 warps takes one chunk and ``tiles``
+    query tiles one after another, warp w keys [16w, 16w + 16) of each
+    sub-block with an online softmax; the four warps' partials of a row
+    merge in the CTA, so a row has ``n_chunks`` partials to merge."""
 
-    wk: int
+    tiles: int
     blocks: int
-    rows: int
     n_tiles: int
     n_chunks: int
-    n_splits: int
 
 
 def split_plan(S: int, Hq: int, Hkv: int, ps: int, n_pp: int) -> SplitPlan:
     """The tensor-core body's split for R = S·group query rows per (slot,
-    head) over a table of ``n_pp`` pages of ``ps``: at decode (R <= 16) one
-    16-row tile and four 16-key parts per CTA, one sub-block a CTA (the most
-    CTAs); above that four 16-row tiles and one 64-key part, four sub-blocks
-    (256 keys a CTA: few partials to merge).  Wider tables take more
-    sub-blocks a CTA, so that there are never more than ``MAX_CHUNKS``
-    chunks and the merge's table of partials fits the CTA's shared memory at
-    any table width.  Sized from the table width, never from the lengths,
-    so planning never reads the device."""
+    head) over a table of ``n_pp`` pages of ``ps``.  A row's arithmetic
+    (which keys each partial sums, in which order, and the partials' merge
+    order) depends on the table width alone, never on the call's row count:
+    a query row gets the same bits in a decode (R = group), a speculative
+    verify (R = (k + 1)·group) and a prefill chunk (R = C·group), so a verify
+    row equals its decode row and a cache written through one step shape
+    equals one written through another (``tools/draft_sync_probe.py``).
+    Wider tables take more sub-blocks a CTA, so that there are never more
+    than ``MAX_CHUNKS`` chunks and the merge's table of partials fits the
+    CTA's shared memory at any table width.  With one sub-block a chunk a
+    CTA takes up to ``MAX_TILES`` tiles, which share its K/V loads; with
+    more it takes one (each tile would load them again).  Sized from the
+    table width, never from the lengths, so planning never reads the
+    device."""
     R = S * (Hq // Hkv)
-    wk = 4 if R <= 16 else 1
     keys = n_pp * ps
-    blocks = max(4 // wk, -(-keys // (MAX_CHUNKS * CHUNK_KEYS)))
-    rows = 16 * (4 // wk)
+    blocks = max(1, -(-keys // (MAX_CHUNKS * CHUNK_KEYS)))
     n_chunks = -(-keys // (blocks * CHUNK_KEYS))
-    return SplitPlan(wk, blocks, rows, -(-R // rows), n_chunks, n_chunks * wk)
+    n_tiles = -(-R // 16)
+    tiles = min(MAX_TILES, n_tiles) if blocks == 1 else 1
+    return SplitPlan(tiles, blocks, n_tiles, n_chunks)
 
 
 _tickets: dict[int, torch.Tensor] = {}
@@ -255,19 +261,19 @@ def paged_attention(q: torch.Tensor, pool: dict, tables: torch.Tensor,
     kd, vd = (None, None) if packed else (leaves[0].data_ptr(), leaves[1].data_ptr())
     n_pp = tables.shape[1]
     part = tickets = None
-    wk = blocks = 0
+    tiles = blocks = 0
     if _mma_ok(q4, leaves, packed, hd, ps):
         plan = split_plan(S, Hq, Hkv, ps, n_pp)
-        wk, blocks = plan.wk, plan.blocks
-        n_rows = B * Hkv * S * (Hq // Hkv) * plan.n_splits
+        tiles, blocks = plan.tiles, plan.blocks
+        n_rows = B * Hkv * S * (Hq // Hkv) * plan.n_chunks
         part = torch.empty(n_rows * (hd + 2), dtype=torch.float32, device=dev)
-        tickets = _ticket_buffer(dev, B * Hkv * plan.n_tiles)
+        tickets = _ticket_buffer(dev, B * Hkv * -(-plan.n_tiles // tiles))
     status = _entry()(q4.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
                       int(packed), kc, ks, vc, vs, kd, vd, tables.data_ptr(),
                       lengths.data_ptr(), B, S, Hq, Hkv, hd, ps, n_pp,
                       float(np.float32(1.0 / np.sqrt(hd))),
                       None if part is None else part.data_ptr(),
-                      None if tickets is None else tickets.data_ptr(), wk, blocks,
+                      None if tickets is None else tickets.data_ptr(), tiles, blocks,
                       torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "paged_attention")
     paged_attention.launches += 1

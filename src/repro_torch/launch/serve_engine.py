@@ -1,6 +1,6 @@
 """Continuous-batching serving launcher: Poisson arrival workload.
 
-Port of ``repro.launch.serve_engine`` for the dense family::
+Port of ``repro.launch.serve_engine`` for the dense and MoE families::
 
     python -m repro_torch.launch.serve_engine --arch qwen3-1.7b --requests 12 \
         [--decode-backend gather]

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.quartet import QuartetConfig, quartet_linear
+from repro_torch.core.quartet import QuartetConfig, quartet_linear, quartet_linear_experts
 
 
 def trunc_normal(shape, std: float, dtype: torch.dtype, generator: torch.Generator,
@@ -47,6 +47,21 @@ def dense(params: dict, x: torch.Tensor, seed: int, qcfg: QuartetConfig,
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y
+
+
+def dense_experts(w: torch.Tensor, x: torch.Tensor, seeds: torch.Tensor, qcfg: QuartetConfig,
+                  method: str = "quartet") -> torch.Tensor:
+    """E stacked linears at once, y[e] = x[e] @ w[e] for x [E, T, K], w
+    [E, K, N]: the counterpart of the reference's ``jax.vmap`` of
+    :func:`dense` over a MoE layer's experts (``seeds`` [E], one per expert,
+    as the vmap carries them)."""
+    if w.shape[1] % 32 != 0:
+        method = "bf16"
+    if method == "quartet":
+        return quartet_linear_experts(x, w, seeds, qcfg)
+    if method == "bf16":
+        return torch.bmm(x.to(torch.float32), w.to(torch.float32)).to(x.dtype)
+    raise NotImplementedError(f"dense method {method!r} is not ported yet")
 
 
 def init_rmsnorm(d: int, dtype, device) -> dict:
@@ -109,6 +124,7 @@ def unembed(params: dict, x: torch.Tensor, seed: int, qcfg: QuartetConfig,
     return x.to(torch.float32) @ table.to(torch.float32).t()
 
 
-def seed_fold(seed: int, salt: int) -> int:
-    """Per-site seed derivation in uint32 arithmetic (seed · 1000003 + salt)."""
+def seed_fold(seed, salt: int):
+    """Per-site seed derivation in uint32 arithmetic (seed · 1000003 + salt),
+    of a Python int or, elementwise, of an int64 tensor of uint32 values."""
     return (seed * 1000003 + salt) & 0xFFFFFFFF

@@ -1,7 +1,8 @@
-"""Dense decoder-only LM (Llama/Qwen style): GQA + SwiGLU MLP, RMSNorm,
-Quartet linears, a Python loop over stacked [L, ...] layer parameters.
+"""Decoder-only LM (Llama/Qwen style): GQA + SwiGLU MLP (or a MoE layer,
+``models.moe``), RMSNorm, Quartet linears, a Python loop over stacked
+[L, ...] layer parameters.
 
-Port of ``repro.models.transformer`` for the dense family.  With a
+Port of ``repro.models.transformer`` for the dense and MoE families.  With a
 :class:`PagedKV` cache (the pool's leaves carry the leading [L] axis; the
 page table is shared by every layer) each layer quantize-scatters its new
 K/V into its pool slice in place and attends with the paged kernel.  With
@@ -57,7 +58,9 @@ def init_dense_block(cfg: ModelConfig, dtype, generator, device) -> dict:
 
 def dense_block(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: int,
                 cfg: ModelConfig, cache, method: str,
-                cache_index: torch.Tensor | None = None) -> torch.Tensor:
+                cache_index: torch.Tensor | None = None, token_valid=None) -> torch.Tensor:
+    # token_valid is the MoE block's (padding lanes must not compete for
+    # expert capacity); a dense block has no cross-token competition
     h, _ = attention(params["attn"], L.rmsnorm(params["attn_norm"], x, cfg.norm_eps),
                      positions, L.seed_fold(seed, 100), cfg, causal=cfg.is_causal_lm,
                      kv_cache=cache, cache_index=cache_index, method=method)
@@ -66,11 +69,39 @@ def dense_block(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: in
                    L.seed_fold(seed, 200), cfg, method)
 
 
-def _stack(trees: list) -> dict:
-    """List of per-layer param dicts → one dict with [L, ...] leaves."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stacked_init(block_init, n: int) -> dict:
+    """n draws of ``block_init()`` (in order) → one dict with [n, ...]
+    leaves.  The stacked leaves are allocated once and each layer is copied
+    in as it is drawn, so a full-width MoE stack never exists twice."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+
+    def put(dst, src, i):
+        if isinstance(src, dict):
+            for k in src:
+                put(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    out = None
+    for i in range(n):
+        layer = block_init()
+        out = alloc(layer) if out is None else out
+        put(out, layer, i)
+    return out
+
+
+def _blocks(cfg: ModelConfig):
+    """The family's (init, apply) pair."""
+    if cfg.family == "dense":
+        return init_dense_block, dense_block
+    if cfg.family == "moe":
+        from repro_torch.models.moe import init_moe_block, moe_block
+
+        return init_moe_block, moe_block
+    raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
 
 def layer_slice(tree, i: int):
@@ -84,10 +115,11 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
     """Random weights with the reference's tree paths and init laws (the
     draws differ from the reference's: torch and jax generators differ)."""
     dtype = getattr(torch, cfg.dtype)
+    block_init, _ = _blocks(cfg)
     params = {
         "embed": L.init_embedding(cfg.vocab_size, cfg.d_model, dtype, generator, device),
-        "layers": _stack([init_dense_block(cfg, dtype, generator, device)
-                          for _ in range(cfg.num_layers)]),
+        "layers": _stacked_init(lambda: block_init(cfg, dtype, generator, device),
+                                cfg.num_layers),
         "final_norm": L.init_rmsnorm(cfg.d_model, dtype, device),
     }
     if not cfg.tie_embeddings:
@@ -115,25 +147,30 @@ def lm_head_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, seed: int,
 def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: int, *,
                positions: torch.Tensor | None = None, caches=None,
                cache_index: torch.Tensor | None = None, method: str = "quartet",
-               features_only: bool = False):
+               features_only: bool = False, token_valid: torch.Tensor | None = None):
     """tokens [B, S] → (logits [B, S, V] f32, or features [B, S, D], caches).
 
     ``caches`` is a :class:`PagedKV` over the whole [L, ...] pool, dense
     ``(K, V)`` [L, B, T, Hkv, hd] written at ``cache_index`` [B] (both
-    updated in place), or None for a cache-free causal forward."""
+    updated in place), or None for a cache-free causal forward.
+    ``token_valid`` [B, S] bool marks the lanes that carry real tokens (the
+    MoE block keeps the others out of expert capacity).  The MoE block's aux
+    loss belongs to training, which is not ported for MoE (ROADMAP A5b), so
+    it is not returned."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     if cfg.pos_embed != "rope":
         raise NotImplementedError(f"pos_embed {cfg.pos_embed!r} is not ported yet")
     x = L.embed(params["embed"], tokens)
+    _, block = _blocks(cfg)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
         seed_l = (seed + i * LAYER_SEED_STRIDE) & 0xFFFFFFFF
         layer = layer_slice(params["layers"], i)
         if remat:
-            x = checkpoint(dense_block, layer, x, positions, seed_l, cfg, None, method,
-                           use_reentrant=False)
+            x = checkpoint(block, layer, x, positions, seed_l, cfg, None, method, None,
+                           token_valid, use_reentrant=False)
             continue
         if caches is None:
             cache = None
@@ -141,7 +178,7 @@ def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: int, 
             cache = PagedKV(layer_slice(caches.pool, i), caches.tables)
         else:
             cache = (caches[0][i], caches[1][i])
-        x = dense_block(layer, x, positions, seed_l, cfg, cache, method, cache_index)
+        x = block(layer, x, positions, seed_l, cfg, cache, method, cache_index, token_valid)
     if features_only:
         return x, caches
     return lm_head_apply(params, x, cfg, seed, method), caches

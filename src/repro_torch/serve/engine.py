@@ -1,6 +1,6 @@
 """Continuous-batching inference engine over the paged MXFP4 KV pool.
 
-Port of ``repro.serve.engine`` for the dense family.  ``Engine``
+Port of ``repro.serve.engine`` for the dense and MoE families.  ``Engine``
 multiplexes requests over a fixed set of decode slots:
 
 * ``submit(prompt, max_new, sampling=...) -> Request`` queues work
@@ -110,10 +110,10 @@ class Engine:
             raise ValueError(
                 f"prefix caching needs shareable pages (a paged family, dense/moe); "
                 f"{family!r} has none")
-        if family != "dense":
+        if family not in PAGED_FAMILIES:
             raise NotImplementedError(
-                f"serving family {family!r} is not ported yet (MoE is ROADMAP A5, the "
-                f"state-pool families A7)")
+                f"serving family {family!r} is not ported yet (the state-pool families are "
+                f"ROADMAP A7)")
         self.model, self.params = model, params
         self.spec = cfg.spec
         self.device = params["embed"]["table"].device

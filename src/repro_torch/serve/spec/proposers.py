@@ -21,7 +21,11 @@ Three built-ins behind a string registry (``SpecConfig.proposer``):
   alloc (the prompt + max_new reservation), accept → logical rollback of
   the synced length, retire → free.  A slot's context is prefilled lazily
   on its first spec tick, all behind slots together through the draft
-  model's ``prefill_all`` (per-slot chunks on the gather backend).
+  model's ``prefill_all`` (per-slot chunks on the gather backend).  With the
+  target's weights the draft cache then holds the target cache's bits at
+  every accepted position, on the card too: a row's arithmetic does not
+  depend on the shape of the call that writes it (the paged kernel splits
+  every call alike; ``tools/draft_sync_probe.py``).
 
 Custom proposers: subclass :class:`Proposer` and decorate with
 ``@register_proposer("name")``.

@@ -32,7 +32,10 @@ same prefix, and speculation never changes a greedy token.
 
 Masked lanes follow the engine invariants: positions are clamped to 0 and
 table rows zeroed, so their writes land on the scratch page and their
-logits are garbage the host never reads.  The pool is updated in place.
+logits are garbage the host never reads.  Every batched step passes
+``token_valid`` (the unmasked slots' lanes; in ``prefill_all`` also only a
+row's first ``n_valid`` tokens) to the model, exactly as the reference's
+steps build it, so padding lanes never compete for MoE expert capacity.  The pool is updated in place.
 """
 
 from __future__ import annotations
@@ -96,7 +99,8 @@ def build_paged_steps(model: Model, *, method: str, page_size: int,
     def decode_all(params, tokens, positions, pool, tables, mask):
         """One decode step for every slot over the packed pool."""
         pos_safe = torch.where(mask, positions, torch.zeros_like(positions))
-        logits, _, _ = decode(params, tokens, pos_safe, PagedKV(pool, _masked(tables, mask)))
+        logits, _, _ = decode(params, tokens, pos_safe, PagedKV(pool, _masked(tables, mask)),
+                              token_valid=mask[:, None])
         return logits
 
     def verify_all(params, tokens, start, pool, tables, mask):
@@ -107,7 +111,7 @@ def build_paged_steps(model: Model, *, method: str, page_size: int,
         page."""
         pos_safe = torch.where(mask, start, torch.zeros_like(start))
         feats, _ = verify(params, tokens, pos_safe, PagedKV(pool, _masked(tables, mask)),
-                          features_only=True)
+                          features_only=True, token_valid=mask[:, None].expand(tokens.shape))
         return _head_by_column(params, feats)
 
     def prefill_all(params, tokens, start, n_valid, pool, tables, mask):
@@ -118,8 +122,10 @@ def build_paged_steps(model: Model, *, method: str, page_size: int,
         tbl_ext, positions = prefill_chunk_layout(_masked(tables, mask), start, n_valid,
                                                   C, ps, mask)
         pos_safe = torch.where(mask, start, torch.zeros_like(start))
+        valid = mask[:, None] & (torch.arange(C, device=tokens.device)[None, :]
+                                 < n_valid[:, None])
         feats, _ = verify(params, tokens, pos_safe, PagedKV(pool, tbl_ext),
-                          positions=positions, features_only=True)
+                          positions=positions, features_only=True, token_valid=valid)
         rows = torch.arange(B, device=tokens.device)
         last = feats[rows, torch.clamp(n_valid.long() - 1, 0, C - 1)]
         return model.head(params, last[:, None], 0, method)[:, 0]
@@ -146,7 +152,7 @@ def build_paged_steps(model: Model, *, method: str, page_size: int,
         new column is scattered back (masked lanes to the scratch page)."""
         pos_safe = torch.where(mask, positions, torch.zeros_like(positions))
         kv = P.gather_pages(pool, tables, dtype)
-        logits, (k2, v2), _ = decode(params, tokens, pos_safe, kv)
+        logits, (k2, v2), _ = decode(params, tokens, pos_safe, kv, token_valid=mask[:, None])
         bidx = torch.arange(tokens.shape[0], device=tokens.device)
         pos = pos_safe.long()
         page_ids = torch.where(mask, tables[bidx, pos // ps], torch.zeros_like(pos_safe))
@@ -159,7 +165,8 @@ def build_paged_steps(model: Model, *, method: str, page_size: int,
         B, S = tokens.shape
         pos_safe = torch.where(mask, start, torch.zeros_like(start))
         kv = P.gather_pages(pool, tables, dtype)
-        feats, (k2, v2) = verify(params, tokens, pos_safe, kv, features_only=True)
+        feats, (k2, v2) = verify(params, tokens, pos_safe, kv, features_only=True,
+                                 token_valid=mask[:, None].expand(tokens.shape))
         bidx = torch.arange(B, device=tokens.device)[:, None]
         pos = (pos_safe[:, None] + torch.arange(S, device=tokens.device)[None, :]).long()
         page_ids = torch.where(mask[:, None], tables[bidx, pos // ps],

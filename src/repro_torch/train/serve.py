@@ -10,7 +10,9 @@ prefill), or a :class:`~repro_torch.kernels.paged_attention.PagedKV` pool.
 The reference builds the multi-token step on a model with
 ``attn_rows_shared=False``; the port always computes causal bounds and rope
 angles per row, so no second model exists.  Seeds are 0, as in the
-reference's serving steps.  The steps run under ``torch.inference_mode``:
+reference's serving steps.  Each step takes ``token_valid`` ([B, S] bool,
+the lanes that carry real tokens) for the MoE block's capacity selection,
+as the reference's steps do.  The steps run under ``torch.inference_mode``:
 serving never differentiates.  The reference's ``greedy_generate`` is no
 token oracle on jax 0.9.0 (ROADMAP C1); the port's is held against the
 argmax of its own teacher-forced forward.
@@ -40,14 +42,15 @@ def make_chunk_prefill_step(model: Model, *, method: str = "quartet") -> Callabl
     positions ``start [B] + 0..C-1``, writing K/V there."""
 
     @torch.inference_mode()
-    def prefill_chunk(params, tokens, start, caches):
+    def prefill_chunk(params, tokens, start, caches, token_valid=None):
         """tokens [B, C], start [B] → (last-token logits [B, V], caches,
         start + C).  The head runs on the last row only."""
         C = tokens.shape[1]
         positions = start[:, None] + torch.arange(C, dtype=torch.int32,
                                                   device=tokens.device)[None, :]
         feats, caches = model.forward(params, tokens, 0, positions=positions, caches=caches,
-                                      cache_index=start, method=method, features_only=True)
+                                      cache_index=start, method=method, features_only=True,
+                                      token_valid=token_valid)
         return model.head(params, feats[:, -1:], 0, method)[:, 0], caches, start + C
 
     return prefill_chunk
@@ -66,10 +69,11 @@ def make_prefill_step(model: Model, *, method: str = "quartet") -> Callable:
 
 def make_decode_step(model: Model, *, method: str = "quartet") -> Callable:
     @torch.inference_mode()
-    def decode(params, token, position, caches):
+    def decode(params, token, position, caches, token_valid=None):
         """token [B, 1], position [B] → (logits [B, V], caches, position + 1)."""
         logits, caches = model.forward(params, token, 0, positions=position[:, None],
-                                       caches=caches, cache_index=position, method=method)
+                                       caches=caches, cache_index=position, method=method,
+                                       token_valid=token_valid)
         return logits[:, -1, :], caches, position + 1
 
     return decode
@@ -83,14 +87,15 @@ def make_verify_step(model: Model, *, method: str = "quartet") -> Callable:
     that reads one row per slot applies the head to that row only."""
 
     @torch.inference_mode()
-    def verify(params, tokens, start, caches, positions=None, features_only=False):
+    def verify(params, tokens, start, caches, positions=None, features_only=False,
+               token_valid=None):
         S = tokens.shape[1]
         if positions is None:
             positions = start[:, None] + torch.arange(S, dtype=torch.int32,
                                                       device=tokens.device)[None, :]
         out, caches = model.forward(params, tokens, 0, positions=positions, caches=caches,
                                     cache_index=start, method=method,
-                                    features_only=features_only)
+                                    features_only=features_only, token_valid=token_valid)
         return out, caches
 
     return verify

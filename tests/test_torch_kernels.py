@@ -391,17 +391,20 @@ def test_paged_attention_batched_prefill_vs_reference(mode):
 
 def _b5_split_emulation(q, pool, tables, lengths, tensor_core=True):
     """The card's split B5 design in PyTorch.  Positions cut into chunks of
-    ``blocks`` sub-blocks of 64 keys and each sub-block into ``wk`` key parts
-    (``PA.split_plan``).  Per chunk, part and row, over the chunk's
+    ``blocks`` sub-blocks of 64 keys and each sub-block into ``KEY_PARTS``
+    key parts (``PA.split_plan``).  Per chunk, part and row, over the chunk's
     sub-blocks in order, an online softmax: m = max of the visible scores so
     far (-1e30 before any), corr = 2^(m_old·c − m·c), p = 2^(s·c − m·c) (0
     where masked: past the row's bound or on a page at or past n_visit), l
     = l·corr + Σp, acc = acc·corr + P·V; a chunk past n_visit (except chunk
-    0) writes nothing.  Merge in chunk order: M = max m over parts with l >
-    0, w = 2^(m·c − M·c), out = Σ w·acc / max(Σ l·w, 1e-30).
-    ``tensor_core``: K and V rounded to bf16 (exact for the pool's values),
-    scores unscaled from the bf16 queries in f32, c = scale·log2 e; P split
-    into bf16 hi + lo for P·V.  Otherwise all f32, scores scaled first."""
+    0) writes nothing.  A chunk's four parts merge per row: M = max m·c over
+    parts with l > 0, w = 2^(m·c − M), L = Σ l·w in part order, acc = (w0·a0
+    + w1·a1) + (w2·a2 + w3·a3).  The chunks merge in chunk order the same
+    way: M = max over chunks with L > 0, w = 2^(M_chunk − M), out = Σ w·acc
+    / max(Σ L·w, 1e-30).  ``tensor_core``: K and V rounded to bf16 (exact
+    for the pool's values), scores unscaled from the bf16 queries in f32, c
+    = scale·log2 e; P split into bf16 hi + lo for P·V.  Otherwise all f32,
+    scores scaled first."""
     multi = q.dim() == 4
     q4 = q if multi else q[:, None]
     B, S, Hq, hd = q4.shape
@@ -432,33 +435,46 @@ def _b5_split_emulation(q, pool, tables, lengths, tensor_core=True):
     kpos = torch.arange(plan.n_chunks * chunk_keys)
     vis = (kpos[None, None, :] <= q_pos[:, :, None]) & (kpos[None, None, :] < kv_end[:, None, None])
     vis = vis[:, None].expand(B, Hkv, R, -1)  # [B, Hkv, R, T]
-    nk = PA.CHUNK_KEYS // plan.wk
+    nk = PA.CHUNK_KEYS // PA.KEY_PARTS
     neg = PA.NEG_INF
     parts = []
-    for split in range(plan.n_splits):
-        chunk, part = divmod(split, plan.wk)
-        m = torch.full((B, Hkv, R), neg)
-        l = torch.zeros_like(m)
-        acc = torch.zeros((B, Hkv, R, hd))
-        for j in range(plan.blocks):
-            k0 = chunk * chunk_keys + j * PA.CHUNK_KEYS + part * nk
-            sc, vv = s_all[..., k0:k0 + nk], vis[..., k0:k0 + nk]
-            m_new = torch.maximum(m, torch.where(vv, sc, torch.full_like(sc, neg)).amax(-1))
-            corr = torch.exp2((m - m_new) * c)
-            p = torch.where(vv, torch.exp2(sc * c - (m_new * c)[..., None]), torch.zeros_like(sc))
-            vb = v[:, k0:k0 + nk].transpose(1, 2)  # [B, Hkv, nk, hd]
-            if tensor_core:
-                hi = p.to(torch.bfloat16).float()
-                lo = (p - hi).to(torch.bfloat16).float()
-                pv = hi @ vb + lo @ vb
-            else:
-                pv = p @ vb
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + pv
-            m = m_new
+    for chunk in range(plan.n_chunks):
+        own = []
+        for part in range(PA.KEY_PARTS):
+            m = torch.full((B, Hkv, R), neg)
+            l = torch.zeros_like(m)
+            acc = torch.zeros((B, Hkv, R, hd))
+            for j in range(plan.blocks):
+                k0 = chunk * chunk_keys + j * PA.CHUNK_KEYS + part * nk
+                sc, vv = s_all[..., k0:k0 + nk], vis[..., k0:k0 + nk]
+                m_new = torch.maximum(m, torch.where(vv, sc, torch.full_like(sc, neg)).amax(-1))
+                corr = torch.exp2((m - m_new) * c)
+                p = torch.where(vv, torch.exp2(sc * c - (m_new * c)[..., None]),
+                                torch.zeros_like(sc))
+                vb = v[:, k0:k0 + nk].transpose(1, 2)  # [B, Hkv, nk, hd]
+                if tensor_core:
+                    hi = p.to(torch.bfloat16).float()
+                    lo = (p - hi).to(torch.bfloat16).float()
+                    pv = hi @ vb + lo @ vb
+                else:
+                    pv = p @ vb
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[..., None] + pv
+                m = m_new
+            own.append((torch.where(l > 0, m * c, torch.full_like(m, neg)), l, acc))
+        # the CTA's merge of its four parts, per row
+        Mc = torch.full_like(own[0][1], neg)
+        for mc, l, _ in own:
+            Mc = torch.where(l > 0, torch.maximum(Mc, mc), Mc)
+        w = [torch.where(l > 0, torch.exp2(mc - Mc), torch.zeros_like(Mc)) for mc, l, _ in own]
+        Lc = torch.zeros_like(Mc)
+        for (_, l, _), wp in zip(own, w):
+            Lc = Lc + l * wp
+        a = [wp[..., None] * acc for (_, _, acc), wp in zip(own, w)]
+        acc = (a[0] + a[1]) + (a[2] + a[3])
         used = (chunk < n_cta)[:, None, None]  # [B, 1, 1]
-        l = torch.where(used, l, torch.zeros_like(l))
-        parts.append((torch.where(l > 0, m * c, torch.full_like(m, neg)), l, acc))
+        Lc = torch.where(used, Lc, torch.zeros_like(Lc))
+        parts.append((Mc, Lc, acc))
     M = torch.full_like(parts[0][1], -torch.inf)
     for mc, l, _ in parts:
         M = torch.where(l > 0, torch.maximum(M, mc), M)
@@ -475,8 +491,8 @@ def _b5_split_emulation(q, pool, tables, lengths, tensor_core=True):
 
 # (pool, ps, group, S, hd, lengths, n_pp): one visible key, page multiples
 # (16, 32), rows past a full table (clamped at n_pp), chunks of a wide table
-# with no visible key, both splits of the plan (wk 4 and 1, the latter also
-# with R = 24 in one partial tile), several chunks of several sub-blocks,
+# with no visible key, one and several query tiles (R = 24: a partial
+# second tile), several chunks of several sub-blocks,
 # and tables wide enough that the chunk cap adds sub-blocks: a decode over
 # 32768 positions (qwen3-1.7b's published context; 16 sub-blocks a CTA) and
 # a multi-query call over 8800 (5 a CTA)
@@ -527,25 +543,32 @@ def test_paged_attention_split_f32_within_atol(mode, ps, group, S, hd, lens, n_p
 
 
 def test_paged_attention_split_plan():
-    """Decode tiles one 16-row query tile over four 16-key parts, one
-    64-key sub-block a CTA; more than 16 rows take four 16-row tiles over
-    one 64-key part, four sub-blocks a CTA; chunks come from the table width
+    """Every call tiles its rows into 16-row query tiles over four 16-key
+    parts of 64-key sub-blocks, one sub-block a chunk, and a CTA takes up to
+    two tiles, which share its K/V loads, and writes one partial a chunk
+    and row; chunks come from the table width
     (qwen3-1.7b's engine: 41 columns of 16), and wider tables take more
-    sub-blocks a CTA so that no plan has more than MAX_CHUNKS chunks (at
-    32768 positions too)."""
-    assert PA.split_plan(1, 16, 8, 16, 41) == PA.SplitPlan(4, 1, 16, 1, 11, 44)
-    assert PA.split_plan(64, 16, 8, 16, 41) == PA.SplitPlan(1, 4, 64, 2, 3, 3)
-    assert PA.split_plan(12, 16, 8, 16, 40) == PA.SplitPlan(1, 4, 64, 1, 3, 3)
-    assert PA.split_plan(3, 8, 2, 8, 12) == PA.SplitPlan(4, 1, 16, 1, 2, 8)
-    assert PA.split_plan(1, 16, 8, 16, 128) == PA.SplitPlan(4, 1, 16, 1, 32, 128)
-    assert PA.split_plan(1, 16, 8, 16, 129) == PA.SplitPlan(4, 2, 16, 1, 17, 68)
-    assert PA.split_plan(1, 16, 8, 16, 2048) == PA.SplitPlan(4, 16, 16, 1, 32, 128)
-    assert PA.split_plan(64, 16, 8, 16, 2049) == PA.SplitPlan(1, 17, 64, 2, 31, 31)
+    sub-blocks a CTA, and one tile, so that no plan has more than MAX_CHUNKS
+    chunks (at 32768 positions too).  Only the number of tiles depends on
+    the rows: a row's partials, and so its bits, are the same at decode, in
+    a verify and in a prefill chunk (qwen3-moe's group of 16: R = 16, 80 and
+    1024)."""
+    assert PA.split_plan(1, 16, 8, 16, 41) == PA.SplitPlan(1, 1, 1, 11)
+    assert PA.split_plan(64, 16, 8, 16, 41) == PA.SplitPlan(2, 1, 8, 11)
+    assert PA.split_plan(12, 16, 8, 16, 40) == PA.SplitPlan(2, 1, 2, 10)
+    assert PA.split_plan(3, 8, 2, 8, 12) == PA.SplitPlan(1, 1, 1, 2)
+    assert PA.split_plan(1, 16, 8, 16, 128) == PA.SplitPlan(1, 1, 1, 32)
+    assert PA.split_plan(1, 16, 8, 16, 129) == PA.SplitPlan(1, 2, 1, 17)
+    assert PA.split_plan(1, 16, 8, 16, 2048) == PA.SplitPlan(1, 16, 1, 32)
+    assert PA.split_plan(64, 16, 8, 16, 2049) == PA.SplitPlan(1, 17, 8, 31)
+    for S, tiles, n_tiles in ((1, 1, 1), (5, 2, 5), (64, 2, 64)):
+        assert PA.split_plan(S, 64, 4, 16, 41) == PA.SplitPlan(tiles, 1, n_tiles, 11)
     for S in (1, 8, 9, 64):
         for n_pp in range(1, 5000, 37):
             plan = PA.split_plan(S, 16, 8, 16, n_pp)
             assert plan.n_chunks <= PA.MAX_CHUNKS
             assert plan.n_chunks * plan.blocks * PA.CHUNK_KEYS >= n_pp * 16
+            assert 1 <= plan.tiles <= min(PA.MAX_TILES, plan.n_tiles)
 
 
 # ---------------------------------------------------------------------------
@@ -906,7 +929,7 @@ def test_kernels_match_plain_on_card():
         for S in (1, 64):
             _check_b5_bf16(mode, 128, S, lens, None, S, gen)
     # and (own generator, so the draws above and below stay as they were) at
-    # hd 64, S = 1 (wk 4), 12 (wk 1, 24 rows in one partial tile) and 64, and
+    # hd 64, S = 1, 12 (24 rows: a second, partial tile) and 64, and
     # over a table of 32768 positions (qwen3-1.7b's published context: 16
     # sub-blocks a CTA under the chunk cap) with short and long slots
     gen_b5 = torch.Generator(device=dev).manual_seed(1)

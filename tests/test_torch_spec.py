@@ -197,6 +197,56 @@ def test_draft_model_spec_token_exact(qwen_setup, backend):
         assert 0.5 < s.acceptance_rate() <= 1.0
 
 
+def test_draft_cache_holds_target_pages_after_every_sync(qwen_setup):
+    """The draft proposer with the target's weights: after every
+    ``_sync_all`` the draft pool holds, at every position it counts as
+    synced, the target pool's bytes, though the sync writes them through
+    ``prefill_all`` chunks and the target wrote the generated ones through
+    verify rows: a row's arithmetic does not depend on the call's shape."""
+    cfg, model, params = qwen_setup
+    prompts = _prompts(cfg, lens=(7, 12, 5))
+    spec = SpecConfig(k=3, proposer="draft", draft_arch="qwen3-1.7b", draft_kv_dtype="mxfp4")
+    eng = Engine(model, params, EngineConfig(n_slots=3, max_len=32, page_size=8,
+                                             kv_dtype="mxfp4", prefill_chunk=8, spec=spec))
+    prop, ps = eng.proposer, 8
+    calls = {"prefill_all": 0}
+    steps = prop._steps
+
+    def counted(kind):
+        fn = getattr(steps, kind)
+
+        def call(*a):
+            calls[kind] += 1
+            return fn(*a)
+        return call
+
+    base_sync, compared = prop._sync_all, []
+
+    def checked(decoding):
+        prop._steps = steps._replace(**{k: counted(k) for k in calls})
+        base_sync(decoding)
+        prop._steps = steps
+        for r in decoding:
+            n = int(prop.synced[r.slot])
+            assert n == r.prompt_len + len(r.tokens) - 1
+            pos = torch.arange(n)
+            for leaf, v in eng.cache.pool.items():
+                mine = prop.cache.pool[leaf][:, torch.from_numpy(prop.cache.tables[r.slot])[
+                    pos // ps].long(), pos % ps]
+                want = v[:, torch.from_numpy(eng.cache.tables[r.slot])[pos // ps].long(),
+                         pos % ps]
+                assert torch.equal(mine, want), (r.rid, leaf)
+            compared.append(n)
+
+    prop._sync_all = checked
+    reqs = [eng.submit(p, 8) for p in prompts]
+    eng.drain()
+    assert all(r.acceptance_rate() == 1.0 for r in reqs)
+    # the prompts (each slot on its first spec tick), then the one generated
+    # position each fully accepted burst leaves behind
+    assert calls["prefill_all"] > len(prompts) and len(compared) > len(prompts)
+
+
 def test_spec_eos_mid_burst(qwen_setup):
     """EOS inside an accepted burst stops emission at once, as without
     speculation."""
@@ -219,9 +269,13 @@ def test_spec_rejects_non_paged_families(qwen_setup):
             Engine(other, params, EngineConfig(spec=SpecConfig(k=2)))
         with pytest.raises(ValueError):
             Engine(other, params, EngineConfig(prefix_cache=True))
-    moe = Model(dataclasses.replace(cfg, family="moe"), model.forward, model.head)
-    with pytest.raises(NotImplementedError, match="A5"):
-        Engine(moe, params, EngineConfig(spec=SpecConfig(k=2)))
+    # MoE is a paged family: a reduced MoE model's engine takes speculation
+    # and the prefix cache
+    mcfg = kernel_config(get_reduced_config("qwen3-moe-235b-a22b"))
+    moe = build_model(mcfg)
+    mparams = init_params(mcfg, torch.Generator().manual_seed(0), "cpu")
+    eng = Engine(moe, mparams, EngineConfig(spec=SpecConfig(k=2), prefix_cache=True))
+    assert eng.spec.k == 2 and eng.prefix is not None
 
 
 def test_spec_full_pool_decode_to_budget(qwen_setup):
