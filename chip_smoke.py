@@ -4,7 +4,8 @@
 
 1. Prints the card's name and power limit, then builds every kernel of the
    serving, training and evaluation paths from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, all started together: 6 libraries, 7 kernels), and
+   ``nvcc`` per source, all started together: 6 libraries, 7 kernels, B1,
+   B2 and B3 each also with an expert axis), and
    prints each entry's registers, shared memory and spills (-Xptxas -v);
    B4b's body must use no stack and spill nothing.
 2. Checks each kernel against its plain PyTorch version on the card at the
@@ -59,7 +60,8 @@
    a layer), its log-probs against the teacher-forced forward, tok/s, TTFT,
    tick times, pool, weight and peak bytes; self-speculation at k = 4
    token-exact with verify rows equal to decode rows; the expert-axis
-   kernels timed on layer 0's experts at a decode and a prefill tick; and
+   kernels timed on layer 0's experts at a decode and a prefill tick, and
+   B4a at a MoE decode tick's KV write; and
    reduced qwen3-moe and arctic on the card against the CPU and their own
    teacher-forced forward, paged against gather.
 4. Trains: a reduced Llama 3 steps on the card (kernels) and on the CPU
@@ -74,6 +76,21 @@
    then evaluates the trained state on 4 held-out batches of 16 x 512 with
    the training model (blocked attention) and a flash-built one (B6, 40
    launches), the two nll values held to a stated tolerance.
+4b. MoE training (``--phases moe-train``): B2's expert axis against its
+   plain version and against 128 launches of the 2-d kernel, bit for bit,
+   at the four backward operands of a full-width expert linear (gate/up
+   and down, 320 tokens an expert, seeds on both sides of 2^31); one
+   full-width ``quartet_linear_experts`` backward on the kernels against
+   the plain versions; reduced qwen3-moe 3 steps on the card and on the CPU
+   from equal states (8-bit AdamW, bf16 master, aux weight 0.01), and
+   ``moe_ffn``'s backward with no host sync; then qwen3-moe-235b-a22b at
+   its published widths, 1 of its 94 layers, 5 steps of 8 x 512 tokens
+   through ``train.loop.train`` with the 8-bit AdamW and a bf16 master,
+   its launches against the prediction (28 B1, 28 B2, 28 B3 a layer a
+   step, 12 of the B2 on the expert axis), tokens/s, the median step, peak
+   memory, loss and aux per step, the state's checkpoint bytes and one
+   profiled step's device time by kernel kind and idle share; and B1, B2
+   and B3 timed over one full-width expert linear's training launches.
 5. Times each kernel (CUDA events, median, L2 flushed before each launch)
    beside its plain version and, where one PyTorch call computes the same
    function, that call, at serving, training and evaluation shapes; B1, B2,
@@ -81,7 +98,8 @@
    host gaps), B1's serving layer also as its 7 weight and its 7 activation
    calls apart; B4a as the layer's KV write through ``scatter_token``; B5
    also at a verify tick (S = k + 1 = 5).
-6. Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
+6. Prints one JSON line of kernel records (B2's expert axis its own
+   record, on the MoE training path), the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -161,6 +179,15 @@ TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = "llama-paper-200m
 TRAIN_TOKENS_MB = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ  # 8192 tokens per microbatch
 # the train phase's resume check: full width, depth cut to RESUME_LAYERS
 RESUME_LAYERS, RESUME_STEPS = 2, 4
+
+# the moe-train phase: qwen3-moe-235b-a22b at its published widths, its depth
+# cut to MOE_TRAIN_LAYERS of 94 (a layer holds 2.49 B parameters; with the
+# embedding and the untied head, 3.73 B: the 8-bit AdamW's state with a bf16
+# master and bf16 gradients is ~22.5 GB, and a step's temporaries take it to
+# a predicted 45-60 GB; two layers would need ~85 GB), MOE_TRAIN_STEPS steps
+# of MOE_TRAIN_BATCH x TRAIN_SEQ tokens in one microbatch: one group of 4096
+# tokens, so MOE_TRAIN_CAPACITY = 1.25 x 8 x 4096 / 128 tokens an expert
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_CAPACITY = 1, 5, 8, 320
 
 
 def log(*a):
@@ -1685,6 +1712,9 @@ def time_moe_kernels(torch, cfg, ws, device="cuda"):
             launches_per_layer=len(args))
         del x, h, xq, hq, args, deq
     rec.update(time_paged_attention(torch, cfg, timer, gen, device, prefix="moe "))
+    # B4a at a MoE decode tick: one layer's K and V write of 8 tokens (4 KV
+    # heads of 128)
+    rec[("kv_quant_pack", "moe decode")] = time_kv_write(torch, cfg, timer, gen, N_SLOTS, device)
     for (name, tag), r in rec.items():
         log(f"  [times] {name} {tag} (one MoE layer, NVIDIA H100 figures of this run): "
             f"{json.dumps(r)}")
@@ -1799,6 +1829,40 @@ def time_paged_attention(torch, cfg, timer, gen, device="cuda", prefix=""):
     return rec
 
 
+def time_kv_write(torch, cfg, timer, gen, n_tok, device="cuda"):
+    """B4a over one layer's KV write of ``n_tok`` tokens (``scatter_token``:
+    K and V into random pool slots), beside its plain version and its
+    least time on the H100."""
+    from repro_torch.kernels import kv_pack as KV
+    from repro_torch.kernels.paged_attention import scatter_token
+
+    Hkv, hd = cfg.num_kv_heads, cfg.head_dim_
+    n_pages = 1 + N_SLOTS * (MAX_LEN // PAGE_SIZE)
+    pool = {n: torch.zeros((n_pages, PAGE_SIZE, Hkv, w), dtype=torch.uint8, device=device)
+            for n, w in (("k_codes", hd // 2), ("k_scales", hd // 32), ("v_codes", hd // 2),
+                         ("v_scales", hd // 32))}
+    perm = torch.randperm((n_pages - 1) * PAGE_SIZE, generator=gen, device=device)[:n_tok]
+    pid = (1 + perm // PAGE_SIZE).to(torch.int32)
+    off = (perm % PAGE_SIZE).to(torch.int32)
+    k, v = [(torch.randn((n_tok, Hkv, hd), generator=gen, device=device) * 1.5)
+            .to(torch.bfloat16) for _ in range(2)]
+    # K and V: 2 B read per bf16 element, 0.5 + 1/32 B written; 8 B of ids
+    # per token
+    nbytes = 2 * n_tok * Hkv * hd * (2 + 0.5 + 1 / 32) + 8 * n_tok
+    before = KV.kv_quant_pack.launches
+    scatter_token(pool, pid, off, k, v)
+    per_write = KV.kv_quant_pack.launches - before
+
+    def plain():
+        for x, c, sc in ((k, "k_codes", "k_scales"), (v, "v_codes", "v_scales")):
+            plain_quant_scatter(torch, pool[c][None], pool[sc][None], pid, off, x[None])
+
+    return dict(ms=timer(lambda: scatter_token(pool, pid, off, k, v)),
+                device_ms=timer.device(lambda: scatter_token(pool, pid, off, k, v)),
+                plain_ms=timer(plain), bound_ms=nbytes / H100_BYTES_PER_S * 1e3,
+                bound_by="bytes", library_ms=None, launches_per_layer=per_write)
+
+
 def time_kv_and_flash(torch, cfg, tcfg, timer, device="cuda"):
     """B4a over one layer's KV write (``scatter_token``: K and V) of a decode
     tick (8 tokens) and a prefill tick (8 x 64 tokens); B4b over one decode
@@ -1808,40 +1872,13 @@ def time_kv_and_flash(torch, cfg, tcfg, timer, device="cuda"):
     plain version, its least time on the H100 and, for B6, one SDPA call."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import kv_pack as KV
-    from repro_torch.kernels.paged_attention import scatter_token
     from repro_torch.serve.paged_cache import gather_pages
 
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     Hkv, hd, L = cfg.num_kv_heads, cfg.head_dim_, cfg.num_layers
     n_pages = 1 + N_SLOTS * (MAX_LEN // PAGE_SIZE)
-    rec = {}
-    pool = {n: torch.zeros((n_pages, PAGE_SIZE, Hkv, w), dtype=torch.uint8, device=device)
-            for n, w in (("k_codes", hd // 2), ("k_scales", hd // 32), ("v_codes", hd // 2),
-                         ("v_scales", hd // 32))}
-    for n_tok, tag in ((N_SLOTS, "decode"), (N_SLOTS * PREFILL_CHUNK, "prefill")):
-        perm = torch.randperm((n_pages - 1) * PAGE_SIZE, generator=gen, device=device)[:n_tok]
-        pid = (1 + perm // PAGE_SIZE).to(torch.int32)
-        off = (perm % PAGE_SIZE).to(torch.int32)
-        k, v = [(torch.randn((n_tok, Hkv, hd), generator=gen, device=device) * 1.5)
-                .to(torch.bfloat16) for _ in range(2)]
-        # K and V: 2 B read per bf16 element, 0.5 + 1/32 B written; 8 B of
-        # ids per token
-        nbytes = 2 * n_tok * Hkv * hd * (2 + 0.5 + 1 / 32) + 8 * n_tok
-        before = KV.kv_quant_pack.launches
-        scatter_token(pool, pid, off, k, v)
-        per_write = KV.kv_quant_pack.launches - before
-
-        def plain():
-            for x, c, sc in ((k, "k_codes", "k_scales"), (v, "v_codes", "v_scales")):
-                plain_quant_scatter(torch, pool[c][None], pool[sc][None], pid, off, x[None])
-
-        rec[("kv_quant_pack", tag)] = dict(
-            ms=timer(lambda: scatter_token(pool, pid, off, k, v)),
-            device_ms=timer.device(lambda: scatter_token(pool, pid, off, k, v)),
-            plain_ms=timer(plain),
-            bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
-            launches_per_layer=per_write)
-    del pool
+    rec = {("kv_quant_pack", tag): time_kv_write(torch, cfg, timer, gen, n_tok, device)
+           for n_tok, tag in ((N_SLOTS, "decode"), (N_SLOTS * PREFILL_CHUNK, "prefill"))}
 
     # B4b through the gather backend's entry point (gather_pages: K and V)
     pool = {n: torch.randint(0, 256, (L, n_pages, PAGE_SIZE, Hkv, w), generator=gen,
@@ -1922,11 +1959,14 @@ class PlainOps:
     the kernel-path Quartet passes can run on them on the card."""
 
     def __init__(self):
+        import torch
+
         from repro_torch.kernels import hadamard_quant as HQ
         from repro_torch.kernels import mxfp4_matmul as MM
         from repro_torch.kernels import sr_hadamard_quant as SR
 
         self.HQ, self.MM, self.SR = HQ, MM, SR
+        self.cat = torch.cat
 
     def hadamard_quest_quantize(self, x, group=32):
         lead = x.shape[:-1]
@@ -1942,11 +1982,26 @@ class PlainOps:
                                           sa.reshape(-1, sa.shape[-1]), b, sb)
         return out.reshape(*lead, -1)
 
+    # the expert-axis plain versions a few experts at a time (rows and
+    # experts are independent), so that their f32 and int64 temporaries fit
+    # beside a full-width layer
+    CHUNK = 16
+
     def hadamard_quest_quantize_experts(self, x, group=32):
-        return self.HQ.hadamard_quest_quantize_experts_plain(x)
+        parts = [self.HQ.hadamard_quest_quantize_experts_plain(x[i:i + self.CHUNK])
+                 for i in range(0, x.shape[0], self.CHUNK)]
+        return tuple(self.cat(p) for p in zip(*parts))
+
+    def sr_hadamard_quantize_experts(self, x, signs, seeds, prescale=0.75, salt=0):
+        parts = [self.SR.sr_hadamard_quantize_experts_plain(
+            x[i:i + self.CHUNK], signs[i:i + self.CHUNK], seeds[i:i + self.CHUNK], prescale,
+            salt) for i in range(0, x.shape[0], self.CHUNK)]
+        return tuple(self.cat(p) for p in zip(*parts))
 
     def mxfp4_matmul_experts(self, a, sa, b, sb):
-        return self.MM.mxfp4_matmul_experts_plain(a, sa, b, sb)
+        return self.cat([self.MM.mxfp4_matmul_experts_plain(
+            a[i:i + self.CHUNK], sa[i:i + self.CHUNK], b[i:i + self.CHUNK], sb[i:i + self.CHUNK])
+            for i in range(0, a.shape[0], self.CHUNK)])
 
 
 def backward_operands(torch, K, N, gen, device="cuda"):
@@ -2449,6 +2504,432 @@ def time_training_kernels(torch, cfg, timer, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: MoE training
+# ---------------------------------------------------------------------------
+
+
+def moe_train_config():
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_engine import kernel_config
+
+    return kernel_config(dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS))
+
+
+def _expert_seeds(torch, E, device):
+    """E per-expert seeds spaced as ``models.moe._expert_ffn`` spaces a
+    layer's (seed_fold of consecutive values: 1000003 apart), placed so that
+    half of them are 2^31 or more."""
+    seeds = (2**31 + 1000003 * (torch.arange(E, device=device) - E // 2)) & 0xFFFFFFFF
+    if not bool((seeds >= 2**31).any()) or not bool((seeds < 2**31).any()):
+        raise AssertionError("the expert seeds do not straddle 2^31")
+    return seeds
+
+
+def moe_backward_operands(torch, E, T, K, N, gen, device="cuda"):
+    """The four backward Stage-1 operands of one full-width expert linear
+    [E, K, N] over T tokens an expert, as ``quartet._backward_experts_kernels``
+    passes them: dy [E, T, N] (bf16, row-major), and three views with unit
+    stride along their rows: Wq [E, K, N] (the transpose of the dequantized
+    [E, N, K] weight codes, bf16), xqᵀ [E, K, T] and dyᵀ [E, N, T]."""
+    from repro_torch.core.quartet import _dequant_codes
+    from repro_torch.kernels import hadamard_quant as HQ
+
+    x = (torch.randn((E, T, K), generator=gen, device=device) * 1.9).to(torch.bfloat16)
+    w = (torch.randn((E, K, N), generator=gen, device=device) / K**0.5).to(torch.bfloat16)
+    dy = (torch.randn((E, T, N), generator=gen, device=device) * 1e-3).to(torch.bfloat16)
+    xc, xs, _ = HQ.hadamard_quest_quantize_experts(x)
+    wc, ws, _ = HQ.hadamard_quest_quantize_experts(w.transpose(-1, -2))
+    del x, w
+    return {"dy": dy, "Wq": _dequant_codes(wc, ws, 32, torch.bfloat16).transpose(-1, -2),
+            "xqᵀ": _dequant_codes(xc, xs, 32, torch.bfloat16).transpose(-1, -2),
+            "dyᵀ": dy.transpose(-1, -2)}
+
+
+class RecordingOps:
+    """``ops`` (the kernels' wrappers or PlainOps) with every expert-axis B2
+    output kept, in call order."""
+
+    def __init__(self, ops):
+        self.ops, self.b2 = ops, []
+
+    def sr_hadamard_quantize_experts(self, *a, **k):
+        out = self.ops.sr_hadamard_quantize_experts(*a, **k)
+        self.b2.append(out)
+        return out
+
+    def mxfp4_matmul_experts(self, *a):
+        return self.ops.mxfp4_matmul_experts(*a)
+
+
+def check_moe_train_kernels(torch, cfg, device="cuda"):
+    """B2's expert axis at the backward's shapes of one full-width MoE layer
+    (128 experts, MOE_TRAIN_CAPACITY tokens an expert): the four operands of
+    the gate/up linears (K 4096, N 1536) and of the down linear (K 1536, N
+    4096), seeds straddling 2^31, codes and scales against the plain version
+    and against E launches of the 2-d kernel, bit for bit; then one
+    full-width ``quartet_linear_experts`` backward (the gate linear, all
+    experts) on the kernels against the same backward on the plain versions:
+    every B2 output bit for bit, dx and dW within rtol 1e-5 and
+    atol 1e-6·max|plain| (the dense check's: the same codes, f32 products
+    the same on both sides).  Raises on a mismatch; returns max |Δ|."""
+    from repro_torch.core import fastrng
+    from repro_torch.core.quartet import (QuartetConfig, _backward_experts_kernels,
+                                          _forward_experts_kernels)
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import sr_hadamard_quant as SR
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    E, d, f, T = cfg.num_experts, cfg.d_model, cfg.d_ff, MOE_TRAIN_CAPACITY
+    seeds = _expert_seeds(torch, E, device)
+    plain = PlainOps()
+    for proj, Kd, N in (("gate/up", d, f), ("down", f, d)):
+        opnds = moe_backward_operands(torch, E, T, Kd, N, gen, device)
+        for salt, (name, x) in enumerate(opnds.items(), 1):
+            signs = fastrng.rademacher(seeds, x.shape[2], salt=11 if salt < 3 else 12,
+                                       device=device)
+            before = SR.sr_hadamard_quantize.vector_launches
+            got = SR.sr_hadamard_quantize_experts(x, signs, seeds, salt=salt)
+            if x.is_cuda and SR.sr_hadamard_quantize.vector_launches != before + 1:
+                raise AssertionError(f"B2 experts {proj} {name}: took its tile body")
+            want = plain.sr_hadamard_quantize_experts(x, signs, seeds, salt=salt)
+            for g, w, what in zip(got, want, ("codes", "scales")):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"B2 experts {proj} {name} {tuple(x.shape)} (strides "
+                                         f"{x.stride()}): {what} differ from the plain version "
+                                         f"at {int((g != w).sum())}")
+            for e in range(E):
+                two = SR.sr_hadamard_quantize(x[e], signs[e], int(seeds[e]), salt=salt)
+                if not (torch.equal(got[0][e], two[0]) and torch.equal(got[1][e], two[1])):
+                    raise AssertionError(f"B2 experts {proj} {name}: expert {e} (seed "
+                                         f"{int(seeds[e])}) differs from a 2-d launch")
+            del got, want
+        del opnds
+    torch.cuda.empty_cache()
+
+    qc = QuartetConfig(use_kernels=True)
+    x = (torch.randn((E, T, d), generator=gen, device=device) * 1.9).to(torch.bfloat16)
+    w = (torch.randn((E, d, f), generator=gen, device=device) / d**0.5).to(torch.bfloat16)
+    dy = (torch.randn((E, T, f), generator=gen, device=device) * 1e-3).to(torch.bfloat16)
+    _, res = _forward_experts_kernels(x, w, qc)
+    rk, rp = RecordingOps(K), RecordingOps(plain)
+    dx, dw = _backward_experts_kernels(qc, seeds, res, dy, ops=rk)
+    pdx, pdw = _backward_experts_kernels(qc, seeds, res, dy, ops=rp)
+    for i, (a, b) in enumerate(zip(rk.b2, rp.b2)):
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError(f"expert backward: B2 operand {i + 1}'s codes differ between "
+                                 f"the kernels and the plain versions")
+    err = {}
+    for name, a, b in (("dx", dx, pdx), ("dW", dw, pdw)):
+        if not torch.allclose(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max())):
+            raise AssertionError(f"expert backward {name}: kernels vs plain max |Δ| "
+                                 f"{float((a - b).abs().max())} (max |plain| "
+                                 f"{float(b.abs().max())})")
+        err[name] = float((a - b).abs().max())
+    log(f"  expert-linear backward (gate, {E} experts x {T} tokens, K {d}, N {f}): B2 codes "
+        f"bit-exact, max |Δ| kernels vs plain {json.dumps(err)}")
+    del x, w, dy, res, rk, rp, dx, dw, pdx, pdw
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"sr_hadamard_quantize_experts": 0.0, "quartet_linear_experts backward":
+            max(err.values())}
+
+
+def _to_device(torch, tree, dev):
+    """A train state (named tuple, dicts, tensors, int step counters) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(torch, v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to_device(torch, v, dev) for v in tree))
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def train_moe_reduced_card_vs_cpu(torch, device="cuda"):
+    """Reduced qwen3-moe (f32 compute, bf16 master, the 8-bit AdamW, aux
+    weight 0.01) 3 steps on the card with the kernels and on the CPU with the
+    plain versions, each step from the CPU run's state on both (the 8-bit
+    moments amplify a last-bit difference without bound, so free runs part
+    after a step or two; tests/test_torch_moe_train.py says why).  Also
+    ``moe_ffn``'s backward once under ``set_sync_debug_mode("error")``: no
+    host sync.  Returns the relative differences.
+
+    Tolerance, every step (equal states): loss, aux and nll rtol 1e-3,
+    grad-norm rtol 3e-2 (the dense check's every-step bound).  The kernels
+    equal their plain versions bit for bit, but the rest of the step rounds
+    differently on the card (ROADMAP C4): the router's f32 GEMM runs a
+    column at a time there, so a token whose two best experts' scores nearly
+    tie can take the other one; that moves the aux loss by up to ~1/512 of
+    itself (two experts' token fractions by 1/512 each, 512 tokens) and the
+    loss by that token's share of the mean (the first chip run read 1.1e-4
+    and 8.6e-5 at step 0).  And a one-ulp difference can flip a
+    stochastic-rounding decision and move a gradient column by a grid step
+    (grad-norm 2.5e-3 at step 1)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.convert import init_params
+    from repro_torch.data.pipeline import SyntheticC4Dataset, TokenBatcher
+    from repro_torch.launch.serve_engine import kernel_config
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.optim import adamw8bit, cosine_warmup
+    from repro_torch.train.state import make_train_state
+    from repro_torch.train.steps import make_train_step
+
+    cfg = kernel_config(get_reduced_config(MOE_ARCH, dtype="float32"))
+    model = build_model(cfg)
+    opt = adamw8bit(cosine_warmup(1e-3, 3))
+    step = make_train_step(model, opt, aux_weight=0.01)
+    cpu = make_train_state(init_params(cfg, torch.Generator().manual_seed(SEED), "cpu"), opt,
+                           "bfloat16")
+    batcher = TokenBatcher(SyntheticC4Dataset(cfg.vocab_size, seed=SEED), 8, 64)
+    rel, bad = {}, []
+    for i in range(3):
+        b = batcher.batch(i)
+        card = _to_device(torch, cpu, device)
+        card, mc = step(card, {k: torch.from_numpy(v).to(device) for k, v in b.items()})
+        cpu, mp = step(cpu, {k: torch.from_numpy(v) for k, v in b.items()})
+        for key, tol in (("loss", 1e-3), ("aux", 1e-3), ("nll", 1e-3), ("grad_norm", 3e-2)):
+            r = abs(float(mc[key]) - float(mp[key])) / abs(float(mp[key]))
+            rel.setdefault(key, []).append(r)
+            if r > tol:
+                bad.append((i, key, float(mc[key]), float(mp[key])))
+    log(f"  reduced MoE train, card vs CPU from equal states, relative differences by step: "
+        f"{json.dumps(rel)} (tolerance loss, aux, nll 1e-3; grad-norm 3e-2)")
+    if bad:
+        raise AssertionError(f"reduced MoE training: card vs CPU out of tolerance: {bad}")
+    # the backward of one MoE layer reads nothing back to the host
+    layer0 = _tree_map(lambda t: t[0].detach().clone().requires_grad_(),
+                       _to_device(torch, cpu.params["layers"]["moe"], device))
+    x = torch.randn((2, 64, cfg.d_model), generator=torch.Generator(device=device)
+                    .manual_seed(SEED), device=device, requires_grad=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe_ffn(layer0, x, 0, cfg, "quartet")
+        torch.autograd.grad((y.float().square().mean() + aux), [x, *_leaves(layer0)])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return rel
+
+
+def train_moe_full_width(torch, ops, device="cuda"):
+    """qwen3-moe-235b-a22b at its published widths, MOE_TRAIN_LAYERS of its
+    94 layers, through ``train.loop.train``: MOE_TRAIN_STEPS steps of
+    MOE_TRAIN_BATCH x TRAIN_SEQ tokens (one group of 4096 tokens, capacity
+    320 an expert), the 8-bit AdamW with a bf16 master, Quartet on every
+    transformer linear through the kernels.  Every launch counter is set to
+    0 just before the run and read just after, against the prediction.
+    Returns (summary, launch counts, vector-body launches)."""
+    from repro_torch.data.pipeline import SyntheticC4Dataset, TokenBatcher
+    from repro_torch.kernels import sr_hadamard_quant as SR
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw8bit, cosine_warmup
+    from repro_torch.train.loop import train
+    from repro_torch.train.steps import make_train_step
+
+    cfg = moe_train_config()
+    model = build_model(cfg)
+    batcher = TokenBatcher(SyntheticC4Dataset(cfg.vocab_size, seed=SEED), MOE_TRAIN_BATCH,
+                           TRAIN_SEQ)
+    opt = adamw8bit(cosine_warmup(3e-4, MOE_TRAIN_STEPS))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, hist = train(model, opt, batcher, MOE_TRAIN_STEPS, master_dtype="bfloat16",
+                        seed=SEED, device=device, log_every=1, log_fn=lambda m: log("  " + m))
+    wall = time.perf_counter() - t0
+    counts, vec = ops.launch_counts(), ops.vector_launches()
+    experts_b2 = SR.sr_hadamard_quantize.expert_launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    # remat: each linear runs its forward twice (2 B1 + 1 B3 each) and its
+    # backward once (4 B2 + 2 B3); the 4 attention linears and the 3 expert
+    # linears (each one expert-axis launch per Stage) are the 7 of a layer;
+    # the router and the untied lm-head are bf16
+    per_step = MOE_TRAIN_LAYERS * 7 * 4
+    predicted = dict.fromkeys(counts, 0)
+    predicted.update(hadamard_quest_quantize=per_step * MOE_TRAIN_STEPS,
+                     sr_hadamard_quantize=per_step * MOE_TRAIN_STEPS,
+                     mxfp4_matmul=per_step * MOE_TRAIN_STEPS)
+    experts_predicted = MOE_TRAIN_LAYERS * 3 * 4 * MOE_TRAIN_STEPS
+    losses = [h["loss"] for h in hist]
+    auxes = [h["aux"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    dts = sorted(h["dt"] for h in hist)
+    med = dts[len(dts) // 2]
+    leaves = _leaves({"params": state.params, "opt": state.opt_state})
+    moments = _leaves(state.opt_state)
+    n_params = sum(p.numel() for p in _leaves(state.params))
+    summary = {"arch": cfg.name, "layers": f"{MOE_TRAIN_LAYERS} of 94", "params": n_params,
+               "steps": MOE_TRAIN_STEPS, "batch": MOE_TRAIN_BATCH, "seq": TRAIN_SEQ,
+               "microbatches": 1, "optimizer": "adamw8bit", "master": "bfloat16",
+               "loss": losses, "aux": auxes, "grad_norm": gnorms,
+               "step_s": [h["dt"] for h in hist], "median_step_s": med,
+               "tokens_per_s_median_step": MOE_TRAIN_BATCH * TRAIN_SEQ / med,
+               "tokens_per_s_run": MOE_TRAIN_STEPS * MOE_TRAIN_BATCH * TRAIN_SEQ / wall,
+               "wall_s_with_init": wall, "peak_mem_gb": peak, "card_mem_gb": total,
+               "state_checkpoint_bytes": sum(t.numel() * t.element_size() for t in leaves
+                                             if isinstance(t, torch.Tensor)),
+               "moments_8bit_checkpoint_bytes": sum(t.numel() * t.element_size()
+                                                    for t in moments
+                                                    if isinstance(t, torch.Tensor)),
+               "launches": counts, "predicted_launches": predicted,
+               "b2_expert_axis_launches": experts_b2,
+               "b2_expert_axis_launches_predicted": experts_predicted,
+               "vector_launches": vec}
+    if not all(math.isfinite(v) for v in losses + auxes + gnorms):
+        raise AssertionError(f"non-finite MoE training metrics: loss {losses}, aux {auxes}, "
+                             f"gnorm {gnorms}")
+    if counts != predicted or experts_b2 != experts_predicted:
+        raise AssertionError(f"MoE training launches {counts} (B2 expert axis {experts_b2}) != "
+                             f"predicted {predicted} ({experts_predicted})")
+    if peak >= total:
+        raise AssertionError(f"MoE training peak memory {peak} GB >= the card's {total} GB")
+
+    # one more step under the profiler: device time by kernel kind, and the
+    # busy share of the step's wall time (kernels on one stream)
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn = make_train_step(model, opt)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in batcher.batch(MOE_TRAIN_STEPS).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        new, m = step_fn(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        step_wall = time.perf_counter() - t1
+    del new
+    by_kind = {}
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        by_kind[_kind(e.key)] = by_kind.get(_kind(e.key), 0.0) + us / 1e3
+    busy = sum(by_kind.values())
+    summary["breakdown"] = {"profiled_step_ms": step_wall * 1e3, "device_ms_by_kind": by_kind,
+                            "device_busy_ms": busy,
+                            "device_idle_share": 1 - busy / (step_wall * 1e3)}
+
+    # the router's forward and backward over this batch, a [B, 1] column at
+    # a time (as the card runs it) against one GEMM over all tokens: host
+    # clock around synchronised work, median of 3 (a step runs the forward
+    # twice under remat and the backward once, a layer)
+    from repro_torch.models.moe import _router_logits
+
+    w = state.params["layers"]["moe"]["router"]["w"][0].detach().requires_grad_()
+    xr = (torch.randn((MOE_TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), device=device)
+          .to(torch.bfloat16).requires_grad_())
+
+    def host_ms(fn, reps=3):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t1) * 1e3)
+        return sorted(ts)[len(ts) // 2]
+
+    def router(logits_fn):
+        return lambda: torch.autograd.grad(logits_fn().sum(), (xr, w))
+
+    summary["router_fwd_bwd_ms"] = {
+        "columns": host_ms(router(lambda: _router_logits(w, xr))),
+        "one_gemm": host_ms(router(lambda: xr.float() @ w.float()))}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, counts, vec
+
+
+def time_moe_train_kernels(torch, cfg, timer, device="cuda"):
+    """B1, B2 and B3 over the launches of one full-width expert linear (the
+    gate: 128 experts, K 4096, N 1536, MOE_TRAIN_CAPACITY tokens an expert)
+    in one training step: B1 on x and on the weights' transposed view
+    (forward), B2 on the four backward operands, B3 for the forward, dx and
+    dW; each beside its bound, its plain version (timed once: it runs
+    seconds) and, for B3, one ``torch.bmm`` in bf16 on the dequantized
+    operands."""
+    from repro_torch.core import fastrng
+    from repro_torch.kernels import hadamard_quant as HQ
+    from repro_torch.kernels import mxfp4_matmul as MM
+    from repro_torch.kernels import sr_hadamard_quant as SR
+
+    once = Timer(torch, reps=1)
+    plain = PlainOps()
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    E, d, f, T = cfg.num_experts, cfg.d_model, cfg.d_ff, MOE_TRAIN_CAPACITY
+    seeds = _expert_seeds(torch, E, device)
+    rec = {}
+    x = (torch.randn((E, T, d), generator=gen, device=device) * 1.9).to(torch.bfloat16)
+    w = (torch.randn((E, d, f), generator=gen, device=device) / d**0.5).to(torch.bfloat16)
+    fwd = [x, w.transpose(-1, -2)]
+    n = sum(t.numel() for t in fwd)
+    rec[("hadamard_quest_quantize", "moe train")] = dict(
+        ms=timer(lambda: [HQ.hadamard_quest_quantize_experts(t) for t in fwd]),
+        device_ms=timer.device(lambda: [HQ.hadamard_quest_quantize_experts(t) for t in fwd]),
+        plain_ms=once(lambda: [plain.hadamard_quest_quantize_experts(t) for t in fwd]),
+        bound_ms=n * (2 + 1 + 1 + 4 / 32) / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None, launches_per_linear_fwd=len(fwd))
+
+    opnds = moe_backward_operands(torch, E, T, d, f, gen, device)
+    signs = {k: fastrng.rademacher(seeds, v.shape[2], salt=11 if i < 3 else 12, device=device)
+             for i, (k, v) in enumerate(opnds.items(), 1)}
+    # as the 2-d B2's record: each element read once at its width (all bf16
+    # here) and written as a 1 B code and 4/32 B of scale; B2_F32_OPS +
+    # B2_INT32_OPS operations an element
+    nbytes = sum(v.numel() * (v.element_size() + 1 + 4 / 32) for v in opnds.values())
+    n_el = sum(v.numel() for v in opnds.values())
+    by_bytes = nbytes / H100_BYTES_PER_S
+    by_ops = max(n_el * B2_INT32_OPS / H100_INT32_OPS,
+                 n_el * (B2_F32_OPS + B2_INT32_OPS) / H100_F32_OPS)
+
+    def sr(fn):
+        return lambda: [fn(v, signs[k], seeds, 0.75, i)
+                        for i, (k, v) in enumerate(opnds.items(), 1)]
+
+    rec[("sr_hadamard_quantize_experts", "moe train")] = dict(
+        ms=timer(sr(SR.sr_hadamard_quantize_experts)),
+        device_ms=timer.device(sr(SR.sr_hadamard_quantize_experts)),
+        plain_ms=once(sr(plain.sr_hadamard_quantize_experts)),
+        bound_ms=max(by_bytes, by_ops) * 1e3, bytes_ms=by_bytes * 1e3, ops_ms=by_ops * 1e3,
+        bound_by="bytes" if by_bytes >= by_ops else "operations",
+        device_ms_by_operand={k: timer.device(lambda k=k, i=i, v=v: SR.sr_hadamard_quantize_experts(
+            v, signs[k], seeds, 0.75, i)) for i, (k, v) in enumerate(opnds.items(), 1)},
+        library_ms=None, launches_per_linear_bwd=4)
+
+    xc, xs, _ = HQ.hadamard_quest_quantize_experts(x)
+    wc, ws, _ = HQ.hadamard_quest_quantize_experts(w.transpose(-1, -2))
+    q = {k: SR.sr_hadamard_quantize_experts(v, signs[k], seeds, 0.75, i)
+         for i, (k, v) in enumerate(opnds.items(), 1)}
+    tr = lambda t: t.transpose(-1, -2)  # noqa: E731
+    args = [(xc, xs, tr(wc), tr(ws)), (*q["dy"], tr(q["Wq"][0]), tr(q["Wq"][1])),
+            (*q["xqᵀ"], tr(q["dyᵀ"][0]), tr(q["dyᵀ"][1]))]
+    del opnds, q
+    deq = [(_deq3(torch, a, s), tr(_deq3(torch, tr(b), tr(t)))) for a, s, b, t in args]
+    nbytes = sum(a.numel() + s.numel() * 4 + b.numel() + t.numel() * 4
+                 + a.shape[0] * a.shape[1] * b.shape[2] * 4 for a, s, b, t in args)
+    nops = sum(2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2] for a, _, b, _ in args)
+    rec[("mxfp4_matmul_experts", "moe train")] = dict(
+        ms=timer(lambda: [MM.mxfp4_matmul_experts(*a) for a in args]),
+        device_ms=timer.device(lambda: [MM.mxfp4_matmul_experts(*a) for a in args]),
+        plain_ms=once(lambda: [plain.mxfp4_matmul_experts(*a) for a in args]),
+        bound_ms=max(nbytes / H100_BYTES_PER_S, nops / H100_INT8_OPS) * 1e3,
+        bound_by="bytes" if nbytes / H100_BYTES_PER_S >= nops / H100_INT8_OPS
+        else "operations",
+        library_ms=timer(lambda: [torch.bmm(a, b) for a, b in deq]),
+        launches_per_linear=len(args))
+    del args, deq, x, w
+    for (name, tag), r in rec.items():
+        log(f"  [times] {name} {tag} (one full-width expert linear, NVIDIA H100 figures of "
+            f"this run): {json.dumps(r)}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 
 SOURCES = {
@@ -2475,8 +2956,9 @@ PATH_OF = {"hadamard_quest_quantize": ("train", "train"),
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,engine,features,moe,train,times",
-                    help="comma-separated subset of kernels,engine,features,moe,train,times")
+    ap.add_argument("--phases", default="kernels,engine,features,moe,train,moe-train,times",
+                    help="comma-separated subset of kernels,engine,features,moe,train,"
+                         "moe-train,times")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -2599,13 +3081,32 @@ def main() -> int:
             raise AssertionError("flash_attention launched during training")
         log(f"[train] {json.dumps(summary)}")
         log(f"[train] done in {time.perf_counter() - t0:.1f} s")
+    expert_b2 = expert_rec = None
+    if "moe-train" in phases:
+        t0 = time.perf_counter()
+        mcfg = moe_train_config()
+        for name, e in check_moe_train_kernels(torch, mcfg).items():
+            err[name] = max(err.get(name, 0.0), e)
+        log(f"[moe-train] B2's expert axis equals its plain version and E 2-d launches bit for "
+            f"bit; the expert-linear backward on the kernels matches the plain versions "
+            f"({time.perf_counter() - t0:.1f} s)")
+        reduced = train_moe_reduced_card_vs_cpu(torch)
+        summary, counts["moe_train"], vectors["moe_train"] = train_moe_full_width(torch, ops)
+        summary["reduced_card_vs_cpu"] = reduced
+        expert_b2 = summary["b2_expert_axis_launches"]
+        log(f"[moe-train] launches on the MoE training path: {counts['moe_train']} (predicted "
+            f"{summary['predicted_launches']}); B2 expert-axis launches {expert_b2}")
+        summary["times"] = time_moe_train_kernels(torch, mcfg, Timer(torch))
+        expert_rec = summary["times"][("sr_hadamard_quantize_experts", "moe train")]
+        log(f"[moe-train] {json.dumps({k: v for k, v in summary.items() if k != 'times'})}")
+        log(f"[moe-train] done in {time.perf_counter() - t0:.1f} s")
     if vectors:
         # every B1 call on the main paths, and every B2 call on the training
-        # path, reads and writes through the vector body (a thread per group,
+        # paths, reads and writes through the vector body (a thread per group,
         # 16-byte loads and stores)
         for tag, name, paths in (("b1", "hadamard_quest_quantize", list(vectors)),
-                                 ("b2", "sr_hadamard_quantize", ["train"] if "train" in vectors
-                                  else [])):
+                                 ("b2", "sr_hadamard_quantize",
+                                  [p for p in ("train", "moe_train") if p in vectors])):
             vs = {p: (vectors[p][name], counts[p][name]) for p in paths}
             log(f"[{tag}] vector-body launches / all launches, by path: {json.dumps(vs)}")
             if any(v != n or n == 0 for v, n in vs.values()):
@@ -2637,6 +3138,18 @@ def main() -> int:
                             "launches_by_path": {p: c[name] for p, c in counts.items()}})
             if name in ("hadamard_quest_quantize", "sr_hadamard_quantize"):
                 kernels[-1]["vector_launches_by_path"] = {p: v[name] for p, v in vectors.items()}
+        if expert_b2 is not None:
+            # B2's expert axis, new in this slice: launches on the MoE training
+            # path, times at one full-width expert linear's backward operands
+            r = expert_rec
+            kernels.append({"name": "sr_hadamard_quantize_experts", "route": "cuda",
+                            "source": SOURCES["sr_hadamard_quantize"][0],
+                            "replaces": SOURCES["sr_hadamard_quantize"][1],
+                            "launches": expert_b2,
+                            "max_abs_err": err["sr_hadamard_quantize_experts"],
+                            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                            "launches_by_path": {"moe_train": expert_b2}})
         log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

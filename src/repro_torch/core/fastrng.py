@@ -11,6 +11,13 @@ PyTorch has no unsigned 32-bit arithmetic on the CPU (no ``>>`` on
 A product of two 32-bit values can reach 2^64 and overflow int64, so
 :func:`_mul32` multiplies by the constant's two 16-bit halves (each partial
 product stays below 2^48).
+
+A seed is a Python int, or an int64 tensor of uint32 values ``[E]`` (a MoE
+layer's per-expert seeds): then every function draws for each seed at
+once, its output ``[E, *shape]`` holding, in slice e, exactly what the
+Python seed ``seeds[e]`` draws.  The seed's product with the hash constant
+goes through :func:`_mul32` too (a seed of 2^31 or more times the constant
+overflows int64).
 """
 
 from __future__ import annotations
@@ -34,29 +41,39 @@ def _murmur3_fmix(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def random_bits(seed: int, shape, salt: int = 0, device="cpu") -> torch.Tensor:
-    """u32 bits (held in int64, in [0, 2^32)) of shape ``shape``."""
+def _seed_term(seed, ndim: int, device):
+    """seed · 2246822519 mod 2^32: a Python int, or for a tensor of seeds
+    [E] an int64 tensor [E, 1, ..., 1] that broadcasts over ``ndim`` axes."""
+    if isinstance(seed, torch.Tensor):
+        s = seed.to(device=device, dtype=torch.int64) & _MASK
+        return _mul32(s, 2246822519).reshape(-1, *([1] * ndim))
+    return (seed & _MASK) * 2246822519 % (1 << 32)
+
+
+def random_bits(seed, shape, salt: int = 0, device="cpu") -> torch.Tensor:
+    """u32 bits (held in int64, in [0, 2^32)) of shape ``shape``, or
+    ``[E, *shape]`` for a tensor of seeds [E]."""
     shape = tuple(shape) if shape else (1,)
     n = 1
     for d in shape:
         n *= d
     lin = torch.arange(n, dtype=torch.int64, device=device).reshape(shape) & _MASK
     h = _mul32(lin, 2654435761)
-    h = (h + (seed & _MASK) * 2246822519 % (1 << 32)) & _MASK
+    h = (h + _seed_term(seed, len(shape), device)) & _MASK
     h = (h + (salt & _MASK) * 3266489917 % (1 << 32)) & _MASK
     # two fmix rounds, as the reference
     h = _murmur3_fmix(h)
     return _murmur3_fmix((h + 0x9E3779B9) & _MASK)
 
 
-def uniform(seed: int, shape, salt: int = 0, device="cpu") -> torch.Tensor:
+def uniform(seed, shape, salt: int = 0, device="cpu") -> torch.Tensor:
     """U[0, 1) float32 from the top 24 bits (exactly representable)."""
     bits = random_bits(seed, shape, salt, device)
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def rademacher(seed: int, n: int, salt: int = 0, device="cpu") -> torch.Tensor:
-    """±1 f32 signs for the randomized Hadamard transform."""
+def rademacher(seed, n: int, salt: int = 0, device="cpu") -> torch.Tensor:
+    """±1 f32 signs [n] (or [E, n] for a tensor of seeds) for the randomized
+    Hadamard transform."""
     bits = random_bits(seed, (n,), salt, device)
-    one = torch.ones((n,), dtype=torch.float32, device=device)
-    return torch.where((bits & 1) == 1, one, -one)
+    return torch.where((bits & 1) == 1, 1.0, -1.0).to(torch.float32)

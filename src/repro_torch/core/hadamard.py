@@ -26,6 +26,13 @@ def hadamard_matrix(g: int) -> np.ndarray:
     return (h / np.sqrt(g)).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _hadamard_on(g: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """H_g as a tensor on ``device``, made once: a copy from host memory at
+    every call would make the backward wait for the host on the card."""
+    return torch.as_tensor(hadamard_matrix(g), dtype=dtype, device=device)
+
+
 def hadamard_transform(x: torch.Tensor, g: int = 32, dim: int = -1) -> torch.Tensor:
     """Rotate every contiguous group of ``g`` elements along ``dim`` by H_g
     (a matrix product, as the reference computes it)."""
@@ -33,7 +40,7 @@ def hadamard_transform(x: torch.Tensor, g: int = 32, dim: int = -1) -> torch.Ten
     k = x.shape[-1]
     if k % g != 0:
         raise ValueError(f"axis length {k} not divisible by hadamard group {g}")
-    h = torch.as_tensor(hadamard_matrix(g), dtype=x.dtype, device=x.device)
+    h = _hadamard_on(g, x.dtype, x.device)
     out = (x.reshape(*x.shape[:-1], k // g, g) @ h).reshape(x.shape)
     return torch.movedim(out, -1, dim)
 

@@ -64,14 +64,17 @@ def quest(x: torch.Tensor, fmt: Format = F.MXFP4) -> QuantResult:
     return _finish(x, scales, fmt, q)
 
 
-def sr_absmax_fast(x: torch.Tensor, seed: int, fmt: Format = F.MXFP4,
+def sr_absmax_fast(x: torch.Tensor, seed, fmt: Format = F.MXFP4,
                    scale_mode: str = "ceil", salt: int = 0) -> QuantResult:
     """Stochastic rounding with per-block AbsMax scales (E8M0 ``ceil``: no
     clipping, so unbiased) and uniforms from the counter hash over the
-    element's index in ``[..., K/block, block]`` (``core.fastrng``)."""
+    element's index in ``[..., K/block, block]`` (``core.fastrng``).  A
+    tensor of seeds [E] takes x [E, ...], slice e hashed at seeds[e] over its
+    own index, as the reference's vmap over the leading axis draws."""
     scales = F.round_scale_e8m0(_block_scales(x, fmt, "absmax"), scale_mode)
     xb = F.to_blocks(x.to(torch.float32), fmt.block)
-    u = fastrng.uniform(seed, xb.shape, salt, x.device)
+    per_slice = isinstance(seed, torch.Tensor)
+    u = fastrng.uniform(seed, xb.shape[1:] if per_slice else xb.shape, salt, x.device)
     q = F.stochastic_round_to_grid(xb / scales[..., None], fmt.grid, u)
     return _finish(x, scales, fmt, q)
 

@@ -20,11 +20,13 @@ reference's dequantize-then-multiply formulation in PyTorch and saves the
 QDQ values and masks.  Both mirror ``repro.core.quartet`` step for step, with
 the same seeds and salts, so on the CPU they agree with the reference.
 
-:func:`quartet_linear_experts` is the forward of a stack of E independent
-linears (a MoE layer's experts: x [E, T, K], w [E, K, N]), the port's
-counterpart of the reference's ``jax.vmap`` of ``quartet_linear``: on the
-kernels one expert-axis launch per Stage, on the plain path the same
-arithmetic batched.  Its backward (MoE training) is not ported yet.
+:func:`quartet_linear_experts` is a stack of E independent linears (a MoE
+layer's experts: x [E, T, K], w [E, K, N], one seed an expert), the port's
+counterpart of the reference's ``jax.vmap`` of ``quartet_linear``, forward
+and Algorithm-1 backward: on the kernels one expert-axis launch per Stage
+and per operand (B1 twice and B3 once forward; B2 four times and B3 twice
+backward), on the plain path the same arithmetic batched, expert e's
+signs and uniforms drawn at its own seed.
 """
 
 from __future__ import annotations
@@ -83,11 +85,14 @@ def _pad32(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(shape)], dim=dim)
 
 
-def _dequant_codes(codes: torch.Tensor, scales: torch.Tensor, group: int) -> torch.Tensor:
-    """Half-codes + per-group scales → f32 values (code · ½ · scale)."""
+def _dequant_codes(codes: torch.Tensor, scales: torch.Tensor, group: int,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Half-codes + per-group scales → values (code · ½ · scale) in ``dtype``.
+    The values are exact in bf16 too (≤ 2 significant bits times a power of
+    two), so a bf16 result holds the f32 one's values at half the bytes."""
     shape = codes.shape
-    c = codes.to(torch.float32).reshape(*shape[:-1], shape[-1] // group, group)
-    return (c * (0.5 * scales)[..., None]).reshape(shape)
+    c = codes.to(dtype).reshape(*shape[:-1], shape[-1] // group, group)
+    return (c * (0.5 * scales).to(dtype)[..., None]).reshape(shape)
 
 
 def _check(cfg: QuartetConfig) -> None:
@@ -137,8 +142,9 @@ def _forward_plain(x, w, cfg):
 # ---------------------------------------------------------------------------
 
 
-def _bwd_quantize(gh: torch.Tensor, cfg: QuartetConfig, seed: int, salt: int) -> torch.Tensor:
-    """SR of ¾·(an operand already rotated, blocks on the last axis)."""
+def _bwd_quantize(gh: torch.Tensor, cfg: QuartetConfig, seed, salt: int) -> torch.Tensor:
+    """SR of ¾·(an operand already rotated, blocks on the last axis); ``seed``
+    an int, or a tensor [E] of per-expert seeds for gh [E, ...]."""
     v = Q.sr_absmax_fast(gh * SR_PRESCALE, seed, cfg.bwd_fmt, "ceil", salt).values
     return v.to(torch.bfloat16)  # bf16-exact
 
@@ -256,18 +262,20 @@ def quartet_linear(x: torch.Tensor, w: torch.Tensor, seed: int,
 
 
 # ---------------------------------------------------------------------------
-# stacked experts (forward only)
+# stacked experts
 # ---------------------------------------------------------------------------
 
 
 def _forward_experts_kernels(x, w, cfg, ops=None):
     """Stage 1 on x [E, T, K] and on the weights' transposed view [E, N, K]
     (read in place), then the block-scaled GEMM: three launches for all E
-    experts."""
+    experts.  The residuals are the 4-bit payload and both masks, as the
+    2-d forward's."""
     K = _kernel_ops(ops)
-    xc, xs, _ = K.hadamard_quest_quantize_experts(x, group=cfg.group)
-    wtc, wts, _ = K.hadamard_quest_quantize_experts(w.transpose(-1, -2), group=cfg.group)
-    return K.mxfp4_matmul_experts(xc, xs, wtc.transpose(-1, -2), wts.transpose(-1, -2))
+    xc, xs, xm = K.hadamard_quest_quantize_experts(x, group=cfg.group)
+    wtc, wts, wtm = K.hadamard_quest_quantize_experts(w.transpose(-1, -2), group=cfg.group)
+    y = K.mxfp4_matmul_experts(xc, xs, wtc.transpose(-1, -2), wts.transpose(-1, -2))
+    return y, (xc, xs, wtc, wts, xm, wtm.transpose(-1, -2))
 
 
 def _forward_experts_plain(x, w, cfg):
@@ -275,36 +283,129 @@ def _forward_experts_plain(x, w, cfg):
     wh = hadamard_transform(w.to(torch.float32), g=cfg.group, dim=-2)
     xq = Q.quest(xh, cfg.fwd_fmt)
     wq = Q.quest(wh.transpose(-1, -2), cfg.fwd_fmt)  # blocks along K
-    return torch.bmm(xq.values, wq.values.transpose(-1, -2))
+    y = torch.bmm(xq.values, wq.values.transpose(-1, -2))
+    xv = xq.values.to(torch.bfloat16)  # bf16-exact, as the 2-d forward saves them
+    wv = wq.values.transpose(-1, -2).to(torch.bfloat16)
+    return y, (xv, wv, xq.mask, wq.mask.transpose(-1, -2))
+
+
+def _signed(x: torch.Tensor, signs: torch.Tensor, dim: int) -> torch.Tensor:
+    """x [E, ...] ⊙ signs [E, n] along ``dim`` (each expert its own row)."""
+    shape = [x.shape[0]] + [1] * (x.dim() - 1)
+    shape[dim] = x.shape[dim]
+    return x * signs.reshape(shape).to(x.dtype)
+
+
+def _backward_experts_plain(cfg, seeds, res, dy):
+    """:func:`_backward_plain` for every expert at once: expert e's signs and
+    uniforms at seeds[e], over its own [T, K] / [K, N] operands."""
+    xq_v, wq_v, m_x, m_w = res
+    g = cfg.group
+    dyf = dy.to(torch.float32)
+
+    # dx = H⁻¹( 16/9 · (SR(¾·Ĥ_N dy) @ SR(¾·Ĥ_N Wᵀ)ᵀ) ⊙ M_x )
+    dy_p = _pad32(dyf, -1)
+    wq_p = _pad32(wq_v.to(torch.float32), -1)
+    signs_n = fastrng.rademacher(seeds, dy_p.shape[-1], salt=11, device=dy.device)
+    g_h = hadamard_transform(_signed(dy_p, signs_n, 2), g=g, dim=-1)
+    wt_h = hadamard_transform(_signed(wq_p, signs_n, 2), g=g, dim=-1)
+    g_q = _bwd_quantize(g_h, cfg, seeds, salt=1)
+    wt_q = _bwd_quantize(wt_h, cfg, seeds, salt=2)  # blocks along N
+    dx_rot = SR_POSTSCALE * torch.bmm(g_q.to(torch.float32), wt_q.to(torch.float32)
+                                      .transpose(-1, -2))
+    dx = hadamard_transform(dx_rot * m_x, g=g, dim=-1)  # H⁻¹ = H
+
+    # dW_rot = 16/9 · SR(¾·Ĥ_B Xᵀ)ᵀ @ SR(¾·Ĥ_B dy), B the token axis
+    xf = _pad32(xq_v.to(torch.float32), 1)
+    gf = _pad32(dyf, 1)
+    signs_b = fastrng.rademacher(seeds, xf.shape[1], salt=12, device=dy.device)
+    x2 = hadamard_transform(_signed(xf, signs_b, 1), g=g, dim=1)
+    g2 = hadamard_transform(_signed(gf, signs_b, 1), g=g, dim=1)
+    x2_q = _bwd_quantize(x2.transpose(-1, -2), cfg, seeds, salt=3)  # [E, K, Bp]
+    g2_q = _bwd_quantize(g2.transpose(-1, -2), cfg, seeds, salt=4)  # [E, N, Bp]
+    dw_rot = SR_POSTSCALE * torch.bmm(x2_q.to(torch.float32), g2_q.to(torch.float32)
+                                      .transpose(-1, -2))
+    dw = hadamard_transform(dw_rot * m_w, g=g, dim=-2)  # H⁻¹ along K
+    return dx, dw
+
+
+def _backward_experts_kernels(cfg, seeds, res, dy, ops=None):
+    """:func:`_backward_kernels` for every expert at once: backward Stage 1
+    on the four operands dy [E, T, Np], Wq [E, K, Np], xqᵀ [E, K, Bp] and
+    dyᵀ [E, N, Bp] (the last three views with unit stride along their
+    rows, read in place), then the GEMMs for dx and dW: six launches for all
+    E experts, no host sync.  The saved codes are dequantized to bf16
+    (exact, and half an f32 copy's bytes)."""
+    K = _kernel_ops(ops)
+    xc, xs, wtc, wts, m_x, m_w = res
+    g = cfg.group
+    wq_v = _dequant_codes(wtc, wts, g, torch.bfloat16).transpose(-1, -2)  # [E, K, N]
+    dy = dy.contiguous()  # bf16 or f32: the kernel reads either exactly
+
+    # dx: Stage 1 along N on dy and Wq; the GEMM's B is the transposed view
+    # of the Wq codes
+    dy_p = _pad32(dy, -1)
+    wq_p = _pad32(wq_v, -1)
+    signs_n = fastrng.rademacher(seeds, dy_p.shape[-1], salt=11, device=dy.device)
+    gc, gs = K.sr_hadamard_quantize_experts(dy_p, signs_n, seeds, salt=1)
+    wtc2, wts2 = K.sr_hadamard_quantize_experts(wq_p, signs_n, seeds, salt=2)
+    dx_rot = SR_POSTSCALE * K.mxfp4_matmul_experts(gc, gs, wtc2.transpose(-1, -2),
+                                                   wts2.transpose(-1, -2))
+    dx = hadamard_transform(dx_rot * m_x, g=g, dim=-1)
+
+    # dW: Stage 1 along the token axis on the transposed views xqᵀ and dyᵀ;
+    # the GEMM's B is the transposed view of the dy codes
+    xq_v = _pad32(_dequant_codes(xc, xs, g, torch.bfloat16), 1)
+    gf = _pad32(dy, 1)
+    signs_b = fastrng.rademacher(seeds, xq_v.shape[1], salt=12, device=dy.device)
+    x2c, x2s = K.sr_hadamard_quantize_experts(xq_v.transpose(-1, -2), signs_b, seeds, salt=3)
+    g2c, g2s = K.sr_hadamard_quantize_experts(gf.transpose(-1, -2), signs_b, seeds, salt=4)
+    dw_rot = SR_POSTSCALE * K.mxfp4_matmul_experts(x2c, x2s, g2c.transpose(-1, -2),
+                                                   g2s.transpose(-1, -2))
+    dw = hadamard_transform(dw_rot * m_w, g=g, dim=-2)
+    return dx, dw
 
 
 class _QuartetLinearExperts(torch.autograd.Function):
-    """y[e] = Quartet(x[e]) @ Quartet(w[e]) for every expert; forward only."""
+    """y[e] = Quartet(x[e]) @ Quartet(w[e]) for every expert, with the
+    Algorithm-1 backward at each expert's seed."""
 
     @staticmethod
     def forward(ctx, x, w, seeds, cfg):
+        grad = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
         if cfg.fwd_quantizer == "none":
             y = torch.bmm(x.to(torch.float32), w.to(torch.float32))
-        elif cfg.use_kernels:
-            y = _forward_experts_kernels(x, w, cfg)
+            res = (x, w)
         else:
-            y = _forward_experts_plain(x, w, cfg)
-        ctx.seeds = seeds
+            fwd = _forward_experts_kernels if cfg.use_kernels else _forward_experts_plain
+            y, res = fwd(x, w, cfg)
+        if grad:  # serving keeps nothing
+            ctx.save_for_backward(seeds, *res)
+        ctx.cfg = cfg
+        ctx.dtypes = (x.dtype, w.dtype)
         return y.to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
-        raise NotImplementedError(
-            "the backward of the stacked-expert Quartet linear (MoE training) is not ported "
-            "yet: ROADMAP A5b")
+        cfg = ctx.cfg
+        seeds, *res = ctx.saved_tensors
+        if cfg.fwd_quantizer == "none":
+            x, w = res
+            dyf = dy.to(torch.float32)
+            dx = torch.bmm(dyf, w.to(torch.float32).transpose(-1, -2))
+            dw = torch.bmm(x.to(torch.float32).transpose(-1, -2), dyf)
+        else:
+            bwd = _backward_experts_kernels if cfg.use_kernels else _backward_experts_plain
+            dx, dw = bwd(cfg, seeds, res, dy)
+        return dx.to(ctx.dtypes[0]), dw.to(ctx.dtypes[1]), None, None
 
 
 def quartet_linear_experts(x: torch.Tensor, w: torch.Tensor, seeds: torch.Tensor,
                            cfg: QuartetConfig) -> torch.Tensor:
     """y [E, T, N] = Quartet(x[e]) @ Quartet(w[e]) for x [E, T, K], w
     [E, K, N].  ``seeds`` [E] (uint32 values in int64) are the experts'
-    stochastic-rounding seeds, folded as the reference folds them; they drive
-    only the backward, which a later slice ports."""
+    stochastic-rounding seeds, folded as the reference folds them; they
+    drive the backward."""
     _check(cfg)
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
         raise ValueError(f"quartet_linear_experts: x {tuple(x.shape)}, w {tuple(w.shape)}")

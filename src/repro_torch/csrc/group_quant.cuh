@@ -9,7 +9,8 @@
 //   float* scales;               // [M, K/32], contiguous
 //   __device__ float operator()(float (&v)[kGroup], long long m, long long g, long long K,
 //                               uint32_t (&w)[kOuts][8]) const;
-// which quantizes group g of row m from its 32 values in v (as f32) and
+//   __device__ void at_expert(long long e, long long K);  // per-expert state, if any
+// where operator() quantizes group g of row m from its 32 values in v (as f32) and
 // returns the group's scale and each output's 32 bytes as words.  The
 // walkers own the loads and the stores: the group's arithmetic is all the
 // functor's.
@@ -107,7 +108,8 @@ __device__ __forceinline__ void store_pair(uint8_t* __restrict__ base, const uin
         odd ? make_uint4(w[4], w[5], w[6], w[7]) : make_uint4(y[0], y[1], y[2], y[3]);
 }
 
-// the functor with its outputs moved to expert e's slice
+// the functor with its outputs moved to expert e's slice, and whatever it
+// holds per expert (B2's seed and signs) moved by its own at_expert
 template <class Q>
 __device__ __forceinline__ Q expert_slice(const Q& q, long long M, long long K) {
   Q qe = q;
@@ -115,6 +117,7 @@ __device__ __forceinline__ Q expert_slice(const Q& q, long long M, long long K) 
 #pragma unroll
   for (int o = 0; o < Q::kOuts; ++o) qe.out[o] += e * M * K;
   qe.scales += e * M * (K / kGroup);
+  qe.at_expert(e, K);
   return qe;
 }
 

@@ -178,6 +178,8 @@ struct hadamard_quest_group {
   float* scales;
   float clip_c;
 
+  __device__ __forceinline__ void at_expert(long long, long long) {}  // nothing per expert
+
   __device__ __forceinline__ float operator()(float (&v)[kGroup], long long, long long,
                                               long long, uint32_t (&w)[kOuts][8]) const {
     group_quant::butterfly_stage<1>(v);

@@ -58,6 +58,18 @@
 // has unit stride into shared memory; each warp quantizes whole groups, one
 // element per lane, the Hadamard as 5 __shfl_xor_sync butterfly stages, the
 // absmax as a warp max.
+//
+// The expert axis (sr_hadamard_quantize_experts): a stack x [E, M, K] at
+// expert stride se, with signs [E, K] and a device array of E uint32 seeds,
+// as the backward of a MoE layer's stacked expert linears gives it (dy
+// [E, T, N], and the views Wq [E, K, N], xqᵀ [E, K, T], dyᵀ [E, N, T] with
+// unit stride along their rows).  One launch, the expert on blockIdx.z;
+// each CTA moves its pointers to its expert's slice and its signs, forms
+// its expert's seed_salt from the seed array, and runs the 2-d body
+// unchanged, so expert e's codes and scales are bit for bit those of a 2-d
+// launch on x[e] with seed seeds[e].  It replaces the vmapped Pallas call
+// of the reference's MoE backward (repro/models/moe.py, _expert_ffn, under
+// jax.grad), whose vmap puts the expert on the kernel's grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,6 +91,9 @@ constexpr float kMinScale = 1.17549435082228750797e-38f;  // 2^-126
 constexpr int kCeilMantissa = 6;
 // fastrng's multiplier of the linear index
 constexpr uint32_t kIndexMul = 2654435761u;
+// fastrng's multipliers of the seed and of the salt
+constexpr uint32_t kSeedMul = 2246822519u;
+constexpr uint32_t kSaltMul = 3266489917u;
 
 __device__ __forceinline__ uint32_t fmix(uint32_t h) {
   h ^= h >> 16;
@@ -133,12 +148,27 @@ __device__ __forceinline__ uint32_t low_byte(float t) {
   return __float_as_uint(__fadd_rn(t, 12582912.f));
 }
 
+// the expert axis: seed_salt of expert e from its seed in the device array
+__device__ __forceinline__ uint32_t expert_seed_salt(const uint32_t* expert_seeds, long long e,
+                                                     uint32_t salt_term) {
+  return expert_seeds[e] * kSeedMul + salt_term;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) sr_hadamard_kernel(
-    const T* __restrict__ x, long long M, long long K, long long sm, long long sk,
-    const float* __restrict__ signs, uint32_t seed_salt, float prescale,
-    int8_t* __restrict__ codes, float* __restrict__ scales) {
+    const T* __restrict__ x, long long M, long long K, long long sm, long long sk, long long se,
+    const float* __restrict__ signs, const uint32_t* __restrict__ expert_seeds,
+    uint32_t seed_salt, uint32_t salt_term, float prescale, int8_t* __restrict__ codes,
+    float* __restrict__ scales) {
   __shared__ float tile[kRows][kGroup + 1];
+  if (expert_seeds) {  // expert blockIdx.z's slice, signs and seed
+    const long long e = blockIdx.z;
+    x += e * se;
+    codes += e * M * K;
+    scales += e * M * (K / kGroup);
+    signs += e * K;
+    seed_salt = expert_seed_salt(expert_seeds, e, salt_term);
+  }
   const long long m0 = static_cast<long long>(blockIdx.x) * kRows;
   const long long k0 = static_cast<long long>(blockIdx.y) * kGroup;
   const int tid = threadIdx.x;
@@ -201,14 +231,23 @@ __device__ __forceinline__ void apply_signs(float (&v)[kGroup], const float* __r
 // plain version's arithmetic in its order on one whole 32-group in
 // registers; element i of group g of row m hashes h0 + i·kIndexMul, h0 =
 // (m·K + 32g)·kIndexMul + seed_salt.  Returns the scale and the 32
-// half-codes as words (w[0]).
+// half-codes as words (w[0]).  On an expert axis (expert_seeds set),
+// at_expert moves the signs to expert e's row and forms its seed_salt.
 struct sr_hadamard_group {
   static constexpr int kOuts = 1;
   uint8_t* out[kOuts];  // codes
   float* scales;
-  const float* signs;  // [K], 16-byte aligned
+  const float* signs;  // [K] (or [E, K]), 16-byte aligned
   uint32_t seed_salt;
   float prescale;
+  const uint32_t* expert_seeds;  // [E] on an expert axis, else null
+  uint32_t salt_term;            // salt · kSaltMul
+
+  __device__ __forceinline__ void at_expert(long long e, long long K) {
+    if (!expert_seeds) return;
+    signs += e * K;
+    seed_salt = expert_seed_salt(expert_seeds, e, salt_term);
+  }
 
   __device__ __forceinline__ float operator()(float (&v)[kGroup], long long m, long long g,
                                               long long K, uint32_t (&w)[kOuts][8]) const {
@@ -245,6 +284,44 @@ struct sr_hadamard_group {
 
 }  // namespace
 
+namespace {
+
+// x [E, M, K] at element strides (se, sm, sk); signs [K] (E = 1, no seed
+// array) or [E, K]; outputs contiguous [E, M, K] and [E, M, K/32]
+int quantize(const void* x, int is_bf16, long long E, long long M, long long K, long long se,
+             long long sm, long long sk, const void* signs, const uint32_t* expert_seeds,
+             uint32_t seed, uint32_t salt, float prescale, void* codes, void* scales,
+             int vector, cudaStream_t s) {
+  // the hash's per-call constant, as fastrng.random_bits adds it (mod 2^32)
+  const uint32_t salt_term = salt * kSaltMul;
+  const uint32_t seed_salt = seed * kSeedMul + salt_term;
+  const float* sg = static_cast<const float*>(signs);
+  if (vector) {
+    const int es = is_bf16 ? 2 : 4;
+    if (!group_quant::vector_ok(x, es, M, sm, sk) || (se * es) % 16 != 0 ||
+        (reinterpret_cast<uintptr_t>(signs) & 15))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const sr_hadamard_group q = {{static_cast<uint8_t*>(codes)}, static_cast<float*>(scales), sg,
+                                 seed_salt, prescale, expert_seeds, salt_term};
+    return is_bf16 ? group_quant::launch<__nv_bfloat16>(x, M, K, sm, sk, q, s, E, se)
+                   : group_quant::launch<float>(x, M, K, sm, sk, q, s, E, se);
+  }
+  const dim3 grid(static_cast<unsigned>((M + kRows - 1) / kRows),
+                  static_cast<unsigned>(K / kGroup), static_cast<unsigned>(E));
+  if (is_bf16) {
+    sr_hadamard_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), M, K, sm, sk, se, sg, expert_seeds, seed_salt,
+        salt_term, prescale, static_cast<int8_t*>(codes), static_cast<float*>(scales));
+  } else {
+    sr_hadamard_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), M, K, sm, sk, se, sg, expert_seeds, seed_salt, salt_term,
+        prescale, static_cast<int8_t*>(codes), static_cast<float*>(scales));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // x [M, K] with element strides (sm, sk), f32 (is_bf16 = 0) or bf16; signs
 // f32 [K]; writes codes int8 [M, K] and scales f32 [M, K/32] (contiguous,
 // 16-byte aligned).  vector = 1 runs the vector body (x must satisfy
@@ -254,29 +331,23 @@ extern "C" int sr_hadamard_quantize(const void* x, int is_bf16, long long M, lon
                                     long long sm, long long sk, const void* signs,
                                     uint32_t seed, uint32_t salt, float prescale, void* codes,
                                     void* scales, int vector, void* stream) {
-  // the hash's per-call constant, as fastrng.random_bits adds it (mod 2^32)
-  const uint32_t seed_salt = seed * 2246822519u + salt * 3266489917u;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sg = static_cast<const float*>(signs);
-  if (vector) {
-    if (!group_quant::vector_ok(x, is_bf16 ? 2 : 4, M, sm, sk) ||
-        (reinterpret_cast<uintptr_t>(signs) & 15))
-      return static_cast<int>(cudaErrorInvalidValue);
-    const sr_hadamard_group q = {{static_cast<uint8_t*>(codes)}, static_cast<float*>(scales), sg,
-                                 seed_salt, prescale};
-    return is_bf16 ? group_quant::launch<__nv_bfloat16>(x, M, K, sm, sk, q, s)
-                   : group_quant::launch<float>(x, M, K, sm, sk, q, s);
-  }
-  const dim3 grid(static_cast<unsigned>((M + kRows - 1) / kRows),
-                  static_cast<unsigned>(K / kGroup));
-  if (is_bf16) {
-    sr_hadamard_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), M, K, sm, sk, sg, seed_salt, prescale,
-        static_cast<int8_t*>(codes), static_cast<float*>(scales));
-  } else {
-    sr_hadamard_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), M, K, sm, sk, sg, seed_salt, prescale,
-        static_cast<int8_t*>(codes), static_cast<float*>(scales));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return quantize(x, is_bf16, 1, M, K, 0, sm, sk, signs, nullptr, seed, salt, prescale, codes,
+                  scales, vector, static_cast<cudaStream_t>(stream));
+}
+
+// The expert axis: x [E, M, K] with element strides (se, sm, sk), signs f32
+// [E, K] (contiguous, 16-byte aligned), seeds uint32 [E] on the device;
+// writes codes [E, M, K] and scales [E, M, K/32] (contiguous, 16-byte
+// aligned) in one launch, expert e hashing with seeds[e].  vector = 1 needs
+// every slice to satisfy vector_ok (x 16-byte aligned and se a multiple of
+// 16 bytes), else cudaErrorInvalidValue.
+extern "C" int sr_hadamard_quantize_experts(const void* x, int is_bf16, long long E,
+                                            long long M, long long K, long long se,
+                                            long long sm, long long sk, const void* signs,
+                                            const void* seeds, uint32_t salt, float prescale,
+                                            void* codes, void* scales, int vector,
+                                            void* stream) {
+  if (E < 1 || E > 65535 || seeds == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return quantize(x, is_bf16, E, M, K, se, sm, sk, signs, static_cast<const uint32_t*>(seeds),
+                  0, salt, prescale, codes, scales, vector, static_cast<cudaStream_t>(stream));
 }

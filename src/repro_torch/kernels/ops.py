@@ -9,8 +9,9 @@ and, on the gather backend, reads it with ``kv_dequant_unpack`` (fused into
 the gather, K and V in one launch); a model built with
 ``attn_backend="flash"`` attends with ``flash_attention`` in its cache-free
 forward.  A MoE layer's expert linears run the expert-axis forms
-:func:`hadamard_quest_quantize_experts` and :func:`mxfp4_matmul_experts`:
-one launch for all experts, where the reference vmaps its kernels.  Device dispatch lives in each
+:func:`hadamard_quest_quantize_experts`, :func:`sr_hadamard_quantize_experts`
+(the backward) and :func:`mxfp4_matmul_experts`: one launch for all
+experts, where the reference vmaps its kernels.  Device dispatch lives in each
 kernel wrapper: a CPU tensor runs the plain PyTorch version, a CUDA tensor
 launches the hand-written kernel (or raises).  Each wrapper counts its own
 launches in ``<wrapper>.launches``; :func:`launch_counts` reads them so a
@@ -30,6 +31,7 @@ from repro_torch.kernels.mxfp4_matmul import mxfp4_matmul as _mm_fn
 from repro_torch.kernels.mxfp4_matmul import mxfp4_matmul_experts as _mm_experts
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.sr_hadamard_quant import sr_hadamard_quantize as _sr_fn
+from repro_torch.kernels.sr_hadamard_quant import sr_hadamard_quantize_experts as _sr_experts
 
 GROUP = 32
 
@@ -58,6 +60,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in VECTOR_KERNELS.values():
         fn.vector_launches = 0
+    _sr_fn.expert_launches = 0
 
 
 def vector_launches() -> dict[str, int]:
@@ -101,6 +104,13 @@ def hadamard_quest_quantize_experts(x: torch.Tensor, group: int = GROUP):
     if group != GROUP:
         raise ValueError("kernels are specialized to the MXFP4 group of 32")
     return _hq_experts(x)
+
+
+def sr_hadamard_quantize_experts(x: torch.Tensor, signs: torch.Tensor, seeds: torch.Tensor,
+                                 prescale: float = 0.75, salt: int = 0):
+    """[E, M, K] (any strides), signs [E, K], seeds [E] → (codes [E, M, K]
+    int8, scales [E, M, K/32] f32) in one launch, expert e at seeds[e]."""
+    return _sr_experts(x, signs, seeds, prescale, salt)
 
 
 def mxfp4_matmul_experts(a_codes, a_scales, b_codes, b_scales) -> torch.Tensor:

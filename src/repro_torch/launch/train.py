@@ -4,15 +4,17 @@
         --batch 32 --seq 512 --microbatch 2
 
 Port of ``repro.launch.train`` for one card.  Trains ``--arch`` (a member
-of the paper's Llama family, or ``--reduced`` for its CPU-scale stand-in)
-from random weights drawn from ``--seed`` on synthetic C4-like data (or a
-memmap token file, ``--data``), with AdamW on a cosine schedule with 10%
-warmup at the paper's learning rate.  On ``cuda`` (the default) the
-Quartet linears run on the Hopper kernels; without a GPU it exits non-zero
-unless ``--device cpu`` is given, which runs the kernels' plain versions.
-With ``--checkpoint-dir`` the state is saved every ``--checkpoint-every``
-steps and at the end; the same command started again resumes from the
-latest checkpoint there.
+of the paper's Llama family or a MoE config; ``--reduced`` for its
+CPU-scale stand-in) from random weights drawn from ``--seed`` on synthetic
+C4-like data (or a memmap token file, ``--data``), with AdamW on a cosine
+schedule with 10% warmup at the paper's learning rate.  ``--opt8bit``
+takes the 8-bit AdamW and a bf16 master, as the reference trains its large
+MoE configs (one full-width qwen3-moe-235b-a22b layer fits one card only
+so).  On ``cuda`` (the default) the Quartet linears run on the Hopper
+kernels; without a GPU it exits non-zero unless ``--device cpu`` is given,
+which runs the kernels' plain versions.  With ``--checkpoint-dir`` the
+state is saved every ``--checkpoint-every`` steps and at the end; the same
+command started again resumes from the latest checkpoint there.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from repro_torch.configs.llama_paper import LEARNING_RATES
 from repro_torch.data.pipeline import TokenBatcher, make_dataset
 from repro_torch.launch.serve_engine import kernel_config
 from repro_torch.models import build_model
-from repro_torch.optim import adamw, cosine_warmup
+from repro_torch.optim import adamw, adamw8bit, cosine_warmup
 from repro_torch.train.loop import train
 
 
@@ -45,6 +47,8 @@ def main():
     ap.add_argument("--checkpoint-every", type=int, default=100)
     ap.add_argument("--microbatch", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--opt8bit", action="store_true",
+                    help="8-bit AdamW moments and a bf16 master")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args()
 
@@ -55,10 +59,11 @@ def main():
         cfg = kernel_config(cfg)
     model = build_model(cfg)
     lr = args.lr or LEARNING_RATES.get(args.arch, 3e-4)
-    opt = adamw(cosine_warmup(lr, args.steps))
+    opt = (adamw8bit if args.opt8bit else adamw)(cosine_warmup(lr, args.steps))
     batcher = TokenBatcher(make_dataset(args.data, cfg.vocab_size), args.batch, args.seq)
     t0 = time.perf_counter()
     _, history = train(model, opt, batcher, args.steps, method=args.method,
+                       master_dtype="bfloat16" if args.opt8bit else "float32",
                        microbatch=args.microbatch, seed=args.seed, device=args.device,
                        checkpoint_dir=args.checkpoint_dir,
                        checkpoint_every=args.checkpoint_every, log_every=1)

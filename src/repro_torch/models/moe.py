@@ -25,7 +25,17 @@ them equal to the reference and deterministic on the card:
   speculative verify's ``B·(k+1)`` rows against a decode's ``B``); there the
   router's f32 GEMM runs one ``[B, 1]`` column of tokens at a time, as the
   serving steps apply the head, so a token's routing never depends on the
-  call's shape.
+  call's shape.  The weight is cast to f32 once, so in training its
+  gradient sums the columns' products in f32 and rounds once.
+
+Every part takes gradients (MoE training).  The dispatch gather's backward
+sums a token's gradients from its expert slots; :class:`_Dispatch` adds
+them as :func:`_combine` adds the forward's outputs, in ascending expert
+order, one add at a time in the gradient's dtype, with no atomics, so the
+sum is the same on every run.  Only the gated slots count: a zero-gated
+filler slot's output is multiplied by its zero gate, so its gradient is
+exactly zero and adds nothing.  :func:`_combine`'s backward writes each
+gated slot's gradient once (:class:`_Combine`).
 
 Capacity ``c = max(32, round_up(k·g/E·capacity_factor, 32))`` with
 ``g = min(4096, B·S)`` counted over all lanes, masked ones included; tokens
@@ -88,11 +98,14 @@ def _top_k(v: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _router_logits(w: torch.Tensor, x: torch.Tensor, seed: int, cfg: ModelConfig):
-    """The router's bf16 dense on x [B, S, D] → f32 [B, S, E]; on the card one
-    [B, 1] column at a time (module docstring)."""
+def _router_logits(w: torch.Tensor, x: torch.Tensor):
+    """The router's bf16 dense on x [B, S, D] → f32 [B, S, E] (``L.dense``'s
+    bf16 arithmetic); on the card one [B, 1] column at a time (module
+    docstring)."""
+    wf = w.to(torch.float32)
+
     def route(xs):
-        return L.dense({"w": w}, xs, seed, cfg.quartet, "bf16")
+        return (xs.to(torch.float32) @ wf).to(xs.dtype)
 
     if x.is_cuda and x.shape[1] > 1:
         logits = torch.cat([route(x[:, s:s + 1]) for s in range(x.shape[1])], dim=1)
@@ -101,15 +114,13 @@ def _router_logits(w: torch.Tensor, x: torch.Tensor, seed: int, cfg: ModelConfig
     return logits.to(torch.float32)
 
 
-def _combine(ye: torch.Tensor, sel_idx: torch.Tensor, sel_gate: torch.Tensor, g: int,
-             k: int) -> torch.Tensor:
-    """The gated expert outputs ye [G, E, c, D] back to token order [G, g, D]:
-    each token's summands (at most k carry a non-zero gate; the zero-gated
-    ones add ±0 and change nothing) added in ascending expert order, each
-    add rounded to ye's dtype, as the reference's scatter-add does on
-    XLA:CPU."""
-    G, E, c, D = ye.shape
-    dev = ye.device
+def _slots(sel_idx: torch.Tensor, sel_gate: torch.Tensor, g: int, k: int):
+    """Each token's gated expert slots in ascending expert order: (expert
+    [G, g, k'], slot in the expert's selection [G, g, k'], gated [G, g, k'])
+    with k' = min(k, E); where a token has fewer than k' gated slots the
+    rest are marked ungated."""
+    G, E, c = sel_idx.shape
+    dev = sel_idx.device
     # where each (token, expert) pair sits in the expert's selection, if
     # gated: a scatter into [G, g·E + 1], the ungated entries sent to the
     # last column and dropped (an expert selects a token once, so the kept
@@ -123,16 +134,74 @@ def _combine(ye: torch.Tensor, sel_idx: torch.Tensor, sel_gate: torch.Tensor, g:
     pos = pos.reshape(G, g, E)
     has = pos >= 0
     # each token's gated experts, ascending, first (a stable sort of ~has)
-    order = torch.sort((~has).to(torch.uint8), dim=-1, stable=True).indices[..., :k]
-    out = torch.zeros((G, g, D), dtype=ye.dtype, device=dev)
-    g_idx = torch.arange(G, device=dev)[:, None]
-    for j in range(min(k, E)):
-        e_j = order[..., j]
-        ok = has.gather(-1, e_j[..., None])[..., 0]
-        c_j = torch.clamp(pos.gather(-1, e_j[..., None])[..., 0], min=0)
-        val = ye[g_idx, e_j, c_j]
-        out = out + torch.where(ok[..., None], val, torch.zeros_like(val))
+    order = torch.sort((~has).to(torch.uint8), dim=-1, stable=True).indices[..., :min(k, E)]
+    ok = has.gather(-1, order)
+    slot = torch.clamp(pos.gather(-1, order), min=0)
+    return order, slot, ok
+
+
+def _sum_slots(ye: torch.Tensor, e_s, c_s, ok) -> torch.Tensor:
+    """out[G, t] = Σ_j ye[G, e_s[G, t, j], c_s[G, t, j]] over the gated j,
+    in j order (ascending expert), each add rounded to ye's dtype."""
+    G, _, _, D = ye.shape
+    g = e_s.shape[1]
+    out = torch.zeros((G, g, D), dtype=ye.dtype, device=ye.device)
+    g_idx = torch.arange(G, device=ye.device)[:, None]
+    for j in range(e_s.shape[-1]):
+        val = ye[g_idx, e_s[..., j], c_s[..., j]]
+        out = out + torch.where(ok[..., j, None], val, torch.zeros_like(val))
     return out
+
+
+class _Combine(torch.autograd.Function):
+    """The combine [G, E, c, D] → [G, g, D] (:func:`_sum_slots`); its
+    backward hands each gated slot its token's gradient, one write a slot
+    (the ungated j's go to a dropped row), and zero to the other slots."""
+
+    @staticmethod
+    def forward(ctx, ye, e_s, c_s, ok):
+        ctx.save_for_backward(e_s, c_s, ok)
+        ctx.shape = ye.shape
+        return _sum_slots(ye, e_s, c_s, ok)
+
+    @staticmethod
+    def backward(ctx, dout):
+        e_s, c_s, ok = ctx.saved_tensors
+        G, E, c, D = ctx.shape
+        kk = e_s.shape[-1]
+        idx = torch.where(ok, e_s * c + c_s, torch.full_like(e_s, E * c))  # [G, g, k']
+        grad = torch.zeros((G, E * c + 1, D), dtype=dout.dtype, device=dout.device)
+        src = dout[:, :, None, :].expand(G, dout.shape[1], kk, D)
+        grad.scatter_(1, idx.reshape(G, -1, 1).expand(G, idx[0].numel(), D),
+                      src.reshape(G, -1, D))
+        return grad[:, :E * c].reshape(G, E, c, D), None, None, None
+
+
+class _Dispatch(torch.autograd.Function):
+    """xe [G, E, c, D] = xg [G, g, D] gathered at sel_idx; the backward sums
+    each token's gated slots' gradients with :func:`_sum_slots` (module
+    docstring)."""
+
+    @staticmethod
+    def forward(ctx, xg, sel_idx, e_s, c_s, ok):
+        ctx.save_for_backward(e_s, c_s, ok)
+        G = xg.shape[0]
+        return xg[torch.arange(G, device=xg.device)[:, None, None], sel_idx]
+
+    @staticmethod
+    def backward(ctx, dxe):
+        e_s, c_s, ok = ctx.saved_tensors
+        return _sum_slots(dxe, e_s, c_s, ok), None, None, None, None
+
+
+def _combine(ye: torch.Tensor, sel_idx: torch.Tensor, sel_gate: torch.Tensor, g: int,
+             k: int) -> torch.Tensor:
+    """The gated expert outputs ye [G, E, c, D] back to token order [G, g, D]:
+    each token's summands (at most k carry a non-zero gate; the zero-gated
+    ones add ±0 and change nothing) added in ascending expert order, each
+    add rounded to ye's dtype, as the reference's scatter-add does on
+    XLA:CPU."""
+    return _Combine.apply(ye, *_slots(sel_idx, sel_gate, g, k))
 
 
 def moe_ffn(params: dict, x: torch.Tensor, seed: int, cfg: ModelConfig,
@@ -152,7 +221,7 @@ def moe_ffn(params: dict, x: torch.Tensor, seed: int, cfg: ModelConfig,
     xg = x.reshape(G, g, D)
 
     # --- router (bf16, tiny) ---
-    logits = _router_logits(params["router"]["w"], x, seed, cfg).reshape(G, g, E)
+    logits = _router_logits(params["router"]["w"], x).reshape(G, g, E)
     probs = torch.softmax(logits, dim=-1)
     top_vals, top_idx = _top_k(probs, k)
     top_sum = top_vals[..., :1]
@@ -177,14 +246,15 @@ def moe_ffn(params: dict, x: torch.Tensor, seed: int, cfg: ModelConfig,
     sel_gate = torch.where(sel_val > 0, sel_val, torch.zeros_like(sel_val))
 
     # --- dispatch, expert FFN ---
-    xe = xg[torch.arange(G, device=x.device)[:, None, None], sel_idx]  # [G, E, c, D]
+    slots = _slots(sel_idx, sel_gate, g, k)
+    xe = _Dispatch.apply(xg, sel_idx, *slots)  # [G, E, c, D]
     xe = xe.transpose(0, 1).reshape(E, G * c, D)
     ye = _expert_ffn(xe, params, seed, cfg, method)
     ye = ye.reshape(E, G, c, D).transpose(0, 1)
     ye = ye * sel_gate[..., None].to(ye.dtype)
 
     # --- combine (bf16, fixed order) ---
-    y = _combine(ye.to(x.dtype), sel_idx, sel_gate, g, k).reshape(B, S, D)
+    y = _Combine.apply(ye.to(x.dtype), *slots).reshape(B, S, D)
     if cfg.moe_dense_residual:
         y = y + mlp(params["dense_mlp"], x, L.seed_fold(seed, 30), cfg, method)
     y = y.to(x.dtype)
@@ -204,11 +274,12 @@ def init_moe_block(cfg: ModelConfig, dtype, generator, device) -> dict:
 
 def moe_block(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: int,
               cfg: ModelConfig, cache, method: str, cache_index: torch.Tensor | None = None,
-              token_valid: torch.Tensor | None = None) -> torch.Tensor:
+              token_valid: torch.Tensor | None = None):
+    """→ (x [B, S, D], the layer's aux loss, an f32 scalar)."""
     h, _ = attention(params["attn"], L.rmsnorm(params["attn_norm"], x, cfg.norm_eps),
                      positions, L.seed_fold(seed, 100), cfg, causal=cfg.is_causal_lm,
                      kv_cache=cache, cache_index=cache_index, method=method)
     x = x + h
-    h, _ = moe_ffn(params["moe"], L.rmsnorm(params["mlp_norm"], x, cfg.norm_eps),
-                   L.seed_fold(seed, 200), cfg, method, token_valid=token_valid)
-    return x + h
+    h, aux = moe_ffn(params["moe"], L.rmsnorm(params["mlp_norm"], x, cfg.norm_eps),
+                     L.seed_fold(seed, 200), cfg, method, token_valid=token_valid)
+    return x + h, aux

@@ -4,8 +4,9 @@
 
     forward(params, tokens, seed, *, positions=None, caches=None,
             cache_index=None, method="quartet", features_only=False,
-            token_valid=None)
-        -> (logits | features, caches)
+            token_valid=None, return_aux=False)
+        -> (logits | features, caches), and with return_aux also the f32
+           aux loss (the MoE layers' router losses; 0 for a dense model)
     head(params, features, seed, method="quartet") -> f32 logits
 
 Weights come from ``repro_torch.convert`` (``init_params`` or
@@ -37,10 +38,11 @@ def build_model(cfg: ModelConfig, *, attn_backend: str | None = None) -> Model:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
     def forward(params, tokens, seed, *, positions=None, caches=None, cache_index=None,
-                method="quartet", features_only=False, token_valid=None):
+                method="quartet", features_only=False, token_valid=None, return_aux=False):
         return lm_forward(params, tokens, cfg, seed, positions=positions, caches=caches,
                           cache_index=cache_index, method=method,
-                          features_only=features_only, token_valid=token_valid)
+                          features_only=features_only, token_valid=token_valid,
+                          return_aux=return_aux)
 
     def head(params, x, seed, method="quartet"):
         return lm_head_apply(params, x, cfg, seed, method)

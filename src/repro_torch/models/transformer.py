@@ -12,7 +12,10 @@ training (grad enabled, no cache) with ``cfg.remat``, each layer runs under
 ``torch.utils.checkpoint``: only its input is kept, and the backward
 recomputes its forward, as the reference checkpoints its layer-scan
 body.  The per-layer seeds are deterministic, so the recompute
-quantizes to the same bits.
+quantizes to the same bits.  Every block returns ``(x, aux)``: a MoE
+layer's router loss (an f32 scalar), a dense layer's 0.0;
+``lm_forward(..., return_aux=True)`` (the train step) also returns their
+f32 sum in layer order, as the reference's layer scan carries it.
 """
 
 from __future__ import annotations
@@ -58,7 +61,8 @@ def init_dense_block(cfg: ModelConfig, dtype, generator, device) -> dict:
 
 def dense_block(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: int,
                 cfg: ModelConfig, cache, method: str,
-                cache_index: torch.Tensor | None = None, token_valid=None) -> torch.Tensor:
+                cache_index: torch.Tensor | None = None, token_valid=None):
+    """→ (x [B, S, D], 0.0: a dense layer has no router loss)."""
     # token_valid is the MoE block's (padding lanes must not compete for
     # expert capacity); a dense block has no cross-token competition
     h, _ = attention(params["attn"], L.rmsnorm(params["attn_norm"], x, cfg.norm_eps),
@@ -66,7 +70,7 @@ def dense_block(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: in
                      kv_cache=cache, cache_index=cache_index, method=method)
     x = x + h
     return x + mlp(params["mlp"], L.rmsnorm(params["mlp_norm"], x, cfg.norm_eps),
-                   L.seed_fold(seed, 200), cfg, method)
+                   L.seed_fold(seed, 200), cfg, method), 0.0
 
 
 def _stacked_init(block_init, n: int) -> dict:
@@ -147,16 +151,17 @@ def lm_head_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, seed: int,
 def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: int, *,
                positions: torch.Tensor | None = None, caches=None,
                cache_index: torch.Tensor | None = None, method: str = "quartet",
-               features_only: bool = False, token_valid: torch.Tensor | None = None):
-    """tokens [B, S] → (logits [B, S, V] f32, or features [B, S, D], caches).
+               features_only: bool = False, token_valid: torch.Tensor | None = None,
+               return_aux: bool = False):
+    """tokens [B, S] → (logits [B, S, V] f32, or features [B, S, D], caches),
+    and with ``return_aux`` also the aux loss: the layers' router losses
+    summed in f32 in layer order (exactly 0 for a dense model).
 
     ``caches`` is a :class:`PagedKV` over the whole [L, ...] pool, dense
     ``(K, V)`` [L, B, T, Hkv, hd] written at ``cache_index`` [B] (both
     updated in place), or None for a cache-free causal forward.
     ``token_valid`` [B, S] bool marks the lanes that carry real tokens (the
-    MoE block keeps the others out of expert capacity).  The MoE block's aux
-    loss belongs to training, which is not ported for MoE (ROADMAP A5b), so
-    it is not returned."""
+    MoE block keeps the others out of expert capacity)."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
@@ -165,20 +170,23 @@ def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: int, 
     x = L.embed(params["embed"], tokens)
     _, block = _blocks(cfg)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) if return_aux else None
     for i in range(cfg.num_layers):
         seed_l = (seed + i * LAYER_SEED_STRIDE) & 0xFFFFFFFF
         layer = layer_slice(params["layers"], i)
-        if remat:
-            x = checkpoint(block, layer, x, positions, seed_l, cfg, None, method, None,
-                           token_valid, use_reentrant=False)
-            continue
-        if caches is None:
-            cache = None
-        elif isinstance(caches, PagedKV):
-            cache = PagedKV(layer_slice(caches.pool, i), caches.tables)
+        if remat:  # the checkpoint carries the layer's aux out with x
+            x, aux_l = checkpoint(block, layer, x, positions, seed_l, cfg, None, method, None,
+                                  token_valid, use_reentrant=False)
         else:
-            cache = (caches[0][i], caches[1][i])
-        x = block(layer, x, positions, seed_l, cfg, cache, method, cache_index, token_valid)
-    if features_only:
-        return x, caches
-    return lm_head_apply(params, x, cfg, seed, method), caches
+            if caches is None:
+                cache = None
+            elif isinstance(caches, PagedKV):
+                cache = PagedKV(layer_slice(caches.pool, i), caches.tables)
+            else:
+                cache = (caches[0][i], caches[1][i])
+            x, aux_l = block(layer, x, positions, seed_l, cfg, cache, method, cache_index,
+                             token_valid)
+        if return_aux:
+            aux = aux + aux_l
+    out = x if features_only else lm_head_apply(params, x, cfg, seed, method)
+    return (out, caches, aux) if return_aux else (out, caches)

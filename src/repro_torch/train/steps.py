@@ -1,8 +1,10 @@
 """Step builders: the train and eval step functions.
 
 Port of ``repro.train.steps``.  ``make_train_step`` wires the paper's
-pipeline: compute params cast from the f32 master, the Quartet (or bf16)
-forward and backward, the chunked LM loss, global-norm clipping and AdamW.
+pipeline: compute params cast from the master (f32, or bf16 with the 8-bit
+AdamW), the Quartet (or bf16) forward and backward, the chunked LM loss plus
+``aux_weight`` times the MoE router loss (0 for a dense model), global-norm
+clipping and AdamW.
 The per-step ``seed`` is derived from the step counter exactly as the
 reference derives it, ``((step + 1) · microbatch) mod 2^32`` and then
 ``seed + i`` for microbatch i, so every stochastic rounding draws the
@@ -30,8 +32,8 @@ def _cast(params, dtype):
 
 
 def make_train_step(model: Model, optimizer: Optimizer, *, method: str = "quartet",
-                    clip_norm: float = 1.0, z_loss: float = 0.0, loss_chunk: int = 512,
-                    microbatch: int = 1) -> Callable:
+                    clip_norm: float = 1.0, aux_weight: float = 0.01, z_loss: float = 0.0,
+                    loss_chunk: int = 512, microbatch: int = 1) -> Callable:
     """``microbatch`` > 1 splits the batch into that many sequential
     gradient-accumulation steps (activation memory shrinks in proportion).
     The step takes and returns a :class:`TrainState`; the metrics it returns
@@ -41,13 +43,14 @@ def make_train_step(model: Model, optimizer: Optimizer, *, method: str = "quarte
 
     def loss_fn(params, batch, seed):
         cparams = _cast(params, compute_dtype)
-        feats, _ = model.forward(cparams, batch["tokens"], seed, method=method,
-                                 features_only=True)
+        feats, _, aux = model.forward(cparams, batch["tokens"], seed, method=method,
+                                      features_only=True, return_aux=True)
         loss, metrics = chunked_lm_loss(model.head, cparams, feats, batch["labels"], seed,
                                         batch.get("loss_mask"), z_loss, chunk=loss_chunk,
                                         method=method)
-        metrics["aux"] = torch.zeros((), device=loss.device)  # dense: no router loss
-        return loss, metrics
+        metrics["aux"] = aux
+        # a dense model's aux is exactly 0: its loss and gradients are unchanged
+        return loss + aux_weight * aux, metrics
 
     def value_and_grad(params, batch, seed):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
