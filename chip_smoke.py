@@ -91,6 +91,21 @@
    memory, loss and aux per step, the state's checkpoint bytes and one
    profiled step's device time by kernel kind and idle share; and B1, B2
    and B3 timed over one full-width expert linear's training launches.
+4c. Quartet's variants (``--phases variants``, no kernel of its own: the
+   reference computes them outside its kernels): every format (MXFP4,
+   NVFP4, MXFP6, MXFP8, FP8 E4M3/E5M2, INT4, INT8) x every quantizer
+   (RTN-AbsMax, also with E8M0-floor scales; SR-AbsMax; QuEST; RTN-PMA; the
+   fast SR) on a [4096, 1280] activation plus edge rows (E4M3 underflow
+   and overflow, grid-midpoint ties, zeros, E8M0 floor edges), card against
+   CPU bit for bit, NaN places included; Table 2 through the port's twin,
+   beside the paper's values (QuEST < RTN < SR in MSE asserted); full-width
+   llama-paper-200m 2 steps of 4 x 512 tokens under the FP8 baseline,
+   RTN- and SR-AbsMax forwards, an RTN or unquantized backward, the fixed
+   backward Hadamard and MXFP8 with QuEST (plain path), and one step of
+   Quartet on the kernels: losses, grad-norms and step times, all finite;
+   one full-width linear under NVFP4 at group 16 at upstream-gradient
+   scales 1 and 1e-3, card against CPU; ``use_kernels=True`` raising on the
+   FP8 baseline.
 5. Times each kernel (CUDA events, median, L2 flushed before each launch)
    beside its plain version and, where one PyTorch call computes the same
    function, that call, at serving, training and evaluation shapes; B1, B2,
@@ -115,6 +130,7 @@ import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -188,6 +204,12 @@ RESUME_LAYERS, RESUME_STEPS = 2, 4
 # of MOE_TRAIN_BATCH x TRAIN_SEQ tokens in one microbatch: one group of 4096
 # tokens, so MOE_TRAIN_CAPACITY = 1.25 x 8 x 4096 / 128 tokens an expert
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_CAPACITY = 1, 5, 8, 320
+
+# the variants phase: the quantizers on a [VARIANT_ROWS, d_model] activation
+# of llama-paper-200m, and each Quartet variant training it at full width
+# (VARIANT_LAYERS of its 10 layers) VARIANT_STEPS steps of VARIANT_BATCH x
+# TRAIN_SEQ tokens on the plain path
+VARIANT_ROWS, VARIANT_LAYERS, VARIANT_STEPS, VARIANT_BATCH = 4096, 10, 2, 4
 
 
 def log(*a):
@@ -2655,14 +2677,14 @@ def train_moe_reduced_card_vs_cpu(torch, device="cuda"):
     Tolerance, every step (equal states): loss, aux and nll rtol 1e-3,
     grad-norm rtol 3e-2 (the dense check's every-step bound).  The kernels
     equal their plain versions bit for bit, but the rest of the step rounds
-    differently on the card (ROADMAP C4): the router's f32 GEMM runs a
-    column at a time there, so a token whose two best experts' scores nearly
-    tie can take the other one; that moves the aux loss by up to ~1/512 of
-    itself (two experts' token fractions by 1/512 each, 512 tokens) and the
-    loss by that token's share of the mean (the first chip run read 1.1e-4
-    and 8.6e-5 at step 0).  And a one-ulp difference can flip a
-    stochastic-rounding decision and move a gradient column by a grid step
-    (grad-norm 2.5e-3 at step 1)."""
+    differently on the card (ROADMAP C4 and Queue C):
+    ``tools/moe_route_tie_probe.py`` found at step 0 no routing choice that
+    differs (the closest experts 8348 ulps apart) and, of the forward's
+    ops, only the rmsnorms (the card's 32-wide partial sums, qwen3's q- and
+    k-norms included) differing on equal inputs, by ≤ 1.4e-7; QuEST's and
+    the SR's rounding decisions then move by whole grid steps through two
+    layers (loss 8.6e-5, aux 1.1e-4 at step 0; grad-norm 2.5e-3 at step
+    1)."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.convert import init_params
     from repro_torch.data.pipeline import SyntheticC4Dataset, TokenBatcher
@@ -2954,11 +2976,216 @@ PATH_OF = {"hadamard_quest_quantize": ("train", "train"),
            "kv_dequant_unpack": ("gather", "gather"), "flash_attention": ("eval", "eval")}
 
 
+def variant_configs():
+    """The Quartet variants the paper compares Quartet with, by name."""
+    from repro_torch.core.quartet import FP8_CONFIG, QuartetConfig
+
+    return {"fp8": FP8_CONFIG,
+            "fwd_rtn_absmax": QuartetConfig(fwd_quantizer="rtn_absmax"),
+            "fwd_sr_absmax": QuartetConfig(fwd_quantizer="sr_absmax"),
+            "bwd_rtn": QuartetConfig(bwd_rounding="rtn"),
+            "bwd_unquantized": QuartetConfig(bwd_rounding="none", bwd_hadamard="none"),
+            "bwd_fixed_hadamard": QuartetConfig(bwd_hadamard="fixed"),
+            "mxfp8_quest": QuartetConfig(fwd_format="mxfp8", bwd_format="mxfp8")}
+
+
+def quantizer_edge_rows(torch, fmt, k: int):
+    """Rows of k for ``fmt``: zeros; blocks whose absmax/max sits around
+    2^-10 and around 464 (NVFP4's E4M3 scale underflows to 0 and overflows
+    to NaN there); grid midpoints (ties) beside the grid's max (scale 1); and
+    blocks whose absmax/max is 2^e (1 - j 2^-24), j = 0..39, the E8M0 floor
+    rule's edges."""
+    gen = torch.Generator().manual_seed(SEED + 1)
+    block = fmt.block or k
+    rows = [torch.zeros(k)]
+    for s in (2.0**-10 * 0.999, 2.0**-10, 2.0**-10 * 1.5, 448.0, 464.0, 465.0, 500.0):
+        r = torch.rand(k, generator=gen) * 2 - 1
+        r[::block] = 1.0
+        rows.append(r * s * fmt.max_value)
+    grid = torch.tensor(fmt.grid_array)
+    mids = (grid[1:] + grid[:-1]) / 2
+    tie = mids.repeat(k // len(mids) + 1)[:k].clone()
+    tie[::block] = fmt.max_value
+    rows.append(tie)
+    for e in (-20, 0, 7):
+        j = torch.arange(k // block if fmt.block else 1, dtype=torch.int32) % 40
+        top = ((torch.tensor(2.0**e).view(torch.int32) - j).view(torch.float32)
+               * fmt.max_value)
+        r = (torch.rand(k, generator=gen) * 2 - 1) * 0.5 * top.repeat_interleave(block)[:k]
+        r[::block] = top[: len(r[::block])]
+        rows.append(r)
+    return torch.stack(rows).to(torch.float32)
+
+
+def _quantize_both(Q, threefry, name, x, fmt):
+    if name == "sr_absmax":
+        return Q.sr_absmax(x, threefry.prng_key(3), fmt)
+    if name == "sr_absmax_fast":
+        return Q.sr_absmax_fast(x, 5, fmt, "ceil", 2)
+    if name == "rtn_absmax_floor":
+        return Q.rtn_absmax(x, fmt, "floor")
+    return getattr(Q, name)(x, fmt)
+
+
+def check_quantizers_card_vs_cpu(torch, cfg, device="cuda"):
+    """Every format x every quantizer (and RTN-AbsMax with E8M0-floor scales)
+    on a [VARIANT_ROWS, d_model] activation plus :func:`quantizer_edge_rows`,
+    on the card and on the CPU: codes, scales, values and masks bit for bit,
+    NaN at the same places.  Returns NaN counts and the wrapped codes seen."""
+    from repro_torch.core import formats as F
+    from repro_torch.core import quantizers as Q
+    from repro_torch.core import threefry
+
+    gen = torch.Generator().manual_seed(SEED)
+    k = cfg.d_model
+    base = torch.randn((VARIANT_ROWS, k), generator=gen) * torch.exp2(
+        torch.randint(-8, 8, (VARIANT_ROWS, 1), generator=gen).to(torch.float32))
+    out, bad = {}, []
+    for fname, fmt in F.FORMATS.items():
+        if not fmt.grid:
+            continue
+        x = torch.cat([base, quantizer_edge_rows(torch, fmt, k)])
+        xc = x.to(device)
+        names = ["rtn_absmax", "sr_absmax", "quest", "rtn_absmax_pma", "sr_absmax_fast"]
+        if fmt.scale_dtype == "e8m0":
+            names.append("rtn_absmax_floor")
+        for qname in names:
+            card = _quantize_both(Q, threefry, qname, xc, fmt)
+            host = _quantize_both(Q, threefry, qname, x, fmt)
+            for field, a, b in zip(card._fields, card, host):
+                a = a.cpu()
+                if a.dtype == torch.float32:
+                    same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+                else:
+                    same = a == b
+                if not bool(same.all()):
+                    bad.append((fname, qname, field, int((~same).sum())))
+            out.setdefault(fname, {})[qname] = {
+                "nan_values": int(host.values.isnan().sum()),
+                "negative_codes_of_positive_values": int(((host.codes < 0)
+                                                          & (host.values > 0)).sum())}
+    if bad:
+        raise AssertionError(f"quantizers differ between the card and the CPU: {bad}")
+    return out
+
+
+def table2_on_card(torch, device="cuda"):
+    """Table 2 through the port's twin on the card: rows beside the paper's;
+    QuEST < RTN < SR in MSE, as the original asserts."""
+    from repro_torch.benchmarks import table2_quantizer_metrics as T2
+
+    rows = T2.run(device)
+    for name, us, value in rows:
+        log(f"  {name}: {value} ({us:.0f} us)")
+    if rows[-1][2] != "PASS":
+        raise AssertionError(f"Table 2 ordering QuEST < RTN < SR in MSE failed: {rows}")
+    return {name: value for name, _, value in rows}
+
+
+def train_variants(torch, device="cuda"):
+    """llama-paper-200m at its published widths, VARIANT_LAYERS layers, under
+    each Quartet variant on the plain path through ``train.loop.train``
+    (VARIANT_STEPS steps of VARIANT_BATCH x TRAIN_SEQ tokens, random weights
+    and data from SEED), and one step of Quartet on the kernels beside them.
+    Returns each configuration's losses, grad-norms and step times; every
+    value must be finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.llama_paper import LEARNING_RATES
+    from repro_torch.data.pipeline import SyntheticC4Dataset, TokenBatcher
+    from repro_torch.launch.serve_engine import kernel_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.train.loop import train
+
+    base = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=VARIANT_LAYERS)
+    batcher = TokenBatcher(SyntheticC4Dataset(base.vocab_size, seed=SEED), VARIANT_BATCH,
+                           TRAIN_SEQ)
+    runs = {name: (dataclasses.replace(base, quartet=qc), VARIANT_STEPS)
+            for name, qc in variant_configs().items()}
+    runs["quartet_kernels"] = (kernel_config(base), 1)
+    out = {}
+    for name, (cfg, steps) in runs.items():
+        opt = adamw(cosine_warmup(LEARNING_RATES[TRAIN_ARCH], steps))
+        _, hist = train(build_model(cfg), opt, batcher, steps, device=device, log_every=0,
+                        seed=SEED)
+        dts = [h["dt"] for h in hist]
+        out[name] = {"loss": [h["loss"] for h in hist],
+                     "grad_norm": [h["grad_norm"] for h in hist],
+                     "step_s": dts, "median_step_s": statistics.median(dts)}
+        log(f"  {name}: {json.dumps(out[name])}")
+        vals = out[name]["loss"] + out[name]["grad_norm"]
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"variant {name}: non-finite loss or grad-norm {out[name]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_nvfp4_linear(torch, cfg, device="cuda"):
+    """One llama-paper-200m linear (x [VARIANT_ROWS, d_model], W [d_model,
+    d_ff]) under NVFP4 at group 16, forward and backward at upstream-gradient
+    scales 1 and 1e-3, on the card against the port on the CPU: NaN at the
+    same places, the rest within 1e-3 of its norm (f32 GEMMs and the
+    Hadamard round differently on the two, and a last-bit difference can
+    move a stochastic rounding by a grid step, ROADMAP C4).  The reference's
+    E4M3 scales of 0 (ROADMAP C7) are reproduced, not repaired."""
+    from repro_torch.core.quartet import QuartetConfig, quartet_linear
+
+    qc = QuartetConfig(fwd_format="nvfp4", bwd_format="nvfp4", group=16)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    x = torch.randn((VARIANT_ROWS, cfg.d_model), generator=gen)
+    w = torch.randn((cfg.d_model, cfg.d_ff), generator=gen) / math.sqrt(cfg.d_model)
+    out = {}
+    for scale in (1.0, 1e-3):
+        dy = torch.randn((VARIANT_ROWS, cfg.d_ff), generator=gen) * scale
+        res = {}
+        for dev in (device, "cpu"):
+            xd, wd = x.to(dev).requires_grad_(), w.to(dev).requires_grad_()
+            y = quartet_linear(xd, wd, 11, qc)
+            dx, dw = torch.autograd.grad(y, [xd, wd], dy.to(dev))
+            res[dev] = [t.detach().cpu() for t in (y, dx, dw)]
+        rec = {}
+        for name, a, b in zip(("y", "dx", "dW"), res[device], res["cpu"]):
+            if not torch.equal(a.isnan(), b.isnan()):
+                raise AssertionError(f"NVFP4 {name} at scale {scale}: NaN places differ")
+            fin = ~b.isnan()
+            err = float((a[fin] - b[fin]).norm() / b[fin].norm().clamp_min(1e-30))
+            rec[name] = {"nan": int(b.isnan().sum()), "zero": int((b == 0).sum()),
+                         "numel": b.numel(), "rel_err": err}
+            if err > 1e-3:
+                raise AssertionError(f"NVFP4 {name} at scale {scale}: card vs CPU {err}")
+        out[str(scale)] = rec
+    return out
+
+
+def check_kernel_raise(torch, device="cuda"):
+    """``use_kernels=True`` with a variant the kernels do not compute raises
+    (ROADMAP C6) in ``quartet_linear`` and in ``kernel_config``."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.quartet import FP8_CONFIG, quartet_linear
+    from repro_torch.launch.serve_engine import kernel_config
+
+    x, w = torch.zeros((64, 128), device=device), torch.zeros((128, 64), device=device)
+    raised = 0
+    for call in (lambda: quartet_linear(x, w, 0, dataclasses.replace(FP8_CONFIG,
+                                                                     use_kernels=True)),
+                 lambda: kernel_config(dataclasses.replace(get_reduced_config(TRAIN_ARCH),
+                                                           quartet=FP8_CONFIG))):
+        try:
+            call()
+        except ValueError:
+            raised += 1
+    if raised != 2:
+        raise AssertionError("use_kernels=True with FP8_CONFIG did not raise")
+    return raised
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,engine,features,moe,train,moe-train,times",
+    ap.add_argument("--phases",
+                    default="kernels,engine,features,moe,train,moe-train,variants,times",
                     help="comma-separated subset of kernels,engine,features,moe,train,"
-                         "moe-train,times")
+                         "moe-train,variants,times")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -3100,6 +3327,17 @@ def main() -> int:
         expert_rec = summary["times"][("sr_hadamard_quantize_experts", "moe train")]
         log(f"[moe-train] {json.dumps({k: v for k, v in summary.items() if k != 'times'})}")
         log(f"[moe-train] done in {time.perf_counter() - t0:.1f} s")
+    if "variants" in phases:
+        t0 = time.perf_counter()
+        summary = {"quantizers": check_quantizers_card_vs_cpu(torch, tcfg)}
+        log(f"[variants] every format x quantizer equals the CPU bit for bit "
+            f"({time.perf_counter() - t0:.1f} s): {json.dumps(summary['quantizers'])}")
+        summary["table2"] = table2_on_card(torch)
+        summary["training"] = train_variants(torch)
+        summary["nvfp4_linear"] = check_nvfp4_linear(torch, tcfg)
+        summary["kernel_raise"] = check_kernel_raise(torch)
+        log(f"[variants] {json.dumps({k: v for k, v in summary.items() if k != 'quantizers'})}")
+        log(f"[variants] done in {time.perf_counter() - t0:.1f} s")
     if vectors:
         # every B1 call on the main paths, and every B2 call on the training
         # paths, reads and writes through the vector body (a thread per group,

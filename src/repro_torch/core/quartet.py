@@ -27,6 +27,16 @@ and Algorithm-1 backward: on the kernels one expert-axis launch per Stage
 and per operand (B1 twice and B3 once forward; B2 four times and B3 twice
 backward), on the plain path the same arithmetic batched, expert e's
 signs and uniforms drawn at its own seed.
+
+The reference's variants (Table 3's ablations and the FP8 baseline) run on
+the plain path, as there: ``fwd_quantizer`` QuEST, RTN-AbsMax or SR-AbsMax
+(uniforms of ``fold_in(PRNGKey(0), seed)``, one key for x and Wᵀ), any
+format for either pass, ``bwd_rounding`` SR, RTN or none (unquantized
+backward GEMMs), ``bwd_hadamard`` random, fixed or none.  The kernels
+compute Quartet alone (MXFP4 both ways, group 32, QuEST, SR, the random
+Hadamard, f32 accumulation): with ``use_kernels=True`` any other
+configuration raises (:func:`check_kernel_config`), where the reference's
+kernel path would compute Quartet in its place.
 """
 
 from __future__ import annotations
@@ -35,13 +45,18 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import fastrng
+from repro_torch.core import fastrng, threefry
 from repro_torch.core import formats as F
 from repro_torch.core import quantizers as Q
 from repro_torch.core.hadamard import hadamard_transform, randomized_hadamard_transform
 
 SR_PRESCALE = 0.75  # the ¾ factor of Algorithm 1
 SR_POSTSCALE = 16.0 / 9.0  # undoes (¾)² on the GEMM product
+
+
+FWD_QUANTIZERS = ("quest", "rtn_absmax", "sr_absmax", "none")
+BWD_ROUNDINGS = ("sr", "rtn", "none")
+BWD_HADAMARDS = ("random", "fixed", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,8 +66,11 @@ class QuartetConfig:
     fwd_format: str = "mxfp4"
     bwd_format: str = "mxfp4"
     group: int = 32  # Hadamard group == MXFP4 scale block
-    fwd_quantizer: str = "quest"  # "quest" | "none" (bf16 passthrough)
+    fwd_quantizer: str = "quest"  # FWD_QUANTIZERS; "none" = bf16 passthrough
+    bwd_rounding: str = "sr"  # BWD_ROUNDINGS; "none" = unquantized backward GEMMs
+    bwd_hadamard: str = "random"  # BWD_HADAMARDS
     use_kernels: bool = False
+    accum_dtype: str = "float32"
 
     @property
     def fwd_fmt(self) -> F.Format:
@@ -63,15 +81,20 @@ class QuartetConfig:
         return F.get_format(self.bwd_format)
 
 
-BF16_CONFIG = QuartetConfig(fwd_quantizer="none")
+BF16_CONFIG = QuartetConfig(fwd_quantizer="none", bwd_rounding="none", bwd_hadamard="none")
+FP8_CONFIG = QuartetConfig(
+    fwd_format="mxfp8", bwd_format="mxfp8", fwd_quantizer="rtn_absmax",
+    bwd_rounding="rtn", bwd_hadamard="none",
+)
 QUARTET_CONFIG = QuartetConfig()
 
 
-def _gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a [..., K] @ b [K, N] with f32 accumulation (f32 operands: bf16
-    inputs are exact in f32, and the f32 product is what the reference's
-    ``preferred_element_type=f32`` contraction returns)."""
-    return a.to(torch.float32) @ b.to(torch.float32)
+def _gemm(a: torch.Tensor, b: torch.Tensor, accum_dtype: str = "float32") -> torch.Tensor:
+    """a [..., K] @ b [K, N] (or a batch of them, [E, ., K] @ [E, K, N]): the
+    f32 product (bf16 inputs are exact in f32, and it is what the
+    reference's ``preferred_element_type`` contraction returns), rounded to
+    ``accum_dtype`` as the reference's is."""
+    return (a.to(torch.float32) @ b.to(torch.float32)).to(getattr(torch, accum_dtype))
 
 
 def _pad32(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -95,9 +118,34 @@ def _dequant_codes(codes: torch.Tensor, scales: torch.Tensor, group: int,
     return (c * (0.5 * scales).to(dtype)[..., None]).reshape(shape)
 
 
+def kernels_compute(cfg: QuartetConfig) -> bool:
+    """Whether the Hopper kernels compute ``cfg``: Quartet itself (MXFP4
+    forward and backward, group 32, QuEST, SR, the random Hadamard, f32
+    accumulation), or the bf16 passthrough, which needs no kernel."""
+    if cfg.fwd_quantizer == "none":
+        return True
+    return ((cfg.fwd_format, cfg.bwd_format, cfg.group, cfg.fwd_quantizer, cfg.bwd_rounding,
+             cfg.bwd_hadamard, cfg.accum_dtype)
+            == ("mxfp4", "mxfp4", 32, "quest", "sr", "random", "float32"))
+
+
+def check_kernel_config(cfg: QuartetConfig) -> None:
+    """Raise on ``use_kernels=True`` with a configuration the kernels do not
+    compute (the reference's kernel path computes Quartet in its place;
+    the port never substitutes it silently)."""
+    if cfg.use_kernels and not kernels_compute(cfg):
+        raise ValueError(f"the kernels compute Quartet only (mxfp4/mxfp4, group 32, quest, "
+                         f"sr, random Hadamard, float32): {cfg} runs on the plain path "
+                         f"(use_kernels=False)")
+
+
 def _check(cfg: QuartetConfig) -> None:
-    if cfg.fwd_quantizer not in ("quest", "none"):
-        raise NotImplementedError(f"fwd_quantizer {cfg.fwd_quantizer!r} is not ported yet")
+    for name, value, allowed in (("fwd_quantizer", cfg.fwd_quantizer, FWD_QUANTIZERS),
+                                 ("bwd_rounding", cfg.bwd_rounding, BWD_ROUNDINGS),
+                                 ("bwd_hadamard", cfg.bwd_hadamard, BWD_HADAMARDS)):
+        if value not in allowed:
+            raise ValueError(f"{name} {value!r} not in {allowed}")
+    check_kernel_config(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -124,16 +172,34 @@ def _forward_kernels(x, w, cfg, ops=None):
     return y, (xc, xs, wtc, wts, xm, wtm.t())
 
 
-def _forward_plain(x, w, cfg):
+def _forward_key(seed: int) -> tuple[int, int]:
+    """SR-AbsMax's key in the forward: ``fold_in(PRNGKey(0), seed)``."""
+    return threefry.fold_in(threefry.prng_key(0), seed)
+
+
+def _fwd_quantize(xh: torch.Tensor, cfg: QuartetConfig, key) -> Q.QuantResult:
+    fmt = cfg.fwd_fmt
+    if cfg.fwd_quantizer == "quest":
+        return Q.quest(xh, fmt)
+    if cfg.fwd_quantizer == "rtn_absmax":
+        return Q.rtn_absmax(xh, fmt)
+    if cfg.fwd_quantizer == "sr_absmax":
+        return Q.sr_absmax(xh, key, fmt)
+    raise ValueError(cfg.fwd_quantizer)
+
+
+def _forward_plain(x, w, cfg, seed: int):
+    key = _forward_key(seed)
     xh = hadamard_transform(x.to(torch.float32), g=cfg.group, dim=-1)
     wh = hadamard_transform(w.to(torch.float32), g=cfg.group, dim=0)
-    xq = Q.quest(xh, cfg.fwd_fmt)
-    wq = Q.quest(wh.t(), cfg.fwd_fmt)  # blocks along K
-    # QDQ values are bf16-exact (≤ 2 mantissa bits × a power-of-two scale):
-    # saved as bf16, as the reference saves them
+    xq = _fwd_quantize(xh, cfg, key)
+    wq = _fwd_quantize(wh.t(), cfg, key)  # blocks along K, the same key
+    # the QDQ values go to bf16, as the reference's GEMM operands and
+    # residuals (exact for MXFP4, whose values have ≤ 2 significant bits
+    # times a power of two; a rounding for fp32-scaled formats)
     xv = xq.values.to(torch.bfloat16)
     wv = wq.values.t().to(torch.bfloat16)
-    y = _gemm(xq.values, wq.values.t())
+    y = _gemm(xv, wv, cfg.accum_dtype)
     return y, (xv, wv, xq.mask, wq.mask.t())
 
 
@@ -143,10 +209,38 @@ def _forward_plain(x, w, cfg):
 
 
 def _bwd_quantize(gh: torch.Tensor, cfg: QuartetConfig, seed, salt: int) -> torch.Tensor:
-    """SR of ¾·(an operand already rotated, blocks on the last axis); ``seed``
-    an int, or a tensor [E] of per-expert seeds for gh [E, ...]."""
-    v = Q.sr_absmax_fast(gh * SR_PRESCALE, seed, cfg.bwd_fmt, "ceil", salt).values
-    return v.to(torch.bfloat16)  # bf16-exact
+    """SR (or RTN) of ¾·(an operand already rotated, blocks on the last
+    axis) with ceil scales; ``seed`` an int, or a tensor [E] of per-expert
+    seeds for gh [E, ...]."""
+    fmt = cfg.bwd_fmt
+    if cfg.bwd_rounding == "sr":
+        v = Q.sr_absmax_fast(gh * SR_PRESCALE, seed, fmt, "ceil", salt).values
+    elif cfg.bwd_rounding == "rtn":
+        v = Q.rtn_absmax(gh * SR_PRESCALE, fmt, scale_mode="ceil").values
+    else:
+        raise ValueError(cfg.bwd_rounding)
+    return v.to(torch.bfloat16)  # bf16-exact for MXFP4
+
+
+def _maybe_rht(x: torch.Tensor, signs: torch.Tensor, cfg: QuartetConfig,
+               dim: int) -> torch.Tensor:
+    if cfg.bwd_hadamard == "random":
+        return randomized_hadamard_transform(x, signs, g=cfg.group, dim=dim)
+    if cfg.bwd_hadamard == "fixed":
+        return hadamard_transform(x, g=cfg.group, dim=dim)
+    return x
+
+
+def _bwd_gemm(a: torch.Tensor, b: torch.Tensor, cfg: QuartetConfig, seed, salts) -> torch.Tensor:
+    """a [..., L] @ bᵀ for b [..., M, L] (L the contraction, blocks along it;
+    a leading expert axis on both with a tensor of seeds): both quantized
+    and the product times 16/9, or with ``bwd_rounding`` "none" the
+    unquantized f32 product."""
+    if cfg.bwd_rounding == "none":
+        return _gemm(a, b.transpose(-1, -2), cfg.accum_dtype)
+    aq = _bwd_quantize(a, cfg, seed, salt=salts[0])
+    bq = _bwd_quantize(b, cfg, seed, salt=salts[1])
+    return SR_POSTSCALE * _gemm(aq, bq.transpose(-1, -2), cfg.accum_dtype)
 
 
 def _backward_plain(cfg, seed, res, dy):
@@ -163,11 +257,9 @@ def _backward_plain(cfg, seed, res, dy):
     wq_p = _pad32(wq_v.to(torch.float32), -1)
     Np = dy_p.shape[-1]
     signs_n = fastrng.rademacher(seed, Np, salt=11, device=dy.device)
-    g_h = randomized_hadamard_transform(dy_p, signs_n, g=cfg.group, dim=-1)
-    wt_h = randomized_hadamard_transform(wq_p, signs_n, g=cfg.group, dim=-1)
-    g_q = _bwd_quantize(g_h, cfg, seed, salt=1)
-    wt_q = _bwd_quantize(wt_h, cfg, seed, salt=2)  # blocks along N
-    dx_rot = SR_POSTSCALE * _gemm(g_q, wt_q.t())
+    g_h = _maybe_rht(dy_p, signs_n, cfg, -1)
+    wt_h = _maybe_rht(wq_p, signs_n, cfg, -1)  # blocks along N
+    dx_rot = _bwd_gemm(g_h, wt_h, cfg, seed, (1, 2))
     dx = hadamard_transform(dx_rot * m_x, g=cfg.group, dim=-1)  # H⁻¹ = H
 
     # dW_rot = 16/9 · SR(¾·Ĥ_B Xᵀ)ᵀ @ SR(¾·Ĥ_B dy)
@@ -175,11 +267,9 @@ def _backward_plain(cfg, seed, res, dy):
     gf = _pad32(dyf.reshape(Bflat, N), 0)
     Bp = xf.shape[0]
     signs_b = fastrng.rademacher(seed, Bp, salt=12, device=dy.device)
-    x2 = randomized_hadamard_transform(xf, signs_b, g=cfg.group, dim=0)
-    g2 = randomized_hadamard_transform(gf, signs_b, g=cfg.group, dim=0)
-    x2_q = _bwd_quantize(x2.t(), cfg, seed, salt=3)  # [K, Bp]
-    g2_q = _bwd_quantize(g2.t(), cfg, seed, salt=4)  # [N, Bp]
-    dw_rot = SR_POSTSCALE * _gemm(x2_q, g2_q.t())
+    x2 = _maybe_rht(xf, signs_b, cfg, 0)
+    g2 = _maybe_rht(gf, signs_b, cfg, 0)
+    dw_rot = _bwd_gemm(x2.t(), g2.t(), cfg, seed, (3, 4))  # [K, Bp] · [N, Bp]ᵀ
     dw = hadamard_transform(dw_rot * m_w, g=cfg.group, dim=0)  # H⁻¹ along K
     return dx.reshape(*lead, K), dw
 
@@ -228,10 +318,10 @@ class _QuartetLinear(torch.autograd.Function):
     def forward(ctx, x, w, seed, cfg):
         if cfg.fwd_quantizer == "none":  # bf16 passthrough
             ctx.save_for_backward(x, w)
-            y = _gemm(x, w)
+            y = _gemm(x, w, cfg.accum_dtype)
         else:
-            fwd = _forward_kernels if cfg.use_kernels else _forward_plain
-            y, res = fwd(x, w, cfg)
+            y, res = (_forward_kernels(x, w, cfg) if cfg.use_kernels
+                      else _forward_plain(x, w, cfg, seed))
             if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
                 ctx.save_for_backward(*res)
         ctx.seed, ctx.cfg = seed, cfg
@@ -245,8 +335,9 @@ class _QuartetLinear(torch.autograd.Function):
         if cfg.fwd_quantizer == "none":
             x, w = res
             dyf = dy.to(torch.float32)
-            dx = _gemm(dyf, w.t())
-            dw = _gemm(x.reshape(-1, x.shape[-1]).t(), dyf.reshape(-1, dy.shape[-1]))
+            dx = _gemm(dyf, w.t(), cfg.accum_dtype)
+            dw = _gemm(x.reshape(-1, x.shape[-1]).t(), dyf.reshape(-1, dy.shape[-1]),
+                       cfg.accum_dtype)
         else:
             bwd = _backward_kernels if cfg.use_kernels else _backward_plain
             dx, dw = bwd(cfg, seed, res, dy)
@@ -278,15 +369,24 @@ def _forward_experts_kernels(x, w, cfg, ops=None):
     return y, (xc, xs, wtc, wts, xm, wtm.transpose(-1, -2))
 
 
-def _forward_experts_plain(x, w, cfg):
+def _fwd_quantize_experts(xh: torch.Tensor, cfg: QuartetConfig, seeds: torch.Tensor):
+    """:func:`_fwd_quantize` of xh [E, ...]; SR-AbsMax draws expert e's
+    uniforms under its own key, ``fold_in(PRNGKey(0), seeds[e])``, as the
+    reference's vmap does."""
+    if cfg.fwd_quantizer != "sr_absmax":
+        return _fwd_quantize(xh, cfg, None)
+    parts = [_fwd_quantize(xh[e], cfg, _forward_key(s)) for e, s in enumerate(seeds.tolist())]
+    return Q.QuantResult(*(torch.stack(field) for field in zip(*parts)))
+
+
+def _forward_experts_plain(x, w, cfg, seeds):
     xh = hadamard_transform(x.to(torch.float32), g=cfg.group, dim=-1)
     wh = hadamard_transform(w.to(torch.float32), g=cfg.group, dim=-2)
-    xq = Q.quest(xh, cfg.fwd_fmt)
-    wq = Q.quest(wh.transpose(-1, -2), cfg.fwd_fmt)  # blocks along K
-    y = torch.bmm(xq.values, wq.values.transpose(-1, -2))
-    xv = xq.values.to(torch.bfloat16)  # bf16-exact, as the 2-d forward saves them
+    xq = _fwd_quantize_experts(xh, cfg, seeds)
+    wq = _fwd_quantize_experts(wh.transpose(-1, -2), cfg, seeds)  # blocks along K
+    xv = xq.values.to(torch.bfloat16)  # as the 2-d forward
     wv = wq.values.transpose(-1, -2).to(torch.bfloat16)
-    return y, (xv, wv, xq.mask, wq.mask.transpose(-1, -2))
+    return _gemm(xv, wv, cfg.accum_dtype), (xv, wv, xq.mask, wq.mask.transpose(-1, -2))
 
 
 def _signed(x: torch.Tensor, signs: torch.Tensor, dim: int) -> torch.Tensor:
@@ -294,6 +394,16 @@ def _signed(x: torch.Tensor, signs: torch.Tensor, dim: int) -> torch.Tensor:
     shape = [x.shape[0]] + [1] * (x.dim() - 1)
     shape[dim] = x.shape[dim]
     return x * signs.reshape(shape).to(x.dtype)
+
+
+def _maybe_rht_experts(x: torch.Tensor, signs: torch.Tensor, cfg: QuartetConfig,
+                       dim: int) -> torch.Tensor:
+    """:func:`_maybe_rht` of x [E, ...], expert e's signs its own row."""
+    if cfg.bwd_hadamard == "random":
+        x = _signed(x, signs, dim)
+    if cfg.bwd_hadamard == "none":
+        return x
+    return hadamard_transform(x, g=cfg.group, dim=dim)
 
 
 def _backward_experts_plain(cfg, seeds, res, dy):
@@ -307,24 +417,18 @@ def _backward_experts_plain(cfg, seeds, res, dy):
     dy_p = _pad32(dyf, -1)
     wq_p = _pad32(wq_v.to(torch.float32), -1)
     signs_n = fastrng.rademacher(seeds, dy_p.shape[-1], salt=11, device=dy.device)
-    g_h = hadamard_transform(_signed(dy_p, signs_n, 2), g=g, dim=-1)
-    wt_h = hadamard_transform(_signed(wq_p, signs_n, 2), g=g, dim=-1)
-    g_q = _bwd_quantize(g_h, cfg, seeds, salt=1)
-    wt_q = _bwd_quantize(wt_h, cfg, seeds, salt=2)  # blocks along N
-    dx_rot = SR_POSTSCALE * torch.bmm(g_q.to(torch.float32), wt_q.to(torch.float32)
-                                      .transpose(-1, -2))
+    g_h = _maybe_rht_experts(dy_p, signs_n, cfg, 2)
+    wt_h = _maybe_rht_experts(wq_p, signs_n, cfg, 2)  # blocks along N
+    dx_rot = _bwd_gemm(g_h, wt_h, cfg, seeds, (1, 2))
     dx = hadamard_transform(dx_rot * m_x, g=g, dim=-1)  # H⁻¹ = H
 
     # dW_rot = 16/9 · SR(¾·Ĥ_B Xᵀ)ᵀ @ SR(¾·Ĥ_B dy), B the token axis
     xf = _pad32(xq_v.to(torch.float32), 1)
     gf = _pad32(dyf, 1)
     signs_b = fastrng.rademacher(seeds, xf.shape[1], salt=12, device=dy.device)
-    x2 = hadamard_transform(_signed(xf, signs_b, 1), g=g, dim=1)
-    g2 = hadamard_transform(_signed(gf, signs_b, 1), g=g, dim=1)
-    x2_q = _bwd_quantize(x2.transpose(-1, -2), cfg, seeds, salt=3)  # [E, K, Bp]
-    g2_q = _bwd_quantize(g2.transpose(-1, -2), cfg, seeds, salt=4)  # [E, N, Bp]
-    dw_rot = SR_POSTSCALE * torch.bmm(x2_q.to(torch.float32), g2_q.to(torch.float32)
-                                      .transpose(-1, -2))
+    x2 = _maybe_rht_experts(xf, signs_b, cfg, 1)
+    g2 = _maybe_rht_experts(gf, signs_b, cfg, 1)
+    dw_rot = _bwd_gemm(x2.transpose(-1, -2), g2.transpose(-1, -2), cfg, seeds, (3, 4))
     dw = hadamard_transform(dw_rot * m_w, g=g, dim=-2)  # H⁻¹ along K
     return dx, dw
 
@@ -374,11 +478,11 @@ class _QuartetLinearExperts(torch.autograd.Function):
     def forward(ctx, x, w, seeds, cfg):
         grad = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
         if cfg.fwd_quantizer == "none":
-            y = torch.bmm(x.to(torch.float32), w.to(torch.float32))
+            y = _gemm(x, w, cfg.accum_dtype)
             res = (x, w)
         else:
-            fwd = _forward_experts_kernels if cfg.use_kernels else _forward_experts_plain
-            y, res = fwd(x, w, cfg)
+            y, res = (_forward_experts_kernels(x, w, cfg) if cfg.use_kernels
+                      else _forward_experts_plain(x, w, cfg, seeds))
         if grad:  # serving keeps nothing
             ctx.save_for_backward(seeds, *res)
         ctx.cfg = cfg
@@ -391,9 +495,8 @@ class _QuartetLinearExperts(torch.autograd.Function):
         seeds, *res = ctx.saved_tensors
         if cfg.fwd_quantizer == "none":
             x, w = res
-            dyf = dy.to(torch.float32)
-            dx = torch.bmm(dyf, w.to(torch.float32).transpose(-1, -2))
-            dw = torch.bmm(x.to(torch.float32).transpose(-1, -2), dyf)
+            dx = _gemm(dy, w.transpose(-1, -2), cfg.accum_dtype)
+            dw = _gemm(x.transpose(-1, -2), dy, cfg.accum_dtype)
         else:
             bwd = _backward_experts_kernels if cfg.use_kernels else _backward_experts_plain
             dx, dw = bwd(cfg, seeds, res, dy)

@@ -1,4 +1,4 @@
-"""Threefry-2x32 keys and the categorical draw of ``jax.random``, bit for bit.
+"""Threefry-2x32 keys and the draws of ``jax.random`` the port needs, bit for bit.
 
 The reference samples with ``jax.random`` (``serve/sampling.py``): a key
 ``PRNGKey(seed)``, ``fold_in`` of the batch row and the token index, then
@@ -12,7 +12,14 @@ the "low" Gumbel mode):
 * ``PRNGKey(seed)`` of a non-negative seed < 2^32 is ``(0, seed)``;
 * ``fold_in(key, d)`` hashes the counter pair ``(0, d)`` under ``key``;
 * ``random_bits(key, (V,))`` hashes the counter pairs ``(0, i)`` for
-  i < V and XORs the two output words.
+  i < V and XORs the two output words; a shaped draw hashes the pair
+  (high word, low word) of each element's flat row-major index, so
+  ``bits(key, (2, 3))`` is ``bits(key, (6,))`` reshaped;
+* ``split(key, n)[i]`` is the hash's two output words of ``(0, i)``;
+* ``uniform`` puts the top 23 bits in the mantissa of a float in [1, 2) and
+  subtracts 1; ``bernoulli(key, p)`` is ``uniform < p`` and ``rademacher``
+  ``2 · bernoulli(key, ½) − 1`` (the quantizers' and ``metrics.pma``'s
+  draws).
 
 The hash runs in int64 tensors with every sum reduced mod 2^32 (PyTorch
 has no unsigned 32-bit shifts), on the device of the logits, so a row that
@@ -62,20 +69,52 @@ def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
     return threefry2x32(key[0], key[1], 0, int(data) & _MASK)
 
 
-def random_bits(key: tuple[int, int], n: int, device) -> torch.Tensor:
-    """``jax.random.bits(key, (n,))`` as int64 values in [0, 2^32)."""
-    count = torch.arange(n, dtype=torch.int64, device=device)
+def split(key: tuple[int, int], n: int = 2) -> list[tuple[int, int]]:
+    """``jax.random.split(key, n)``: key i is the hash of ``(0, i)``."""
+    count = torch.arange(n, dtype=torch.int64)
     y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(count), count)
-    return y0 ^ y1
+    return list(zip(y0.tolist(), y1.tolist()))
+
+
+def random_bits(key: tuple[int, int], shape, device) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (an int ``shape`` is ``(shape,)``) as
+    int64 values in [0, 2^32)."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    n = 1
+    for d in shape:
+        n *= d
+    count = torch.arange(n, dtype=torch.int64, device=device)
+    y0, y1 = threefry2x32(key[0], key[1], count >> 32, count & _MASK)
+    return (y0 ^ y1).reshape(shape)
+
+
+def _unit_floats(key: tuple[int, int], shape, device) -> torch.Tensor:
+    """The top 23 bits as the mantissa of a float in [1, 2), minus 1."""
+    mant = (random_bits(key, shape, device) >> 9) | 0x3F800000
+    return mant.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform(key: tuple[int, int], shape, device) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` in [0, 1)."""
+    return torch.clamp_min(_unit_floats(key, shape, device), 0.0)
+
+
+def bernoulli(key: tuple[int, int], p: float, shape, device) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` (bool)."""
+    return uniform(key, shape, device) < p
+
+
+def rademacher(key: tuple[int, int], shape, device,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.rademacher(key, shape, dtype)``: ±1."""
+    return (2 * bernoulli(key, 0.5, shape, device).to(dtype) - 1).to(dtype)
 
 
 def uniform_tiny(key: tuple[int, int], n: int, device) -> torch.Tensor:
     """``jax.random.uniform(key, (n,), float32, minval=tiny, maxval=1)``:
-    the top 23 bits as the mantissa of a float in [1, 2), minus 1, plus
-    tiny (1 − tiny rounds to 1 in f32), at least tiny."""
-    mant = (random_bits(key, n, device) >> 9) | 0x3F800000
-    floats = mant.to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(floats + _TINY, _TINY)
+    :func:`_unit_floats` plus tiny (1 − tiny rounds to 1 in f32), at least
+    tiny."""
+    return torch.clamp_min(_unit_floats(key, n, device) + _TINY, _TINY)
 
 
 def gumbel(key: tuple[int, int], n: int, device) -> torch.Tensor:

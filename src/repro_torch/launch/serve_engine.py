@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.convert import init_params
+from repro_torch.core.quartet import check_kernel_config
 from repro_torch.models import build_model
 from repro_torch.serve import Engine, EngineConfig, SamplingParams, SpecConfig
 from repro_torch.serve.spec import aggregate_stats
@@ -69,8 +70,11 @@ def run_workload(engine: Engine, workload, verbose: bool = True, sampling=None):
 
 
 def kernel_config(cfg):
-    """The config with the Quartet linears routed through the kernels."""
-    return dataclasses.replace(cfg, quartet=dataclasses.replace(cfg.quartet, use_kernels=True))
+    """The config with the Quartet linears routed through the kernels; raises
+    on a Quartet variant the kernels do not compute."""
+    qc = dataclasses.replace(cfg.quartet, use_kernels=True)
+    check_kernel_config(qc)
+    return dataclasses.replace(cfg, quartet=qc)
 
 
 def main():
