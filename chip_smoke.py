@@ -106,6 +106,21 @@
    one full-width linear under NVFP4 at group 16 at upstream-gradient
    scales 1 and 1e-3, card against CPU; ``use_kernels=True`` raising on the
    FP8 baseline.
+4d. The paper's baselines and gradient compression (``--phases
+   baselines``, no kernel of their own: the reference computes them outside
+   its kernels, with f32 products, and ``allow_tf32`` stays False):
+   rmsnorm on the card against the CPU bit for bit at the ported widths
+   (one summation order on every device) and a [B, 5] call's rows against
+   [B, 1] calls; each of LUQ-INT4, LUQ-FP4, Jetfire, HALO and LSS on
+   llama-paper-200m's up and down projections at 4 x 512 tokens, card
+   against CPU (the quantized operands and stochastic decisions bit for
+   bit, y, dx and dW within a stated tolerance); full-width llama-paper-200m
+   2 steps of 4 x 512 tokens under each method and bf16 (plain path):
+   losses, grad-norms and step times, all finite; Quartet on the kernels as
+   the train phase trains it, without and with the SR-int8 gradient round
+   trip, launches against the prediction (the compression adds none),
+   tokens/s, the median step and peak memory; and a 2-layer stop-and-resume
+   with the compression's error restored bit for bit.
 5. Times each kernel (CUDA events, median, L2 flushed before each launch)
    beside its plain version and, where one PyTorch call computes the same
    function, that call, at serving, training and evaluation shapes; B1, B2,
@@ -210,6 +225,13 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_CAPACITY = 1, 5, 8
 # (VARIANT_LAYERS of its 10 layers) VARIANT_STEPS steps of VARIANT_BATCH x
 # TRAIN_SEQ tokens on the plain path
 VARIANT_ROWS, VARIANT_LAYERS, VARIANT_STEPS, VARIANT_BATCH = 4096, 10, 2, 4
+
+# the baselines phase: each baseline method on one full-width llama-paper-200m
+# linear of BASELINE_ROWS tokens (4 x 512), card against CPU; each training
+# the model at full width and depth VARIANT_STEPS steps of VARIANT_BATCH x
+# TRAIN_SEQ tokens (plain path); Quartet on the kernels with the gradient
+# compression as the train phase trains it
+BASELINE_ROWS = VARIANT_BATCH * TRAIN_SEQ
 
 
 def log(*a):
@@ -2177,17 +2199,19 @@ def _named_leaves(tree, path=""):
 
 
 def _state_diff(torch, x, y) -> dict[str, float]:
-    """Max |Δ| of every tensor leaf (params and AdamW moments) that differs
-    between two train states, by leaf name."""
+    """Max |Δ| of every tensor leaf (params, AdamW moments and the gradient
+    compression's error, where kept) that differs between two train states,
+    by leaf name."""
     out = {}
-    for (name, a), (_, b) in zip(_named_leaves({"params": x.params, "opt": x.opt_state}),
-                                 _named_leaves({"params": y.params, "opt": y.opt_state})):
+    for (name, a), (_, b) in zip(
+            _named_leaves({"params": x.params, "opt": x.opt_state, "err": x.err}),
+            _named_leaves({"params": y.params, "opt": y.opt_state, "err": y.err})):
         if isinstance(a, torch.Tensor) and not torch.equal(a, b):
             out[name] = float((a.float() - b.float()).abs().max())
     return out
 
 
-def train_resume_check(torch, device="cuda"):
+def train_resume_check(torch, device="cuda", grad_compress=False):
     """Checkpoint and resume on the card: llama-paper-200m at full width with
     its depth cut to RESUME_LAYERS layers (to keep the phase short), batches
     of TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO microbatches, a checkpoint every
@@ -2197,7 +2221,9 @@ def train_resume_check(torch, device="cuda"):
     the resumed one must be too; if they are not, the leaves that differ
     name the op, and the resumed run may differ from the first by no more
     than the second does.  Also the checkpoint's bytes and the seconds to
-    write it (blocking, and the host copy of an asynchronous save)."""
+    write it (blocking, and the host copy of an asynchronous save).  With
+    ``grad_compress`` the runs take the SR-int8 gradient round trip, and the
+    state's error-feedback leaves are held alike."""
     import dataclasses
     import shutil
 
@@ -2221,7 +2247,8 @@ def train_resume_check(torch, device="cuda"):
     def run(name, steps):
         return train(model, opt, batcher, steps, microbatch=TRAIN_MICRO, seed=SEED,
                      device=device, checkpoint_dir=os.path.join(root, name),
-                     checkpoint_every=2, log_every=0, log_fn=logs.append)
+                     checkpoint_every=2, log_every=0, log_fn=logs.append,
+                     grad_compress=grad_compress)
 
     a, ha = run("a", RESUME_STEPS)
     b, hb = run("b", RESUME_STEPS)
@@ -2247,7 +2274,11 @@ def train_resume_check(torch, device="cuda"):
     ck.wait()
     async_s = time.perf_counter() - t0
     shutil.rmtree(root, ignore_errors=True)
-    out = {"layers": RESUME_LAYERS, "steps": RESUME_STEPS, "losses": [h["loss"] for h in ha],
+    if grad_compress and (a.err is None or c.err is None or not any(
+            bool(e.any()) for _, e in _named_leaves(c.err))):
+        raise AssertionError("the resumed run carries no gradient-compression error")
+    out = {"layers": RESUME_LAYERS, "steps": RESUME_STEPS, "grad_compress": grad_compress,
+           "losses": [h["loss"] for h in ha],
            "unbroken_vs_unbroken": {"leaves_differing": d_ab, "loss_diff": loss_ab},
            "unbroken_vs_resumed": {"leaves_differing": d_ac, "loss_diff": loss_ac},
            "checkpoint_bytes": nbytes, "checkpoint_write_s_blocking": write_s,
@@ -2674,17 +2705,19 @@ def train_moe_reduced_card_vs_cpu(torch, device="cuda"):
     ``moe_ffn``'s backward once under ``set_sync_debug_mode("error")``: no
     host sync.  Returns the relative differences.
 
-    Tolerance, every step (equal states): loss, aux and nll rtol 1e-3,
-    grad-norm rtol 3e-2 (the dense check's every-step bound).  The kernels
-    equal their plain versions bit for bit, but the rest of the step rounds
-    differently on the card (ROADMAP C4 and Queue C):
-    ``tools/moe_route_tie_probe.py`` found at step 0 no routing choice that
-    differs (the closest experts 8348 ulps apart) and, of the forward's
-    ops, only the rmsnorms (the card's 32-wide partial sums, qwen3's q- and
-    k-norms included) differing on equal inputs, by ≤ 1.4e-7; QuEST's and
-    the SR's rounding decisions then move by whole grid steps through two
-    layers (loss 8.6e-5, aux 1.1e-4 at step 0; grad-norm 2.5e-3 at step
-    1)."""
+    Tolerance (equal states): at step 0 loss, aux and nll rtol 2e-4 and
+    grad-norm 1e-3; at steps 1 and 2 loss, aux and nll 1e-3 and grad-norm
+    3e-2 (the dense check's every-step bound).  The kernels equal their
+    plain versions bit for bit, but the rest of the step rounds differently
+    on the card (ROADMAP C4 and Queue C).  ``tools/moe_route_tie_probe.py``
+    finds at step 0 no routing choice that differs (the closest experts
+    8350 ulps apart); of the forward's ops, rmsnorm now gives the CPU's bits
+    (one summation order, a float64 root), and the first op that differs on
+    equal inputs is ``apply_rope`` (the card's f32 ``sin``/``cos``, ≤ 1.3e-7
+    relative; q and k of every layer); QuEST's and the SR's rounding
+    decisions then move by whole grid steps through two layers (loss
+    8.2e-5, aux 1.1e-4, grad-norm 2.7e-4 at step 0; grad-norm 2.5e-3 at
+    step 1, whose loss is equal)."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.convert import init_params
     from repro_torch.data.pipeline import SyntheticC4Dataset, TokenBatcher
@@ -2708,13 +2741,16 @@ def train_moe_reduced_card_vs_cpu(torch, device="cuda"):
         card = _to_device(torch, cpu, device)
         card, mc = step(card, {k: torch.from_numpy(v).to(device) for k, v in b.items()})
         cpu, mp = step(cpu, {k: torch.from_numpy(v) for k, v in b.items()})
-        for key, tol in (("loss", 1e-3), ("aux", 1e-3), ("nll", 1e-3), ("grad_norm", 3e-2)):
+        tols = ({"loss": 2e-4, "aux": 2e-4, "nll": 2e-4, "grad_norm": 1e-3} if i == 0 else
+                {"loss": 1e-3, "aux": 1e-3, "nll": 1e-3, "grad_norm": 3e-2})
+        for key, tol in tols.items():
             r = abs(float(mc[key]) - float(mp[key])) / abs(float(mp[key]))
             rel.setdefault(key, []).append(r)
             if r > tol:
                 bad.append((i, key, float(mc[key]), float(mp[key])))
     log(f"  reduced MoE train, card vs CPU from equal states, relative differences by step: "
-        f"{json.dumps(rel)} (tolerance loss, aux, nll 1e-3; grad-norm 3e-2)")
+        f"{json.dumps(rel)} (tolerance at step 0: loss, aux, nll 2e-4, grad-norm 1e-3; "
+        f"then 1e-3 and 3e-2)")
     if bad:
         raise AssertionError(f"reduced MoE training: card vs CPU out of tolerance: {bad}")
     # the backward of one MoE layer reads nothing back to the host
@@ -3180,12 +3216,259 @@ def check_kernel_raise(torch, device="cuda"):
     return raised
 
 
+def _bits_differ(torch, a, b) -> int:
+    """Elements whose f32 bit patterns differ (NaN against NaN counts as equal)."""
+    a, b = a.detach().cpu().to(torch.float32), b.detach().cpu().to(torch.float32)
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+    return int((~same).sum())
+
+
+def _outside(torch, a, b, rtol: float, atol_frac: float) -> int:
+    """Elements of ``a`` outside rtol·|b| + atol_frac·max|b| of ``b``."""
+    a, b = a.detach().cpu().to(torch.float32), b.detach().cpu().to(torch.float32)
+    tol = rtol * b.abs() + atol_frac * float(b.abs().max())
+    return int(((a - b).abs() > tol).sum())
+
+
+def baseline_operands(B, method, x, w, dy, seeds, rotated):
+    """The quantized operands of one baseline linear, x [1, M, K], w [1, K,
+    N], dy [1, M, N] on one device: the forward's x and W and the
+    backward's quantized gradient(s) and LSS's row weights, as ``_bl_fwd``
+    and ``_bl_bwd`` form them.  ``rotated``: HALO's and LSS's Hadamard-
+    rotated x, W and (HALO's dx operand) dy, made on the CPU."""
+    from repro_torch.core import formats as F
+    from repro_torch.core import threefry
+
+    k1, k2, k3 = threefry.split_many(threefry.fold_in_many(B._BWD_KEY, seeds), 3)
+    xh, wh, gh = rotated
+    if method == "halo_fp4":
+        return {"xq": B._halo_quantize(xh, F.MXFP4), "wq": B._halo_quantize(wh, F.MXFP4),
+                "dy_q": B._halo_quantize(gh, F.MXFP4)}
+    if method == "lss_int4":
+        xq = B._int4_rtn(xh)
+        return {"xq": xq, "wq": B._int4_rtn(wh.transpose(-1, -2)), "dy_q": B._int4_rtn(dy),
+                "lss_rows": B._lss_sample(dy, xq, k3)}
+    _, xq, wq = B._bl_fwd(x, w, method)
+    if method == "jetfire_fp4":
+        return {"xq": xq, "wq": wq, "dy_q": B._block2d_rtn(dy, F.MXFP4)}
+    if method == "luq_fp4":  # its backward draws are luq_int4's: the same dy and keys
+        return {"xq": xq, "wq": wq}
+    return {"xq": xq, "wq": wq, "dy_q_dx": B._luq_quantize(dy, k1, True),
+            "dy_q_dw": B._luq_quantize(dy, k2, True)}
+
+
+def check_baselines_card_vs_cpu(torch, cfg, device="cuda"):
+    """Each baseline method on llama-paper-200m's up (d_model -> d_ff) and
+    down (d_ff -> d_model) projections at BASELINE_ROWS tokens, on the card
+    and on the CPU from the same inputs.
+
+    * The quantized operands (forward x and W, the backward's quantized
+      gradients and LSS's row weights), card against CPU from the CPU's
+      inputs: bit for bit, the stochastic ones too (the keys are hashed on
+      each device).  HALO's and LSS's rotated operands are the CPU's on both
+      (their group-128 Hadamard is a library product, which sums in
+      another order on the card: its max |Δ| relative to max|x| is
+      reported); LSS's row weights must take the same decisions, 1/p within
+      rtol 1e-5 (its row norms are library sums).
+    * y, dx and dW of the whole linear through ``baseline_linear``'s
+      autograd: each element within 1e-4·|cpu| + 1e-5·max|cpu| but at most
+      1 in 10^5 elements (f32 products sum in another order; in HALO and
+      LSS a rotated value within an ulp of a grid midpoint may round the
+      other way on the card, moving that element by a grid step).
+    Returns the readings by method and projection."""
+    from repro_torch.core import baselines as B
+    from repro_torch.core import hadamard as H
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    seeds = torch.tensor([2**31 + 11])
+    out, bad = {}, []
+    for proj, (k, n) in (("up", (cfg.d_model, cfg.d_ff)), ("down", (cfg.d_ff, cfg.d_model))):
+        x = torch.randn((1, BASELINE_ROWS, k), generator=gen)
+        w = torch.randn((1, k, n), generator=gen) / math.sqrt(k)
+        dy = torch.randn((1, BASELINE_ROWS, n), generator=gen) * 1e-2
+        g = B._halo_group(k)
+        rotated = (H.hadamard_transform(x, g=g, dim=-1), H.hadamard_transform(w, g=g, dim=1),
+                   H.hadamard_transform(dy, g=B._halo_group(n), dim=-1))
+        rot = float((H.hadamard_transform(x.to(device), g=g, dim=-1).cpu() - rotated[0])
+                    .abs().max() / x.abs().max())
+        for method in B.BASELINE_METHODS:
+            t0 = time.perf_counter()
+            rec = {"hadamard_g": g, "hadamard_max_rel_diff": rot}
+            host = baseline_operands(B, method, x, w, dy, seeds, rotated)
+            card = baseline_operands(B, method, x.to(device), w.to(device), dy.to(device),
+                                     seeds.to(device), [t.to(device) for t in rotated])
+            for name in host:
+                a, b = card[name].cpu(), host[name]
+                if name == "lss_rows":
+                    rec["lss_rows_kept"] = int((b > 0).sum())
+                    rec["lss_decisions_differ"] = int(((a > 0) != (b > 0)).sum())
+                    rec["lss_weight_max_rel_diff"] = float(
+                        ((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                    if rec["lss_decisions_differ"] or rec["lss_weight_max_rel_diff"] > 1e-5:
+                        bad.append((proj, method, name, rec))
+                else:
+                    rec[f"{name}_bits_differ"] = nd = _bits_differ(torch, a, b)
+                    if nd:
+                        bad.append((proj, method, name, nd))
+            res = {}
+            for dev in (device, "cpu"):
+                xd = x[0].to(dev).requires_grad_()
+                wd = w[0].to(dev).requires_grad_()
+                y = B.baseline_linear(xd, wd, int(seeds[0]), method)
+                dx, dw = torch.autograd.grad(y, [xd, wd], dy[0].to(dev))
+                res[dev] = (y.detach(), dx, dw)
+            for name, a, b in zip(("y", "dx", "dW"), res[device], res["cpu"]):
+                rec[f"{name}_outside"] = nout = _outside(torch, a, b, 1e-4, 1e-5)
+                rec[f"{name}_max_abs_diff"] = float((a.cpu() - b).abs().max())
+                if not bool(torch.isfinite(a).all()) or nout > math.ceil(1e-5 * b.numel()):
+                    bad.append((proj, method, name, nout))
+            rec["s"] = time.perf_counter() - t0
+            out.setdefault(method, {})[proj] = rec
+            log(f"  {method} {proj} [{BASELINE_ROWS}, {k}] x [{k}, {n}]: {json.dumps(rec)}")
+    if bad:
+        raise AssertionError(f"baselines differ between the card and the CPU: {bad}")
+    return out
+
+
+def train_baselines(torch, device="cuda"):
+    """llama-paper-200m at its published widths, VARIANT_LAYERS layers, under
+    each baseline method and bf16 through ``train.loop.train`` on the plain
+    path (VARIANT_STEPS steps of VARIANT_BATCH x TRAIN_SEQ tokens, random
+    weights and data from SEED), as the reference computes them.  Returns
+    each method's losses, grad-norms and step times; every value must be
+    finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.llama_paper import LEARNING_RATES
+    from repro_torch.core.baselines import BASELINE_METHODS
+    from repro_torch.data.pipeline import SyntheticC4Dataset, TokenBatcher
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.train.loop import train
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=VARIANT_LAYERS)
+    model = build_model(cfg)
+    batcher = TokenBatcher(SyntheticC4Dataset(cfg.vocab_size, seed=SEED), VARIANT_BATCH,
+                           TRAIN_SEQ)
+    out = {}
+    for method in ("bf16", *BASELINE_METHODS):
+        opt = adamw(cosine_warmup(LEARNING_RATES[TRAIN_ARCH], VARIANT_STEPS))
+        _, hist = train(model, opt, batcher, VARIANT_STEPS, method=method, device=device,
+                        log_every=0, seed=SEED)
+        dts = [h["dt"] for h in hist]
+        out[method] = {"loss": [h["loss"] for h in hist],
+                       "grad_norm": [h["grad_norm"] for h in hist],
+                       "step_s": dts, "median_step_s": statistics.median(dts)}
+        log(f"  {method}: {json.dumps(out[method])}")
+        if not all(math.isfinite(v) for v in out[method]["loss"] + out[method]["grad_norm"]):
+            raise AssertionError(f"method {method}: non-finite loss or grad-norm {out[method]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_grad_compress(torch, ops, device="cuda"):
+    """Full-width, full-depth llama-paper-200m as the train phase trains it
+    (TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO microbatches,
+    Quartet through the kernels) through ``train.loop.train``, without and
+    then with the SR-int8 gradient round trip and its error feedback (the
+    first run is the second's baseline in the same call).  Every launch
+    counter is set to 0 just before each run and read just after, against
+    the train phase's prediction: the compression launches no kernel.
+    Returns (summaries by setting, launch counts and vector-body launches
+    of the compressed run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.llama_paper import LEARNING_RATES
+    from repro_torch.data.pipeline import SyntheticC4Dataset, TokenBatcher
+    from repro_torch.launch.serve_engine import kernel_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.train.loop import train
+
+    cfg = kernel_config(get_config(TRAIN_ARCH))
+    model = build_model(cfg)
+    batcher = TokenBatcher(SyntheticC4Dataset(cfg.vocab_size, seed=SEED), TRAIN_BATCH,
+                           TRAIN_SEQ)
+    per_mb = 4 * 7 * cfg.num_layers  # 28 B1, 28 B2, 28 B3 a layer a microbatch (remat)
+    out = {}
+    for compress in (False, True):
+        opt = adamw(cosine_warmup(LEARNING_RATES[TRAIN_ARCH], TRAIN_STEPS))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist = train(model, opt, batcher, TRAIN_STEPS, microbatch=TRAIN_MICRO,
+                            seed=SEED, device=device, grad_compress=compress, log_every=1,
+                            log_fn=lambda m: log("  " + m))
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        vec = ops.vector_launches()
+        predicted = {k: (per_mb if k in ("hadamard_quest_quantize", "sr_hadamard_quantize",
+                                         "mxfp4_matmul") else 0) * TRAIN_MICRO * TRAIN_STEPS
+                     for k in counts}
+        losses = [h["loss"] for h in hist]
+        gnorms = [h["grad_norm"] for h in hist]
+        dts = sorted(h["dt"] for h in hist)
+        med = dts[len(dts) // 2]
+        err_elems = sum(e.numel() for _, e in _named_leaves(state.err)) if compress else 0
+        name = "grad_compress" if compress else "no_compress"
+        out[name] = {
+            "arch": TRAIN_ARCH, "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "microbatches": TRAIN_MICRO, "loss": losses, "grad_norm": gnorms,
+            "step_s": [h["dt"] for h in hist], "median_step_s": med,
+            "tokens_per_s_median_step": TRAIN_BATCH * TRAIN_SEQ / med, "wall_s": wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "err_elements": err_elems, "err_bytes": 4 * err_elems, "launches": counts,
+            "predicted_launches": predicted}
+        if counts != predicted:
+            raise AssertionError(f"{name} training launches {counts} != predicted {predicted}")
+        if not all(math.isfinite(v) for v in losses + gnorms):
+            raise AssertionError(f"{name}: non-finite loss {losses} or grad-norm {gnorms}")
+        del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts, vec
+
+
+def check_rmsnorm_card_vs_cpu(torch, device="cuda"):
+    """``models.layers.rmsnorm`` on the card against the CPU, bit for bit, at
+    the widths the ported models normalize (llama-paper-200m's d 1280,
+    qwen3's head dim 128 and d 2048, qwen3-moe's d 4096, a width that is no
+    power of two's multiple of 32), f32 and bf16; and a [B, 5] call's rows
+    against five [B, 1] calls on the card."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    out = {}
+    for d, rows in ((1280, 8192), (128, 16384), (2048, 4096), (4096, 1024), (1000, 512)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((rows, d), generator=gen)
+                 * torch.exp2(torch.randint(-8, 8, (rows, 1), generator=gen).float())).to(dtype)
+            scale = (1 + 0.1 * torch.randn(d, generator=gen)).to(dtype)
+            card = L.rmsnorm({"scale": scale.to(device)}, x.to(device), 1e-6)
+            host = L.rmsnorm({"scale": scale}, x, 1e-6)
+            out[f"d{d}_{str(dtype).split('.')[-1]}"] = nd = _bits_differ(torch, card, host)
+            if nd:
+                raise AssertionError(f"rmsnorm at d {d} {dtype}: {nd} values differ between "
+                                     f"the card and the CPU")
+    x = torch.randn((8, 5, 2048), generator=gen).to(torch.bfloat16).to(device)
+    scale = torch.ones(2048, dtype=torch.bfloat16, device=device)
+    whole = L.rmsnorm({"scale": scale}, x, 1e-6)
+    cols = torch.cat([L.rmsnorm({"scale": scale}, x[:, s:s + 1], 1e-6) for s in range(5)], 1)
+    if not torch.equal(whole, cols):
+        raise AssertionError("rmsnorm: a [B, 5] call's rows differ from [B, 1] calls on the card")
+    out["verify_rows_equal_decode_rows"] = True
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="kernels,engine,features,moe,train,moe-train,variants,times",
+                    default="kernels,engine,features,moe,train,moe-train,variants,baselines,"
+                            "times",
                     help="comma-separated subset of kernels,engine,features,moe,train,"
-                         "moe-train,variants,times")
+                         "moe-train,variants,baselines,times")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -3338,13 +3621,33 @@ def main() -> int:
         summary["kernel_raise"] = check_kernel_raise(torch)
         log(f"[variants] {json.dumps({k: v for k, v in summary.items() if k != 'quantizers'})}")
         log(f"[variants] done in {time.perf_counter() - t0:.1f} s")
+    if "baselines" in phases:
+        t0 = time.perf_counter()
+        log(f"[baselines] f32 products in full f32: allow_tf32 = "
+            f"{torch.backends.cuda.matmul.allow_tf32}")
+        summary = {"rmsnorm_card_vs_cpu_bits_differ": check_rmsnorm_card_vs_cpu(torch)}
+        log(f"[baselines] rmsnorm equals the CPU bit for bit: "
+            f"{json.dumps(summary['rmsnorm_card_vs_cpu_bits_differ'])}")
+        summary["linear"] = check_baselines_card_vs_cpu(torch, tcfg)
+        log(f"[baselines] every method's quantized operands equal the CPU's bit for bit; y, "
+            f"dx, dW within tolerance ({time.perf_counter() - t0:.1f} s)")
+        summary["training"] = train_baselines(torch)
+        summary["compression"], counts["grad_compress"], vectors["grad_compress"] = \
+            train_grad_compress(torch, ops)
+        log(f"[baselines] launches on the grad-compress training path: "
+            f"{counts['grad_compress']} (predicted "
+            f"{summary['compression']['grad_compress']['predicted_launches']})")
+        summary["compression"]["resume"] = train_resume_check(torch, grad_compress=True)
+        log(f"[baselines] {json.dumps({k: v for k, v in summary.items() if k != 'linear'})}")
+        log(f"[baselines] done in {time.perf_counter() - t0:.1f} s")
     if vectors:
         # every B1 call on the main paths, and every B2 call on the training
         # paths, reads and writes through the vector body (a thread per group,
         # 16-byte loads and stores)
         for tag, name, paths in (("b1", "hadamard_quest_quantize", list(vectors)),
                                  ("b2", "sr_hadamard_quantize",
-                                  [p for p in ("train", "moe_train") if p in vectors])):
+                                  [p for p in ("train", "moe_train", "grad_compress")
+                                   if p in vectors])):
             vs = {p: (vectors[p][name], counts[p][name]) for p in paths}
             log(f"[{tag}] vector-body launches / all launches, by path: {json.dumps(vs)}")
             if any(v != n or n == 0 for v, n in vs.values()):

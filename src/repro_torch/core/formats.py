@@ -148,6 +148,14 @@ def div_exact(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
+def recip(c: float) -> float:
+    """1/c rounded to f32.  Under ``jax.jit`` the reference's ``x / c`` of a
+    constant c is XLA's ``x * (1/c)`` (its simplifier folds the
+    reciprocal): one f32 rounding more than a true division when 1/c is no
+    power of two.  Multiplying by this value reproduces it."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
 # ---------------------------------------------------------------------------
 # E8M0 scales
 # ---------------------------------------------------------------------------

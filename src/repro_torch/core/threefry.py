@@ -88,10 +88,41 @@ def random_bits(key: tuple[int, int], shape, device) -> torch.Tensor:
     return (y0 ^ y1).reshape(shape)
 
 
+def fold_in_many(key: tuple[int, int], data: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``fold_in(key, d)`` for every d of an int64 tensor of uint32 values:
+    a batch of keys as two int64 word tensors shaped like ``data``, made on
+    ``data``'s device (what ``jax.vmap`` of ``fold_in`` over ``data`` gives)."""
+    return threefry2x32(key[0], key[1], torch.zeros_like(data), data & _MASK)
+
+
+def split_many(keys: tuple[torch.Tensor, torch.Tensor],
+               n: int = 2) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """:func:`split` of every key of a batch ``keys`` (two word tensors [E]):
+    n batches of keys, batch i holding each key's i-th subkey."""
+    count = torch.arange(n, dtype=torch.int64, device=keys[0].device)
+    y0, y1 = threefry2x32(keys[0][:, None], keys[1][:, None], torch.zeros_like(count), count)
+    return [(y0[:, i], y1[:, i]) for i in range(n)]
+
+
+def uniform_many(keys: tuple[torch.Tensor, torch.Tensor], shape) -> torch.Tensor:
+    """:func:`uniform` under every key of a batch (two word tensors [E]):
+    [E, *shape], row e drawn under key e (``jax.vmap`` of ``uniform``)."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    n = 1
+    for d in shape:
+        n *= d
+    count = torch.arange(n, dtype=torch.int64, device=keys[0].device)
+    y0, y1 = threefry2x32(keys[0][:, None], keys[1][:, None], count >> 32, count & _MASK)
+    return torch.clamp_min(_unit(y0 ^ y1), 0.0).reshape(keys[0].shape[0], *shape)
+
+
+def _unit(bits: torch.Tensor) -> torch.Tensor:
+    """The top 23 of 32 bits as the mantissa of a float in [1, 2), minus 1."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
 def _unit_floats(key: tuple[int, int], shape, device) -> torch.Tensor:
-    """The top 23 bits as the mantissa of a float in [1, 2), minus 1."""
-    mant = (random_bits(key, shape, device) >> 9) | 0x3F800000
-    return mant.to(torch.int32).view(torch.float32) - 1.0
+    return _unit(random_bits(key, shape, device))
 
 
 def uniform(key: tuple[int, int], shape, device) -> torch.Tensor:

@@ -10,8 +10,12 @@ C4-like data (or a memmap token file, ``--data``), with AdamW on a cosine
 schedule with 10% warmup at the paper's learning rate.  ``--opt8bit``
 takes the 8-bit AdamW and a bf16 master, as the reference trains its large
 MoE configs (one full-width qwen3-moe-235b-a22b layer fits one card only
-so).  On ``cuda`` (the default) the Quartet linears run on the Hopper
-kernels; without a GPU it exits non-zero unless ``--device cpu`` is given,
+so).  ``--method`` takes Quartet, bf16 or one of the paper's baselines
+(``luq_int4``, ``luq_fp4``, ``jetfire_fp4``, ``halo_fp4``, ``lss_int4``;
+plain PyTorch, as the reference computes them); ``--grad-compress`` adds the
+SR-int8 gradient round trip with error feedback.  On ``cuda`` (the
+default) the Quartet linears run on the Hopper kernels; without a GPU it
+exits non-zero unless ``--device cpu`` is given,
 which runs the kernels' plain versions.  With ``--checkpoint-dir`` the
 state is saved every ``--checkpoint-every`` steps and at the end; the same
 command started again resumes from the latest checkpoint there.
@@ -26,6 +30,7 @@ import torch
 
 from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.configs.llama_paper import LEARNING_RATES
+from repro_torch.core.baselines import BASELINE_METHODS
 from repro_torch.data.pipeline import TokenBatcher, make_dataset
 from repro_torch.launch.serve_engine import kernel_config
 from repro_torch.models import build_model
@@ -37,7 +42,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama-paper-200m")
     ap.add_argument("--reduced", action="store_true", help="the CPU-scale config")
-    ap.add_argument("--method", default="quartet", choices=["quartet", "bf16"])
+    ap.add_argument("--method", default="quartet", choices=["quartet", "bf16", *BASELINE_METHODS])
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -46,6 +51,8 @@ def main():
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=100)
     ap.add_argument("--microbatch", type=int, default=1)
+    ap.add_argument("--grad-compress", action="store_true",
+                    help="SR-int8 gradient round trip with error feedback")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--opt8bit", action="store_true",
                     help="8-bit AdamW moments and a bf16 master")
@@ -66,7 +73,8 @@ def main():
                        master_dtype="bfloat16" if args.opt8bit else "float32",
                        microbatch=args.microbatch, seed=args.seed, device=args.device,
                        checkpoint_dir=args.checkpoint_dir,
-                       checkpoint_every=args.checkpoint_every, log_every=1)
+                       checkpoint_every=args.checkpoint_every,
+                       grad_compress=args.grad_compress, log_every=1)
     wall = time.perf_counter() - t0
     where = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
     if not history:

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import formats as F
+from repro_torch.core.baselines import baseline_linear, baseline_linear_experts
 from repro_torch.core.quartet import QuartetConfig, quartet_linear, quartet_linear_experts
 
 
@@ -31,9 +33,11 @@ def init_dense(d_in: int, d_out: int, dtype, generator, device,
 
 def dense(params: dict, x: torch.Tensor, seed: int, qcfg: QuartetConfig,
           method: str = "quartet") -> torch.Tensor:
-    """The one entry point of every model matmul; ``method`` selects Quartet
-    or the bf16 baseline (the paper's other baselines arrive in a later
-    slice)."""
+    """The one entry point of every model matmul; ``method`` selects Quartet,
+    the bf16 baseline or one of the paper's baselines
+    (``core.baselines.BASELINE_METHODS``).  In training under a baseline
+    method the weight arrives in its master dtype (:func:`takes_master_weight`)
+    and is cast to x's dtype here, or inside ``baseline_linear``."""
     w = params["w"]
     if w.shape[0] % 32 != 0:
         # contraction dim not divisible by the MXFP4 group: keep bf16
@@ -41,9 +45,9 @@ def dense(params: dict, x: torch.Tensor, seed: int, qcfg: QuartetConfig,
     if method == "quartet":
         y = quartet_linear(x, w, seed, qcfg)
     elif method == "bf16":
-        y = (x.to(torch.float32) @ w.to(torch.float32)).to(x.dtype)
+        y = (x.to(torch.float32) @ w.to(x.dtype).to(torch.float32)).to(x.dtype)
     else:
-        raise NotImplementedError(f"dense method {method!r} is not ported yet")
+        y = baseline_linear(x, w, seed, method)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y
@@ -54,39 +58,82 @@ def dense_experts(w: torch.Tensor, x: torch.Tensor, seeds: torch.Tensor, qcfg: Q
     """E stacked linears at once, y[e] = x[e] @ w[e] for x [E, T, K], w
     [E, K, N]: the counterpart of the reference's ``jax.vmap`` of
     :func:`dense` over a MoE layer's experts (``seeds`` [E], one per expert,
-    as the vmap carries them)."""
+    as the vmap carries them; a baseline quantizes and samples per expert)."""
     if w.shape[1] % 32 != 0:
         method = "bf16"
     if method == "quartet":
         return quartet_linear_experts(x, w, seeds, qcfg)
     if method == "bf16":
-        return torch.bmm(x.to(torch.float32), w.to(torch.float32)).to(x.dtype)
-    raise NotImplementedError(f"dense method {method!r} is not ported yet")
+        return torch.bmm(x.to(torch.float32), w.to(x.dtype).to(torch.float32)).to(x.dtype)
+    return baseline_linear_experts(x, w, seeds, method)
+
+
+def takes_master_weight(path: tuple[str, ...]) -> bool:
+    """Whether the parameter at ``path`` (its keys in the param tree) is a
+    weight that :func:`dense` or :func:`dense_experts` hands to a baseline
+    method: every dense ``w`` but the MoE router's (a bf16 dense there) and
+    the MoE layer's expert stacks.  Under a baseline method the train step
+    passes these to the model in their master dtype (f32 leaves), as the
+    reference's ``jax.grad`` hands the master the baselines' f32 dW
+    unrounded (``core.baselines``)."""
+    name, parent = path[-1], (path[-2] if len(path) > 1 else None)
+    if name == "w":
+        return parent != "router"
+    return parent == "moe" and name in ("gate", "up", "down")
 
 
 def init_rmsnorm(d: int, dtype, device) -> dict:
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
-def _mean_square(xf: torch.Tensor) -> torch.Tensor:
-    """Mean of squares over the last dim, keepdim.  On the card a single
-    reduction over the row picks its split across threads from the number of
-    rows in the call, so a row's bits would depend on the call's shape (a
-    speculative verify's [B, k+1] rows against a decode's [B, 1]); there the
-    row is summed in 32-wide partials and then their sum, an order fixed by
-    the row length alone."""
-    d = xf.shape[-1]
-    if xf.is_cuda and d % 32 == 0:
-        part = (xf * xf).reshape(*xf.shape[:-1], d // 32, 32).sum(-1)
-        return part.sum(-1, keepdim=True) / d
-    return torch.mean(xf * xf, dim=-1, keepdim=True)
+def _tree_sum(s: torch.Tensor) -> torch.Tensor:
+    """The last dim summed pairwise, keepdim: padded with +0 to a power of
+    two P, then halves added elementwise (element i + element i + P/2) until
+    one is left.  Elementwise adds round alike on every device, so the sum
+    has one order, fixed by the row length alone."""
+    n = s.shape[-1]
+    p = 1 << max(n - 1, 0).bit_length()
+    if p > n:  # the first level: the upper part added to the lower, the rest + 0
+        h = p // 2
+        t = s[..., :h].clone()
+        t[..., :n - h] += s[..., h:]
+        s = t
+    while s.shape[-1] > 1:
+        h = s.shape[-1] // 2
+        s = s[..., :h] + s[..., h:]
+    return s
+
+
+class _MeanSquare(torch.autograd.Function):
+    """Mean of squares over the last dim, keepdim, in one summation order on
+    every device (:func:`_tree_sum`).  A library reduction picks its order
+    per device and, on the card, from the call's row count, so a row's bits
+    would depend on where it runs (card against CPU) and on the call's
+    shape (a speculative verify's [B, k+1] rows against a decode's [B, 1]).
+    The backward is autograd's for ``sum(x · x) / d``, (g / d)·x added twice,
+    written out: through the tree autograd would take ~5 launches a level."""
+
+    @staticmethod
+    def forward(ctx, xf):
+        ctx.save_for_backward(xf)
+        return F.div_exact(_tree_sum(xf * xf), xf.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        (xf,) = ctx.saved_tensors
+        gx = F.div_exact(g, xf.shape[-1]) * xf
+        return gx + gx
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """x / √(mean(x²) + eps) · scale.  The mean sums in one order on every
+    device and the root is 1/√ in float64 rounded once to f32 (correctly
+    rounded on both; the card's f32 ``rsqrt`` is approximate), so a row
+    normalizes to the same bits on the card and on the CPU."""
     xf = x.to(torch.float32)
-    var = _mean_square(xf)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * params["scale"].to(torch.float32)).to(x.dtype)
+    var = _MeanSquare.apply(xf) + eps
+    inv = (1.0 / torch.sqrt(var.to(torch.float64))).to(torch.float32)
+    return (xf * inv * params["scale"].to(torch.float32)).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:

@@ -2,7 +2,7 @@
 
 Port of ``repro.train.loop``.  ``train(...)`` is the single entry point of
 the launcher.  It is restart-safe: the state (params, optimizer state,
-step) is saved every ``checkpoint_every`` steps and at the end, and the data
+step, and gradient compression's error feedback when on) is saved every ``checkpoint_every`` steps and at the end, and the data
 position is the step, so a killed run started again with the same
 arguments restores the latest checkpoint and continues bit for bit (the
 per-step rounding seed is derived from the step counter).
@@ -44,6 +44,7 @@ def train(
     eval_batches: int = 8,
     log_every: int = 10,
     log_fn: Callable = print,
+    grad_compress: bool = False,
     microbatch: int = 1,
     seed: int = 0,
     params: dict | None = None,
@@ -57,7 +58,7 @@ def train(
     if params is None:
         params = init_params(model.cfg, torch.Generator(device=device).manual_seed(seed),
                              device)
-    state = make_train_state(params, optimizer, master_dtype)
+    state = make_train_state(params, optimizer, master_dtype, grad_compress)
     del params
 
     ckpt = Checkpointer(checkpoint_dir) if checkpoint_dir else None
@@ -67,7 +68,8 @@ def train(
         start_step = int(meta["step"])
         log_fn(f"[resume] restored step {start_step} from {checkpoint_dir}")
 
-    step_fn = make_train_step(model, optimizer, method=method, microbatch=microbatch)
+    step_fn = make_train_step(model, optimizer, method=method, grad_compress=grad_compress,
+                              microbatch=microbatch)
     monitor = StragglerMonitor(
         on_straggler=lambda s, dt, mu: log_fn(
             f"[straggler] step {s}: {dt:.2f}s vs ewma {mu:.2f}s"))

@@ -17,10 +17,15 @@ class TrainState(NamedTuple):
     params: Any  # master weights (f32 or bf16 per config), a nested dict
     opt_state: Any
     step: int
+    err: Any = None  # gradient compression's error feedback (f32, like params), or None
 
 
-def make_train_state(params, optimizer: Optimizer,
-                     master_dtype: str = "float32") -> TrainState:
+def make_train_state(params, optimizer: Optimizer, master_dtype: str = "float32",
+                     grad_compress: bool = False) -> TrainState:
     dtype = getattr(torch, master_dtype)
     master = tree_map(lambda p: p.to(dtype) if p.is_floating_point() else p, params)
-    return TrainState(master, optimizer.init(master), 0)
+    err = None
+    if grad_compress:
+        err = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                       master)
+    return TrainState(master, optimizer.init(master), 0, err)
