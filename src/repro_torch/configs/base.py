@@ -2,8 +2,8 @@
 
 One ``ModelConfig`` per architecture, with the published dimensions, plus a
 ``reduced()`` variant for CPU tests.  The port serves and trains the dense
-family and serves the MoE family; the other families' fields arrive with
-their slices.
+and MoE families and serves the SSM family (Mamba1); the hybrid, enc-dec
+and VLM families' fields arrive with their slices.
 """
 
 from __future__ import annotations
@@ -41,6 +41,14 @@ class ModelConfig:
     capacity_factor: float = 1.25
     router_zloss: float = 1e-3
 
+    # SSM (mamba1; mamba2 comes with the hybrid family)
+    ssm_state: int = 0
+    ssm_variant: str = ""  # "" | "mamba1" | "mamba2"
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64  # mamba2
+    ssm_chunk: int = 128
+
     # numerics / technique
     quartet: QuartetConfig = QUARTET_CONFIG
     quantize_lm_head: bool = False  # the paper quantizes transformer linears
@@ -64,14 +72,18 @@ class ModelConfig:
         return self.family in ("dense", "moe", "ssm", "hybrid", "vlm")
 
     def n_params(self, non_embedding: bool = True) -> int:
-        """Analytic parameter count of the dense and MoE families."""
-        if self.family not in ("dense", "moe"):
+        """Analytic parameter count of the dense, MoE and SSM families (the
+        reference's: the weight matrices, no biases, norms or SSM vectors
+        beyond A)."""
+        if self.family not in ("dense", "moe", "ssm"):
             raise NotImplementedError(f"n_params for family {self.family!r} is not ported yet")
         d, f, hd = self.d_model, self.d_ff, self.head_dim_
         attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
         ffn = (3 if self.mlp == "swiglu" else 2) * d * f
         per_layer = attn + ffn
-        if self.family == "moe":
+        if self.family == "ssm":
+            per_layer = _mamba_params(self)
+        elif self.family == "moe":
             per_layer = attn + self.num_experts * ffn + d * self.num_experts
             if self.moe_dense_residual:
                 per_layer += ffn
@@ -79,3 +91,16 @@ class ModelConfig:
         if not non_embedding:
             total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return total
+
+
+def _mamba_params(cfg: ModelConfig) -> int:
+    """One Mamba block's weights: in/x/dt/out projections, the conv and A."""
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    n = cfg.ssm_state
+    if cfg.ssm_variant == "mamba2":
+        nh = di // cfg.ssm_head_dim
+        return d * (2 * di + 2 * n * 1 + nh) + di * cfg.ssm_conv + di * d + 3 * nh
+    dt_rank = max(d // 16, 1)
+    return (d * 2 * di + di * cfg.ssm_conv + di * (dt_rank + 2 * n)
+            + dt_rank * di + di * n + di * d)

@@ -11,6 +11,10 @@ _MODULES = {
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "qwen3-1.7b": "repro_torch.configs.qwen3_1p7b",
+    "deepseek-7b": "repro_torch.configs.deepseek_7b",
+    "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
+    "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -3,8 +3,11 @@ params carried over leaf by leaf.
 
 The port keeps the reference's tree paths and its stacked ``[L, ...]`` layer
 leaves, so a JAX param tree (as numpy arrays, e.g. from ``jax.device_get``)
-maps onto the port's by converting each leaf.  A MoE layer's leaves sit
-under ``layers.moe`` (``router.w``, ``gate``, ``up``, ``down`` with
+maps onto the port's by converting each leaf.  A Mamba1 layer's leaves
+(``norm``, ``in_proj``, ``conv_w``, ``conv_b``, ``x_proj``, ``dt_proj`` with
+its bias, the f32 ``A_log`` and ``D``, ``out_proj``) sit under ``layers``
+as in the reference; a gelu MLP has ``up`` and ``down`` with their biases.
+A MoE layer's leaves sit under ``layers.moe`` (``router.w``, ``gate``, ``up``, ``down`` with
 ``[L, E, …]`` expert leaves, and arctic's ``dense_mlp``), on the
 reference's paths.  bfloat16 leaves arrive as
 ``ml_dtypes.bfloat16`` numpy arrays; their bits are reinterpreted, not
@@ -46,6 +49,18 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> dict:
     if set(params) != expect:
         raise ValueError(f"param tree has {sorted(params)}, config {cfg.name} needs "
                          f"{sorted(expect)}")
+    if cfg.family == "ssm":
+        layers, di = params["layers"], cfg.ssm_expand * cfg.d_model
+        want = {"in_proj.w": (cfg.num_layers, cfg.d_model, 2 * di),
+                "A_log": (cfg.num_layers, di, cfg.ssm_state), "D": (cfg.num_layers, di)}
+        for path, shape in want.items():
+            leaf = layers
+            for k in path.split("."):
+                leaf = leaf.get(k, {}) if isinstance(leaf, dict) else {}
+            got = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else None
+            if got != shape:
+                raise ValueError(f"layers.{path} is {got}, config {cfg.name} needs {shape}")
+        return params
     wq = params["layers"]["attn"]["wq"]["w"]
     want = (cfg.num_layers, cfg.d_model, cfg.num_heads * cfg.head_dim_)
     if tuple(wq.shape) != want:

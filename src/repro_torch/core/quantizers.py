@@ -233,3 +233,22 @@ def kv_dequantize(pq: PackedQuant, fmt: Format = F.MXFP4,
     vals = F.nibble_to_e2m1(F.unpack_nibbles(pq.codes))
     scales = F.e8m0_code_to_scale(pq.scales)
     return F.from_blocks(F.to_blocks(vals, fmt.block) * scales[..., None]).to(dtype)
+
+
+def state_quantize(x: torch.Tensor, fmt: Format = F.MXFP4) -> PackedQuant:
+    """Quantize-on-write for flat per-slot state (the SSM state rings): the
+    last axis, any length, zero-padded to whole blocks, then
+    :func:`kv_quantize`.  Padding lanes sit in trailing blocks when the true
+    extent is block-aligned, and otherwise only lower the last block's
+    AbsMax; callers slice the true extent back in :func:`state_dequantize`."""
+    pad = (-x.shape[-1]) % fmt.block
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    return kv_quantize(x, fmt)
+
+
+def state_dequantize(pq: PackedQuant, n: int, fmt: Format = F.MXFP4,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of :func:`state_quantize`: the padded payload dequantized and
+    the last axis sliced back to its true extent ``n``."""
+    return kv_dequantize(pq, fmt, dtype)[..., :n]

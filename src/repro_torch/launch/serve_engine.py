@@ -1,9 +1,11 @@
 """Continuous-batching serving launcher: Poisson arrival workload.
 
-Port of ``repro.launch.serve_engine`` for the dense and MoE families::
+Port of ``repro.launch.serve_engine`` for the dense, MoE and SSM families::
 
     python -m repro_torch.launch.serve_engine --arch qwen3-1.7b --requests 12 \
         [--decode-backend gather]
+    python -m repro_torch.launch.serve_engine --arch falcon-mamba-7b \
+        [--decode-backend dense_slots]
 
 samples arrival times from a Poisson process, prompt lengths uniformly from
 ``[--min-prompt, --max-prompt]``, and drives the engine on a virtual clock:
@@ -91,8 +93,11 @@ def main():
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--prefill-chunk", type=int, default=16)
     ap.add_argument("--kv", default="mxfp4", choices=["mxfp4", "dense"])
-    ap.add_argument("--decode-backend", default=None, choices=["paged", "gather"],
-                    help="paged: attend over the pool (default); gather: dense oracle")
+    ap.add_argument("--decode-backend", default=None,
+                    choices=["paged", "gather", "statepool", "dense_slots"],
+                    help="dense/MoE: paged (attend over the pool, default) or gather (the "
+                         "dense oracle); SSM: statepool (quantized state rings, default) or "
+                         "dense_slots (the oracle)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="radix prefix cache: admissions alias the pages of cached shared "
                          "prefixes (copy-on-write, LRU-evicted) and prefill only the tail")
@@ -151,7 +156,8 @@ def main():
           + (f" spec={args.spec}(k={args.spec_k})" if spec else ""))
     print(f"  {len(done)} requests, {total_tokens} tokens in {elapsed:.2f}s wall "
           f"→ {total_tokens / elapsed:.1f} tok/s, mean TTFT {np.mean(ttfts):.3f}s "
-          f"(virtual clock), KV pool {engine.cache_bytes()} bytes")
+          f"(virtual clock), {'state rings' if cfg.family == 'ssm' else 'KV pool'} "
+          f"{engine.cache_bytes()} bytes")
     if spec is not None:
         agg = aggregate_stats(done)
         print(f"  spec: {agg['tokens_per_decode_call']} tok/verify-call, "

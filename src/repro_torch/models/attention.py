@@ -112,7 +112,7 @@ def _dense_cache_attend(q, k, v, positions, cache, cache_index, *, causal: bool,
 
 
 def _paged_decode(params: dict, x: torch.Tensor, q: torch.Tensor, positions: torch.Tensor,
-                  seed: int, cfg: ModelConfig, paged: PagedKV, method: str):
+                  seed: int, cfg: ModelConfig, paged: PagedKV, method: str, rope):
     """Decode / batched prefill directly over the pool: quantize-scatter the
     S new tokens' K/V (``positions[b, s]`` picks page and offset), then run
     the paged-attention kernel with per-row causal bounds.  Padding tokens
@@ -123,8 +123,8 @@ def _paged_decode(params: dict, x: torch.Tensor, q: torch.Tensor, positions: tor
     v = _split_heads(L.dense(params["wv"], x, L.seed_fold(seed, 3), qc, method), nkv, hd)
     if cfg.qk_norm:
         k = L.rmsnorm(params["k_norm"], k, cfg.norm_eps)
-    if cfg.pos_embed == "rope":
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+    if rope is not None:
+        k = L.apply_rope(k, *rope)
     ps = next(iter(paged.pool.values())).shape[1]
     B = x.shape[0]
     bidx = torch.arange(B, device=x.device)[:, None]
@@ -138,27 +138,33 @@ def _paged_decode(params: dict, x: torch.Tensor, q: torch.Tensor, positions: tor
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: int,
               cfg: ModelConfig, *, causal: bool = True,
               kv_cache: PagedKV | tuple | None = None,
-              cache_index: torch.Tensor | None = None, method: str = "quartet"):
+              cache_index: torch.Tensor | None = None, method: str = "quartet",
+              rope=None):
     """x [B, S, D], positions [B, S] → (out [B, S, D], kv_cache).  A
     ``PagedKV`` pool, or a dense ``(k, v)`` cache written at
-    ``cache_index`` [B], is updated in place."""
+    ``cache_index`` [B], is updated in place.  ``rope`` is the forward's
+    ``layers.rope_table`` of ``positions`` (built here when not given)."""
     hd, nq, nkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
     qc = cfg.quartet
+    if cfg.pos_embed != "rope":
+        rope = None
+    elif rope is None:
+        rope = L.rope_table(positions, hd, cfg.rope_theta)
     q = _split_heads(L.dense(params["wq"], x, L.seed_fold(seed, 1), qc, method), nq, hd)
     if cfg.qk_norm:
         q = L.rmsnorm(params["q_norm"], q, cfg.norm_eps)
-    if cfg.pos_embed == "rope":
-        q = L.apply_rope(q, positions, cfg.rope_theta)
+    if rope is not None:
+        q = L.apply_rope(q, *rope)
 
     if isinstance(kv_cache, PagedKV):
-        out = _paged_decode(params, x, q, positions, seed, cfg, kv_cache, method)
+        out = _paged_decode(params, x, q, positions, seed, cfg, kv_cache, method, rope)
     else:
         k = _split_heads(L.dense(params["wk"], x, L.seed_fold(seed, 2), qc, method), nkv, hd)
         v = _split_heads(L.dense(params["wv"], x, L.seed_fold(seed, 3), qc, method), nkv, hd)
         if cfg.qk_norm:
             k = L.rmsnorm(params["k_norm"], k, cfg.norm_eps)
-        if cfg.pos_embed == "rope":
-            k = L.apply_rope(k, positions, cfg.rope_theta)
+        if rope is not None:
+            k = L.apply_rope(k, *rope)
         if kv_cache is None:
             out = dispatch_attention(q, k, v, positions, causal=causal, cfg=cfg)
         else:

@@ -7,6 +7,8 @@ onto them leaf by leaf (``repro_torch.convert``).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -136,17 +138,45 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (xf * inv * params["scale"].to(torch.float32)).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _inv_freq_host(head_dim: int, theta: float) -> np.ndarray:
+    """1 / θ^(2i / hd), the reference's formula, in float64 on the host and
+    rounded once to f32: the same bits whatever device the model runs on
+    (a device's f32 ``pow`` rounds per library; XLA:CPU's is within 1 ulp
+    of this)."""
+    exps = np.arange(0, head_dim, 2, dtype=np.float64) / head_dim
+    return (1.0 / np.power(np.float64(theta), exps)).astype(np.float32)
+
+
+_INV_FREQ: dict = {}
+
+
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+    """The f32 inverse frequencies [hd/2] on ``device`` (copied there once)."""
+    key = (head_dim, float(theta), torch.device(device))
+    if key not in _INV_FREQ:
+        with torch.inference_mode(False):  # a normal tensor, usable under autograd too
+            _INV_FREQ[key] = torch.from_numpy(_inv_freq_host(head_dim, float(theta))).to(device)
+    return _INV_FREQ[key]
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x [B, S, H, hd]; positions [B, S] absolute token positions (per row:
-    serving rows sit at genuinely different offsets)."""
+def rope_table(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions [B, S] → (cos, sin), each [B, S, 1, hd/2] f32.  Each angle is
+    one f32 product of the position and the inverse frequency (IEEE, so the
+    same on every device); its cos and sin are taken in float64 and rounded
+    once to f32, correctly rounded but for ties beyond float64's reach, where
+    the card's f32 ``sin``/``cos`` and the CPU's differ in the last bit.  A
+    forward builds the table once and hands it to every layer."""
+    ang = positions[..., None].to(torch.float32) * rope_freqs(head_dim, theta,
+                                                              positions.device)
+    ang = ang.to(torch.float64)[:, :, None, :]
+    return torch.cos(ang).to(torch.float32), torch.sin(ang).to(torch.float32)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, hd] rotated by a :func:`rope_table` of its positions (per
+    row: serving rows sit at genuinely different offsets)."""
     hd = x.shape[-1]
-    ang = positions[..., None].to(torch.float32) * rope_freqs(hd, theta, x.device)
-    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1 = x[..., : hd // 2].to(torch.float32)
     x2 = x[..., hd // 2:].to(torch.float32)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)

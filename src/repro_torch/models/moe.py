@@ -274,11 +274,11 @@ def init_moe_block(cfg: ModelConfig, dtype, generator, device) -> dict:
 
 def moe_block(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: int,
               cfg: ModelConfig, cache, method: str, cache_index: torch.Tensor | None = None,
-              token_valid: torch.Tensor | None = None):
+              token_valid: torch.Tensor | None = None, rope=None):
     """→ (x [B, S, D], the layer's aux loss, an f32 scalar)."""
     h, _ = attention(params["attn"], L.rmsnorm(params["attn_norm"], x, cfg.norm_eps),
                      positions, L.seed_fold(seed, 100), cfg, causal=cfg.is_causal_lm,
-                     kv_cache=cache, cache_index=cache_index, method=method)
+                     kv_cache=cache, cache_index=cache_index, method=method, rope=rope)
     x = x + h
     h, aux = moe_ffn(params["moe"], L.rmsnorm(params["mlp_norm"], x, cfg.norm_eps),
                      L.seed_fold(seed, 200), cfg, method, token_valid=token_valid)

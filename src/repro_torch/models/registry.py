@@ -1,6 +1,7 @@
-"""Uniform model API (the dense and MoE families in this slice).
+"""Uniform model API (the dense, MoE and SSM families in this slice).
 
-``build_model(cfg, attn_backend=None)`` → ``Model(cfg, forward, head)`` with
+``build_model(cfg, attn_backend=None)`` → ``Model(cfg, forward, head,
+cache_spec)`` with
 
     forward(params, tokens, seed, *, positions=None, caches=None,
             cache_index=None, method="quartet", features_only=False,
@@ -8,6 +9,9 @@
         -> (logits | features, caches), and with return_aux also the f32
            aux loss (the MoE layers' router losses; 0 for a dense model)
     head(params, features, seed, method="quartet") -> f32 logits
+    cache_spec(batch, max_len) -> the decode cache's leaves as
+        ((shape, dtype), ...), stacked [L, ...]: dense and MoE (K, V)
+        [L, B, max_len, Hkv, hd]; SSM (conv [L, B, K-1, Di], h [L, B, Di, N])
 
 Weights come from ``repro_torch.convert`` (``init_params`` or
 ``params_from_jax``).
@@ -18,6 +22,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, NamedTuple
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import lm_forward, lm_head_apply
 
@@ -26,6 +32,18 @@ class Model(NamedTuple):
     cfg: ModelConfig
     forward: Callable
     head: Callable
+    cache_spec: Callable = None
+
+
+def _cache_spec(cfg: ModelConfig, batch: int, max_len: int):
+    if cfg.family == "ssm":
+        from repro_torch.models.ssm import mamba1_cache_spec
+
+        spec = mamba1_cache_spec(cfg, batch)
+    else:
+        shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
+        spec = ((shape, getattr(torch, cfg.dtype)),) * 2
+    return tuple(((cfg.num_layers, *shape), dtype) for shape, dtype in spec)
 
 
 def build_model(cfg: ModelConfig, *, attn_backend: str | None = None) -> Model:
@@ -34,8 +52,10 @@ def build_model(cfg: ModelConfig, *, attn_backend: str | None = None) -> Model:
     config (evaluation with the flash kernel: ``attn_backend="flash"``)."""
     if attn_backend is not None:
         cfg = dataclasses.replace(cfg, attn_backend=attn_backend)
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.family == "ssm" and cfg.ssm_variant != "mamba1":
+        raise NotImplementedError(f"ssm variant {cfg.ssm_variant!r} is not ported yet")
 
     def forward(params, tokens, seed, *, positions=None, caches=None, cache_index=None,
                 method="quartet", features_only=False, token_valid=None, return_aux=False):
@@ -47,4 +67,7 @@ def build_model(cfg: ModelConfig, *, attn_backend: str | None = None) -> Model:
     def head(params, x, seed, method="quartet"):
         return lm_head_apply(params, x, cfg, seed, method)
 
-    return Model(cfg, forward, head)
+    def cache_spec(batch, max_len):
+        return _cache_spec(cfg, batch, max_len)
+
+    return Model(cfg, forward, head, cache_spec)

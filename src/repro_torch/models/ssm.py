@@ -1,0 +1,132 @@
+"""State-space block: Mamba1 (falcon-mamba-7b).
+
+Port of the Mamba1 part of ``repro.models.ssm``.  Quartet applies to every
+projection (in / x / dt / out); the selective scan stays in f32.  The
+recurrence couples (channel × state) inside an exp, so it does not factor
+into GEMMs: a plain loop over time on the f32 [B, Di, N] state, as the
+reference's ``lax.scan`` (not a Pallas kernel) runs it.  The projections
+around it carry the FLOPs.
+
+With a cache ``(conv_state [B, K-1, Di], h [B, Di, N])`` the block starts
+from that state and writes its new state into the same tensors in place (a
+serving step's one token, or a prefill chunk); without one it starts from
+zeros (training, a teacher-forced forward).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as Fn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: torch.Tensor | None = None):
+    """Depthwise causal conv.  x [B, S, Di], w [K, Di], b [Di]; ``state``
+    [B, K-1, Di] holds the previous inputs.  → (y, new_state), the taps
+    summed in order k = 0..K-1."""
+    K, S = w.shape[0], x.shape[1]
+    if state is None:
+        pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)  # [B, K-1+S, Di]
+    y = xp[:, 0:S, :] * w[0][None, None, :]
+    for k in range(1, K):
+        y = y + xp[:, k:k + S, :] * w[k][None, None, :]
+    return y + b[None, None, :], xp[:, -(K - 1):, :]
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``) in f32: max(x, 0) +
+    log1p(exp(−|x|))."""
+    x = x.to(torch.float32)
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def init_mamba1_block(cfg: ModelConfig, dtype, generator, device) -> dict:
+    """The reference's tree and init laws (not its draws)."""
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    n, kc = cfg.ssm_state, cfg.ssm_conv
+    r = max(d // 16, 1)
+    a = torch.arange(1, n + 1, dtype=torch.float32, device=device)
+    return {
+        "norm": L.init_rmsnorm(d, dtype, device),
+        "in_proj": L.init_dense(d, 2 * di, dtype, generator, device),
+        "conv_w": L.trunc_normal((kc, di), 1.0 / np.sqrt(kc * di) * np.sqrt(di), dtype,
+                                 generator, device),
+        "conv_b": torch.zeros((di,), dtype=dtype, device=device),
+        "x_proj": L.init_dense(di, r + 2 * n, dtype, generator, device),
+        "dt_proj": L.init_dense(r, di, dtype, generator, device, use_bias=True),
+        "A_log": torch.log(a).expand(di, n).contiguous(),
+        "D": torch.ones((di,), dtype=torch.float32, device=device),
+        "out_proj": L.init_dense(di, d, dtype, generator, device),
+    }
+
+
+def selective_scan(h: torch.Tensor, a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t · h_{t−1} + bx_t over time, from ``h`` [B, Di, N] (f32),
+    with a, bx [B, S, Di, N] → every h_t, [B, S, Di, N].  A product and a
+    sum, each rounded (no fused multiply-add), so a step rounds alike on
+    every device."""
+    hs = []
+    for t in range(bx.shape[1]):
+        h = a[:, t] * h + bx[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def mamba1_block(params: dict, x: torch.Tensor, positions, seed: int, cfg: ModelConfig,
+                 cache, method: str, cache_index=None, token_valid=None, rope=None):
+    """x [B, S, D] → (x + out, 0.0: no router loss).  ``cache`` is
+    ``(conv_state, h)`` of this layer, updated in place, or None.  The
+    positions, cache index, token-valid lanes and rope table of the
+    attention blocks' signature are unused: a recurrence has no positions."""
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    n, r = cfg.ssm_state, max(d // 16, 1)
+    qc = cfg.quartet
+    B, S, _ = x.shape
+    f32 = torch.float32
+
+    xin = L.rmsnorm(params["norm"], x, cfg.norm_eps)
+    xz = L.dense(params["in_proj"], xin, L.seed_fold(seed, 1), qc, method)
+    x1, z = xz[..., :di], xz[..., di:]
+
+    conv_state = cache[0] if cache is not None else None
+    x1, new_conv = _causal_conv(x1, params["conv_w"].to(f32), params["conv_b"].to(f32),
+                                conv_state)
+    x1 = Fn.silu(x1.to(f32)).to(x.dtype)
+
+    proj = L.dense(params["x_proj"], x1, L.seed_fold(seed, 2), qc, method).to(f32)
+    dt_r, Bm, Cm = proj[..., :r], proj[..., r:r + n], proj[..., r + n:]
+    dt = _softplus(L.dense(params["dt_proj"], dt_r.to(x.dtype), L.seed_fold(seed, 3), qc,
+                           method))  # [B, S, Di]
+    A = -torch.exp(params["A_log"])  # [Di, N], in the parameter's dtype
+
+    a = torch.exp(dt[..., None] * A[None, None])  # [B, S, Di, N] f32
+    x1f = x1.to(f32)
+    bx = (dt * x1f)[..., None] * Bm[:, :, None, :]
+
+    h0 = cache[1] if cache is not None else torch.zeros((B, di, n), dtype=f32, device=x.device)
+    hs = selective_scan(h0, a, bx)
+    y = torch.einsum("bsdn,bsn->bsd", hs, Cm) + params["D"][None, None] * x1f
+    y = (y * Fn.silu(z.to(f32))).to(x.dtype)
+    out = L.dense(params["out_proj"], y, L.seed_fold(seed, 4), qc, method)
+
+    if cache is not None:
+        cache[0].copy_(new_conv)
+        cache[1].copy_(hs[:, -1])
+    return x + out, 0.0
+
+
+def mamba1_cache_spec(cfg: ModelConfig, batch: int):
+    """((shape, dtype) of the conv state, of h) for one layer: conv
+    [B, K-1, Di] in the compute dtype, h [B, Di, N] in f32."""
+    di = cfg.ssm_expand * cfg.d_model
+    return (((batch, cfg.ssm_conv - 1, di), getattr(torch, cfg.dtype)),
+            ((batch, di, cfg.ssm_state), torch.float32))

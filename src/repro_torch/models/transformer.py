@@ -1,8 +1,11 @@
-"""Decoder-only LM (Llama/Qwen style): GQA + SwiGLU MLP (or a MoE layer,
-``models.moe``), RMSNorm, Quartet linears, a Python loop over stacked
-[L, ...] layer parameters.
+"""Decoder-only LM (Llama/Qwen/StarCoder2 style): GQA + SwiGLU or GELU MLP
+(or a MoE layer, ``models.moe``; or a Mamba1 block, ``models.ssm``),
+RMSNorm, Quartet linears, a Python loop over stacked [L, ...] layer
+parameters.
 
-Port of ``repro.models.transformer`` for the dense and MoE families.  With a
+Port of ``repro.models.transformer`` for the dense, MoE and SSM families.
+A forward builds the rope table of its positions once
+(``layers.rope_table``) and hands it to every layer's attention.  With a
 :class:`PagedKV` cache (the pool's leaves carry the leading [L] axis; the
 page table is shared by every layer) each layer quantize-scatters its new
 K/V into its pool slice in place and attends with the paged kernel.  With
@@ -35,18 +38,25 @@ LAYER_SEED_STRIDE = 2654435761  # Knuth multiplicative hash increment
 def init_mlp(cfg: ModelConfig, dtype, generator, device) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     args = (dtype, generator, device, cfg.use_bias)
-    if cfg.mlp != "swiglu":
-        raise NotImplementedError(f"mlp {cfg.mlp!r} is not ported yet")
-    return {"gate": L.init_dense(d, f, *args), "up": L.init_dense(d, f, *args),
-            "down": L.init_dense(f, d, *args)}
+    if cfg.mlp == "swiglu":
+        return {"gate": L.init_dense(d, f, *args), "up": L.init_dense(d, f, *args),
+                "down": L.init_dense(f, d, *args)}
+    if cfg.mlp != "gelu":
+        raise ValueError(f"mlp must be 'swiglu' or 'gelu', got {cfg.mlp!r}")
+    return {"up": L.init_dense(d, f, *args), "down": L.init_dense(f, d, *args)}
 
 
 def mlp(params: dict, x: torch.Tensor, seed: int, cfg: ModelConfig,
         method: str = "quartet") -> torch.Tensor:
+    """SwiGLU, or up → GELU → down (``jax.nn.gelu``'s default, the tanh form,
+    in f32), with biases where the config has them."""
     qc = cfg.quartet
-    g = L.dense(params["gate"], x, L.seed_fold(seed, 11), qc, method)
     u = L.dense(params["up"], x, L.seed_fold(seed, 12), qc, method)
-    h = Fn.silu(g.to(torch.float32)).to(x.dtype) * u
+    if cfg.mlp == "swiglu":
+        g = L.dense(params["gate"], x, L.seed_fold(seed, 11), qc, method)
+        h = Fn.silu(g.to(torch.float32)).to(x.dtype) * u
+    else:
+        h = Fn.gelu(u.to(torch.float32), approximate="tanh").to(x.dtype)
     return L.dense(params["down"], h, L.seed_fold(seed, 13), qc, method)
 
 
@@ -61,13 +71,14 @@ def init_dense_block(cfg: ModelConfig, dtype, generator, device) -> dict:
 
 def dense_block(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: int,
                 cfg: ModelConfig, cache, method: str,
-                cache_index: torch.Tensor | None = None, token_valid=None):
-    """→ (x [B, S, D], 0.0: a dense layer has no router loss)."""
+                cache_index: torch.Tensor | None = None, token_valid=None, rope=None):
+    """→ (x [B, S, D], 0.0: a dense layer has no router loss).  ``rope`` is
+    the forward's rope table (``layers.rope_table``)."""
     # token_valid is the MoE block's (padding lanes must not compete for
     # expert capacity); a dense block has no cross-token competition
     h, _ = attention(params["attn"], L.rmsnorm(params["attn_norm"], x, cfg.norm_eps),
                      positions, L.seed_fold(seed, 100), cfg, causal=cfg.is_causal_lm,
-                     kv_cache=cache, cache_index=cache_index, method=method)
+                     kv_cache=cache, cache_index=cache_index, method=method, rope=rope)
     x = x + h
     return x + mlp(params["mlp"], L.rmsnorm(params["mlp_norm"], x, cfg.norm_eps),
                    L.seed_fold(seed, 200), cfg, method), 0.0
@@ -105,6 +116,10 @@ def _blocks(cfg: ModelConfig):
         from repro_torch.models.moe import init_moe_block, moe_block
 
         return init_moe_block, moe_block
+    if cfg.family == "ssm":
+        from repro_torch.models.ssm import init_mamba1_block, mamba1_block
+
+        return init_mamba1_block, mamba1_block
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
 
@@ -158,8 +173,9 @@ def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: int, 
     summed in f32 in layer order (exactly 0 for a dense model).
 
     ``caches`` is a :class:`PagedKV` over the whole [L, ...] pool, dense
-    ``(K, V)`` [L, B, T, Hkv, hd] written at ``cache_index`` [B] (both
-    updated in place), or None for a cache-free causal forward.
+    ``(K, V)`` [L, B, T, Hkv, hd] written at ``cache_index`` [B], an SSM's
+    ``(conv, h)`` [L, B, K-1, Di] / [L, B, Di, N] (each updated in place),
+    or None for a cache-free causal forward.
     ``token_valid`` [B, S] bool marks the lanes that carry real tokens (the
     MoE block keeps the others out of expert capacity)."""
     B, S = tokens.shape
@@ -169,6 +185,10 @@ def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: int, 
         raise NotImplementedError(f"pos_embed {cfg.pos_embed!r} is not ported yet")
     x = L.embed(params["embed"], tokens)
     _, block = _blocks(cfg)
+    # the rope table depends on the positions alone: built once, read by
+    # every layer's attention (an SSM has none)
+    rope = (L.rope_table(positions, cfg.head_dim_, cfg.rope_theta)
+            if cfg.family in ("dense", "moe") else None)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device) if return_aux else None
     for i in range(cfg.num_layers):
@@ -176,7 +196,7 @@ def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: int, 
         layer = layer_slice(params["layers"], i)
         if remat:  # the checkpoint carries the layer's aux out with x
             x, aux_l = checkpoint(block, layer, x, positions, seed_l, cfg, None, method, None,
-                                  token_valid, use_reentrant=False)
+                                  token_valid, rope, use_reentrant=False)
         else:
             if caches is None:
                 cache = None
@@ -185,7 +205,7 @@ def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: int, 
             else:
                 cache = (caches[0][i], caches[1][i])
             x, aux_l = block(layer, x, positions, seed_l, cfg, cache, method, cache_index,
-                             token_valid)
+                             token_valid, rope)
         if return_aux:
             aux = aux + aux_l
     out = x if features_only else lm_head_apply(params, x, cfg, seed, method)

@@ -42,9 +42,19 @@ Rollback is logical: the slot's length shrinks on the host and the pages
 stay mapped within the admission reservation; draft positions past the
 budget write to the scratch page.
 
+**The state pool** (the SSM family): ``decode_backend=None`` or
+``"statepool"`` keeps each slot's recurrent state in the quantized
+double-buffer rings of :class:`~repro_torch.serve.state_pool.StatePool`;
+``"dense_slots"`` keeps per-slot dense caches
+(:class:`~repro_torch.serve.paged_cache.DenseSlotCache`), the parity
+oracle.  Both prefill one slot at a time, one ``[1, C]`` chunk or all of
+its ``[1, 1]`` remainder tokens per tick: a recurrence must never consume a
+padding token.  Speculation and the prefix cache need a paged family and
+raise for these backends.
+
 The reference keeps its prefix and speculation counts in a telemetry
 registry; until telemetry is ported the engine keeps the same names in the
-plain dict ``Engine.counters``.  The state pool (other families) and
+plain dict ``Engine.counters``.  The hybrid, enc-dec and VLM families and
 multi-device serving are not ported yet.
 """
 
@@ -64,7 +74,9 @@ from repro_torch.serve.scheduler import Request, RequestState, Scheduler
 from repro_torch.serve.spec.config import SpecConfig
 from repro_torch.serve.spec.proposers import build_proposer
 from repro_torch.serve.spec.verify import accept_tokens
-from repro_torch.serve.steps import build_paged_steps, marshal_prefill_batch
+from repro_torch.serve.state_pool import StatePool
+from repro_torch.serve.steps import build_paged_steps, build_state_steps, marshal_prefill_batch
+from repro_torch.train.serve import make_chunk_prefill_step, make_decode_step
 
 PAGED_FAMILIES = ("dense", "moe")
 COUNTERS = ("prefix_lookups", "prefix_hit_requests", "prefix_shared_tokens",
@@ -82,8 +94,10 @@ class EngineConfig:
     method: str = "quartet"
     eos_id: int | None = None
     keep_logits: bool = False  # record per-step logits on each Request (tests)
-    # None follows ModelConfig.attn_backend ("paged" for a paged model, else
-    # "gather"); "paged" attends over the pool; "gather" is the dense oracle
+    # paged families: None follows ModelConfig.attn_backend ("paged" for a
+    # paged model, else "gather"); "paged" attends over the pool; "gather" is
+    # the dense oracle.  State families (ssm): None or "statepool" (the
+    # quantized state rings), "dense_slots" (per-slot dense caches, the oracle)
     decode_backend: str | None = None
     # pool size (pages incl. the scratch page); None → one full reservation
     # (ceil(max_len / page_size) pages) per slot + scratch
@@ -102,18 +116,25 @@ class Engine:
     def __init__(self, model: Model, params: dict, config: EngineConfig | None = None):
         self.config = cfg = config or EngineConfig()
         family = model.cfg.family
-        if cfg.spec is not None and family not in PAGED_FAMILIES:
+        self.paged = family in PAGED_FAMILIES
+        if self.paged:
+            self.backend = "paged"
+        elif cfg.decode_backend in (None, "statepool"):
+            self.backend = "statepool"
+        elif cfg.decode_backend == "dense_slots":
+            self.backend = "dense_slots"
+        else:
+            raise ValueError(f"decode_backend for {family!r} must be 'statepool' (default) or "
+                             f"'dense_slots' (parity oracle), got {cfg.decode_backend!r}")
+        if cfg.spec is not None and not self.paged:
             raise ValueError(
                 f"speculative decoding needs a paged family (dense/moe): {family!r} serving "
-                f"has no multi-token verify step")
-        if cfg.prefix_cache and family not in PAGED_FAMILIES:
+                f"has no multi-token verify step (a recurrence scores one token per state "
+                f"transition, and the state rings hold no history to roll back)")
+        if cfg.prefix_cache and not self.paged:
             raise ValueError(
                 f"prefix caching needs shareable pages (a paged family, dense/moe); "
                 f"{family!r} has none")
-        if family not in PAGED_FAMILIES:
-            raise NotImplementedError(
-                f"serving family {family!r} is not ported yet (the state-pool families are "
-                f"ROADMAP A7)")
         self.model, self.params = model, params
         self.spec = cfg.spec
         self.device = params["embed"]["table"].device
@@ -121,6 +142,10 @@ class Engine:
         self.completed: list[Request] = []
         self.steps = 0
         self.counters = dict.fromkeys(COUNTERS, 0)
+        self.prefix = self.proposer = None
+        if not self.paged:
+            self._init_state_backend(model, cfg)
+            return
         pages_per_slot, n_pages = P.reservation_sizing(
             cfg.n_slots, cfg.max_len, cfg.page_size, self.spec.k if self.spec else 0)
         if cfg.n_pages is not None:
@@ -143,6 +168,22 @@ class Engine:
         self._admit_plan: dict[int, list[int]] = {}  # rid -> matched page ids
         self.proposer = build_proposer(self, self.spec) if self.spec is not None else None
 
+    def _init_state_backend(self, model: Model, cfg: EngineConfig) -> None:
+        """The state pool's rings and their steps, or the dense-slot oracle's
+        caches and the unmodified ``train.serve`` steps."""
+        self.decode_backend = self.backend
+        self._steps = None
+        if self.backend == "statepool":
+            self.cache = StatePool(model, n_slots=cfg.n_slots, max_len=cfg.max_len,
+                                   kv_dtype=cfg.kv_dtype, device=self.device,
+                                   debug=cfg.debug_cache)
+            self._state_steps = build_state_steps(model, method=cfg.method, pool=self.cache)
+            return
+        self.cache = P.DenseSlotCache(model, n_slots=cfg.n_slots, max_len=cfg.max_len,
+                                      device=self.device)
+        self._dense_decode = make_decode_step(model, method=cfg.method)
+        self._dense_chunk = make_chunk_prefill_step(model, method=cfg.method)
+
     # ------------------------------------------------------------------ API
 
     def submit(self, prompt, max_new: int, arrival_time: float | None = None,
@@ -159,6 +200,8 @@ class Engine:
 
         def can_admit(req: Request) -> bool:
             total = req.prompt_len + req.max_new
+            if not self.paged:  # state rings and dense slots are mapped statically
+                return True
             if self.prefix is None:
                 return self.cache.can_alloc(total)
             match = self.prefix.match(req.prompt, now)
@@ -172,7 +215,7 @@ class Engine:
         if self.proposer is not None:
             for req in admitted:
                 self.proposer.on_admit(req)
-        if self._steps.prefill_all is not None:
+        if self._steps is not None and self._steps.prefill_all is not None:
             batch = self.sched.prefill_batch()
             if batch:
                 self._prefill_tick(batch, now)
@@ -236,8 +279,15 @@ class Engine:
     def _on_admit(self, req: Request, now: float) -> None:
         """The cache side of one admission, run inside ``Scheduler.admit``
         before the next head is judged: page allocation, prefix aliasing,
-        eviction, and the full-hit copy-on-write."""
+        eviction, and the full-hit copy-on-write.  A dense slot is zeroed; a
+        state-pool slot's ring cursor is reset."""
         total = req.prompt_len + req.max_new
+        if self.backend == "dense_slots":
+            self.cache.reset_slot(req.slot)
+            return
+        if self.backend == "statepool":
+            self.cache.alloc(req.slot)
+            return
         if self.prefix is None:
             self.cache.alloc(req.slot, total)
             return
@@ -308,21 +358,41 @@ class Engine:
                 self._first_token(req, logits[req.slot], now, picks[req.slot])
 
     def _advance_prefill(self, req: Request, now: float) -> None:
-        """Per-slot prefill (gather backend): one ``[1, C]`` chunk, or, when
-        fewer than C prompt tokens remain, every one of them as a ``[1, 1]``
-        call, never padded."""
+        """Per-slot prefill (the gather backend and the state backends): one
+        ``[1, C]`` chunk, or, when fewer than C prompt tokens remain, every
+        one of them as a ``[1, 1]`` call, never padded."""
         C = self.config.prefill_chunk
         remaining = req.prompt_len - req.prefill_pos
         calls = [C] if remaining >= C else [1] * remaining
         for n in calls:
-            self._cow_guard([(req.slot, req.prefill_pos, n)])
             tokens = self._tensor(req.prompt[None, req.prefill_pos:req.prefill_pos + n])
-            logits = self._steps.prefill_chunk(
-                self.params, tokens, req.prefill_pos,
-                self._tensor(self.cache.tables[req.slot]), self.cache.pool)
+            if self.backend == "statepool":
+                logits = self._state_prefill(req, tokens)
+            elif self.backend == "dense_slots":
+                start = torch.full((1,), req.prefill_pos, dtype=torch.int32, device=self.device)
+                logits = self._dense_chunk(self.params, tokens, start,
+                                           self.cache.slot(req.slot))[0]
+            else:
+                self._cow_guard([(req.slot, req.prefill_pos, n)])
+                logits = self._steps.prefill_chunk(
+                    self.params, tokens, req.prefill_pos,
+                    self._tensor(self.cache.tables[req.slot]), self.cache.pool)
             req.prefill_pos += n
         if req.prefill_pos == req.prompt_len:
             self._first_token(req, logits[0], now)
+
+    def _state_prefill(self, req: Request, tokens: torch.Tensor) -> torch.Tensor:
+        """One state-pool prefill call: the slot's read page in, its write
+        page out, then its ring cursor advanced."""
+        sp = self.cache
+        read = np.array([sp.ring_read[req.slot]], np.int32)
+        write = np.array([sp.ring_write_id(req.slot)], np.int32)
+        logits = self._state_steps.prefill_chunk(self.params, tokens, req.prefill_pos,
+                                                 self._tensor(read), self._tensor(write))
+        one = np.zeros((self.config.n_slots,), bool)
+        one[req.slot] = True
+        sp.ring_advance(one)
+        return logits
 
     # -- decode --------------------------------------------------------------
 
@@ -335,10 +405,22 @@ class Engine:
             tokens[req.slot, 0] = req.tokens[-1]
             positions[req.slot] = req.prompt_len + len(req.tokens) - 1
             mask[req.slot] = True
-        self._cow_guard([(r.slot, int(positions[r.slot]), 1) for r in decoding])
-        logits = self._steps.decode_all(
-            self.params, self._tensor(tokens), self._tensor(positions), self.cache.pool,
-            self._tensor(self.cache.tables), self._tensor(mask))
+        args = (self.params, self._tensor(tokens), self._tensor(positions))
+        if self.backend == "statepool":
+            read, write = self.cache.ring_ids(mask)
+            logits = self._state_steps.decode_all(*args, self._tensor(read),
+                                                  self._tensor(write), self._tensor(mask))
+            self.cache.ring_advance(mask)
+        elif self.backend == "dense_slots":
+            mask_t = self._tensor(mask)
+            pos_safe = torch.where(mask_t, args[2], torch.zeros_like(args[2]))
+            new = tuple(c.clone() for c in self.cache.caches)
+            logits = self._dense_decode(self.params, args[1], pos_safe, new)[0]
+            self.cache.merge_masked(new, mask_t)
+        else:
+            self._cow_guard([(r.slot, int(positions[r.slot]), 1) for r in decoding])
+            logits = self._steps.decode_all(*args, self.cache.pool,
+                                            self._tensor(self.cache.tables), self._tensor(mask))
         picks = torch.argmax(logits, dim=-1).tolist()
         for req in decoding:
             row = logits[req.slot]
@@ -417,7 +499,8 @@ class Engine:
             # written and it is left out
             chain = np.concatenate([req.prompt, np.asarray(req.tokens[:-1], np.int32)])
             self._prefix_insert(req, chain, now)
-        self.cache.free(req.slot)
+        if self.backend != "dense_slots":  # a dense slot is zeroed at its next admission
+            self.cache.free(req.slot)
         if self.proposer is not None:
             self.proposer.on_retire(req)
         self.completed.append(req)

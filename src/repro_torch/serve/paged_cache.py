@@ -373,3 +373,36 @@ class PagedCache:
     def cache_bytes(self) -> int:
         """Persistent KV bytes held by the pool."""
         return sum(t.numel() * t.element_size() for t in self.pool.values())
+
+
+class DenseSlotCache:
+    """Per-slot dense decode state for the families without paged attention
+    KV (the state-pool engine's parity oracle, ``decode_backend=
+    "dense_slots"``): the model's decode caches (``Model.cache_spec``) for
+    ``n_slots`` slots, batch on axis 1 of every leaf."""
+
+    def __init__(self, model, *, n_slots: int, max_len: int, device):
+        self.n_slots, self.max_len = n_slots, max_len
+        self.caches = tuple(torch.zeros(shape, dtype=dtype, device=device)
+                            for shape, dtype in model.cache_spec(n_slots, max_len))
+
+    def slot(self, slot: int) -> tuple:
+        """One slot's caches as batch-1 views (a step writes through them)."""
+        return tuple(c[:, slot:slot + 1] for c in self.caches)
+
+    def reset_slot(self, slot: int) -> None:
+        """Zero one slot's state before a new request prefills into it (a
+        recurrence has no positional mask to hide its predecessor's state)."""
+        for c in self.caches:
+            c[:, slot].zero_()
+
+    def merge_masked(self, new: tuple, mask: torch.Tensor) -> None:
+        """Take ``new``'s state for the masked-in slots, keep the others':
+        one batched decode step leaves the slots that are not decoding as
+        they were."""
+        for c, n in zip(self.caches, new):
+            keep = mask.reshape(1, -1, *([1] * (c.dim() - 2)))
+            c.copy_(torch.where(keep, n.to(c.dtype), c))
+
+    def cache_bytes(self) -> int:
+        return sum(int(c.numel() * c.element_size()) for c in self.caches)

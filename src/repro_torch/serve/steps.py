@@ -1,6 +1,7 @@
-"""Device steps for paged-KV serving.
+"""Device steps for paged-KV serving, and for the state pool.
 
-Port of ``repro.serve.steps.build_paged_steps``.  On the ``"paged"``
+Port of ``repro.serve.steps.build_paged_steps`` and ``build_state_steps``
+(the SSM family's rings; :class:`StateSteps`).  On the ``"paged"``
 backend (the default) every step attends directly over the packed pool:
 
 * ``decode_all``  — one token for every slot in one call (S == 1);
@@ -178,3 +179,50 @@ def build_paged_steps(model: Model, *, method: str, page_size: int,
         return _head_by_column(params, feats)
 
     return PagedSteps(gather_decode_all, None, prefill_chunk, gather_verify_all)
+
+
+class StateSteps(NamedTuple):
+    """Steps of :class:`~repro_torch.serve.state_pool.StatePool` serving, the
+    non-paged families' counterpart of :class:`PagedSteps` (this slice: the
+    SSM family, whose state lives in rings alone)."""
+
+    # (params, tokens [B,1], positions [B], ring_read [B], ring_write [B],
+    #  mask [B]) -> logits [B,V]
+    decode_all: Callable
+    # (params, tokens [1,C], start: int, ring_read [1], ring_write [1])
+    #   -> last-token logits [1,V]
+    prefill_chunk: Callable
+
+
+def build_state_steps(model: Model, *, method: str, pool) -> StateSteps:
+    """Steps over a :class:`~repro_torch.serve.state_pool.StatePool`.  Each
+    gathers the state of the ring read pages (B4b on the card for packed
+    rings), runs the unmodified ``train.serve`` decode or chunk step on it,
+    and writes each lane's whole new state into its ring write page,
+    quantized on write (B4a).  With ``kv_dtype="dense"`` the rings hold the
+    values bit for bit, so the tokens equal the dense-slot oracle's."""
+    decode = make_decode_step(model, method=method)
+    chunk = make_chunk_prefill_step(model, method=method)
+    rings = pool.rings
+
+    def _run(step, params, tokens, pos, read, write):
+        caches = tuple(r.gather(read) for r in rings)
+        logits = step(params, tokens, pos, caches)[0]
+        for r, leaf in zip(rings, caches):  # the step updated the gathered state in place
+            r.scatter(write, leaf)
+        return logits
+
+    def decode_all(params, tokens, positions, ring_read, ring_write, mask):
+        """One token for every slot.  Masked lanes read the zero sentinel and
+        write page 0; the host does not advance their ring cursor, so their
+        state is untouched (the dense oracle's masked merge)."""
+        pos_safe = torch.where(mask, positions, torch.zeros_like(positions))
+        return _run(decode, params, tokens, pos_safe, ring_read, ring_write)
+
+    def prefill_chunk(params, tokens, start, ring_read, ring_write):
+        """One slot's [1, C] prompt chunk from its read page into its write
+        page."""
+        start_t = torch.full((1,), start, dtype=torch.int32, device=tokens.device)
+        return _run(chunk, params, tokens, start_t, ring_read, ring_write)
+
+    return StateSteps(decode_all, prefill_chunk)

@@ -6,7 +6,9 @@ Port of ``init_cache``, ``make_chunk_prefill_step``, ``make_prefill_step``,
 Each step runs the model forward with explicit per-token positions over a
 cache that it updates in place: dense caches ``(K, V)`` [L, B, T, Hkv, hd]
 written at ``cache_index`` (the gather serving backend and whole-prompt
-prefill), or a :class:`~repro_torch.kernels.paged_attention.PagedKV` pool.
+prefill), a :class:`~repro_torch.kernels.paged_attention.PagedKV` pool, or
+an SSM's ``(conv, h)`` state.  Each casts the floating leaves of the params
+to the compute dtype first, as the reference's steps do.
 The reference builds the multi-token step on a model with
 ``attn_rows_shared=False``; the port always computes causal bounds and rope
 angles per row, so no second model exists.  Seeds are 0, as in the
@@ -28,23 +30,34 @@ from repro_torch.models.registry import Model
 
 
 def init_cache(model: Model, batch: int, max_len: int, device) -> tuple:
-    """Zero dense caches ``(K, V)`` [L, batch, max_len, Hkv, hd] in the
-    model's compute dtype."""
-    cfg = model.cfg
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
-    dtype = getattr(torch, cfg.dtype)
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+    """Zero decode caches of ``model.cache_spec``: dense ``(K, V)`` [L,
+    batch, max_len, Hkv, hd] in the compute dtype, or an SSM's ``(conv,
+    h)`` [L, batch, K-1, Di] / [L, batch, Di, N]."""
+    return tuple(torch.zeros(shape, dtype=dtype, device=device)
+                 for shape, dtype in model.cache_spec(batch, max_len))
+
+
+def cast_params(params, dtype: torch.dtype):
+    """Every floating leaf in the compute dtype, as the reference's serving
+    steps cast the tree (an SSM's f32 ``A_log`` and ``D`` become bf16 there).
+    A leaf already in ``dtype`` is the same tensor, so a tree with nothing
+    to cast costs no copy."""
+    if isinstance(params, dict):
+        return {k: cast_params(v, dtype) for k, v in params.items()}
+    return params.to(dtype) if params.is_floating_point() else params
 
 
 def make_chunk_prefill_step(model: Model, *, method: str = "quartet") -> Callable:
     """Chunked prefill over dense caches: ``tokens [B, C]`` at absolute
     positions ``start [B] + 0..C-1``, writing K/V there."""
 
+    dtype = getattr(torch, model.cfg.dtype)
+
     @torch.inference_mode()
     def prefill_chunk(params, tokens, start, caches, token_valid=None):
         """tokens [B, C], start [B] → (last-token logits [B, V], caches,
         start + C).  The head runs on the last row only."""
+        params = cast_params(params, dtype)
         C = tokens.shape[1]
         positions = start[:, None] + torch.arange(C, dtype=torch.int32,
                                                   device=tokens.device)[None, :]
@@ -68,9 +81,12 @@ def make_prefill_step(model: Model, *, method: str = "quartet") -> Callable:
 
 
 def make_decode_step(model: Model, *, method: str = "quartet") -> Callable:
+    dtype = getattr(torch, model.cfg.dtype)
+
     @torch.inference_mode()
     def decode(params, token, position, caches, token_valid=None):
         """token [B, 1], position [B] → (logits [B, V], caches, position + 1)."""
+        params = cast_params(params, dtype)
         logits, caches = model.forward(params, token, 0, positions=position[:, None],
                                        caches=caches, cache_index=position, method=method,
                                        token_valid=token_valid)
@@ -86,9 +102,12 @@ def make_verify_step(model: Model, *, method: str = "quartet") -> Callable:
     logits, or with ``features_only`` the final hidden states, so a caller
     that reads one row per slot applies the head to that row only."""
 
+    dtype = getattr(torch, model.cfg.dtype)
+
     @torch.inference_mode()
     def verify(params, tokens, start, caches, positions=None, features_only=False,
                token_valid=None):
+        params = cast_params(params, dtype)
         S = tokens.shape[1]
         if positions is None:
             positions = start[:, None] + torch.arange(S, dtype=torch.int32,

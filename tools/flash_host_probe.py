@@ -1,6 +1,6 @@
 """Does B6's plain version give the same bits every time on a host CPU?
 
-    python3 tools/flash_host_probe.py [--procs 6] [--reps 40]
+    python3 tools/flash_host_probe.py [--procs 6] [--reps 40] [--ops]
 
 Evaluates ``flash_attention_plain`` (through ``mha_flash`` on CPU tensors)
 on one fixed f32 input (2 x 130 queries, GQA 4/2, head dim 64, causal: the
@@ -13,6 +13,15 @@ is present.  Prints, per setting, the number of distinct results (by their
 bytes) and each one's max |Δ| from a float64 evaluation of the same
 attention.  The evaluations run on the CPU; JAX is imported only in the
 settings that ask for it.
+
+``--ops`` cuts the plain version down to one op at a time: each of its ops
+(:data:`OPS`: the scores' product, the mask, the row max, the exponentials,
+the row sum, the probabilities' product with V, the final division) on
+fixed inputs of its shape in the plain version's first query block,
+evaluated alone in the setting that wanders (the default threads, JAX
+imported, CUDA initialized where a card is present), and the whole plain
+version beside them.  An op that gives more than one result there is one
+whose order changes with the threads.
 """
 
 from __future__ import annotations
@@ -45,7 +54,32 @@ def attention_f64(np, q, k, v):
     return np.einsum("bhst,bthd->bshd", p / p.sum(-1, keepdims=True), v)
 
 
-def worker(threads: str, with_jax: bool, with_cuda: bool, reps: int) -> None:
+def op_inputs(np, torch):
+    """Fixed f32 operands of the plain version's ops in its first query
+    block: B·Hq = 8 rows of 64 queries, 64 keys, head dim 64."""
+    rng = np.random.default_rng(1)
+    t = {name: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+         for name, shape in (("q", (8, 64, 64)), ("k", (8, 64, 64)), ("v", (8, 64, 64)),
+                             ("s", (8, 64, 64)), ("acc", (8, 64, 64)), ("l", (8, 64)))}
+    t["l"] = t["l"].abs() + 1.0
+    t["mask"] = torch.from_numpy(np.tril(np.ones((64, 64), bool)))
+    return t
+
+
+OPS = {
+    "scores_einsum": lambda torch, t: torch.einsum("bqd,bkd->bqk", t["q"], t["k"]),
+    "mask_where": lambda torch, t: torch.where(t["mask"], t["s"], torch.full_like(t["s"],
+                                                                                  -1e30)),
+    "row_amax": lambda torch, t: torch.amax(t["s"], dim=-1),
+    "exp": lambda torch, t: torch.exp(t["s"] - torch.amax(t["s"], dim=-1, keepdim=True)),
+    "row_sum": lambda torch, t: torch.sum(torch.exp(t["s"] - 3.0), dim=-1),
+    "pv_einsum": lambda torch, t: torch.einsum("bqk,bkd->bqd", torch.exp(t["s"] - 3.0),
+                                               t["v"]),
+    "divide": lambda torch, t: t["acc"] / torch.clamp(t["l"], min=1e-30)[..., None],
+}
+
+
+def worker(threads: str, with_jax: bool, with_cuda: bool, reps: int, op: str = "all") -> None:
     import numpy as np
 
     if with_jax:
@@ -67,10 +101,19 @@ def worker(threads: str, with_jax: bool, with_cuda: bool, reps: int) -> None:
     ref = attention_f64(np, q, k, v)
     seen = {}
     tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    if op == "all":
+        def fn():
+            return mha_flash(tq, tk, tv, causal=True).numpy()
+    else:
+        t = op_inputs(np, torch)
+        first = OPS[op](torch, t).numpy()
+
+        def fn():
+            return OPS[op](torch, t).numpy()
     for _ in range(reps):
-        out = mha_flash(tq, tk, tv, causal=True).numpy()
+        out = fn()
         key = hashlib.sha256(out.tobytes()).hexdigest()[:16]
-        seen.setdefault(key, float(np.abs(out - ref).max()))
+        seen.setdefault(key, float(np.abs(out - (ref if op == "all" else first)).max()))
     print(json.dumps({"threads": torch.get_num_threads(), "results": seen}))
 
 
@@ -78,30 +121,38 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--procs", type=int, default=6)
     ap.add_argument("--reps", type=int, default=40)
-    ap.add_argument("--worker", nargs=3, metavar=("THREADS", "JAX", "CUDA"))
+    ap.add_argument("--ops", action="store_true",
+                    help="each op of the plain version alone, in the setting that wanders")
+    ap.add_argument("--worker", nargs=4, metavar=("THREADS", "JAX", "CUDA", "OP"))
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker[0], args.worker[1] == "1", args.worker[2] == "1", args.reps)
+        worker(args.worker[0], args.worker[1] == "1", args.worker[2] == "1", args.reps,
+               args.worker[3])
         return 0
     import torch
 
-    settings = [(t, j, "0") for t in ("default", "1") for j in ("0", "1")]
-    if torch.cuda.is_available():
-        settings.append(("default", "1", "1"))
-    for threads, with_jax, with_cuda in settings:
+    cuda = "1" if torch.cuda.is_available() else "0"
+    if args.ops:
+        settings = [("default", "1", cuda, op) for op in ("all", *OPS)]
+    else:
+        settings = [(t, j, "0", "all") for t in ("default", "1") for j in ("0", "1")]
+        if torch.cuda.is_available():
+            settings.append(("default", "1", "1", "all"))
+    for threads, with_jax, with_cuda, op in settings:
         results, n_threads = {}, None
         for _ in range(args.procs):
             out = subprocess.run([sys.executable, __file__, "--reps", str(args.reps),
-                                  "--worker", threads, with_jax, with_cuda],
+                                  "--worker", threads, with_jax, with_cuda, op],
                                  capture_output=True, text=True, check=True, timeout=600)
             rec = json.loads(out.stdout.strip().splitlines()[-1])
             n_threads = rec["threads"]
             results.update(rec["results"])
-        print(json.dumps({"torch_threads": n_threads, "jax_imported": with_jax == "1",
+        print(json.dumps({"op": op, "torch_threads": n_threads,
+                          "jax_imported": with_jax == "1",
                           "cuda_initialized": with_cuda == "1",
                           "evaluations": args.procs * args.reps,
                           "distinct_results": len(results),
-                          "max_abs_vs_float64": sorted(results.values())}), flush=True)
+                          "max_abs_vs_reference": sorted(results.values())}), flush=True)
     return 0
 
 

@@ -127,7 +127,8 @@ def main() -> int:
     TM._router_logits = rec_router
     ops.sr_hadamard_quantize, ops.sr_hadamard_quantize_experts = rec_b2(b2), rec_b2(b2e)
     patched = [rec_op(mod, name) for mod, name in (
-        (L, "rmsnorm"), (L, "apply_rope"), (L, "dense"), (L, "dense_experts"),
+        (L, "rmsnorm"), (L, "rope_table"), (L, "apply_rope"), (L, "dense"),
+        (L, "dense_experts"),
         (A, "blocked_attention"))]
     runs = {}
     try:
