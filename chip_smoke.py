@@ -7,7 +7,8 @@
    ``nvcc`` per source, all started together: 6 libraries, 7 kernels, B1,
    B2 and B3 each also with an expert axis), and
    prints each entry's registers, shared memory and spills (-Xptxas -v);
-   B4b's body must use no stack and spill nothing.
+   B4b's bodies must use no stack and spill nothing, B4a's head-wide
+   body no spills.
 2. Checks each kernel against its plain PyTorch version on the card at the
    full-width qwen3-1.7b shapes of the serving path and the full-width
    llama-paper-200m shapes of a training step (16 x 512 tokens): B1 (QuEST
@@ -140,6 +141,20 @@
    first-token log-probs within stated bounds of the teacher-forced
    forward; at 2 layers, ``statepool`` with dense rings token-exact against
    ``dense_slots``.
+4g. The hybrid family (``--phases hybrid``): B4a and B4b with the
+   head-wide block (one scale a head of 112) bit for bit against their plain
+   versions (the K+V scatter at a decode tick and a prefill chunk, strided
+   and unaligned rows; the E8M0 edge sweep; the K+V gather over ragged
+   tables and the 2-d dequantize over every (byte, scale code) pair) and on
+   the zamba2 rings' views; rope at hd 112 card = CPU bit for bit and one
+   full-width Mamba2 block card against CPU within stated bounds;
+   zamba2-7b at full width and depth serving the first HYBRID_REQUESTS of
+   the ssm phase's prompts from an MXFP4 attention-KV plane and MXFP4 rings
+   (launches against the prediction, tok/s, TTFT, ticks, prefill calls by
+   shape, plane bytes against the dense slots', peak memory, first-token
+   log-probs within the ssm phase's gate); at 13 layers, dense planes
+   token-exact against ``dense_slots``; with ``times``, B4a and B4b timed
+   at the KV plane's and both SSM families' rings' shapes.
 5. Times each kernel (CUDA events, median, L2 flushed before each launch)
    beside its plain version and, where one PyTorch call computes the same
    function, that call, at serving, training and evaluation shapes; B1, B2,
@@ -261,6 +276,24 @@ DENSE_ARCH, DENSE_TRAIN_LAYERS, DENSE_TRAIN_STEPS, TRAIN_C4_STEPS = "starcoder2-
 SSM_ARCH, SSM_REQUESTS, SSM_MIN_PROMPT, SSM_MAX_PROMPT, SSM_NEW, SSM_CHUNK = (
     "falcon-mamba-7b", 8, 64, 192, 32, 64)
 SSM_ORACLE_LAYERS, SSM_ORACLE_REQUESTS, SSM_ORACLE_NEW = 2, 4, 8
+# the hybrid phase: zamba2-7b at full width and depth (81 Mamba2 layers at d
+# 3584, Di 7168, N 64, 112 SSM heads of 64; the shared attention + SwiGLU
+# block, 32 heads of 112, before each of 13 groups of 6, then a 3-layer
+# tail; 6.75 B stored parameters, 13.5 GB in bf16) serving the ssm phase's
+# prompts (the first HYBRID_REQUESTS), SSM_NEW new each, from an MXFP4
+# attention-KV plane of PAGE_SIZE
+# pages and MXFP4 state rings; its statepool-vs-dense_slots oracle at full
+# width, HYBRID_ORACLE_LAYERS deep (2 groups and a 1-layer tail), on the
+# first SSM_ORACLE_REQUESTS prompts
+HYBRID_ARCH, HYBRID_ORACLE_LAYERS = "zamba2-7b", 13
+# of the ssm phase's prompts the hybrid serves the first HYBRID_REQUESTS (a
+# [1, 1] call of its 81 layers and 13 attentions takes ~0.33 s of host
+# time: all 8 prompts held the phase at 224 s)
+HYBRID_REQUESTS = 4
+# one full-width Mamba2 block on the card against the CPU on equal inputs
+# (f32, plain f32 linears): max |Δ| of the output and of the new state, as
+# fractions of max |CPU|
+MAMBA2_CARD_CPU_OUT, MAMBA2_CARD_CPU_STATE = 1e-4, 1e-4
 # first-token log-probs of the MXFP4 rings against the teacher-forced
 # forward (the rings quantize the state at every prefill call and decode
 # step; a reduced 4-layer d-512 model on the CPU read max 1.8-4.3, mean
@@ -699,7 +732,7 @@ def plain_quant_scatter(torch, codes, scales, page_ids, offsets, x):
     from repro_torch.kernels import kv_pack as KV
 
     L, n, H, K = x.shape
-    c, s = KV.kv_quant_pack_plain(x.reshape(-1, K))
+    c, s = KV.kv_quant_pack_plain(x.reshape(-1, K), K // scales.shape[-1])
     pid, off = page_ids.long(), offsets.long()
     codes[:, pid, off] = c.reshape(L, n, H, -1)
     scales[:, pid, off] = s.reshape(L, n, H, -1)
@@ -3601,20 +3634,23 @@ def train_c4_resume_on_card(torch):
 
 def check_ring_kernels(torch, cfg, device="cuda"):
     """B4a and B4b through their 2-d entries on the state rings' views at
-    ``cfg``'s full width, N_SLOTS slots (conv [L, K-1, Di] in bf16, h [L, Di,
-    N] in f32, each slot's state as rows of ``ring_rows`` elements), bit for
-    bit against their plain versions on the card; blocks at 2^-8..2^8 and
-    E8M0 edge rows.  Returns max |Δ| (0.0) by kernel."""
+    ``cfg``'s full width, N_SLOTS slots (the ring leaves of its cache tree:
+    conv [L, K-1, C] in bf16, h in f32, each slot's state as rows of
+    ``ring_rows`` elements), bit for bit against their plain versions on the
+    card; blocks at 2^-8..2^8 and E8M0 edge rows.  Returns the views."""
     import numpy as np
 
     from repro_torch.kernels import kv_pack as KV
+    from repro_torch.models import build_model
+    from repro_torch.models.registry import cache_leaves
     from repro_torch.serve.state_pool import BLOCK, ring_rows
 
-    di = cfg.ssm_expand * cfg.d_model
+    spec = build_model(cfg).cache_spec(1, 1)
+    spec = spec["mamba"] if isinstance(spec, dict) else spec
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
     out = {}
-    for name, leaf, dtype in (("conv", (cfg.num_layers, cfg.ssm_conv - 1, di), torch.bfloat16),
-                              ("h", (cfg.num_layers, di, cfg.ssm_state), torch.float32)):
+    for name, ((L, _, *rest), dtype) in zip(("conv", "h"), cache_leaves(spec)):
+        leaf = (L, *rest)
         elems = math.prod(leaf)
         padded = -(-elems // BLOCK) * BLOCK
         row = ring_rows(padded)
@@ -3634,7 +3670,8 @@ def check_ring_kernels(torch, cfg, device="cuda"):
         if not torch.equal(bit_pattern(torch, y), bit_pattern(torch, py)):
             raise AssertionError(f"B4b on the {name} ring view {tuple(x.shape)} differs from "
                                  f"its plain version")
-        out[name] = {"rows": list(x.shape), "dtype": str(dtype).split(".")[-1]}
+        out[name] = {"slot_elements": elems, "rows": list(x.shape),
+                     "dtype": str(dtype).split(".")[-1]}
     return out
 
 
@@ -3647,7 +3684,8 @@ def _ssm_run(torch, model, params, prompts, max_new, *, kv="mxfp4", backend=None
     from repro_torch.serve import Engine, EngineConfig
 
     eng = Engine(model, params, EngineConfig(
-        n_slots=N_SLOTS, max_len=SSM_MAX_PROMPT + max_new, page_size=PAGE_SIZE, kv_dtype=kv,
+        n_slots=N_SLOTS, max_len=-(-(SSM_MAX_PROMPT + max_new) // PAGE_SIZE) * PAGE_SIZE,
+        page_size=PAGE_SIZE, kv_dtype=kv,
         prefill_chunk=SSM_CHUNK, keep_logits=keep_logits, decode_backend=backend))
     calls = _count_step_calls(eng, "_state_steps") if eng.backend == "statepool" else {}
     torch.cuda.synchronize()
@@ -3752,8 +3790,9 @@ def serve_ssm(torch, ops, device="cuda"):
                "step_calls": calls, "launches": counts, "predicted_launches": predicted,
                "ring_bytes": sp.cache_bytes(),
                "dense_slot_bytes": N_SLOTS * sum(r.dense_bytes() for r in sp.rings),
-               "state_bytes_per_decode_step": sp.state_bytes_per_decode_step(),
-               "dense_state_bytes_per_decode_step": sp.dense_state_bytes_per_decode_step(),
+               "state_bytes_per_decode_step": sp.state_bytes_per_decode_step(sp.max_len),
+               "dense_state_bytes_per_decode_step":
+                   sp.dense_state_bytes_per_decode_step(sp.max_len),
                "ring_bits_per_element": sp.bits_per_element(),
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "first_token_logprob_vs_teacher_forced": lp}
@@ -3814,13 +3853,397 @@ def check_rope_card_vs_cpu(torch, device="cuda"):
     return out
 
 
+def head_wide_edge_rows(np, hd):
+    """Rows of ``hd`` values whose absmax/6 lies within ±8 ulps of √2·2^k (the
+    E8M0-nearest rounding edge) or exactly at 2^k, for k in [-100, 100],
+    plus all-zero rows (f32): the head-wide block's edge sweep."""
+    rng = np.random.default_rng(SEED + 1)
+    amax = []
+    for k in range(-100, 101):
+        a0 = np.float32(np.sqrt(2.0) * 2.0**k * 6.0)
+        amax.extend((a0.view(np.int32) + np.arange(-8, 9, dtype=np.int32)).view(np.float32))
+        amax.append(np.float32(6.0 * 2.0**k))
+    amax = np.asarray(amax, np.float32)
+    x = np.zeros((amax.size + 8, hd), np.float32)
+    x[:amax.size, 1:] = rng.uniform(-0.9, 0.9, (amax.size, hd - 1)) * amax[:, None]
+    x[:amax.size, 0] = amax * np.where(rng.random(amax.size) < 0.5, -1, 1)
+    return x
+
+
+def every_pair_rows(torch, n_rows, row_bytes, shift, device):
+    """Head-wide B4b operands (codes [n_rows, row_bytes], one scale a row)
+    holding every (byte, scale code) pair: byte f of the flat codes is (f +
+    16·shift) mod 256, row r's scale code (r // 32 + shift) mod 256 (32 rows
+    of 56 bytes hold each byte value 7 times; 8192 rows every scale code)."""
+    codes = ((torch.arange(n_rows * row_bytes, device=device) + 16 * shift) % 256)
+    scales = (torch.arange(n_rows, device=device) // 32 + shift) % 256
+    return (codes.to(torch.uint8).reshape(n_rows, row_bytes),
+            scales.to(torch.uint8).reshape(n_rows, 1))
+
+
+def check_head_wide_kernels(torch, cfg, device="cuda"):
+    """B4a and B4b with the head-wide block (one scale a head of 112) at
+    ``cfg``'s KV plane, bit for bit against their plain versions on the card:
+    the K+V scatter at a decode tick (N_SLOTS tokens) and a prefill chunk
+    (SSM_CHUNK tokens) of every application's layer, K and V read through
+    strides (16-byte loads) and through rows no 16-byte load can read; the
+    2-d entry over the E8M0 edge sweep in f32 and bf16; the K+V gather over
+    ragged tables from pools holding every (byte, scale code) pair; the 2-d
+    dequantize over every pair, with a short last chunk.  Returns a summary
+    (one launch each asserted)."""
+    import numpy as np
+
+    from repro_torch.kernels import kv_pack as KV
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    Lkv, H, hd = cfg.num_layers // cfg.attn_every, cfg.num_kv_heads, cfg.head_dim_
+    if hd not in KV.HEAD_BLOCKS:
+        raise AssertionError(f"head dim {hd} has no head-wide body")
+    kh, T = hd // 2, SSM_MAX_PROMPT + SSM_NEW
+    n_pages = 1 + N_SLOTS * (-(-T // PAGE_SIZE))
+    u8 = torch.uint8
+    out = {}
+
+    def leaves():
+        return [torch.zeros((Lkv, n_pages, PAGE_SIZE, H, w), dtype=u8, device=device)
+                for w in (kh, 1, kh, 1)]
+
+    for tag, n_tok in (("decode", N_SLOTS), ("prefill", SSM_CHUNK)):
+        for vec in (True, False):
+            width = hd if vec else hd + 1  # rows of 113: no 16-byte load reads them
+            base = (torch.randn((Lkv, 2 * n_tok, H, width), generator=gen, device=device)
+                    * torch.exp2(torch.randint(-6, 7, (Lkv, 2 * n_tok, H, 1), generator=gen,
+                                               device=device).float())).to(torch.bfloat16)
+            k, v = base[:, ::2, :, :hd], base[:, 1::2, :, :hd]
+            perm = torch.randperm((n_pages - 1) * PAGE_SIZE, generator=gen,
+                                  device=device)[:n_tok]
+            pid = (1 + perm // PAGE_SIZE).to(torch.int32)
+            off = (perm % PAGE_SIZE).to(torch.int32)
+            got, want = leaves(), leaves()
+            before = KV.kv_quant_pack.launches
+            KV.kv_quant_scatter_kv(*got, pid, off, k, v)
+            if KV.kv_quant_pack.launches - before != 1:
+                raise AssertionError("head-wide K+V scatter took more than one launch")
+            plain_quant_scatter(torch, want[0], want[1], pid, off, k)
+            plain_quant_scatter(torch, want[2], want[3], pid, off, v)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"head-wide B4a scatter ({tag}, vector loads {vec}) "
+                                     f"differs from its plain version")
+            out[f"scatter_{tag}{'' if vec else '_scalar_loads'}"] = [Lkv, n_tok, H, hd]
+    x = torch.from_numpy(head_wide_edge_rows(np, hd)).to(device)
+    for dt in (torch.float32, torch.bfloat16):
+        c, s = KV.kv_quant_pack(x.to(dt), hd)
+        pc, ps = KV.kv_quant_pack_plain(x.to(dt), hd)
+        if not (torch.equal(c, pc) and torch.equal(s, ps) and s.shape == (x.shape[0], 1)):
+            raise AssertionError(f"head-wide B4a 2-d ({dt}) differs from its plain version "
+                                 f"on the E8M0 edge rows")
+    out["edge_rows"] = x.shape[0]
+
+    n_rows = Lkv * n_pages * PAGE_SIZE * H
+    kc, ks = every_pair_rows(torch, n_rows, kh, 0, device)
+    vc, vs = every_pair_rows(torch, n_rows, kh, 97, device)
+    shape = (Lkv, n_pages, PAGE_SIZE, H)
+    kc, vc = kc.reshape(*shape, kh), vc.reshape(*shape, kh)
+    ks, vs = ks.reshape(*shape, 1), vs.reshape(*shape, 1)
+    P = -(-T // PAGE_SIZE)
+    perm = 1 + torch.randperm(n_pages - 1, generator=gen, device=device)[:N_SLOTS * P]
+    tables = perm.to(torch.int32).reshape(N_SLOTS, P)
+    tables[1, 3:] = 0  # a short slot: its unmapped columns read the scratch page
+    tables[2, 5] = tables[0, 0]  # a page read twice
+    idx = tables.long()
+    for dt in (torch.float32, torch.bfloat16):
+        before = KV.kv_dequant_unpack.launches
+        gk, gv = KV.kv_gather_dequant_kv(kc, ks, vc, vs, tables, dt)
+        if KV.kv_dequant_unpack.launches - before != 1:
+            raise AssertionError("head-wide K+V gather took more than one launch")
+        for g, c, s in ((gk, kc, ks), (gv, vc, vs)):
+            want = KV.kv_dequant_unpack_plain(c[:, idx], s[:, idx], dt).reshape(g.shape)
+            if not torch.equal(bit_pattern(torch, g), bit_pattern(torch, want)):
+                raise AssertionError(f"head-wide B4b gather ({dt}) differs from its plain "
+                                     f"version")
+    out["gather"] = [Lkv, N_SLOTS, P * PAGE_SIZE, H, hd]
+    for m in (16384, 16384 - 37):
+        c, s = every_pair_rows(torch, m, kh, 5, device)
+        for dt in (torch.float32, torch.bfloat16):
+            y = KV.kv_dequant_unpack(c, s, dt)
+            if not torch.equal(bit_pattern(torch, y),
+                               bit_pattern(torch, KV.kv_dequant_unpack_plain(c, s, dt))):
+                raise AssertionError(f"head-wide B4b 2-d ({m} rows, {dt}) differs from its "
+                                     f"plain version")
+    out["dequant_2d_rows"] = [16384, 16384 - 37]
+    return out
+
+
+def check_hybrid_card_vs_cpu(torch, cfg, device="cuda"):
+    """Card against CPU on equal inputs: rope's table at hd 112 over
+    positions 0..32767 (bit for bit); one full-width Mamba2 block in f32
+    with plain f32 linears, as a decode step of N_SLOTS slots and as a [1,
+    SSM_CHUNK] chunk, each from a random cache (output and new state within
+    MAMBA2_CARD_CPU_* of max |CPU|); and the SSD scan's ``cumsum`` alone
+    (its bits that differ counted).  Returns the measured differences."""
+    import dataclasses
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+
+    pos = torch.arange(32768, dtype=torch.int32).reshape(8, 4096)
+    card = L.rope_table(pos.to(device), cfg.head_dim_, cfg.rope_theta)
+    host = L.rope_table(pos, cfg.head_dim_, cfg.rope_theta)
+    out = {"rope_hd112_bits_differ": sum(_bits_differ(torch, c.cpu(), h)
+                                         for c, h in zip(card, host))}
+    if out["rope_hd112_bits_differ"]:
+        raise AssertionError(f"rope table at hd {cfg.head_dim_}: {out} values differ between "
+                             f"the card and the CPU")
+    fcfg = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator().manual_seed(SEED + 8)
+    p = S.init_mamba2_block(fcfg, torch.float32, gen, "cpu")
+    p["dt_bias"] = torch.randn(p["dt_bias"].shape, generator=gen) * 0.5
+    p["conv_b"] = torch.randn(p["conv_b"].shape, generator=gen) * 0.1
+    pc = {k: (v.to(device) if isinstance(v, torch.Tensor) else {a: b.to(device)
+                                                                for a, b in v.items()})
+          for k, v in p.items()}
+    d = cfg.d_model
+    for tag, B, Sq in (("decode", N_SLOTS, 1), ("chunk", 1, SSM_CHUNK)):
+        x = torch.randn((B, Sq, d), generator=gen)
+        (cs, _), (hs, _) = S.mamba2_cache_spec(fcfg, B)
+        conv, h = torch.randn(cs, generator=gen) * 0.5, torch.randn(hs, generator=gen) * 0.5
+        hc, dc = (conv.clone(), h.clone()), (conv.to(device), h.to(device))
+        with torch.inference_mode():
+            yh, _ = S.mamba2_block(p, x, None, 0, fcfg, hc, "bf16")
+            yd, _ = S.mamba2_block(pc, x.to(device), None, 0, fcfg, dc, "bf16")
+        e_out = float((yd.cpu() - yh).abs().max() / yh.abs().max())
+        e_h = float((dc[1].cpu() - hc[1]).abs().max() / hc[1].abs().max())
+        e_conv = float((dc[0].cpu() - hc[0]).abs().max() / hc[0].abs().max())
+        out[f"mamba2_{tag}"] = {"out_rel": e_out, "state_rel": e_h, "conv_state_rel": e_conv}
+        if e_out > MAMBA2_CARD_CPU_OUT or e_h > MAMBA2_CARD_CPU_STATE:
+            raise AssertionError(f"Mamba2 block {tag}: card vs CPU {out[f'mamba2_{tag}']} "
+                                 f"beyond ({MAMBA2_CARD_CPU_OUT}, {MAMBA2_CARD_CPU_STATE})")
+    nh = cfg.ssm_expand * d // cfg.ssm_head_dim
+    dA = -torch.rand((1, SSM_CHUNK, nh), generator=gen) * 4
+    cc, ch = torch.cumsum(dA.to(device), 1).cpu(), torch.cumsum(dA, 1)
+    out["cumsum_bits_differ"] = _bits_differ(torch, cc, ch)
+    out["cumsum_max_abs_diff"] = float((cc - ch).abs().max())
+    return out
+
+
+def _hybrid_prefill_shapes(prompts) -> dict:
+    """Prefill calls by shape: each prompt in [1, SSM_CHUNK] chunks, then
+    its remainder as [1, 1] calls."""
+    return {f"1x{SSM_CHUNK}": sum(int(p.size) // SSM_CHUNK for p in prompts),
+            "1x1": sum(int(p.size) % SSM_CHUNK for p in prompts)}
+
+
+def serve_hybrid(torch, ops, device="cuda"):
+    """HYBRID_ARCH at full width and depth from an MXFP4 attention-KV plane
+    (PAGE_SIZE) and MXFP4 state rings (the ``statepool`` backend): the first
+    HYBRID_REQUESTS of the ssm phase's prompts, SSM_NEW new each; launches of B1, B3, B4a and B4b
+    against a prediction, first-token log-probs against the teacher-forced
+    forward; then, HYBRID_ORACLE_LAYERS layers deep, statepool with dense
+    planes token for token against ``dense_slots``.  Returns (summary,
+    launch counts, vector-body launches)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import init_params
+    from repro_torch.launch.serve_engine import kernel_config
+    from repro_torch.models import build_model
+
+    cfg = kernel_config(get_config(HYBRID_ARCH))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"  init: {n_params} stored params ({cfg.n_params()} without embeddings by the "
+        f"reference's formula, the shared block counted once an application) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    model = build_model(cfg)
+    rng = np.random.default_rng(SEED + 5)  # the ssm phase's prompts
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(SSM_MIN_PROMPT,
+                                                                SSM_MAX_PROMPT + 1)))
+               .astype(np.int32) for _ in range(SSM_REQUESTS)][:HYBRID_REQUESTS]
+    L, n_super = cfg.num_layers, cfg.num_layers // cfg.attn_every
+    # warm-up (first-use costs): a [1, SSM_CHUNK] chunk, a [1, 1] call, decodes
+    _ssm_run(torch, model, params, [p[:SSM_CHUNK + 1] for p in prompts[:2]], 2)
+    ops.reset_launch_counts()
+    eng, reqs, wall, first, ticks, calls = _ssm_run(torch, model, params, prompts, SSM_NEW,
+                                                    keep_logits=True)
+    counts, vec = ops.launch_counts(), ops.vector_launches()
+    # per step call: 2 B1 and 1 B3 in each of a Mamba2 layer's 2 quantized
+    # projections (in, out) and of the shared block's 7 linears at each of
+    # its n_super applications (the untied head stays bf16); the KV plane one
+    # B4b (gather, K and V) and one B4a (the new tokens' K and V); per ring
+    # plane (conv, h) one B4b and one B4a
+    n = sum(calls.values())
+    predicted = {k: 0 for k in counts}
+    predicted.update({"hadamard_quest_quantize": (4 * L + 14 * n_super) * n,
+                      "mxfp4_matmul": (2 * L + 7 * n_super) * n,
+                      "kv_quant_pack": 3 * n, "kv_dequant_unpack": 3 * n})
+    if counts != predicted:
+        raise AssertionError(f"hybrid run launches {counts} != predicted {predicted}")
+    shapes = _hybrid_prefill_shapes(prompts)
+    if sum(shapes.values()) != calls.get("prefill_chunk", 0):
+        raise AssertionError(f"prefill calls {calls} != the schedule's {shapes}")
+    lp = _first_token_vs_teacher_forced(torch, model, params, prompts, reqs, device)
+    sp = eng.cache
+    kv = sp.kv
+    T = sp.max_len
+    kv_token = kv.cache_bytes() // (kv.n_pages * kv.page_size)
+    kv_token_dense = 2 * kv.layers * kv.kv_heads * kv.head_dim * 2
+    ttft = sorted(first.values())
+    toks = sum(len(r.tokens) for r in reqs)
+    summary = {"arch": HYBRID_ARCH, "stored_params": n_params,
+               "n_params_reference_formula": cfg.n_params(),
+               "requests": len(reqs), "prompts": [int(p.size) for p in prompts],
+               "tokens": toks, "wall_s": wall, "tok_per_s": toks / wall,
+               "ttft_mean_s": float(np.mean(ttft)), "ttft_max_s": ttft[-1],
+               "prefill_ticks": len(ticks["prefill"]),
+               "prefill_tick_ms_median": 1e3 * sorted(ticks["prefill"])[
+                   len(ticks["prefill"]) // 2],
+               "decode_ticks": len(ticks["decode"]),
+               "decode_tick_ms_median": 1e3 * sorted(ticks["decode"])[len(ticks["decode"]) // 2],
+               "step_calls": calls, "prefill_calls_by_shape": shapes, "launches": counts,
+               "predicted_launches": predicted,
+               "kv_plane_bytes": kv.cache_bytes(), "kv_bytes_per_token": kv_token,
+               "kv_bytes_per_token_bf16": kv_token_dense,
+               "kv_plane_bytes_bf16_slots": N_SLOTS * T * kv_token_dense,
+               "ring_bytes": sum(r.cache_bytes() for r in sp.rings),
+               "ring_page_bytes": sum(r.page_bytes() for r in sp.rings),
+               "ring_page_bytes_dense": sum(r.dense_bytes() for r in sp.rings),
+               "dense_slot_ring_bytes": N_SLOTS * sum(r.dense_bytes() for r in sp.rings),
+               "pool_bytes": sp.cache_bytes(), "bits_per_element": sp.bits_per_element(),
+               "state_bytes_per_decode_step": sp.state_bytes_per_decode_step(T),
+               "dense_state_bytes_per_decode_step": sp.dense_state_bytes_per_decode_step(T),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "first_token_logprob_vs_teacher_forced": lp}
+    log(f"  mxfp4 planes: {json.dumps(summary)}")
+    if not all(x < SSM_LOGPROB_MAX and y < SSM_LOGPROB_MEAN for x, y in lp):
+        raise AssertionError(f"MXFP4-plane first-token log-probs vs teacher-forced beyond "
+                             f"({SSM_LOGPROB_MAX}, {SSM_LOGPROB_MEAN}): {lp}")
+    del eng, reqs
+
+    # the oracle at full width, HYBRID_ORACLE_LAYERS deep (2 groups and a
+    # 1-layer tail): dense planes hold the state bit for bit, so statepool's
+    # tokens are dense_slots' tokens
+    small = build_model(dataclasses.replace(cfg, num_layers=HYBRID_ORACLE_LAYERS))
+    sparams = {**params, "mamba_layers": _tree_map(lambda v: v[:HYBRID_ORACLE_LAYERS],
+                                                   params["mamba_layers"])}
+    few = prompts[:SSM_ORACLE_REQUESTS]
+    _, pooled, _, _, _, _ = _ssm_run(torch, small, sparams, few, SSM_ORACLE_NEW, kv="dense",
+                                     keep_logits=True)
+    _, oracle, _, _, _, _ = _ssm_run(torch, small, sparams, few, SSM_ORACLE_NEW,
+                                     backend="dense_slots")
+    if [r.tokens for r in pooled] != [r.tokens for r in oracle]:
+        raise AssertionError(f"statepool (dense planes) tokens {[r.tokens for r in pooled]} "
+                             f"!= dense_slots tokens {[r.tokens for r in oracle]}")
+    summary["oracle"] = {"layers": HYBRID_ORACLE_LAYERS, "requests": len(few),
+                         "tokens_equal": True,
+                         "dense_planes_first_token_logprob_vs_teacher_forced":
+                             _first_token_vs_teacher_forced(torch, small, sparams, few, pooled,
+                                                            device)}
+    del params, sparams
+    torch.cuda.empty_cache()
+    return summary, counts, vec
+
+
+def time_state_kernels(torch, timer, device="cuda"):
+    """B4a and B4b at the state pool's shapes, N_SLOTS slots: the hybrid's KV
+    plane (HYBRID_ARCH: K and V of every application at a decode tick and a
+    prefill chunk; the gather of a decode tick, bf16 out) and each ring's
+    write and read of a step (HYBRID_ARCH and SSM_ARCH: conv bf16, h f32,
+    through the 2-d entries on the rings' views).  Each beside its plain
+    version and its least time on the H100 (bytes: each input read once,
+    each output written once)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import kv_pack as KV
+    from repro_torch.models import build_model
+    from repro_torch.models.registry import cache_leaves
+    from repro_torch.serve.paged_cache import gather_pages
+    from repro_torch.serve.state_pool import BLOCK, ring_rows
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    cfg = get_config(HYBRID_ARCH)
+    Lkv, H, hd = cfg.num_layers // cfg.attn_every, cfg.num_kv_heads, cfg.head_dim_
+    T = SSM_MAX_PROMPT + SSM_NEW
+    P = -(-T // PAGE_SIZE)
+    n_pages = 1 + N_SLOTS * P
+    pool = {n: torch.zeros((Lkv, n_pages, PAGE_SIZE, H, w), dtype=torch.uint8, device=device)
+            for n, w in (("k_codes", hd // 2), ("k_scales", 1), ("v_codes", hd // 2),
+                         ("v_scales", 1))}
+    leaves = [pool[n] for n in ("k_codes", "k_scales", "v_codes", "v_scales")]
+    rec = {}
+    for tag, n_tok in (("hybrid kv decode", N_SLOTS), ("hybrid kv prefill", SSM_CHUNK)):
+        perm = torch.randperm((n_pages - 1) * PAGE_SIZE, generator=gen, device=device)[:n_tok]
+        pid, off = (1 + perm // PAGE_SIZE).to(torch.int32), (perm % PAGE_SIZE).to(torch.int32)
+        k, v = [(torch.randn((Lkv, n_tok, H, hd), generator=gen, device=device) * 1.5)
+                .to(torch.bfloat16) for _ in range(2)]
+        nbytes = 2 * Lkv * n_tok * H * (hd * 2 + hd / 2 + 1) + 8 * n_tok
+
+        def plain(k=k, v=v, pid=pid, off=off):
+            plain_quant_scatter(torch, pool["k_codes"], pool["k_scales"], pid, off, k)
+            plain_quant_scatter(torch, pool["v_codes"], pool["v_scales"], pid, off, v)
+
+        def kern(k=k, v=v, pid=pid, off=off):
+            KV.kv_quant_scatter_kv(*leaves, pid, off, k, v)
+
+        rec[("kv_quant_pack", tag)] = dict(
+            ms=timer(kern), device_ms=timer.device(kern), plain_ms=timer(plain),
+            bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None)
+    for n in ("k_scales", "v_scales"):
+        pool[n].random_(100, 155, generator=gen)
+    tables = (1 + torch.arange(n_pages - 1, device=device, dtype=torch.int32)).reshape(N_SLOTS, P)
+    n_el = Lkv * N_SLOTS * P * PAGE_SIZE * H * hd
+    nbytes = 2 * (n_el * (0.5 + 2) + n_el // hd) + 4 * tables.numel()
+    idx = tables.long()
+    rec[("kv_dequant_unpack", "hybrid kv gather")] = dict(
+        ms=timer(lambda: gather_pages(pool, tables, torch.bfloat16)),
+        device_ms=timer.device(lambda: gather_pages(pool, tables, torch.bfloat16)),
+        plain_ms=timer(lambda: [KV.kv_dequant_unpack_plain(pool[c][:, idx], pool[s][:, idx],
+                                                           torch.bfloat16)
+                                for c, s in (("k_codes", "k_scales"), ("v_codes", "v_scales"))]),
+        bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None)
+    del pool, leaves
+
+    for arch in (HYBRID_ARCH, SSM_ARCH):
+        spec = build_model(get_config(arch)).cache_spec(1, T)
+        spec = spec["mamba"] if isinstance(spec, dict) else spec
+        for name, (shape, dtype) in zip(("conv", "h"), cache_leaves(spec)):
+            elems = math.prod(shape)
+            padded = -(-elems // BLOCK) * BLOCK
+            x = torch.randn((N_SLOTS * padded // ring_rows(padded), ring_rows(padded)),
+                            generator=gen, device=device).to(dtype)
+            es = x.element_size()
+            c, s = KV.kv_quant_pack(x)
+            packed = x.numel() * (0.5 + 1 / BLOCK)
+            tag = f"{arch} ring {name}"
+            rec[("kv_quant_pack", tag)] = dict(
+                ms=timer(lambda x=x: KV.kv_quant_pack(x)),
+                device_ms=timer.device(lambda x=x: KV.kv_quant_pack(x)),
+                plain_ms=timer(lambda x=x: KV.kv_quant_pack_plain(x)),
+                bound_ms=(x.numel() * es + packed) / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+                library_ms=None)
+            rec[("kv_dequant_unpack", tag)] = dict(
+                ms=timer(lambda c=c, s=s, dtype=dtype: KV.kv_dequant_unpack(c, s, dtype)),
+                device_ms=timer.device(lambda c=c, s=s, dtype=dtype:
+                                       KV.kv_dequant_unpack(c, s, dtype)),
+                plain_ms=timer(lambda c=c, s=s, dtype=dtype:
+                               KV.kv_dequant_unpack_plain(c, s, dtype)),
+                bound_ms=(x.numel() * es + packed) / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+                library_ms=None)
+            del x, c, s
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernels,engine,features,moe,train,moe-train,variants,baselines,"
-                            "dense-configs,ssm,times",
+                            "dense-configs,ssm,hybrid,times",
                     help="comma-separated subset of kernels,engine,features,moe,train,"
-                         "moe-train,variants,baselines,dense-configs,ssm,times")
+                         "moe-train,variants,baselines,dense-configs,ssm,hybrid,times")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -3860,6 +4283,13 @@ def main() -> int:
     if "kernels" in phases and any(r.get("stack", 0) or r.get("spill_stores", 0)
                                    or r.get("spill_loads", 0) for r in deq.values()):
         raise AssertionError(f"kv_dequant bodies use a stack or spill: {deq}")
+    # B4a's head-wide body (a thread per row of 112 in registers): no spills
+    rows = entry_resources(reports.get("kv_pack", ""), "kv_quant_row")
+    log(f"[build] kv_quant_row bodies (registers, stack and spill bytes): "
+        f"{json.dumps(rows) if rows else 'not built in this run'}")
+    if "hybrid" in phases and any(r.get("spill_stores", 0) or r.get("spill_loads", 0)
+                                  for r in rows.values()):
+        raise AssertionError(f"kv_quant_row bodies spill: {rows}")
     # B2's vector bodies hold one 32-group a thread in straight-line code:
     # their static SASS count over 32 reads the instructions an element
     sass = sass_counts(str(_build.library_path("sr_hadamard_quant")), "sr_hadamard_")
@@ -4029,6 +4459,29 @@ def main() -> int:
             raise AssertionError(f"kernels never launched on the ssm path: {missing}")
         log(f"[ssm] {json.dumps(summary)}")
         log(f"[ssm] done in {time.perf_counter() - t0:.1f} s")
+    if "hybrid" in phases:
+        t0 = time.perf_counter()
+        hcfg = get_config(HYBRID_ARCH)
+        hw = check_head_wide_kernels(torch, hcfg)
+        log(f"[hybrid] B4a and B4b with the head-wide block (hd {hcfg.head_dim_}) equal their "
+            f"plain versions bit for bit: {json.dumps(hw)}")
+        ring = check_ring_kernels(torch, hcfg)
+        log(f"[hybrid] B4a and B4b on the rings' views equal their plain versions bit for "
+            f"bit: {json.dumps(ring)} ({time.perf_counter() - t0:.1f} s)")
+        cvc = check_hybrid_card_vs_cpu(torch, hcfg)
+        log(f"[hybrid] card vs CPU: {json.dumps(cvc)} ({time.perf_counter() - t0:.1f} s)")
+        summary, counts["hybrid"], vectors["hybrid"] = serve_hybrid(torch, ops)
+        log(f"[hybrid] launches on the {HYBRID_ARCH} statepool path: {counts['hybrid']} "
+            f"(predicted {summary['predicted_launches']})")
+        missing = [k for k in ("hadamard_quest_quantize", "mxfp4_matmul", "kv_quant_pack",
+                               "kv_dequant_unpack") if counts["hybrid"][k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the hybrid path: {missing}")
+        log(f"[hybrid] {json.dumps(summary)}")
+        if "times" in phases:
+            for (name, tag), r in time_state_kernels(torch, Timer(torch)).items():
+                log(f"[hybrid] {name} {tag}: {json.dumps(r)}")
+        log(f"[hybrid] done in {time.perf_counter() - t0:.1f} s")
     if vectors:
         # every B1 call on the main paths, and every B2 call on the training
         # paths, reads and writes through the vector body (a thread per group,

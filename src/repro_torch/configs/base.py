@@ -2,8 +2,9 @@
 
 One ``ModelConfig`` per architecture, with the published dimensions, plus a
 ``reduced()`` variant for CPU tests.  The port serves and trains the dense
-and MoE families and serves the SSM family (Mamba1); the hybrid, enc-dec
-and VLM families' fields arrive with their slices.
+and MoE families and serves the SSM (Mamba1) and hybrid (Mamba2 with a
+shared attention block) families; the enc-dec and VLM families' fields
+arrive with their slices.
 """
 
 from __future__ import annotations
@@ -41,13 +42,17 @@ class ModelConfig:
     capacity_factor: float = 1.25
     router_zloss: float = 1e-3
 
-    # SSM (mamba1; mamba2 comes with the hybrid family)
+    # SSM (mamba1; mamba2 in the hybrid family)
     ssm_state: int = 0
     ssm_variant: str = ""  # "" | "mamba1" | "mamba2"
     ssm_conv: int = 4
     ssm_expand: int = 2
     ssm_head_dim: int = 64  # mamba2
     ssm_chunk: int = 128
+
+    # hybrid: the shared attention block applied before every attn_every
+    # Mamba2 layers
+    attn_every: int = 0
 
     # numerics / technique
     quartet: QuartetConfig = QUARTET_CONFIG
@@ -72,15 +77,22 @@ class ModelConfig:
         return self.family in ("dense", "moe", "ssm", "hybrid", "vlm")
 
     def n_params(self, non_embedding: bool = True) -> int:
-        """Analytic parameter count of the dense, MoE and SSM families (the
-        reference's: the weight matrices, no biases, norms or SSM vectors
-        beyond A)."""
-        if self.family not in ("dense", "moe", "ssm"):
+        """Analytic parameter count of the dense, MoE, SSM and hybrid
+        families (the reference's: the weight matrices, no biases, norms or
+        SSM vectors beyond A; the hybrid's shared block counted once per
+        application, as the reference counts it)."""
+        if self.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(f"n_params for family {self.family!r} is not ported yet")
         d, f, hd = self.d_model, self.d_ff, self.head_dim_
         attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
         ffn = (3 if self.mlp == "swiglu" else 2) * d * f
         per_layer = attn + ffn
+        if self.family == "hybrid":
+            total = (self.num_layers * _mamba_params(self)
+                     + self.num_layers // max(self.attn_every, 1) * (attn + ffn))
+            if not non_embedding:
+                total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
+            return total
         if self.family == "ssm":
             per_layer = _mamba_params(self)
         elif self.family == "moe":

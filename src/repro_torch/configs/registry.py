@@ -15,6 +15,7 @@ _MODULES = {
     "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

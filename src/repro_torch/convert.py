@@ -7,6 +7,10 @@ maps onto the port's by converting each leaf.  A Mamba1 layer's leaves
 (``norm``, ``in_proj``, ``conv_w``, ``conv_b``, ``x_proj``, ``dt_proj`` with
 its bias, the f32 ``A_log`` and ``D``, ``out_proj``) sit under ``layers``
 as in the reference; a gelu MLP has ``up`` and ``down`` with their biases.
+A hybrid (zamba2) has ``mamba_layers`` (Mamba2 leaves stacked [L, ...]:
+``norm``, ``in_proj``, ``conv_w``, ``conv_b``, the f32 ``A_log``,
+``dt_bias`` and ``D``, ``gate_norm``, ``out_proj``) and one unstacked dense
+block ``shared_attn`` in place of ``layers``.
 A MoE layer's leaves sit under ``layers.moe`` (``router.w``, ``gate``, ``up``, ``down`` with
 ``[L, E, …]`` expert leaves, and arctic's ``dense_mlp``), on the
 reference's paths.  bfloat16 leaves arrive as
@@ -26,7 +30,22 @@ from repro_torch.models.transformer import init_lm
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict:
     """Random weights at the config's width, depth and dtype, drawn from
     ``generator`` with the reference's init laws (not its draws)."""
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import init_hybrid_lm
+
+        return init_hybrid_lm(cfg, generator, device)
     return init_lm(cfg, generator, device)
+
+
+def _check_shapes(params: dict, want: dict, cfg: ModelConfig) -> None:
+    """Raise unless each dotted path of ``want`` is a leaf of that shape."""
+    for path, shape in want.items():
+        leaf = params
+        for k in path.split("."):
+            leaf = leaf.get(k, {}) if isinstance(leaf, dict) else {}
+        got = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else None
+        if got != shape:
+            raise ValueError(f"{path} is {got}, config {cfg.name} needs {shape}")
 
 
 def _leaf(a, device) -> torch.Tensor:
@@ -45,21 +64,31 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> dict:
         return _leaf(t, device)
 
     params = convert(np_tree)
-    expect = {"embed", "layers", "final_norm"} | (set() if cfg.tie_embeddings else {"lm_head"})
+    body = {"mamba_layers", "shared_attn"} if cfg.family == "hybrid" else {"layers"}
+    expect = {"embed", "final_norm"} | body | (set() if cfg.tie_embeddings else {"lm_head"})
     if set(params) != expect:
         raise ValueError(f"param tree has {sorted(params)}, config {cfg.name} needs "
                          f"{sorted(expect)}")
+    L, d, di, n = cfg.num_layers, cfg.d_model, cfg.ssm_expand * cfg.d_model, cfg.ssm_state
     if cfg.family == "ssm":
-        layers, di = params["layers"], cfg.ssm_expand * cfg.d_model
-        want = {"in_proj.w": (cfg.num_layers, cfg.d_model, 2 * di),
-                "A_log": (cfg.num_layers, di, cfg.ssm_state), "D": (cfg.num_layers, di)}
-        for path, shape in want.items():
-            leaf = layers
-            for k in path.split("."):
-                leaf = leaf.get(k, {}) if isinstance(leaf, dict) else {}
-            got = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else None
-            if got != shape:
-                raise ValueError(f"layers.{path} is {got}, config {cfg.name} needs {shape}")
+        _check_shapes(params, {"layers.in_proj.w": (L, d, 2 * di),
+                               "layers.A_log": (L, di, n), "layers.D": (L, di)}, cfg)
+        return params
+    if cfg.family == "hybrid":
+        nh, kc = di // cfg.ssm_head_dim, cfg.ssm_conv
+        hq = cfg.num_heads * cfg.head_dim_
+        want = {f"mamba_layers.{k}": v for k, v in {
+            "norm.scale": (L, d), "in_proj.w": (L, d, 2 * di + 2 * n + nh),
+            "conv_w": (L, kc, di + 2 * n), "conv_b": (L, di + 2 * n), "A_log": (L, nh),
+            "dt_bias": (L, nh), "D": (L, nh), "gate_norm.scale": (L, di),
+            "out_proj.w": (L, di, d)}.items()}
+        want.update({"shared_attn.attn.wq.w": (d, hq), "shared_attn.attn.wo.w": (hq, d),
+                     "shared_attn.attn.wk.w": (d, cfg.num_kv_heads * cfg.head_dim_),
+                     "shared_attn.mlp.gate.w": (d, cfg.d_ff),
+                     "shared_attn.mlp.down.w": (cfg.d_ff, d), "final_norm.scale": (d,)})
+        if not cfg.tie_embeddings:
+            want["lm_head.w"] = (d, cfg.vocab_size)
+        _check_shapes(params, want, cfg)
         return params
     wq = params["layers"]["attn"]["wq"]["w"]
     want = (cfg.num_layers, cfg.d_model, cfg.num_heads * cfg.head_dim_)

@@ -52,6 +52,18 @@
 // an element, one 16-byte store; consecutive threads on consecutive
 // vectors, so a warp's stores cover 512 contiguous bytes.  Index math inside
 // the tile is 32-bit, by compile-time shifts.
+//
+// The head-wide block (a head dim that 32 does not divide takes the whole
+// head as one block, as the reference's quant_block does: zamba2-7b's 112).
+// Quantize: one thread owns one row of 112 in registers (14 or 28 16-byte
+// loads through the strides, or scalar loads), the same absmax, exponent
+// and nibbles as the 32-group body; a row's 56 code bytes start 56 bytes
+// after the previous row's, so they leave as seven 8-byte stores, and its
+// scale as one byte.  Dequantize: the 32-group body's loop over tiles of
+// whole rows (146 rows, 8176 code bytes, at most kTile), the tile's scale
+// bytes staged one a row, a vector's scale the one at code byte / 56 (a
+// constant division); chunks and totals are whole rows.  The 32-group
+// bodies are untouched.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -242,6 +254,132 @@ __global__ void __launch_bounds__(kThreads) kv_dequant_kernel(
   }
 }
 
+// The head-wide block: one scale for a whole row of KB elements (K == KB,
+// 32 does not divide KB; zamba2's attention head of 112).  Thread t of
+// source blockIdx.y quantizes row t ((l·N + n)·H + h) as kv_quant_kernel
+// quantizes a group: the same absmax, exponent and nibbles, over KB values
+// loaded as KB·sizeof(T)/16 16-byte vectors.  A row's KB/2 code bytes start
+// KB/2 bytes after the previous row's, so they leave as KB/16 8-byte
+// stores; its scale as one byte.
+template <typename T, int KB, bool VEC>
+__global__ void __launch_bounds__(kQuantThreads) kv_quant_row_kernel(
+    const KvSources src, unsigned n_rows, const int* __restrict__ page_ids,
+    const int* __restrict__ offsets, unsigned N, unsigned H, long long n_pages, int ps) {
+  static_assert(KB % 16 == 0 && KB % kGroup != 0, "a head-wide block of 16k, not 32k, values");
+  const KvSource s = blockIdx.y ? src.s[1] : src.s[0];  // no dynamic index into the params
+  const unsigned row = blockIdx.x * kQuantThreads + threadIdx.x;
+  if (row >= n_rows) return;
+  const unsigned lr = row / H, h = row % H;  // lr = l·N + n
+  const unsigned l = lr / N, n = lr % N;
+  const T* x = static_cast<const T*>(s.x) + l * s.sl + n * s.sn + h * s.sh;
+
+  float v[KB];
+  if constexpr (VEC) {
+    constexpr int kLoads = KB * static_cast<int>(sizeof(T)) / 16;
+    const uint4* src16 = reinterpret_cast<const uint4*>(x);
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const uint4 raw = src16[i];
+      const uint32_t u[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (sizeof(T) == 2) {
+          v[8 * i + 2 * j] = __uint_as_float(u[j] << 16);
+          v[8 * i + 2 * j + 1] = __uint_as_float(u[j] & 0xffff0000u);
+        } else {
+          v[4 * i + j] = __uint_as_float(u[j]);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < KB; ++i) v[i] = to_f32(x[i]);
+  }
+
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < KB; ++i) amax = fmaxf(amax, fabsf(v[i]));
+  const float raw = fmaxf(__fdiv_rn(amax, 6.f), kMinScale);
+  const int bits = __float_as_int(raw);
+  int e = ((bits >> 23) & 0xff) - 127 + ((bits & 0x7fffff) >= kSqrt2Mantissa ? 1 : 0);
+  e = min(max(e, -126), 127);
+  const float inv = e == 127 ? __int_as_float(0x00400000) : __int_as_float((127 - e) << 23);
+
+  long long dest = row;
+  if (page_ids != nullptr) dest = ((l * n_pages + page_ids[n]) * ps + offsets[n]) * H + h;
+  uint2* out = reinterpret_cast<uint2*>(s.codes + dest * (KB / 2));
+#pragma unroll
+  for (int q = 0; q < KB / 16; ++q) {  // 16 values -> 8 bytes, high nibble first
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      w[i / 8] |= e2m1_nibble(__fmul_rn(v[16 * q + i], inv)) << (8 * ((i / 2) % 4) + (i % 2 ? 0 : 4));
+    out[q] = make_uint2(w[0], w[1]);
+  }
+  s.scales[dest] = static_cast<uint8_t>(e + 127);
+}
+
+// The head-wide block's dequantize: kv_dequant_kernel's loop over tiles of
+// whole rows (KB/2 code bytes and one scale byte a row; kTileBytes =
+// kTile rounded down to whole rows), the scale of a vector at code byte b of
+// the tile is sc[b / (KB/2)], a division by a constant.  Chunks and the
+// output's end are whole rows, so a tile starts on a row and a thread's
+// vector (4 or 2 code bytes) lies in one row.
+template <typename T, int KB>
+__global__ void __launch_bounds__(kThreads) kv_dequant_row_kernel(
+    const DeqSources src, const int* __restrict__ tables, int n_tbl, long long n_pages,
+    unsigned chunk, unsigned tiles, long long total) {
+  constexpr unsigned kRow = KB / 2;                   // code bytes a row
+  constexpr unsigned kTileRows = kTile / kRow;        // 146 at KB = 112
+  constexpr unsigned kTileBytes = kTileRows * kRow;   // 8176 at KB = 112
+  static_assert(kRow % 8 == 0 && kTileBytes % 16 == 0, "tiles of 16-byte vectors");
+  constexpr int kBytes = 8 / sizeof(T);  // code bytes a thread-vector: 4 (bf16) or 2 (f32)
+  using W = typename std::conditional<kBytes == 4, uint32_t, uint16_t>::type;
+  __shared__ float lut[16];
+  __shared__ uint8_t sc[kTileRows];
+  const DeqSource s = blockIdx.y ? src.s[1] : src.s[0];  // no dynamic index into the params
+  const unsigned c = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const long long out_base = static_cast<long long>(c) * chunk + tile * kTileBytes;
+  const long long left = total - out_base;
+  if (left <= 0) return;  // past the 2-d form's short last chunk: the whole CTA
+  const unsigned n = static_cast<unsigned>(
+      min(static_cast<long long>(min(kTileBytes, chunk - tile * kTileBytes)), left));
+  const unsigned nt = static_cast<unsigned>(n_tbl);
+  const long long src_chunk = tables != nullptr ? (c / nt) * n_pages + tables[c % nt]
+                                                : static_cast<long long>(c);
+  const long long in_base = src_chunk * chunk + tile * kTileBytes;
+  const uint8_t* scales = s.scales + in_base / kRow;
+  for (unsigned i = threadIdx.x; i < n / kRow; i += kThreads) sc[i] = scales[i];
+  if (threadIdx.x < 16) lut[threadIdx.x] = e2m1_value(threadIdx.x);
+  __syncthreads();
+
+  const W* codes = reinterpret_cast<const W*>(s.codes + in_base);
+  uint4* out = reinterpret_cast<uint4*>(static_cast<T*>(s.out) + 2 * out_base);
+  const unsigned items = n / kBytes;
+  for (unsigned base = threadIdx.x; base < items; base += kDeqUnroll * kThreads) {
+    W w[kDeqUnroll];
+#pragma unroll
+    for (int u = 0; u < kDeqUnroll; ++u) {
+      const unsigned i = base + u * kThreads;
+      w[u] = i < items ? __ldg(codes + i) : W(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kDeqUnroll; ++u) {
+      const unsigned i = base + u * kThreads;
+      if (i >= items) break;
+      const float scale = __int_as_float(static_cast<int>(sc[i * kBytes / kRow]) << 23);
+      float v[2 * kBytes];
+#pragma unroll
+      for (int j = 0; j < kBytes; ++j) {  // byte j: high nibble first
+        const unsigned byte = (static_cast<unsigned>(w[u]) >> (8 * j)) & 0xffu;
+        v[2 * j] = lut[byte >> 4] * scale;
+        v[2 * j + 1] = lut[byte & 0xfu] * scale;
+      }
+      out[i] = pack16<T>(v);
+    }
+  }
+}
+
 template <typename T>
 int launch_quant(const KvSources& src, int n_src, bool vec, unsigned n_groups, unsigned gpr,
                  const int* pid, const int* off, unsigned N, unsigned H, long long n_pages, int ps,
@@ -254,6 +392,24 @@ int launch_quant(const KvSources& src, int n_src, bool vec, unsigned n_groups, u
   else
     kv_quant_kernel<T, false><<<grid, kQuantThreads, 0, s>>>(src, n_groups, gpr, pid, off, N, H,
                                                              n_pages, ps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the head-wide blocks the library is built for (kv_pack.HEAD_BLOCKS)
+constexpr int kHeadBlock = 112;
+
+template <typename T>
+int launch_quant_rows(const KvSources& src, int n_src, bool vec, unsigned n_rows, const int* pid,
+                      const int* off, unsigned N, unsigned H, long long n_pages, int ps,
+                      cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>((n_rows + kQuantThreads - 1) / kQuantThreads),
+                  static_cast<unsigned>(n_src));
+  if (vec)
+    kv_quant_row_kernel<T, kHeadBlock, true><<<grid, kQuantThreads, 0, s>>>(
+        src, n_rows, pid, off, N, H, n_pages, ps);
+  else
+    kv_quant_row_kernel<T, kHeadBlock, false><<<grid, kQuantThreads, 0, s>>>(
+        src, n_rows, pid, off, N, H, n_pages, ps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -318,6 +474,63 @@ extern "C" int kv_gather_dequant(int n_src, const void* const* codes, const void
         src, t, n_tbl, n_pages, static_cast<unsigned>(chunk), static_cast<unsigned>(tiles), total);
   else
     kv_dequant_kernel<float><<<grid, kThreads, 0, s>>>(
+        src, t, n_tbl, n_pages, static_cast<unsigned>(chunk), static_cast<unsigned>(tiles), total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kv_quant_scatter with the head-wide block: K == 112 values a row, one
+// scale a row (scales [.., 1]), codes 8-byte aligned; otherwise as
+// kv_quant_scatter (fewer than 2^31 rows).
+extern "C" int kv_quant_scatter_rows(int n_src, const void* const* x, const long long* strides,
+                                     int is_bf16, int vec, int L, int N, int H, int K,
+                                     const void* page_ids, const void* offsets,
+                                     long long n_pages, int ps, void* const* codes,
+                                     void* const* scales, void* stream) {
+  if (n_src < 1 || n_src > 2 || K != kHeadBlock) return static_cast<int>(cudaErrorInvalidValue);
+  KvSources src = {};
+  for (int i = 0; i < n_src; ++i)
+    src.s[i] = {x[i], strides[3 * i], strides[3 * i + 1], strides[3 * i + 2],
+                static_cast<uint8_t*>(codes[i]), static_cast<uint8_t*>(scales[i])};
+  const long long n_rows = static_cast<long long>(L) * N * H;
+  if (n_rows >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* pid = static_cast<const int*>(page_ids);
+  const auto* off = static_cast<const int*>(offsets);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_quant_rows<__nv_bfloat16>(src, n_src, vec, n_rows, pid, off, N, H,
+                                                    n_pages, ps, s)
+                 : launch_quant_rows<float>(src, n_src, vec, n_rows, pid, off, N, H, n_pages,
+                                            ps, s);
+}
+
+// kv_gather_dequant with the head-wide block: rows of row_bytes == 56 code
+// bytes (K = 112) and one scale byte; chunk and total whole rows, chunk <
+// 2^31; otherwise as kv_gather_dequant.
+extern "C" int kv_gather_dequant_rows(int n_src, const void* const* codes,
+                                      const void* const* scales, void* const* out,
+                                      const void* tables, long long n_out_chunks,
+                                      long long chunk, long long total, int n_tbl,
+                                      long long n_pages, int row_bytes, int out_bf16,
+                                      void* stream) {
+  constexpr long long kRow = kHeadBlock / 2;
+  constexpr long long kTileBytes = kTile / kRow * kRow;
+  if (n_src < 1 || n_src > 2 || row_bytes != kRow || chunk <= 0 || chunk % kRow ||
+      chunk >= (1LL << 31) || total % kRow || total > n_out_chunks * chunk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (chunk + kTileBytes - 1) / kTileBytes;
+  if (n_out_chunks * tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  if (total == 0) return 0;
+  DeqSources src = {};
+  for (int i = 0; i < n_src; ++i)
+    src.s[i] = {static_cast<const uint8_t*>(codes[i]), static_cast<const uint8_t*>(scales[i]),
+                out[i]};
+  const dim3 grid(static_cast<unsigned>(n_out_chunks * tiles), static_cast<unsigned>(n_src));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* t = static_cast<const int*>(tables);
+  if (out_bf16)
+    kv_dequant_row_kernel<__nv_bfloat16, kHeadBlock><<<grid, kThreads, 0, s>>>(
+        src, t, n_tbl, n_pages, static_cast<unsigned>(chunk), static_cast<unsigned>(tiles), total);
+  else
+    kv_dequant_row_kernel<float, kHeadBlock><<<grid, kThreads, 0, s>>>(
         src, t, n_tbl, n_pages, static_cast<unsigned>(chunk), static_cast<unsigned>(tiles), total);
   return static_cast<int>(cudaGetLastError());
 }

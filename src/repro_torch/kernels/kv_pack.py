@@ -4,7 +4,10 @@ Port of ``repro.kernels.kv_pack``.  Quantize, per 32-element group:
 AbsMax → E8M0-nearest scale stored as a biased uint8 → E2M1 round to
 nearest (ties to even) → 4-bit codes S|EE|M, two per byte, high nibble
 first.  Unpack inverts that by arithmetic.  The functions are bit-identical
-to ``core.quantizers.kv_quantize`` / ``kv_dequantize``.
+to ``core.quantizers.kv_quantize`` / ``kv_dequantize``.  A head dim that
+32 does not divide takes the whole head as one block, as the reference's
+``quant_block`` does (zamba2-7b's 112: 56 code bytes and one scale byte a
+row); the kernels have a body for each block of :data:`HEAD_BLOCKS`.
 
 On a CUDA tensor each wrapper launches ``csrc/kv_pack.cu``; on a CPU tensor
 it runs the plain version.  Besides the 2-D forms of the reference, the
@@ -34,6 +37,10 @@ from repro_torch.core import quantizers as Q
 from repro_torch.kernels import _build
 
 GROUP = 32
+# head-wide blocks (one scale a row of K values, 32 not dividing K) the
+# kernels are built for: zamba2-7b's attention head (kHeadBlock in
+# csrc/kv_pack.cu)
+HEAD_BLOCKS = (112,)
 
 
 def split_nibbles(packed: torch.Tensor) -> torch.Tensor:
@@ -92,7 +99,13 @@ def _entries():
                     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_int, ctypes.c_void_p]
     deq.restype = ctypes.c_int
-    return quant, deq
+    quant_rows = lib.kv_quant_scatter_rows
+    quant_rows.argtypes = quant.argtypes
+    quant_rows.restype = ctypes.c_int
+    deq_rows = lib.kv_gather_dequant_rows
+    deq_rows.argtypes = deq.argtypes[:10] + [ctypes.c_int] + deq.argtypes[10:]
+    deq_rows.restype = ctypes.c_int
+    return quant, deq, quant_rows, deq_rows
 
 
 def _device(name: str, t: torch.Tensor) -> bool:
@@ -104,10 +117,17 @@ def _device(name: str, t: torch.Tensor) -> bool:
     return True
 
 
-def _check_block(name: str, k: int, n_scales: int) -> None:
-    if k % GROUP != 0 or n_scales != k // GROUP:
-        raise ValueError(f"{name}: the kernel takes K % 32 == 0 with one scale per 32 "
-                         f"elements, got K={k} with {n_scales} scales per row")
+def _check_block(name: str, k: int, n_scales: int) -> int:
+    """The scale block of rows of ``k`` values with ``n_scales`` scales each,
+    if the kernels take it: 32 (K % 32 == 0), or the whole row for a
+    head-wide block of :data:`HEAD_BLOCKS`."""
+    if k % GROUP == 0 and n_scales == k // GROUP:
+        return GROUP
+    if n_scales == 1 and k in HEAD_BLOCKS:
+        return k
+    raise ValueError(f"{name}: the kernel takes K % 32 == 0 with one scale per 32 "
+                     f"elements, or one scale a row of K in {HEAD_BLOCKS}, got K={k} with "
+                     f"{n_scales} scales per row")
 
 
 _PTRS = ctypes.c_void_p * 2
@@ -131,6 +151,7 @@ def _launch_quant(name, sources, lead, page_ids, offsets, n_pages, ps):
         raise ValueError(f"{name}: need f32/bf16 input, got {x0.dtype}")
     k = x0.shape[-1]
     xs, strides = [], []  # xs holds any contiguous copy until the launch
+    block = GROUP
     for x, codes, scales in sources:
         if x.shape != x0.shape or x.dtype != x0.dtype or x.device != x0.device:
             raise ValueError(f"{name}: K and V rows differ: {tuple(x.shape)} {x.dtype} vs "
@@ -140,7 +161,7 @@ def _launch_quant(name, sources, lead, page_ids, offsets, n_pages, ps):
                 or codes.data_ptr() % 16:
             raise ValueError(f"{name}: the outputs must be contiguous uint8 on {x.device}, "
                              f"the codes 16-byte aligned")
-        _check_block(name, k, scales.shape[-1])
+        block = _check_block(name, k, scales.shape[-1])
         xs.append(x if x.stride(-1) == 1 else x.contiguous())
         st = xs[-1].stride()
         # element strides of (l, n, h); a dimension of size 1 is never stepped
@@ -156,7 +177,7 @@ def _launch_quant(name, sources, lead, page_ids, offsets, n_pages, ps):
         if pid.device != x0.device or off.device != x0.device or pid.numel() != N \
                 or off.numel() != N:
             raise ValueError(f"{name}: page ids and offsets must be [N] tensors on {x0.device}")
-    status = _entries()[0](
+    status = _entries()[0 if block == GROUP else 2](
         len(ptrs), _PTRS(*ptrs), _STRIDES(*strides), int(x0.dtype == torch.bfloat16), int(vec),
         L, N, H, k, None if pid is None else pid.data_ptr(),
         None if off is None else off.data_ptr(), n_pages, ps,
@@ -170,15 +191,17 @@ def _launch_quant(name, sources, lead, page_ids, offsets, n_pages, ps):
 def kv_quant_pack(x: torch.Tensor, block: int = GROUP):
     """x [M, K] (f32 or bf16) → (codes u8 [M, K/2], scales u8 [M, K/block]).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (block 32 only); anything else raises."""
+    (blocks of 32, or a head-wide block of :data:`HEAD_BLOCKS` with block ==
+    K); anything else raises."""
     if not _device("kv_quant_pack", x):
         return kv_quant_pack_plain(x, block)
-    if x.dim() != 2 or block != GROUP:
+    if x.dim() != 2 or not (block == GROUP or block == x.shape[-1] in HEAD_BLOCKS):
         raise ValueError(f"kv_quant_pack: the kernel takes a 2-d input and blocks of "
-                         f"{GROUP}, got {tuple(x.shape)} with block {block}")
+                         f"{GROUP} or a whole row of K in {HEAD_BLOCKS}, got "
+                         f"{tuple(x.shape)} with block {block}")
     m, k = x.shape
     codes = torch.empty((m, k // 2), dtype=torch.uint8, device=x.device)
-    scales = torch.empty((m, k // GROUP), dtype=torch.uint8, device=x.device)
+    scales = torch.empty((m, k // block), dtype=torch.uint8, device=x.device)
     _launch_quant("kv_quant_pack", [(x[:, None], codes, scales)], (1, m, 1), None, None, 0, 0)
     return codes, scales
 
@@ -240,6 +263,13 @@ def kv_quant_scatter_kv(k_codes: torch.Tensor, k_scales: torch.Tensor, v_codes: 
 TILE = 8192  # code bytes a CTA dequantizes at most (kTile in csrc/kv_pack.cu)
 
 
+def tile_bytes(block: int) -> int:
+    """Code bytes of a dequantize CTA's tile: ``TILE``, or for a head-wide
+    block ``TILE`` rounded down to whole rows of block / 2 bytes."""
+    row = block // 2
+    return TILE if block == GROUP else TILE // row * row
+
+
 def row_chunks(m: int, kh: int) -> tuple[int, int, int]:
     """(chunks, chunk bytes, total bytes) of the 2-d form over [m, kh] codes:
     whole rows, as many as fit in ``TILE`` bytes (one row if it is longer;
@@ -259,22 +289,27 @@ def _launch_dequant(name, sources, tables, n_out_chunks, chunk, total, n_tbl, n_
         raise ValueError(f"{name}: output dtype must be f32 or bf16, got {dtype}")
     dev = sources[0][0].device
     ptrs = []  # codes 4-byte aligned for the kernel's word loads; a copy lives until the launch
+    block = GROUP
     for codes, scales in sources:
         if not all(t.dtype == torch.uint8 and t.is_contiguous() and t.device == dev
                    for t in (codes, scales)):
             raise ValueError(f"{name}: codes and scales must be contiguous uint8 on {dev}")
-        _check_block(name, codes.shape[-1] * 2, scales.shape[-1])
+        block = _check_block(name, codes.shape[-1] * 2, scales.shape[-1])
         ptrs.append((codes if codes.data_ptr() % 4 == 0 else codes.clone(), scales))
     if tables is not None and (tables.dtype != torch.int32 or tables.device != dev):
         raise ValueError(f"{name}: tables must be int32 on {dev}")
     outs = [torch.empty(out_shape, dtype=dtype, device=dev) for _ in sources]
     if total == 0:
         return outs
-    status = _entries()[1](
-        len(sources), _PTRS(*(c.data_ptr() for c, _ in ptrs)),
-        _PTRS(*(s.data_ptr() for _, s in ptrs)), _PTRS(*(o.data_ptr() for o in outs)),
-        None if tables is None else tables.data_ptr(), n_out_chunks, chunk, total, n_tbl,
-        n_pages, int(dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+    args = (len(sources), _PTRS(*(c.data_ptr() for c, _ in ptrs)),
+            _PTRS(*(s.data_ptr() for _, s in ptrs)), _PTRS(*(o.data_ptr() for o in outs)),
+            None if tables is None else tables.data_ptr(), n_out_chunks, chunk, total, n_tbl,
+            n_pages)
+    tail = (int(dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+    if block == GROUP:
+        status = _entries()[1](*args, *tail)
+    else:  # the head-wide body: rows of block / 2 code bytes
+        status = _entries()[3](*args, block // 2, *tail)
     _build.check(status, name)
     kv_dequant_unpack.launches += 1
     return outs
@@ -282,7 +317,8 @@ def _launch_dequant(name, sources, tables, n_out_chunks, chunk, total, n_tbl, n_
 
 def kv_dequant_unpack(codes: torch.Tensor, scales: torch.Tensor,
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """(codes u8 [M, K/2], scales u8 [M, K/32]) → [M, K] in ``dtype``.
+    """(codes u8 [M, K/2], scales u8 [M, K/32], or [M, 1] for a head-wide
+    block) → [M, K] in ``dtype``.
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (chunks of whole rows, :func:`row_chunks`); anything else raises."""
     if not _device("kv_dequant_unpack", codes):

@@ -1,10 +1,13 @@
 """Continuous-batching serving launcher: Poisson arrival workload.
 
-Port of ``repro.launch.serve_engine`` for the dense, MoE and SSM families::
+Port of ``repro.launch.serve_engine`` for the dense, MoE, SSM and hybrid
+families::
 
     python -m repro_torch.launch.serve_engine --arch qwen3-1.7b --requests 12 \
         [--decode-backend gather]
     python -m repro_torch.launch.serve_engine --arch falcon-mamba-7b \
+        [--decode-backend dense_slots]
+    python -m repro_torch.launch.serve_engine --arch zamba2-7b \
         [--decode-backend dense_slots]
 
 samples arrival times from a Poisson process, prompt lengths uniformly from
@@ -38,6 +41,8 @@ from repro_torch.core.quartet import check_kernel_config
 from repro_torch.models import build_model
 from repro_torch.serve import Engine, EngineConfig, SamplingParams, SpecConfig
 from repro_torch.serve.spec import aggregate_stats
+
+STATE = ("statepool", "dense_slots")
 
 
 def poisson_workload(rng: np.random.Generator, n: int, rate: float,
@@ -96,8 +101,9 @@ def main():
     ap.add_argument("--decode-backend", default=None,
                     choices=["paged", "gather", "statepool", "dense_slots"],
                     help="dense/MoE: paged (attend over the pool, default) or gather (the "
-                         "dense oracle); SSM: statepool (quantized state rings, default) or "
-                         "dense_slots (the oracle)")
+                         "dense oracle); SSM and hybrid: statepool (quantized state rings and, "
+                         "for the hybrid, a paged KV plane; default) or dense_slots (the "
+                         "oracle)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="radix prefix cache: admissions alias the pages of cached shared "
                          "prefixes (copy-on-write, LRU-evicted) and prefill only the tail")
@@ -156,8 +162,13 @@ def main():
           + (f" spec={args.spec}(k={args.spec_k})" if spec else ""))
     print(f"  {len(done)} requests, {total_tokens} tokens in {elapsed:.2f}s wall "
           f"→ {total_tokens / elapsed:.1f} tok/s, mean TTFT {np.mean(ttfts):.3f}s "
-          f"(virtual clock), {'state rings' if cfg.family == 'ssm' else 'KV pool'} "
+          f"(virtual clock), {'state' if engine.decode_backend in STATE else 'KV pool'} "
           f"{engine.cache_bytes()} bytes")
+    if engine.decode_backend == "statepool":
+        planes = {}
+        for kind, plane in engine.cache.planes():
+            planes[kind] = planes.get(kind, 0) + plane.cache_bytes()
+        print("  planes: " + ", ".join(f"{k} {v} bytes" for k, v in planes.items()))
     if spec is not None:
         agg = aggregate_stats(done)
         print(f"  spec: {agg['tokens_per_decode_call']} tok/verify-call, "

@@ -1,4 +1,4 @@
-"""Uniform model API (the dense, MoE and SSM families in this slice).
+"""Uniform model API (the dense, MoE, SSM and hybrid families).
 
 ``build_model(cfg, attn_backend=None)`` → ``Model(cfg, forward, head,
 cache_spec)`` with
@@ -9,12 +9,15 @@ cache_spec)`` with
         -> (logits | features, caches), and with return_aux also the f32
            aux loss (the MoE layers' router losses; 0 for a dense model)
     head(params, features, seed, method="quartet") -> f32 logits
-    cache_spec(batch, max_len) -> the decode cache's leaves as
-        ((shape, dtype), ...), stacked [L, ...]: dense and MoE (K, V)
-        [L, B, max_len, Hkv, hd]; SSM (conv [L, B, K-1, Di], h [L, B, Di, N])
+    cache_spec(batch, max_len) -> the decode cache as a tree of (shape,
+        dtype) leaves, stacked [L, ...]: dense and MoE (K, V)
+        [L, B, max_len, Hkv, hd]; SSM (conv [L, B, K-1, Di], h [L, B, Di,
+        N]); hybrid {"attn": (K, V) [n_super, B, max_len, Hkv, hd],
+        "mamba": (conv [L, B, K-1, Di + 2N], h [L, B, nh, hd, N])}
 
-Weights come from ``repro_torch.convert`` (``init_params`` or
-``params_from_jax``).
+:func:`cache_map` and :func:`cache_leaves` walk such a tree (dict keys
+sorted, tuples in order: the reference's ``jax.tree`` order).  Weights come
+from ``repro_torch.convert`` (``init_params`` or ``params_from_jax``).
 """
 
 from __future__ import annotations
@@ -35,7 +38,34 @@ class Model(NamedTuple):
     cache_spec: Callable = None
 
 
+def _is_leaf(t) -> bool:
+    """A cache tree's leaf: a tensor, or a ``(shape, dtype)`` spec."""
+    return not isinstance(t, (dict, tuple, list)) or (
+        len(t) == 2 and isinstance(t[1], torch.dtype))
+
+
+def cache_map(fn, tree, *rest):
+    """``fn`` over the leaves of a cache tree (and the matching leaves of
+    ``rest``, which share its structure): dicts with sorted keys, tuples."""
+    if isinstance(tree, dict):
+        return {k: cache_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if not _is_leaf(tree):
+        return tuple(cache_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def cache_leaves(tree) -> list:
+    """A cache tree's leaves in :func:`cache_map`'s order."""
+    out = []
+    cache_map(out.append, tree)
+    return out
+
+
 def _cache_spec(cfg: ModelConfig, batch: int, max_len: int):
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import hybrid_cache_spec
+
+        return hybrid_cache_spec(cfg, batch, max_len)
     if cfg.family == "ssm":
         from repro_torch.models.ssm import mamba1_cache_spec
 
@@ -52,17 +82,22 @@ def build_model(cfg: ModelConfig, *, attn_backend: str | None = None) -> Model:
     config (evaluation with the flash kernel: ``attn_backend="flash"``)."""
     if attn_backend is not None:
         cfg = dataclasses.replace(cfg, attn_backend=attn_backend)
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    if cfg.family == "ssm" and cfg.ssm_variant != "mamba1":
-        raise NotImplementedError(f"ssm variant {cfg.ssm_variant!r} is not ported yet")
+    want = {"ssm": "mamba1", "hybrid": "mamba2"}.get(cfg.family)
+    if want is not None and cfg.ssm_variant != want:
+        raise NotImplementedError(f"ssm variant {cfg.ssm_variant!r} in family {cfg.family!r} "
+                                  f"is not ported")
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import hybrid_forward as body
+    else:
+        body = lm_forward
 
     def forward(params, tokens, seed, *, positions=None, caches=None, cache_index=None,
                 method="quartet", features_only=False, token_valid=None, return_aux=False):
-        return lm_forward(params, tokens, cfg, seed, positions=positions, caches=caches,
-                          cache_index=cache_index, method=method,
-                          features_only=features_only, token_valid=token_valid,
-                          return_aux=return_aux)
+        return body(params, tokens, cfg, seed, positions=positions, caches=caches,
+                    cache_index=cache_index, method=method, features_only=features_only,
+                    token_valid=token_valid, return_aux=return_aux)
 
     def head(params, x, seed, method="quartet"):
         return lm_head_apply(params, x, cfg, seed, method)

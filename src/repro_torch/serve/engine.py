@@ -42,9 +42,11 @@ Rollback is logical: the slot's length shrinks on the host and the pages
 stay mapped within the admission reservation; draft positions past the
 budget write to the scratch page.
 
-**The state pool** (the SSM family): ``decode_backend=None`` or
-``"statepool"`` keeps each slot's recurrent state in the quantized
-double-buffer rings of :class:`~repro_torch.serve.state_pool.StatePool`;
+**The state pool** (the SSM and hybrid families): ``decode_backend=None``
+or ``"statepool"`` keeps each slot's recurrent state in the quantized
+double-buffer rings of :class:`~repro_torch.serve.state_pool.StatePool`,
+and the hybrid's attention KV in its paged KV plane (admission reserves
+prompt + max_new positions there);
 ``"dense_slots"`` keeps per-slot dense caches
 (:class:`~repro_torch.serve.paged_cache.DenseSlotCache`), the parity
 oracle.  Both prefill one slot at a time, one ``[1, C]`` chunk or all of
@@ -54,7 +56,7 @@ raise for these backends.
 
 The reference keeps its prefix and speculation counts in a telemetry
 registry; until telemetry is ported the engine keeps the same names in the
-plain dict ``Engine.counters``.  The hybrid, enc-dec and VLM families and
+plain dict ``Engine.counters``.  The enc-dec and VLM families and
 multi-device serving are not ported yet.
 """
 
@@ -66,7 +68,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.models.registry import Model
+from repro_torch.models.registry import Model, cache_map
 from repro_torch.serve import paged_cache as P
 from repro_torch.serve.prefix_cache import PrefixIndex
 from repro_torch.serve.sampling import GREEDY, SamplingParams, get_sampler
@@ -96,8 +98,9 @@ class EngineConfig:
     keep_logits: bool = False  # record per-step logits on each Request (tests)
     # paged families: None follows ModelConfig.attn_backend ("paged" for a
     # paged model, else "gather"); "paged" attends over the pool; "gather" is
-    # the dense oracle.  State families (ssm): None or "statepool" (the
-    # quantized state rings), "dense_slots" (per-slot dense caches, the oracle)
+    # the dense oracle.  State families (ssm, hybrid): None or "statepool"
+    # (the quantized state rings and KV plane), "dense_slots" (per-slot dense
+    # caches, the oracle)
     decode_backend: str | None = None
     # pool size (pages incl. the scratch page); None → one full reservation
     # (ceil(max_len / page_size) pages) per slot + scratch
@@ -175,8 +178,8 @@ class Engine:
         self._steps = None
         if self.backend == "statepool":
             self.cache = StatePool(model, n_slots=cfg.n_slots, max_len=cfg.max_len,
-                                   kv_dtype=cfg.kv_dtype, device=self.device,
-                                   debug=cfg.debug_cache)
+                                   page_size=cfg.page_size, kv_dtype=cfg.kv_dtype,
+                                   device=self.device, debug=cfg.debug_cache)
             self._state_steps = build_state_steps(model, method=cfg.method, pool=self.cache)
             return
         self.cache = P.DenseSlotCache(model, n_slots=cfg.n_slots, max_len=cfg.max_len,
@@ -200,7 +203,9 @@ class Engine:
 
         def can_admit(req: Request) -> bool:
             total = req.prompt_len + req.max_new
-            if not self.paged:  # state rings and dense slots are mapped statically
+            if self.backend == "statepool":
+                return self.cache.can_admit(total)
+            if self.backend == "dense_slots":  # mapped statically
                 return True
             if self.prefix is None:
                 return self.cache.can_alloc(total)
@@ -286,7 +291,7 @@ class Engine:
             self.cache.reset_slot(req.slot)
             return
         if self.backend == "statepool":
-            self.cache.alloc(req.slot)
+            self.cache.alloc(req.slot, total)
             return
         if self.prefix is None:
             self.cache.alloc(req.slot, total)
@@ -385,9 +390,10 @@ class Engine:
         """One state-pool prefill call: the slot's read page in, its write
         page out, then its ring cursor advanced."""
         sp = self.cache
+        kv_row = None if sp.kv is None else self._tensor(sp.kv.tables[req.slot])
         read = np.array([sp.ring_read[req.slot]], np.int32)
         write = np.array([sp.ring_write_id(req.slot)], np.int32)
-        logits = self._state_steps.prefill_chunk(self.params, tokens, req.prefill_pos,
+        logits = self._state_steps.prefill_chunk(self.params, tokens, req.prefill_pos, kv_row,
                                                  self._tensor(read), self._tensor(write))
         one = np.zeros((self.config.n_slots,), bool)
         one[req.slot] = True
@@ -408,13 +414,15 @@ class Engine:
         args = (self.params, self._tensor(tokens), self._tensor(positions))
         if self.backend == "statepool":
             read, write = self.cache.ring_ids(mask)
-            logits = self._state_steps.decode_all(*args, self._tensor(read),
-                                                  self._tensor(write), self._tensor(mask))
+            kv = self.cache.kv
+            logits = self._state_steps.decode_all(
+                *args, None if kv is None else self._tensor(kv.tables), self._tensor(read),
+                self._tensor(write), self._tensor(mask))
             self.cache.ring_advance(mask)
         elif self.backend == "dense_slots":
             mask_t = self._tensor(mask)
             pos_safe = torch.where(mask_t, args[2], torch.zeros_like(args[2]))
-            new = tuple(c.clone() for c in self.cache.caches)
+            new = cache_map(torch.clone, self.cache.caches)
             logits = self._dense_decode(self.params, args[1], pos_safe, new)[0]
             self.cache.merge_masked(new, mask_t)
         else:

@@ -39,6 +39,8 @@ from repro_torch.kernels.paged_attention import (  # noqa: F401  (re-exports)
     prefill_chunk_layout,
     quant_block,
 )
+from repro_torch.models.registry import cache_leaves, cache_map
+from repro_torch.train.serve import init_cache
 
 
 def quantize_kv(x: torch.Tensor) -> PackedQuant:
@@ -132,10 +134,23 @@ class PagedCache:
 
     def __init__(self, cfg, *, n_slots: int, pages_per_slot: int, page_size: int,
                  n_pages: int | None = None, kv_dtype: str = "mxfp4", device="cuda",
-                 debug: bool = False):
+                 debug: bool = False, geometry: tuple[int, int, int] | None = None,
+                 dtype: str | torch.dtype | None = None):
+        """``geometry=(layers, kv_heads, head_dim)`` with ``dtype`` sizes the
+        pool explicitly instead of from ``cfg`` (which may then be None): how
+        :class:`~repro_torch.serve.state_pool.StatePool` carves the
+        attention-KV plane out of a family whose cache tree is not one
+        stacked (K, V) pair (the hybrid's ``"attn"`` stacks)."""
         if kv_dtype not in ("mxfp4", "dense"):
             raise ValueError(f"kv_dtype must be 'mxfp4' or 'dense', got {kv_dtype!r}")
-        L, H, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_
+        if geometry is None:
+            L, H, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_
+            dtype = cfg.dtype
+        else:
+            L, H, hd = geometry
+            if dtype is None:
+                raise ValueError("an explicit geometry= needs an explicit dtype=")
+        dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         if hd % 2 != 0:
             raise ValueError(f"head dim {hd} must be even for nibble packing")
         n_pages = n_pages if n_pages is not None else 1 + n_slots * pages_per_slot
@@ -145,7 +160,6 @@ class PagedCache:
         self.layers, self.kv_heads, self.head_dim = L, H, hd
         if kv_dtype == "dense":
             shape = (L, n_pages, page_size, H, hd)
-            dtype = getattr(torch, cfg.dtype)
             self.pool = {"k": torch.zeros(shape, dtype=dtype, device=device),
                          "v": torch.zeros(shape, dtype=dtype, device=device)}
         else:
@@ -378,31 +392,30 @@ class PagedCache:
 class DenseSlotCache:
     """Per-slot dense decode state for the families without paged attention
     KV (the state-pool engine's parity oracle, ``decode_backend=
-    "dense_slots"``): the model's decode caches (``Model.cache_spec``) for
-    ``n_slots`` slots, batch on axis 1 of every leaf."""
+    "dense_slots"``): the model's decode cache tree (``Model.cache_spec``)
+    for ``n_slots`` slots, batch on axis 1 of every leaf."""
 
     def __init__(self, model, *, n_slots: int, max_len: int, device):
         self.n_slots, self.max_len = n_slots, max_len
-        self.caches = tuple(torch.zeros(shape, dtype=dtype, device=device)
-                            for shape, dtype in model.cache_spec(n_slots, max_len))
+        self.caches = init_cache(model, n_slots, max_len, device)
 
-    def slot(self, slot: int) -> tuple:
+    def slot(self, slot: int):
         """One slot's caches as batch-1 views (a step writes through them)."""
-        return tuple(c[:, slot:slot + 1] for c in self.caches)
+        return cache_map(lambda c: c[:, slot:slot + 1], self.caches)
 
     def reset_slot(self, slot: int) -> None:
         """Zero one slot's state before a new request prefills into it (a
         recurrence has no positional mask to hide its predecessor's state)."""
-        for c in self.caches:
+        for c in cache_leaves(self.caches):
             c[:, slot].zero_()
 
-    def merge_masked(self, new: tuple, mask: torch.Tensor) -> None:
+    def merge_masked(self, new, mask: torch.Tensor) -> None:
         """Take ``new``'s state for the masked-in slots, keep the others':
         one batched decode step leaves the slots that are not decoding as
         they were."""
-        for c, n in zip(self.caches, new):
+        for c, n in zip(cache_leaves(self.caches), cache_leaves(new)):
             keep = mask.reshape(1, -1, *([1] * (c.dim() - 2)))
             c.copy_(torch.where(keep, n.to(c.dtype), c))
 
     def cache_bytes(self) -> int:
-        return sum(int(c.numel() * c.element_size()) for c in self.caches)
+        return sum(int(c.numel() * c.element_size()) for c in cache_leaves(self.caches))

@@ -24,9 +24,16 @@ re-quantization (``quantize(dequantize(x)) != x`` for values between grid
 points), which is why masked lanes write the sentinel instead of writing
 back what they read.
 
-The attention-KV and cross-KV planes (the hybrid, enc-dec and VLM
-families) are not ported yet: :class:`StatePool` raises for those families
-rather than serve them partly.  The pool tensors are updated in place.
+The hybrid family's attention KV (the ``"attn"`` stacks of its cache
+tree, one per application of its shared block) lives in the attention-KV
+plane: a :class:`~repro_torch.serve.paged_cache.PagedCache` built with an
+explicit geometry ``(n_super, Hkv, hd)``, the same pages, free list and
+tables as the dense engine's pool; the gather of its pages is B4b and the
+write of a step's tokens B4a (K and V in one launch each), with the whole
+head as one scale block at zamba2-7b's head dim of 112.  The cross-KV plane
+(the enc-dec and VLM families) is not ported yet: :class:`StatePool` raises
+for those families rather than serve them partly.  The pool tensors are
+updated in place.
 """
 
 from __future__ import annotations
@@ -37,10 +44,11 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.kv_pack import kv_dequant_unpack, kv_quant_pack
-from repro_torch.models.registry import Model
+from repro_torch.models.registry import Model, cache_leaves
+from repro_torch.serve.paged_cache import PagedCache
 
 STATE_FAMILIES = ("ssm", "hybrid", "encdec", "vlm")
-PORTED_FAMILIES = ("ssm",)
+PORTED_FAMILIES = ("ssm", "hybrid")
 RING_DEPTH = 2  # read page + write page per slot
 BLOCK = 32  # MXFP4's block, the KV pool's payload
 MAX_ROW = 4096  # elements a row of the 2-d kernel view holds at most
@@ -123,41 +131,80 @@ class RingPlane:
 
 
 class StatePool:
-    """Every per-slot decode byte of one non-paged family, in pooled
-    planes (this slice: the SSM family's state rings, conv and h)."""
+    """Every per-slot decode byte of one non-paged family, in pooled planes:
 
-    def __init__(self, model: Model, *, n_slots: int, max_len: int, kv_dtype: str = "mxfp4",
-                 device="cuda", debug: bool = False):
+    ===========  ==================  ====================
+    family       attention-KV plane  state rings
+    ===========  ==================  ====================
+    ``ssm``      —                   conv + h
+    ``hybrid``   ``"attn"`` stacks   conv + h (Mamba2)
+    ===========  ==================  ====================
+
+    The engine talks to this class alone (admission, release, the ring
+    cursor, accounting); the steps read and write the planes' tensors."""
+
+    def __init__(self, model: Model, *, n_slots: int, max_len: int, page_size: int = 16,
+                 kv_dtype: str = "mxfp4", device="cuda", debug: bool = False):
         cfg = model.cfg
         if cfg.family not in STATE_FAMILIES:
             raise ValueError(f"StatePool covers {STATE_FAMILIES}, got {cfg.family!r} "
                              f"(dense/moe use PagedCache directly)")
         if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
-                f"StatePool for {cfg.family!r} needs its attention-KV or cross-KV plane, "
-                f"which is not ported yet")
+                f"StatePool for {cfg.family!r} needs its cross-KV plane, which is not "
+                f"ported yet")
         if kv_dtype not in ("mxfp4", "dense"):
             raise ValueError(f"kv_dtype must be 'mxfp4' or 'dense', got {kv_dtype!r}")
-        self.n_slots, self.debug = n_slots, debug
+        self.family = cfg.family
+        self.n_slots, self.max_len, self.page_size = n_slots, max_len, page_size
+        self.kv_dtype, self.debug = kv_dtype, debug
+        self._itemsize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+        spec = model.cache_spec(1, max_len)  # batch-1 shapes
+
+        # the attention-KV plane: K [L_kv, 1, max_len, Hkv, hd]
+        self.kv: PagedCache | None = None
+        if self.family == "hybrid":
+            (L_kv, _, _, H, hd), dtype = spec["attn"][0]
+            self.kv = PagedCache(None, n_slots=n_slots, pages_per_slot=-(-max_len // page_size),
+                                 page_size=page_size, kv_dtype=kv_dtype, device=device,
+                                 debug=debug, geometry=(L_kv, H, hd), dtype=dtype)
+
+        # the state rings over the recurrent leaves, in the tree's order
+        ring_spec = spec if self.family == "ssm" else spec["mamba"]
         self.rings = tuple(RingPlane((shape[0], *shape[2:]), dtype, n_slots, kv_dtype, device)
-                           for shape, dtype in model.cache_spec(1, max_len))
+                           for shape, dtype in cache_leaves(ring_spec))
         # the host ring cursor, shared by every plane: the read page id (0 =
         # fresh, zeros) and which of the slot's RING_DEPTH pages is written next
         self.ring_read = np.zeros((n_slots,), np.int32)
         self.ring_cur = np.zeros((n_slots,), np.int32)
         self.ring_active = np.zeros((n_slots,), bool)
 
-    # -- admission / release (rings are mapped statically: a free slot can
-    #    always take a request) ------------------------------------------------
+    def planes(self):
+        """(kind, plane) pairs."""
+        if self.kv is not None:
+            yield "attn_kv", self.kv
+        for r in self.rings:
+            yield "state_ring", r
 
-    def alloc(self, slot: int) -> None:
-        """One admission: the slot's ring cursor reset (it reads zeros)."""
+    # -- admission / release (rings are mapped statically; the KV plane
+    #    reserves prompt + max_new positions at admission) --------------------
+
+    def can_admit(self, n_tokens: int) -> bool:
+        return self.kv is None or self.kv.can_alloc(min(n_tokens, self.max_len))
+
+    def alloc(self, slot: int, n_tokens: int) -> None:
+        """One admission: the KV plane's pages for ``n_tokens`` positions and
+        a reset ring cursor (the slot reads zeros)."""
+        if self.kv is not None:
+            self.kv.alloc(slot, min(n_tokens, self.max_len))
         self.ring_read[slot] = 0
         self.ring_cur[slot] = 0
-        self.ring_active[slot] = True
+        self.ring_active[slot] = bool(self.rings)
         self._check()
 
     def free(self, slot: int) -> None:
+        if self.kv is not None:
+            self.kv.free(slot)
         self.ring_read[slot] = 0
         self.ring_cur[slot] = 0
         self.ring_active[slot] = False
@@ -191,9 +238,12 @@ class StatePool:
             self.check_invariants()
 
     def check_invariants(self) -> None:
-        """The ring-cursor contract: a cursor is in range; an inactive slot
-        holds the reset cursor; an active slot's read page is the sentinel
-        or the page its cursor wrote last."""
+        """The KV plane's allocator invariants and the ring-cursor contract:
+        a cursor is in range; an inactive slot holds the reset cursor; an
+        active slot's read page is the sentinel or the page its cursor wrote
+        last."""
+        if self.kv is not None:
+            self.kv.check_invariants()
         for s in range(self.n_slots):
             cur, read = int(self.ring_cur[s]), int(self.ring_read[s])
             if cur not in range(RING_DEPTH):
@@ -212,19 +262,59 @@ class StatePool:
     # -- accounting ----------------------------------------------------------
 
     def cache_bytes(self) -> int:
-        return sum(r.cache_bytes() for r in self.rings)
+        return sum(p.cache_bytes() for _, p in self.planes())
 
     def bits_per_element(self) -> float:
-        """Storage bits per state element over every page."""
+        """Storage bits per state element over every page of every plane."""
         elems = sum(r.padded * r.n_pages for r in self.rings)
+        if self.kv is not None:
+            kv = self.kv
+            elems += kv.layers * kv.n_pages * kv.page_size * kv.kv_heads * kv.head_dim * 2
         return self.cache_bytes() * 8 / elems if elems else 0.0
 
-    def state_bytes_per_decode_step(self) -> int:
-        """State bytes one slot's decode step moves through the pool: per
-        plane one page read and one written."""
-        return sum(2 * r.page_bytes() for r in self.rings)
+    def occupancy(self) -> float:
+        """Live fraction over every plane's pages (rings count their active
+        slots' pages)."""
+        live = total = 0
+        for kind, p in self.planes():
+            live += (int(self.ring_active.sum()) * RING_DEPTH if kind == "state_ring"
+                     else p.live_pages())
+            total += p.n_pages - 1
+        return live / total if total else 0.0
 
-    def dense_state_bytes_per_decode_step(self) -> int:
-        """The same step in the dense-slot oracle: the state read and
-        rewritten whole."""
-        return sum(2 * r.dense_bytes() for r in self.rings)
+    def plane_stats(self) -> dict[str, dict[str, float]]:
+        """Page accounting by plane kind."""
+        stats: dict[str, dict[str, float]] = {}
+        if self.kv is not None:
+            stats["attn_kv"] = {"pages_total": self.kv.n_pages - 1,
+                                "pages_free": self.kv.free_pages,
+                                "occupancy": self.kv.live_pages() / (self.kv.n_pages - 1)}
+        if self.rings:
+            total = sum(r.n_pages - 1 for r in self.rings)
+            used = int(self.ring_active.sum()) * RING_DEPTH * len(self.rings)
+            stats["state_ring"] = {"pages_total": total, "pages_free": total - used,
+                                   "occupancy": used / total if total else 0.0}
+        return stats
+
+    def state_bytes_per_decode_step(self, n_tokens: int) -> int:
+        """State bytes one slot's decode step moves through the pool at
+        ``n_tokens`` positions: the packed KV pages read and one token
+        written, and per ring plane one page read and one written."""
+        total = sum(2 * r.page_bytes() for r in self.rings)
+        if self.kv is not None:
+            pb = self.kv.cache_bytes() // self.kv.n_pages
+            total += (self.kv.pages_needed(min(n_tokens, self.max_len)) * pb
+                      + pb // self.kv.page_size)
+        return total
+
+    def dense_state_bytes_per_decode_step(self, n_tokens: int) -> int:
+        """The same step in the dense-slot oracle: the whole dense KV cache
+        read (dense attention reads every position) and one token written,
+        and the recurrent state read and rewritten whole (``n_tokens`` is
+        the other method's; dense traffic does not depend on it)."""
+        total = sum(2 * r.dense_bytes() for r in self.rings)
+        if self.kv is not None:
+            kv = self.kv
+            row = 2 * kv.layers * kv.kv_heads * kv.head_dim * self._itemsize
+            total += row * self.max_len + row
+        return total

@@ -1,7 +1,7 @@
 """Device steps for paged-KV serving, and for the state pool.
 
 Port of ``repro.serve.steps.build_paged_steps`` and ``build_state_steps``
-(the SSM family's rings; :class:`StateSteps`).  On the ``"paged"``
+(the SSM and hybrid families' state pool; :class:`StateSteps`).  On the ``"paged"``
 backend (the default) every step attends directly over the packed pool:
 
 * ``decode_all``  — one token for every slot in one call (S == 1);
@@ -183,46 +183,82 @@ def build_paged_steps(model: Model, *, method: str, page_size: int,
 
 class StateSteps(NamedTuple):
     """Steps of :class:`~repro_torch.serve.state_pool.StatePool` serving, the
-    non-paged families' counterpart of :class:`PagedSteps` (this slice: the
-    SSM family, whose state lives in rings alone)."""
+    non-paged families' counterpart of :class:`PagedSteps`."""
 
-    # (params, tokens [B,1], positions [B], ring_read [B], ring_write [B],
-    #  mask [B]) -> logits [B,V]
+    # (params, tokens [B,1], positions [B], kv_tables [B,P] | None,
+    #  ring_read [B], ring_write [B], mask [B]) -> logits [B,V]
     decode_all: Callable
-    # (params, tokens [1,C], start: int, ring_read [1], ring_write [1])
-    #   -> last-token logits [1,V]
+    # (params, tokens [1,C], start: int, kv_row [P] | None, ring_read [1],
+    #  ring_write [1]) -> last-token logits [1,V]
     prefill_chunk: Callable
 
 
 def build_state_steps(model: Model, *, method: str, pool) -> StateSteps:
     """Steps over a :class:`~repro_torch.serve.state_pool.StatePool`.  Each
-    gathers the state of the ring read pages (B4b on the card for packed
-    rings), runs the unmodified ``train.serve`` decode or chunk step on it,
-    and writes each lane's whole new state into its ring write page,
-    quantized on write (B4a).  With ``kv_dtype="dense"`` the rings hold the
-    values bit for bit, so the tokens equal the dense-slot oracle's."""
+    assembles the family's dense cache tree from the planes (the KV plane's
+    pages gathered and dequantized, B4b, and sliced to ``max_len``; the
+    ring read pages gathered, B4b on packed rings), runs the unmodified
+    ``train.serve`` decode or chunk step on it, then writes back: the new
+    tokens' K/V quantized into their pages (B4a, K and V in one launch;
+    masked lanes write page 0), each lane's whole new recurrent state into
+    its ring write page (B4a).  With ``kv_dtype="dense"`` the planes hold
+    the values bit for bit, so the tokens equal the dense-slot oracle's."""
     decode = make_decode_step(model, method=method)
     chunk = make_chunk_prefill_step(model, method=method)
-    rings = pool.rings
+    dtype = getattr(torch, model.cfg.dtype)
+    rings, kv = pool.rings, pool.kv
+    ps, max_len = pool.page_size, pool.max_len
+    ssm = model.cfg.family == "ssm"
 
-    def _run(step, params, tokens, pos, read, write):
-        caches = tuple(r.gather(read) for r in rings)
-        logits = step(params, tokens, pos, caches)[0]
-        for r, leaf in zip(rings, caches):  # the step updated the gathered state in place
+    def assemble(tables, read):
+        state = tuple(r.gather(read) for r in rings)
+        if ssm:
+            return state
+        k, v = P.gather_pages(kv.pool, tables, dtype)
+        return {"attn": (k[:, :, :max_len], v[:, :, :max_len]), "mamba": state}
+
+    def write_back(caches, page_ids, offsets, k_new, v_new, write):
+        """The step updated the gathered tree in place: its new tokens' K/V
+        (when there is a KV plane) and every ring leaf go back."""
+        if kv is not None:
+            P.scatter_tokens(kv.pool, page_ids, offsets, k_new, v_new)
+        for r, leaf in zip(rings, caches if ssm else caches["mamba"]):
             r.scatter(write, leaf)
+
+    def decode_all(params, tokens, positions, kv_tables, ring_read, ring_write, mask):
+        """One token for every slot.  Masked lanes read the zero ring sentinel
+        (and their stale KV tables) and write page 0 of every plane; the host
+        does not advance their ring cursor, so their state is untouched (the
+        dense oracle's masked merge)."""
+        pos_safe = torch.where(mask, positions, torch.zeros_like(positions))
+        caches = assemble(kv_tables, ring_read)
+        logits = decode(params, tokens, pos_safe, caches)[0]
+        page_ids = offsets = k_new = v_new = None
+        if kv is not None:
+            k2, v2 = caches["attn"]
+            bidx = torch.arange(tokens.shape[0], device=tokens.device)
+            pos = pos_safe.long()
+            page_ids = torch.where(mask, kv_tables[bidx, pos // ps], torch.zeros_like(pos_safe))
+            offsets, k_new, v_new = pos_safe % ps, k2[:, bidx, pos], v2[:, bidx, pos]
+        write_back(caches, page_ids, offsets, k_new, v_new, ring_write)
         return logits
 
-    def decode_all(params, tokens, positions, ring_read, ring_write, mask):
-        """One token for every slot.  Masked lanes read the zero sentinel and
-        write page 0; the host does not advance their ring cursor, so their
-        state is untouched (the dense oracle's masked merge)."""
-        pos_safe = torch.where(mask, positions, torch.zeros_like(positions))
-        return _run(decode, params, tokens, pos_safe, ring_read, ring_write)
-
-    def prefill_chunk(params, tokens, start, ring_read, ring_write):
-        """One slot's [1, C] prompt chunk from its read page into its write
-        page."""
+    def prefill_chunk(params, tokens, start, kv_row, ring_read, ring_write):
+        """One slot's [1, C] prompt chunk: its K/V at positions start .. start
+        + C − 1 into the slot's pages, its whole new state from its read page
+        into its write page."""
         start_t = torch.full((1,), start, dtype=torch.int32, device=tokens.device)
-        return _run(chunk, params, tokens, start_t, ring_read, ring_write)
+        caches = assemble(None if kv_row is None else kv_row[None], ring_read)
+        logits = chunk(params, tokens, start_t, caches)[0]
+        page_ids = offsets = k_new = v_new = None
+        if kv is not None:
+            k2, v2 = caches["attn"]
+            C = tokens.shape[1]
+            s0 = min(start, k2.shape[2] - C)  # a dynamic slice clamps its start
+            pos = start + torch.arange(C, device=tokens.device)
+            page_ids, offsets = kv_row[pos // ps], pos % ps
+            k_new, v_new = k2[:, 0, s0:s0 + C], v2[:, 0, s0:s0 + C]
+        write_back(caches, page_ids, offsets, k_new, v_new, ring_write)
+        return logits
 
     return StateSteps(decode_all, prefill_chunk)

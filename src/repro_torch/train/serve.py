@@ -6,8 +6,9 @@ Port of ``init_cache``, ``make_chunk_prefill_step``, ``make_prefill_step``,
 Each step runs the model forward with explicit per-token positions over a
 cache that it updates in place: dense caches ``(K, V)`` [L, B, T, Hkv, hd]
 written at ``cache_index`` (the gather serving backend and whole-prompt
-prefill), a :class:`~repro_torch.kernels.paged_attention.PagedKV` pool, or
-an SSM's ``(conv, h)`` state.  Each casts the floating leaves of the params
+prefill), a :class:`~repro_torch.kernels.paged_attention.PagedKV` pool,
+an SSM's ``(conv, h)`` state, or a hybrid's tree of both
+(``Model.cache_spec``).  Each casts the floating leaves of the params
 to the compute dtype first, as the reference's steps do.
 The reference builds the multi-token step on a model with
 ``attn_rows_shared=False``; the port always computes causal bounds and rope
@@ -26,20 +27,22 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models.registry import Model
+from repro_torch.models.registry import Model, cache_map
 
 
-def init_cache(model: Model, batch: int, max_len: int, device) -> tuple:
-    """Zero decode caches of ``model.cache_spec``: dense ``(K, V)`` [L,
-    batch, max_len, Hkv, hd] in the compute dtype, or an SSM's ``(conv,
-    h)`` [L, batch, K-1, Di] / [L, batch, Di, N]."""
-    return tuple(torch.zeros(shape, dtype=dtype, device=device)
-                 for shape, dtype in model.cache_spec(batch, max_len))
+def init_cache(model: Model, batch: int, max_len: int, device):
+    """Zero decode caches of ``model.cache_spec``, a tree of its shape:
+    dense ``(K, V)`` [L, batch, max_len, Hkv, hd] in the compute dtype, an
+    SSM's ``(conv, h)`` [L, batch, K-1, Di] / [L, batch, Di, N], or a
+    hybrid's ``{"attn": (K, V), "mamba": (conv, h)}``."""
+    return cache_map(lambda spec: torch.zeros(spec[0], dtype=spec[1], device=device),
+                     model.cache_spec(batch, max_len))
 
 
 def cast_params(params, dtype: torch.dtype):
-    """Every floating leaf in the compute dtype, as the reference's serving
-    steps cast the tree (an SSM's f32 ``A_log`` and ``D`` become bf16 there).
+    """Every floating leaf of the nested param tree in the compute dtype, as
+    the reference's serving steps cast the tree (an SSM's f32 ``A_log``,
+    ``dt_bias`` and ``D`` become bf16 there).
     A leaf already in ``dtype`` is the same tensor, so a tree with nothing
     to cast costs no copy."""
     if isinstance(params, dict):

@@ -132,7 +132,7 @@ def test_ring_cursor_contract(ssm):
     sp = StatePool(model, n_slots=2, max_len=16, device="cpu")
     assert len(sp.rings) == 2
     assert sp.rings[0].leaf_shape == (2, 3, 256) and sp.rings[1].leaf_shape == (2, 256, 8)
-    sp.alloc(0)
+    sp.alloc(0, 16)
     mask = np.array([True, False])
     read0, write0 = sp.ring_ids(mask)
     assert read0[0] == 0  # a fresh slot reads the zero sentinel
@@ -162,7 +162,7 @@ def test_statepool_bytes_win(ssm):
     bits an element against bf16 conv and f32 h)."""
     _, model, _ = ssm
     sp = StatePool(model, n_slots=4, max_len=64, device="cpu")
-    assert sp.dense_state_bytes_per_decode_step() >= 4 * sp.state_bytes_per_decode_step()
+    assert sp.dense_state_bytes_per_decode_step(64) >= 4 * sp.state_bytes_per_decode_step(64)
     assert sp.bits_per_element() == 4.25
     dense = StatePool(model, n_slots=4, max_len=64, kv_dtype="dense", device="cpu")
     assert dense.cache_bytes() == sum(r.n_pages * r.padded * (2 if i == 0 else 4)
@@ -221,9 +221,9 @@ def test_gates_for_the_ssm_family(ssm):
     qwen = build_model(get_reduced_config("qwen3-1.7b"))
     with pytest.raises(ValueError, match="dense/moe use PagedCache"):
         StatePool(qwen, n_slots=2, max_len=16, device="cpu")
-    hybrid = model._replace(cfg=dataclasses.replace(cfg, family="hybrid"))
+    encdec = model._replace(cfg=dataclasses.replace(cfg, family="encdec"))
     with pytest.raises(NotImplementedError, match="not ported"):
-        StatePool(hybrid, n_slots=2, max_len=16, device="cpu")
+        StatePool(encdec, n_slots=2, max_len=16, device="cpu")
 
 
 @pytest.mark.cuda
