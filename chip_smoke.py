@@ -155,6 +155,23 @@
    log-probs within the ssm phase's gate); at 13 layers, dense planes
    token-exact against ``dense_slots``; with ``times``, B4a and B4b timed
    at the KV plane's and both SSM families' rings' shapes.
+4h. The enc-dec and VLM families (``--phases cross``): B4a and B4b at
+   whisper's head dim of 64 bit for bit against their plain versions (the
+   K+V scatter at a decode tick and a prefill chunk, strided and unaligned;
+   the E8M0 edge rows; the ragged K+V gather over every (byte, scale code)
+   pair), each cross plane's one-launch scatter of a whole source (1500
+   and 1600 tokens) and its gather sliced to the source's length; B1 and
+   B3 at whisper's linears (K and N of 384 and 1536; 8, 64 and 1500 rows);
+   layernorm card = CPU bit for bit at d 384 and 4096; whisper-tiny and
+   llama-3.2-vision-11b (gates set) at full width and depth serving 4
+   prompts each, with its own source or image, from MXFP4 self- and
+   cross-KV planes (launches against the prediction, tok/s, TTFT, ticks,
+   plane bytes against the dense slots', peak memory, first-token log-probs
+   against the teacher-forced forward), a second wave of the same sources
+   under the prefix cache encoding nothing and token-exact against the
+   first, the VLM's logits moved by its gates, and statepool (dense
+   planes) token-exact against ``dense_slots``; with ``times``, the cross
+   plane's gather of a decode tick and its scatter of a source timed.
 5. Times each kernel (CUDA events, median, L2 flushed before each launch)
    beside its plain version and, where one PyTorch call computes the same
    function, that call, at serving, training and evaluation shapes; B1, B2,
@@ -299,6 +316,27 @@ MAMBA2_CARD_CPU_OUT, MAMBA2_CARD_CPU_STATE = 1e-4, 1e-4
 # step; a reduced 4-layer d-512 model on the CPU read max 1.8-4.3, mean
 # 0.34-0.83): max |Δ| and mean |Δ| bounds
 SSM_LOGPROB_MAX, SSM_LOGPROB_MEAN = 8.0, 1.5
+
+# the cross phase: whisper-tiny (4 + 4 layers, d 384, 6 heads of 64, LayerNorm,
+# absolute positions, a 1500-frame source; 36.4 M stored weights) and
+# llama-3.2-vision-11b (40 dense layers and 8 gated cross blocks, d 4096, GQA
+# 32/8, 1600 image tokens; 11.5 B) at full width and depth, served from
+# MXFP4 self- and cross-KV planes of PAGE_SIZE pages on N_SLOTS slots:
+# CROSS_PROMPTS (whole [1, CROSS_CHUNK] chunks: no [1, 1] remainders), CROSS_NEW
+# new each, request i's conditioning drawn from SEED + i; a second wave of the
+# same prompts and sources under the prefix cache encodes nothing; the
+# statepool (dense planes) vs dense_slots oracle at full depth for whisper and
+# CROSS_ORACLE_LAYERS (2 super-blocks, the whole 1600-token cross plane) for
+# the VLM, CROSS_ORACLE_NEW new each.  The VLM's gates are set to VLM_GATES
+# (attention, MLP) in every cross block: at their initial 0 the cross path
+# adds nothing to the logits.
+WHISPER_ARCH, VLM_ARCH = "whisper-tiny", "llama-3.2-vision-11b"
+CROSS_PROMPTS, CROSS_NEW, CROSS_CHUNK = (64, 128, 64, 128), 16, 64
+CROSS_ORACLE_LAYERS, CROSS_ORACLE_NEW = 10, 8
+VLM_GATES = (0.5, -0.3)
+# first-token log-probs against the teacher-forced forward: the dense
+# engine's gate (max |Δ|, mean |Δ|)
+CROSS_LOGPROB_MAX, CROSS_LOGPROB_MEAN = 5.0, 1.0
 
 # the baselines phase: each baseline method on one full-width llama-paper-200m
 # linear of BASELINE_ROWS tokens (4 x 512), card against CPU; each training
@@ -4237,13 +4275,491 @@ def time_state_kernels(torch, timer, device="cuda"):
     return rec
 
 
+def check_cross_kernels(torch, device="cuda"):
+    """B4a and B4b at the cross families' planes, bit for bit against their
+    plain versions on the card.  At whisper-tiny's head dim of 64 (two
+    32-blocks a head): the K+V scatter of a decode tick (N_SLOTS tokens) and
+    a prefill chunk (CROSS_CHUNK tokens) into every layer of the self-KV
+    plane's leaves, K and V read through strides (16-byte loads) and through
+    rows no 16-byte load can read; the 2-d entry over the E8M0 edge rows in
+    f32 and bf16; the K+V gather over ragged tables from leaves holding every
+    (byte, scale code) pair.  Then each cross plane's scatter of a whole
+    source into one slot's pages (whisper 1500 tokens, the VLM 1600: every
+    layer's K and V in one launch) and the gather of N_SLOTS slots' cross
+    pages, sliced to the source's length as the steps slice it.  Returns a
+    summary (one launch each asserted)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import kv_pack as KV
+    from repro_torch.serve.paged_cache import gather_pages
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    wcfg = get_config(WHISPER_ARCH)
+    L, H, hd = wcfg.num_layers, wcfg.num_kv_heads, wcfg.head_dim_
+    kh, u8 = hd // 2, torch.uint8
+    T = max(CROSS_PROMPTS) + CROSS_NEW
+    P = -(-T // PAGE_SIZE)
+    n_pages = 1 + N_SLOTS * P
+    out = {}
+
+    def leaves(n_layers, n_pg, heads, width):
+        return [torch.zeros((n_layers, n_pg, PAGE_SIZE, heads, w), dtype=u8, device=device)
+                for w in (width // 2, width // 32, width // 2, width // 32)]
+
+    for tag, n_tok in (("decode", N_SLOTS), ("prefill", CROSS_CHUNK)):
+        for vec in (True, False):
+            width = hd if vec else hd + 1  # rows of 65: no 16-byte load reads them
+            base = (torch.randn((L, 2 * n_tok, H, width), generator=gen, device=device)
+                    * torch.exp2(torch.randint(-6, 7, (L, 2 * n_tok, H, 1), generator=gen,
+                                               device=device).float())).to(torch.bfloat16)
+            k, v = base[:, ::2, :, :hd], base[:, 1::2, :, :hd]
+            perm = torch.randperm((n_pages - 1) * PAGE_SIZE, generator=gen,
+                                  device=device)[:n_tok]
+            pid = (1 + perm // PAGE_SIZE).to(torch.int32)
+            off = (perm % PAGE_SIZE).to(torch.int32)
+            got, want = leaves(L, n_pages, H, hd), leaves(L, n_pages, H, hd)
+            before = KV.kv_quant_pack.launches
+            KV.kv_quant_scatter_kv(*got, pid, off, k, v)
+            if KV.kv_quant_pack.launches - before != 1:
+                raise AssertionError("hd-64 K+V scatter took more than one launch")
+            plain_quant_scatter(torch, want[0], want[1], pid, off, k)
+            plain_quant_scatter(torch, want[2], want[3], pid, off, v)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"hd-64 B4a scatter ({tag}, vector loads {vec}) differs "
+                                     f"from its plain version")
+            out[f"hd64_scatter_{tag}{'' if vec else '_scalar_loads'}"] = [L, n_tok, H, hd]
+    x = torch.from_numpy(kv_edge_rows(np)).to(device)  # rows of 64: two blocks
+    for dt in (torch.float32, torch.bfloat16):
+        c, s = KV.kv_quant_pack(x.to(dt))
+        pc, ps = KV.kv_quant_pack_plain(x.to(dt))
+        if not (torch.equal(c, pc) and torch.equal(s, ps)):
+            raise AssertionError(f"hd-64 B4a 2-d ({dt}) differs from its plain version on the "
+                                 f"E8M0 edge rows")
+    out["hd64_edge_rows"] = x.shape[0]
+    shape = (L, n_pages, PAGE_SIZE, H)
+    kc, ks = every_pair(torch, (*shape, kh), (*shape, hd // 32), 0, device)
+    vc, vs = every_pair(torch, (*shape, kh), (*shape, hd // 32), 97, device)
+    perm = 1 + torch.randperm(n_pages - 1, generator=gen, device=device)[:N_SLOTS * P]
+    tables = perm.to(torch.int32).reshape(N_SLOTS, P)
+    tables[1, 3:] = 0  # a short slot: its unmapped columns read the scratch page
+    tables[2, 5] = tables[0, 0]  # a page read twice
+    idx = tables.long()
+    for dt in (torch.float32, torch.bfloat16):
+        before = KV.kv_dequant_unpack.launches
+        gk, gv = KV.kv_gather_dequant_kv(kc, ks, vc, vs, tables, dt)
+        if KV.kv_dequant_unpack.launches - before != 1:
+            raise AssertionError("hd-64 K+V gather took more than one launch")
+        for g, c, s in ((gk, kc, ks), (gv, vc, vs)):
+            want = KV.kv_dequant_unpack_plain(c[:, idx], s[:, idx], dt).reshape(g.shape)
+            if not torch.equal(bit_pattern(torch, g), bit_pattern(torch, want)):
+                raise AssertionError(f"hd-64 B4b gather ({dt}) differs from its plain version")
+    out["hd64_gather"] = [L, N_SLOTS, P * PAGE_SIZE, H, hd]
+    del kc, ks, vc, vs, gk, gv
+
+    for arch in (WHISPER_ARCH, VLM_ARCH):
+        cfg = get_config(arch)
+        Lc = cfg.num_layers if cfg.family == "encdec" else cfg.num_layers // cfg.cross_attn_every
+        n = cfg.max_source_len if cfg.family == "encdec" else cfg.num_image_tokens
+        Hc, hdc = cfg.num_kv_heads, cfg.head_dim_
+        cpp = -(-n // PAGE_SIZE)
+        n_pg = 1 + (N_SLOTS + 2) * cpp
+        tables = (1 + torch.randperm(n_pg - 1, generator=gen, device=device)[:N_SLOTS * cpp]
+                  ).to(torch.int32).reshape(N_SLOTS, cpp)
+        k, v = [(torch.randn((Lc, 1, n, Hc, hdc), generator=gen, device=device)
+                 * torch.exp2(torch.randint(-4, 5, (Lc, 1, n, Hc, 1), generator=gen,
+                                            device=device).float())).to(torch.bfloat16)
+                for _ in range(2)]
+        pos = torch.arange(n, device=device)
+        pid, off = tables[0][pos // PAGE_SIZE], pos % PAGE_SIZE
+        got, want = leaves(Lc, n_pg, Hc, hdc), leaves(Lc, n_pg, Hc, hdc)
+        before = KV.kv_quant_pack.launches
+        KV.kv_quant_scatter_kv(*got, pid, off, k[:, 0], v[:, 0])  # the encode's scatter
+        if KV.kv_quant_pack.launches - before != 1:
+            raise AssertionError(f"{arch} cross scatter took more than one launch")
+        plain_quant_scatter(torch, want[0], want[1], pid, off, k[:, 0])
+        plain_quant_scatter(torch, want[2], want[3], pid, off, v[:, 0])
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{arch} cross-plane scatter of {n} tokens differs from its "
+                                 f"plain version")
+        pool = dict(zip(("k_codes", "k_scales", "v_codes", "v_scales"), got))
+        before = KV.kv_dequant_unpack.launches
+        gk, gv = gather_pages(pool, tables, torch.bfloat16)
+        gk, gv = gk[:, :, :n], gv[:, :, :n]
+        if KV.kv_dequant_unpack.launches - before != 1:
+            raise AssertionError(f"{arch} cross gather took more than one launch")
+        idx = tables.long()
+        for g, c, s, src in ((gk, got[0], got[1], k), (gv, got[2], got[3], v)):
+            plain = KV.kv_dequant_unpack_plain(c[:, idx], s[:, idx], torch.bfloat16)
+            plain = plain.reshape(Lc, N_SLOTS, cpp * PAGE_SIZE, Hc, hdc)[:, :, :n]
+            rt = KV.kv_dequant_unpack_plain(*KV.kv_quant_pack_plain(
+                src[:, 0].reshape(-1, hdc)), torch.bfloat16).reshape(Lc, n, Hc, hdc)
+            if not (torch.equal(bit_pattern(torch, g), bit_pattern(torch, plain))
+                    and torch.equal(bit_pattern(torch, g[:, 0]), bit_pattern(torch, rt))):
+                raise AssertionError(f"{arch} cross-plane gather differs from its plain "
+                                     f"version or from the source's round trip")
+        out[f"{arch}_cross"] = {"scatter": [Lc, n, Hc, hdc], "gather": list(gk.shape),
+                                "pages_a_source": cpp}
+        del got, want, pool, gk, gv, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_narrow_linears(torch, device="cuda"):
+    """B1 and B3 at whisper-tiny's narrow linears, bit for bit against their
+    plain versions on the card: B1 on activations of a decode tick
+    (N_SLOTS rows), a prefill chunk (CROSS_CHUNK rows) and the encoder's
+    1500 frames at K = 384 and 1536, and on each weight's Wᵀ view (the
+    attention's 384 x 384, the MLP's 384 x 1536 and 1536 x 384); B3 on
+    those operands as ``quartet_linear`` passes them.  Returns the shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import hadamard_quant as HQ
+    from repro_torch.kernels import mxfp4_matmul as MM
+
+    cfg = get_config(WHISPER_ARCH)
+    d, f = cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    shapes = []
+    for m in (N_SLOTS, CROSS_CHUNK, cfg.max_source_len):
+        for K, N in ((d, d), (d, f), (f, d)):
+            x = (torch.randn((m, K), generator=gen, device=device) * 1.9).to(torch.bfloat16)
+            w = (torch.randn((K, N), generator=gen, device=device) / K**0.5).to(torch.bfloat16)
+            qs = []
+            for name, t in (("x", x), ("Wᵀ", w.t())):
+                got = HQ.hadamard_quest_quantize(t)
+                for g, w_, what in zip(got, HQ.hadamard_quest_quantize_plain(t),
+                                       ("codes", "scales", "mask")):
+                    if not torch.equal(g, w_):
+                        raise AssertionError(f"hadamard_quest_quantize {name} [{m}, {K}, {N}]: "
+                                             f"{what} differ at {int((g != w_).sum())} places")
+                qs.append(got)
+            (ac, as_, _), (wc, ws, _) = qs
+            got = MM.mxfp4_matmul(ac, as_, wc.t(), ws.t())
+            want = MM.mxfp4_matmul_plain(ac, as_, wc.t(), ws.t())
+            if not torch.equal(got, want):
+                raise AssertionError(f"mxfp4_matmul [{m}, {K}, {N}]: max |Δ| "
+                                     f"{float((got - want).abs().max())}")
+            shapes.append([m, K, N])
+    return shapes
+
+
+def check_layernorm_card_vs_cpu(torch, device="cuda"):
+    """``models.layers.layernorm`` on the card against the CPU, bit for bit,
+    at whisper-tiny's d 384 and the VLM's width 4096, f32 and bf16, rows at
+    scales 2^-8..2^8 with a per-row offset (the mean matters)."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    out = {}
+    for d, rows in ((384, 8192), (4096, 1024)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = ((torch.randn((rows, d), generator=gen) + 3 * torch.randn((rows, 1), generator=gen))
+                 * torch.exp2(torch.randint(-8, 8, (rows, 1), generator=gen).float())).to(dtype)
+            p = {"scale": (1 + 0.1 * torch.randn(d, generator=gen)).to(dtype),
+                 "bias": (0.1 * torch.randn(d, generator=gen)).to(dtype)}
+            card = L.layernorm({k: t.to(device) for k, t in p.items()}, x.to(device), 1e-5)
+            host = L.layernorm(p, x, 1e-5)
+            out[f"d{d}_{str(dtype).split('.')[-1]}"] = nd = _bits_differ(torch, card, host)
+            if nd:
+                raise AssertionError(f"layernorm at d {d} {dtype}: {nd} values differ between "
+                                     f"the card and the CPU")
+    return out
+
+
+def _cross_engine(model, params, *, kv="mxfp4", backend=None, prefix=False):
+    from repro_torch.serve import Engine, EngineConfig
+
+    max_len = -(-(max(CROSS_PROMPTS) + CROSS_NEW) // PAGE_SIZE) * PAGE_SIZE
+    return Engine(model, params, EngineConfig(
+        n_slots=N_SLOTS, max_len=max_len, page_size=PAGE_SIZE, kv_dtype=kv,
+        prefill_chunk=CROSS_CHUNK, keep_logits=True, decode_backend=backend,
+        prefix_cache=prefix))
+
+
+def _cross_wave(torch, eng, prompts, extras, max_new):
+    """One wave of requests at t = 0 on ``eng``: (requests, wall s,
+    first-token s by rid, tick s by kind), each request checked for
+    ``max_new`` tokens in range and finite logits."""
+    import numpy as np
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new, extra=x, arrival_time=0.0) for p, x in zip(prompts, extras)]
+    first, ticks = {}, {"prefill": [], "decode": []}
+    while eng.sched.pending:
+        kind = "prefill" if eng.sched.queue or eng.sched.prefilling() else "decode"
+        s0 = time.perf_counter()
+        eng.step(now=s0 - t0)
+        ticks[kind].append(time.perf_counter() - s0)
+        for r in reqs:
+            if r.tokens and r.rid not in first:
+                first[r.rid] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    V = eng.model.cfg.vocab_size
+    for r in reqs:
+        if len(r.tokens) != max_new or not all(0 <= t < V for t in r.tokens):
+            raise AssertionError(f"request {r.rid}: {len(r.tokens)} tokens "
+                                 f"({r.finish_reason!r}) or a token out of range")
+        if any(row.shape != (V,) or not np.isfinite(row).all() for row in r.logits_trace):
+            raise AssertionError(f"request {r.rid}: non-finite or misshapen logits")
+    return reqs, wall, first, ticks
+
+
+def _teacher_forced_last(torch, model, params, prompt, extra, device="cuda"):
+    """f32 logits of ``prompt``'s last position by the cache-free forward
+    (params cast as the serving steps cast them)."""
+    from repro_torch.train.serve import cast_params
+
+    cp = cast_params(params, getattr(torch, model.cfg.dtype))
+    with torch.inference_mode():
+        feats, _ = model.forward(cp, torch.from_numpy(prompt)[None].to(device), 0, extra=extra,
+                                 features_only=True)
+        return model.head(cp, feats[:, -1:], 0)[0, 0].float().cpu()
+
+
+def _cross_first_token(torch, model, params, prompts, extras, reqs, device="cuda"):
+    """(max |Δ|, mean |Δ|) of each request's first-token log-probs against
+    the teacher-forced forward of its prompt and its conditioning."""
+    out = []
+    for p, x, r in zip(prompts, extras, reqs):
+        ref = torch.log_softmax(_teacher_forced_last(torch, model, params, p, x, device), -1)
+        d = (torch.log_softmax(torch.as_tensor(r.logits_trace[0]).float(), -1) - ref).abs()
+        out.append((float(d.max()), float(d.mean())))
+    return out
+
+
+def serve_cross(torch, ops, arch, device="cuda"):
+    """``arch`` (WHISPER_ARCH or VLM_ARCH) at full width and depth from MXFP4
+    self- and cross-KV planes (the ``statepool`` backend, the prefix cache
+    on): CROSS_PROMPTS with their own conditioning, CROSS_NEW new each;
+    launches of B1, B3, B4a and B4b against a prediction, first-token
+    log-probs against the teacher-forced forward; a second wave of the same
+    prompts and sources encoding nothing and token-exact against the first;
+    for the VLM its logits moved by its gates; then statepool with dense
+    planes token for token against ``dense_slots`` (the VLM at
+    CROSS_ORACLE_LAYERS).  Returns (summary, launch counts, vector-body
+    launches)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import init_params
+    from repro_torch.launch.serve_engine import kernel_config, make_extra
+    from repro_torch.models import build_model
+
+    cfg = kernel_config(get_config(arch))
+    vlm = cfg.family == "vlm"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    if vlm:
+        params["cross_layers"]["gate_attn"].fill_(VLM_GATES[0])
+        params["cross_layers"]["gate_mlp"].fill_(VLM_GATES[1])
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"  {arch} init: {n_params} stored params ({cfg.n_params()} by the reference's "
+        f"formula) in {time.perf_counter() - t0:.1f} s")
+    model = build_model(cfg)
+    rng = np.random.default_rng(SEED + 13)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in CROSS_PROMPTS]
+    extras = [make_extra(cfg, SEED + i, device) for i in range(len(prompts))]
+    # warm-up (first-use costs): an encode, a chunk, decodes
+    _cross_wave(torch, _cross_engine(model, params), [prompts[0]], extras[:1], 2)
+    eng = _cross_engine(model, params, prefix=True)
+    calls = _count_step_calls(eng, "_state_steps")
+    ops.reset_launch_counts()
+    reqs, wall, first, ticks = _cross_wave(torch, eng, prompts, extras, CROSS_NEW)
+    counts, vec = ops.launch_counts(), ops.vector_launches()
+    step_calls = dict(calls)
+    n_dec, n_pre = calls.get("decode_all", 0), calls.get("prefill_chunk", 0)
+    n_enc = calls.get("encode_cross", 0)
+    L = cfg.num_layers
+    if vlm:
+        # a dense layer's 7 linears; a cross block reading its cache: wq, wo
+        # and 3 MLP linears, recomputing from the image in prefill: + wk, wv;
+        # the encode: wk, wv of every cross block (the untied head is bf16)
+        n_super = L // cfg.cross_attn_every
+        lin = (7 * L + 5 * n_super) * n_dec + (7 * L + 7 * n_super) * n_pre + 2 * n_super * n_enc
+    else:
+        # a decoder layer's 4 self-attention, 2 cross (wq, wo) and 2 MLP
+        # linears; the encode: 6 linears an encoder layer and wk, wv a
+        # decoder layer (the tied head is bf16)
+        lin = 8 * L * (n_dec + n_pre) + (6 * cfg.encoder_layers + 2 * L) * n_enc
+    predicted = {k: 0 for k in counts}
+    # B4a: a step's new tokens (K and V in one launch) and an encode's whole
+    # source; B4b: a step's self-KV gather and cross-KV gather
+    predicted.update({"hadamard_quest_quantize": 2 * lin, "mxfp4_matmul": lin,
+                      "kv_quant_pack": n_dec + n_pre + n_enc,
+                      "kv_dequant_unpack": 2 * (n_dec + n_pre)})
+    if counts != predicted or n_enc != len(prompts):
+        raise AssertionError(f"{arch} launches {counts} != predicted {predicted} "
+                             f"(step calls {step_calls})")
+    lp = _cross_first_token(torch, model, params, prompts, extras, reqs, device)
+    encodes = eng.counters["cross_encode_calls"]
+    warm, wwall, _, _ = _cross_wave(torch, eng, prompts, extras, CROSS_NEW)
+    if eng.counters["cross_encode_calls"] != encodes or \
+            [r.tokens for r in warm] != [r.tokens for r in reqs]:
+        raise AssertionError(f"{arch} second wave: encodes {encodes} -> "
+                             f"{eng.counters['cross_encode_calls']}, tokens equal "
+                             f"{[r.tokens for r in warm] == [r.tokens for r in reqs]}")
+    eng.cache.check_invariants()
+    sp = eng.cache
+    kv, cross = sp.kv, sp.cross
+    cpp = cross.pages_needed(sp.cross_tokens)
+    itemsize = 2
+    cross_req = cross.cache_bytes() // cross.n_pages * cpp
+    cross_req_dense = 2 * cross.layers * sp.cross_tokens * cross.kv_heads * cross.head_dim * itemsize
+    kv_token = kv.cache_bytes() // (kv.n_pages * kv.page_size)
+    kv_token_dense = 2 * kv.layers * kv.kv_heads * kv.head_dim * itemsize
+    ttft = sorted(first.values())
+    toks = sum(len(r.tokens) for r in reqs)
+    summary = {"arch": arch, "stored_params": n_params,
+               "n_params_reference_formula": cfg.n_params(),
+               "n_params_reference_formula_with_embeddings": cfg.n_params(False),
+               "requests": len(reqs), "prompts": [int(p.size) for p in prompts],
+               "cross_tokens": sp.cross_tokens, "tokens": toks, "wall_s": wall,
+               "tok_per_s": toks / wall, "ttft_mean_s": float(np.mean(ttft)),
+               "ttft_max_s": ttft[-1], "prefill_ticks": len(ticks["prefill"]),
+               "prefill_tick_ms_median": 1e3 * sorted(ticks["prefill"])[
+                   len(ticks["prefill"]) // 2],
+               "decode_ticks": len(ticks["decode"]),
+               "decode_tick_ms_median": 1e3 * sorted(ticks["decode"])[len(ticks["decode"]) // 2],
+               "step_calls": step_calls, "launches": counts, "predicted_launches": predicted,
+               "warm_wave_wall_s": wwall, "cross_encode_calls": encodes,
+               "counters": dict(eng.counters),
+               "cross_bytes_per_request": cross_req,
+               "cross_bytes_per_request_bf16": cross_req_dense,
+               "cross_pages_per_request": cpp, "cross_plane_bytes": cross.cache_bytes(),
+               "kv_bytes_per_token": kv_token, "kv_bytes_per_token_bf16": kv_token_dense,
+               "kv_plane_bytes": kv.cache_bytes(), "pool_bytes": sp.cache_bytes(),
+               "dense_slot_bytes": N_SLOTS * (sp.max_len * kv_token_dense + cross_req_dense),
+               "bits_per_element": sp.bits_per_element(),
+               "state_bytes_per_decode_step": sp.state_bytes_per_decode_step(sp.max_len),
+               "dense_state_bytes_per_decode_step":
+                   sp.dense_state_bytes_per_decode_step(sp.max_len),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "first_token_logprob_vs_teacher_forced": lp}
+    log(f"  mxfp4 planes: {json.dumps(summary)}")
+    if not all(x < CROSS_LOGPROB_MAX and y < CROSS_LOGPROB_MEAN for x, y in lp):
+        raise AssertionError(f"MXFP4-plane first-token log-probs vs teacher-forced beyond "
+                             f"({CROSS_LOGPROB_MAX}, {CROSS_LOGPROB_MEAN}): {lp}")
+    del eng, reqs, warm
+    if vlm:  # the cross path reaches the logits only through the gates
+        gated = _teacher_forced_last(torch, model, params, prompts[0], extras[0], device)
+        zero = {**params, "cross_layers": {**params["cross_layers"],
+                                           "gate_attn": torch.zeros_like(
+                                               params["cross_layers"]["gate_attn"]),
+                                           "gate_mlp": torch.zeros_like(
+                                               params["cross_layers"]["gate_mlp"])}}
+        summary["gates_max_abs_logit_change"] = d = float(
+            (gated - _teacher_forced_last(torch, model, zero, prompts[0], extras[0], device)
+             ).abs().max())
+        if not d > 0:
+            raise AssertionError("the VLM's logits do not change with its gates")
+
+    # the oracle: dense planes hold the KV bit for bit, so statepool's tokens
+    # are dense_slots'
+    small, sparams = model, params
+    if vlm:
+        small = build_model(dataclasses.replace(cfg, num_layers=CROSS_ORACLE_LAYERS))
+        n_sup = CROSS_ORACLE_LAYERS // cfg.cross_attn_every
+        sparams = {**params,
+                   "layers": _tree_map(lambda v: v[:CROSS_ORACLE_LAYERS], params["layers"]),
+                   "cross_layers": _tree_map(lambda v: v[:n_sup], params["cross_layers"])}
+    runs = {}
+    for backend, kv_dtype in (("statepool", "dense"), ("dense_slots", "mxfp4")):
+        runs[backend], _, _, _ = _cross_wave(
+            torch, _cross_engine(small, sparams, kv=kv_dtype, backend=backend), prompts,
+            extras, CROSS_ORACLE_NEW)
+    pooled, oracle = ([r.tokens for r in runs[b]] for b in ("statepool", "dense_slots"))
+    if pooled != oracle:
+        raise AssertionError(f"statepool (dense planes) tokens {pooled} != dense_slots tokens "
+                             f"{oracle}")
+    summary["oracle"] = {"layers": small.cfg.num_layers, "requests": len(prompts),
+                         "new": CROSS_ORACLE_NEW, "tokens_equal": True,
+                         "dense_planes_first_token_logprob_vs_teacher_forced":
+                             _cross_first_token(torch, small, sparams, prompts, extras,
+                                                runs["statepool"], device)}
+    del params, sparams, runs
+    torch.cuda.empty_cache()
+    return summary, counts, vec
+
+
+def time_cross_kernels(torch, timer, device="cuda"):
+    """B4b's cross-plane gather of a decode tick (N_SLOTS slots' whole
+    sources, bf16 out, as the decode step gathers them) and B4a's scatter
+    of one source (the encode's), for each cross family, beside the plain
+    versions and the least time on the H100 (bytes: each input read once,
+    each output written once)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import kv_pack as KV
+    from repro_torch.serve.paged_cache import gather_pages
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    rec = {}
+    for arch in (WHISPER_ARCH, VLM_ARCH):
+        cfg = get_config(arch)
+        Lc = cfg.num_layers if cfg.family == "encdec" else cfg.num_layers // cfg.cross_attn_every
+        n = cfg.max_source_len if cfg.family == "encdec" else cfg.num_image_tokens
+        H, hd = cfg.num_kv_heads, cfg.head_dim_
+        cpp = -(-n // PAGE_SIZE)
+        n_pages = 1 + N_SLOTS * cpp
+        pool = {name: torch.zeros((Lc, n_pages, PAGE_SIZE, H, w), dtype=torch.uint8,
+                                  device=device)
+                for name, w in (("k_codes", hd // 2), ("k_scales", hd // 32),
+                                ("v_codes", hd // 2), ("v_scales", hd // 32))}
+        leaves = [pool[m] for m in ("k_codes", "k_scales", "v_codes", "v_scales")]
+        k, v = [(torch.randn((Lc, n, H, hd), generator=gen, device=device) * 1.5)
+                .to(torch.bfloat16) for _ in range(2)]
+        pos = torch.arange(n, device=device)
+        pid, off = (1 + pos // PAGE_SIZE).to(torch.int32), (pos % PAGE_SIZE).to(torch.int32)
+        n_el = Lc * n * H * hd
+        nbytes = 2 * (n_el * 2 + n_el // 2 + n_el // 32) + 8 * n
+
+        def plain(k=k, v=v, pid=pid, off=off, pool=pool):
+            plain_quant_scatter(torch, pool["k_codes"], pool["k_scales"], pid, off, k)
+            plain_quant_scatter(torch, pool["v_codes"], pool["v_scales"], pid, off, v)
+
+        def kern(k=k, v=v, pid=pid, off=off, leaves=leaves):
+            KV.kv_quant_scatter_kv(*leaves, pid, off, k, v)
+
+        rec[("kv_quant_pack", f"{arch} cross encode scatter")] = dict(
+            ms=timer(kern), device_ms=timer.device(kern), plain_ms=timer(plain),
+            bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None)
+        for m in ("k_scales", "v_scales"):
+            pool[m].random_(100, 155, generator=gen)
+        tables = (1 + torch.arange(n_pages - 1, device=device, dtype=torch.int32)
+                  ).reshape(N_SLOTS, cpp)
+        idx = tables.long()
+        n_el = Lc * N_SLOTS * n * H * hd  # what the step reads: the sliced sources
+        n_read = Lc * N_SLOTS * cpp * PAGE_SIZE * H * hd
+        nbytes = 2 * (n_read // 2 + n_read // 32 + n_el * 2) + 4 * tables.numel()
+
+        def gather(pool=pool, tables=tables, n=n):
+            k, v = gather_pages(pool, tables, torch.bfloat16)
+            return k[:, :, :n], v[:, :, :n]
+
+        rec[("kv_dequant_unpack", f"{arch} cross decode gather")] = dict(
+            ms=timer(gather), device_ms=timer.device(gather),
+            plain_ms=timer(lambda pool=pool, idx=idx: [
+                KV.kv_dequant_unpack_plain(pool[c][:, idx], pool[s][:, idx], torch.bfloat16)
+                for c, s in (("k_codes", "k_scales"), ("v_codes", "v_scales"))]),
+            bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None)
+        del pool, leaves, k, v
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernels,engine,features,moe,train,moe-train,variants,baselines,"
-                            "dense-configs,ssm,hybrid,times",
+                            "dense-configs,ssm,hybrid,cross,times",
                     help="comma-separated subset of kernels,engine,features,moe,train,"
-                         "moe-train,variants,baselines,dense-configs,ssm,hybrid,times")
+                         "moe-train,variants,baselines,dense-configs,ssm,hybrid,cross,times")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -4482,6 +4998,30 @@ def main() -> int:
             for (name, tag), r in time_state_kernels(torch, Timer(torch)).items():
                 log(f"[hybrid] {name} {tag}: {json.dumps(r)}")
         log(f"[hybrid] done in {time.perf_counter() - t0:.1f} s")
+    if "cross" in phases:
+        t0 = time.perf_counter()
+        ck = check_cross_kernels(torch)
+        log(f"[cross] B4a and B4b at hd 64 and the cross planes' source scatter and sliced "
+            f"gather equal their plain versions bit for bit: {json.dumps(ck)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        log(f"[cross] B1 and B3 at whisper-tiny's linears ([M, K, N]) equal their plain "
+            f"versions bit for bit: {json.dumps(check_narrow_linears(torch))}")
+        log(f"[cross] layernorm equals the CPU bit for bit: "
+            f"{json.dumps(check_layernorm_card_vs_cpu(torch))}")
+        for path, arch in (("whisper", WHISPER_ARCH), ("vlm", VLM_ARCH)):
+            summary, counts[path], vectors[path] = serve_cross(torch, ops, arch)
+            log(f"[cross] launches on the {arch} statepool path: {counts[path]} (predicted "
+                f"{summary['predicted_launches']})")
+            missing = [k for k in ("hadamard_quest_quantize", "mxfp4_matmul", "kv_quant_pack",
+                                   "kv_dequant_unpack") if counts[path][k] == 0]
+            if missing:
+                raise AssertionError(f"kernels never launched on the {arch} path: {missing}")
+            log(f"[cross] {json.dumps(summary)}")
+            log(f"[cross] {arch} done ({time.perf_counter() - t0:.1f} s)")
+        if "times" in phases:
+            for (name, tag), r in time_cross_kernels(torch, Timer(torch)).items():
+                log(f"[cross] {name} {tag}: {json.dumps(r)}")
+        log(f"[cross] done in {time.perf_counter() - t0:.1f} s")
     if vectors:
         # every B1 call on the main paths, and every B2 call on the training
         # paths, reads and writes through the vector body (a thread per group,

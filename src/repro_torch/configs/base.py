@@ -2,9 +2,9 @@
 
 One ``ModelConfig`` per architecture, with the published dimensions, plus a
 ``reduced()`` variant for CPU tests.  The port serves and trains the dense
-and MoE families and serves the SSM (Mamba1) and hybrid (Mamba2 with a
-shared attention block) families; the enc-dec and VLM families' fields
-arrive with their slices.
+and MoE families and serves the SSM (Mamba1), hybrid (Mamba2 with a shared
+attention block), enc-dec (whisper) and VLM (gated cross-attention to image
+tokens) families.
 """
 
 from __future__ import annotations
@@ -54,6 +54,14 @@ class ModelConfig:
     # Mamba2 layers
     attn_every: int = 0
 
+    # enc-dec (whisper)
+    encoder_layers: int = 0
+    max_source_len: int = 1500  # whisper frame count (30 s)
+
+    # vlm: cross-attention to image tokens every N layers
+    cross_attn_every: int = 0
+    num_image_tokens: int = 0
+
     # numerics / technique
     quartet: QuartetConfig = QUARTET_CONFIG
     quantize_lm_head: bool = False  # the paper quantizes transformer linears
@@ -77,12 +85,12 @@ class ModelConfig:
         return self.family in ("dense", "moe", "ssm", "hybrid", "vlm")
 
     def n_params(self, non_embedding: bool = True) -> int:
-        """Analytic parameter count of the dense, MoE, SSM and hybrid
-        families (the reference's: the weight matrices, no biases, norms or
-        SSM vectors beyond A; the hybrid's shared block counted once per
-        application, as the reference counts it)."""
-        if self.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(f"n_params for family {self.family!r} is not ported yet")
+        """Analytic parameter count, the reference's formula: the weight
+        matrices, no biases, norms or SSM vectors beyond A; the hybrid's
+        shared block counted once per application.  As in the reference, an
+        enc-dec model counts its decoder's self-attention and MLP only (not
+        the encoder or the cross attention) and a VLM its cross blocks'
+        attention only (not their MLPs)."""
         d, f, hd = self.d_model, self.d_ff, self.head_dim_
         attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
         ffn = (3 if self.mlp == "swiglu" else 2) * d * f
@@ -100,6 +108,8 @@ class ModelConfig:
             if self.moe_dense_residual:
                 per_layer += ffn
         total = self.num_layers * per_layer
+        if self.family == "vlm" and self.cross_attn_every:
+            total += self.num_layers // self.cross_attn_every * attn
         if not non_embedding:
             total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return total

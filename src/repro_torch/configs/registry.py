@@ -16,6 +16,8 @@ _MODULES = {
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama32_vision_11b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -11,6 +11,13 @@ A hybrid (zamba2) has ``mamba_layers`` (Mamba2 leaves stacked [L, ...]:
 ``norm``, ``in_proj``, ``conv_w``, ``conv_b``, the f32 ``A_log``,
 ``dt_bias`` and ``D``, ``gate_norm``, ``out_proj``) and one unstacked dense
 block ``shared_attn`` in place of ``layers``.
+An enc-dec model (whisper) has ``encoder`` (``layers``: dense blocks with
+layernorms (``scale`` and ``bias``) and dense biases; ``final_norm``) and
+``decoder`` (``layers``: ``self_norm``, ``self_attn``, ``cross_norm``,
+``cross_attn``, ``mlp_norm``, ``mlp``; ``final_norm``) beside the tied
+``embed``.  A VLM has ``layers`` (dense blocks) and ``cross_layers``
+(stacked [n_super, ...]: ``attn_norm``, ``attn``, ``mlp_norm``, ``mlp``
+and the two f32 scalar gates ``gate_attn`` and ``gate_mlp``).
 A MoE layer's leaves sit under ``layers.moe`` (``router.w``, ``gate``, ``up``, ``down`` with
 ``[L, E, …]`` expert leaves, and arctic's ``dense_mlp``), on the
 reference's paths.  bfloat16 leaves arrive as
@@ -34,6 +41,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> 
         from repro_torch.models.hybrid import init_hybrid_lm
 
         return init_hybrid_lm(cfg, generator, device)
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import init_encdec_lm
+
+        return init_encdec_lm(cfg, generator, device)
+    if cfg.family == "vlm":
+        from repro_torch.models.vlm import init_vlm_lm
+
+        return init_vlm_lm(cfg, generator, device)
     return init_lm(cfg, generator, device)
 
 
@@ -46,6 +61,15 @@ def _check_shapes(params: dict, want: dict, cfg: ModelConfig) -> None:
         got = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else None
         if got != shape:
             raise ValueError(f"{path} is {got}, config {cfg.name} needs {shape}")
+
+
+def _paths(tree: dict, prefix: str = ""):
+    """The dotted paths of a nested dict's leaves."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}"
 
 
 def _leaf(a, device) -> torch.Tensor:
@@ -64,8 +88,10 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> dict:
         return _leaf(t, device)
 
     params = convert(np_tree)
-    body = {"mamba_layers", "shared_attn"} if cfg.family == "hybrid" else {"layers"}
-    expect = {"embed", "final_norm"} | body | (set() if cfg.tie_embeddings else {"lm_head"})
+    body = {"hybrid": {"mamba_layers", "shared_attn"}, "encdec": {"encoder", "decoder"},
+            "vlm": {"layers", "cross_layers"}}.get(cfg.family, {"layers"})
+    expect = ({"embed"} | body | (set() if cfg.family == "encdec" else {"final_norm"})
+              | (set() if cfg.tie_embeddings else {"lm_head"}))
     if set(params) != expect:
         raise ValueError(f"param tree has {sorted(params)}, config {cfg.name} needs "
                          f"{sorted(expect)}")
@@ -90,6 +116,13 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> dict:
             want["lm_head.w"] = (d, cfg.vocab_size)
         _check_shapes(params, want, cfg)
         return params
+    if cfg.family in ("encdec", "vlm"):
+        want = _cross_family_shapes(cfg)
+        extra = sorted(set(_paths(params)) - set(want))
+        if extra:
+            raise ValueError(f"param tree has leaves {extra} that config {cfg.name} lacks")
+        _check_shapes(params, want, cfg)
+        return params
     wq = params["layers"]["attn"]["wq"]["w"]
     want = (cfg.num_layers, cfg.d_model, cfg.num_heads * cfg.head_dim_)
     if tuple(wq.shape) != want:
@@ -103,3 +136,57 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> dict:
                              f"config {cfg.name} needs {want} (dense_mlp: "
                              f"{cfg.moe_dense_residual})")
     return params
+
+
+def _cross_family_shapes(cfg: ModelConfig) -> dict:
+    """Every leaf's shape of an enc-dec or VLM param tree, by dotted path."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
+    hq, hkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+
+    def dense(name, d_in, d_out):
+        out = {f"{name}.w": (d_in, d_out)}
+        if cfg.use_bias:
+            out[f"{name}.b"] = (d_out,)
+        return out
+
+    def norm(name):
+        out = {f"{name}.scale": (d,)}
+        if cfg.norm == "layernorm":
+            out[f"{name}.bias"] = (d,)
+        return out
+
+    def attn(name):
+        out = {**dense(f"{name}.wq", d, hq), **dense(f"{name}.wk", d, hkv),
+               **dense(f"{name}.wv", d, hkv), **dense(f"{name}.wo", hq, d)}
+        if cfg.qk_norm:
+            out.update({f"{name}.q_norm.scale": (hd,), f"{name}.k_norm.scale": (hd,)})
+        return out
+
+    def mlp(name):
+        out = {**dense(f"{name}.up", d, f), **dense(f"{name}.down", f, d)}
+        if cfg.mlp == "swiglu":
+            out.update(dense(f"{name}.gate", d, f))
+        return out
+
+    def stacked(prefix, n, leaves):
+        return {f"{prefix}.{k}": (n, *v) for k, v in leaves.items()}
+
+    dense_block = {**norm("attn_norm"), **attn("attn"), **norm("mlp_norm"), **mlp("mlp")}
+    want = {"embed.table": (cfg.vocab_size, d)}
+    if cfg.family == "encdec":
+        dec = {**norm("self_norm"), **attn("self_attn"), **norm("cross_norm"),
+               **attn("cross_attn"), **norm("mlp_norm"), **mlp("mlp")}
+        want.update(stacked("encoder.layers", cfg.encoder_layers, dense_block))
+        want.update(stacked("decoder.layers", cfg.num_layers, dec))
+        want.update({f"encoder.{k}": v for k, v in norm("final_norm").items()})
+        want.update({f"decoder.{k}": v for k, v in norm("final_norm").items()})
+    else:
+        n_super = cfg.num_layers // cfg.cross_attn_every
+        cross = {**norm("attn_norm"), **attn("attn"), **norm("mlp_norm"), **mlp("mlp"),
+                 "gate_attn": (), "gate_mlp": ()}
+        want.update(stacked("layers", cfg.num_layers, dense_block))
+        want.update(stacked("cross_layers", n_super, cross))
+        want.update(norm("final_norm"))
+    if not cfg.tie_embeddings:
+        want.update(dense("lm_head", d, cfg.vocab_size))
+    return want

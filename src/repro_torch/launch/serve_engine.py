@@ -1,7 +1,6 @@
 """Continuous-batching serving launcher: Poisson arrival workload.
 
-Port of ``repro.launch.serve_engine`` for the dense, MoE, SSM and hybrid
-families::
+Port of ``repro.launch.serve_engine``::
 
     python -m repro_torch.launch.serve_engine --arch qwen3-1.7b --requests 12 \
         [--decode-backend gather]
@@ -9,12 +8,18 @@ families::
         [--decode-backend dense_slots]
     python -m repro_torch.launch.serve_engine --arch zamba2-7b \
         [--decode-backend dense_slots]
+    python -m repro_torch.launch.serve_engine --arch whisper-tiny \
+        [--decode-backend dense_slots] [--prefix-cache]
+    python -m repro_torch.launch.serve_engine --arch llama-3.2-vision-11b
 
 samples arrival times from a Poisson process, prompt lengths uniformly from
 ``[--min-prompt, --max-prompt]``, and drives the engine on a virtual clock:
 each ``Engine.step`` advances time by its measured wall duration, and
 requests are submitted the moment the clock passes their arrival time.
-Weights are random, drawn from ``--seed``.  The Quartet linears run through
+Weights are random, drawn from ``--seed``; an enc-dec or VLM workload's
+conditioning (one source or image for every request, bf16 standard
+normals, :func:`make_extra`) too, so under ``--prefix-cache`` the requests
+share its encoded cross-KV.  The Quartet linears run through
 the Hopper kernels (``use_kernels=True``); the run is on the card unless
 ``--device cpu`` is given.
 
@@ -45,6 +50,20 @@ from repro_torch.serve.spec import aggregate_stats
 STATE = ("statepool", "dense_slots")
 
 
+def make_extra(cfg, seed: int, device, batch: int = 1):
+    """A request's conditioning: an enc-dec model's ``source_embeds``
+    [batch, max_source_len, d] or a VLM's ``image_embeds`` [batch,
+    num_image_tokens, d], bf16 standard normals drawn from ``seed``; None
+    for the other families."""
+    n = {"encdec": cfg.max_source_len, "vlm": cfg.num_image_tokens}.get(cfg.family)
+    if n is None:
+        return None
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((batch, n, cfg.d_model), generator=gen, device=device)
+    key = "source_embeds" if cfg.family == "encdec" else "image_embeds"
+    return {key: x.to(torch.bfloat16)}
+
+
 def poisson_workload(rng: np.random.Generator, n: int, rate: float,
                      min_prompt: int, max_prompt: int, max_new: int, vocab: int):
     """[(arrival_time, prompt, max_new)] with exponential inter-arrival gaps."""
@@ -56,14 +75,15 @@ def poisson_workload(rng: np.random.Generator, n: int, rate: float,
     return out
 
 
-def run_workload(engine: Engine, workload, verbose: bool = True, sampling=None):
-    """Drive the engine on a virtual clock; returns (requests, elapsed)."""
+def run_workload(engine: Engine, workload, extra=None, verbose: bool = True, sampling=None):
+    """Drive the engine on a virtual clock, every request with the
+    conditioning ``extra``; returns (requests, elapsed)."""
     pending = list(workload)
     clock, t0 = 0.0, time.perf_counter()
     while pending or engine.sched.pending:
         while pending and pending[0][0] <= clock:
             at, prompt, max_new = pending.pop(0)
-            engine.submit(prompt, max_new, arrival_time=at, sampling=sampling)
+            engine.submit(prompt, max_new, extra=extra, arrival_time=at, sampling=sampling)
         if not engine.sched.pending:  # idle gap: jump to the next arrival
             clock = pending[0][0]
             continue
@@ -101,12 +121,14 @@ def main():
     ap.add_argument("--decode-backend", default=None,
                     choices=["paged", "gather", "statepool", "dense_slots"],
                     help="dense/MoE: paged (attend over the pool, default) or gather (the "
-                         "dense oracle); SSM and hybrid: statepool (quantized state rings and, "
-                         "for the hybrid, a paged KV plane; default) or dense_slots (the "
-                         "oracle)")
+                         "dense oracle); SSM, hybrid, enc-dec and VLM: statepool (quantized "
+                         "state rings, a paged KV plane, a cross-KV plane; default) or "
+                         "dense_slots (the oracle)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="radix prefix cache: admissions alias the pages of cached shared "
-                         "prefixes (copy-on-write, LRU-evicted) and prefill only the tail")
+                         "prefixes (copy-on-write, LRU-evicted) and prefill only the tail; "
+                         "enc-dec/VLM on statepool: requests with the same conditioning "
+                         "share its encoded cross-KV pages")
     ap.add_argument("--debug-cache", action="store_true",
                     help="check the page allocator's invariants after every pool mutation")
     ap.add_argument("--method", default="quartet", choices=["quartet", "bf16"])
@@ -152,7 +174,8 @@ def main():
         kv_dtype=args.kv, prefill_chunk=args.prefill_chunk, method=args.method,
         decode_backend=args.decode_backend, prefix_cache=args.prefix_cache,
         debug_cache=args.debug_cache, spec=spec))
-    done, elapsed = run_workload(engine, workload, sampling=sampling)
+    done, elapsed = run_workload(engine, workload, extra=make_extra(cfg, args.seed, args.device),
+                                 sampling=sampling)
 
     total_tokens = sum(len(r.tokens) for r in done)
     ttfts = [r.ttft() for r in done]
@@ -174,8 +197,8 @@ def main():
         print(f"  spec: {agg['tokens_per_decode_call']} tok/verify-call, "
               f"acceptance {agg['acceptance_rate']} "
               f"({agg['drafts_accepted']}/{agg['drafts_proposed']} drafts)")
-    if args.prefix_cache:
-        print(f"  prefix cache: {engine.counters}")
+    if args.prefix_cache or "cross_encode_calls" in engine.counters:
+        print(f"  counters: {engine.counters}")
 
 
 if __name__ == "__main__":

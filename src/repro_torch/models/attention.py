@@ -1,6 +1,6 @@
 """GQA attention: blocked, flash, dense-cache and paged paths.
 
-Port of ``repro.models.attention`` for the dense family.  A forward
+Port of ``repro.models.attention``.  A forward
 without a cache (training, teacher-forced scoring) runs
 :func:`blocked_attention`, plain PyTorch that autograd differentiates, or,
 on a model built with ``attn_backend="flash"``, the forward-only flash
@@ -10,8 +10,9 @@ place) and attends over the whole cache with blocked attention (the
 gather serving backend).  A forward whose cache is a
 :class:`~repro_torch.kernels.paged_attention.PagedKV` quantize-scatters the
 new tokens' K/V into the pool and attends over it with the paged-attention
-kernel (:func:`_paged_decode`).  Cross-attention arrives with the
-encoder-decoder slice.
+kernel (:func:`_paged_decode`).  Cross attention (the enc-dec and VLM
+families) takes its keys and values from a source (``kv_source``) or from
+a precomputed ``(k, v)`` cache, with unrotated keys and no causal mask.
 """
 
 from __future__ import annotations
@@ -137,13 +138,22 @@ def _paged_decode(params: dict, x: torch.Tensor, q: torch.Tensor, positions: tor
 
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: int,
               cfg: ModelConfig, *, causal: bool = True,
+              kv_source: torch.Tensor | None = None,
               kv_cache: PagedKV | tuple | None = None,
-              cache_index: torch.Tensor | None = None, method: str = "quartet",
-              rope=None):
+              cache_index: torch.Tensor | None = None, write_kv: bool = False,
+              method: str = "quartet", rope=None):
     """x [B, S, D], positions [B, S] → (out [B, S, D], kv_cache).  A
     ``PagedKV`` pool, or a dense ``(k, v)`` cache written at
     ``cache_index`` [B], is updated in place.  ``rope`` is the forward's
-    ``layers.rope_table`` of ``positions`` (built here when not given)."""
+    ``layers.rope_table`` of ``positions`` (built here when not given).
+
+    Cross attention: ``kv_source`` [B, T, D] gives the keys and values (no
+    rope on them, nor on q, and no causal mask); with ``write_kv`` the full
+    ``(k, v)`` built from it is returned, or written in place into a given
+    ``kv_cache``.  A ``kv_cache`` with no ``cache_index`` and no
+    ``write_kv`` is a precomputed ``(k, v)`` (a cached cross-KV), attended
+    as it is.  As in the reference, q is rotated iff ``kv_source`` is None,
+    so a cross attention that reads its cache rotates its queries."""
     hd, nq, nkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
     qc = cfg.quartet
     if cfg.pos_embed != "rope":
@@ -153,22 +163,36 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: int,
     q = _split_heads(L.dense(params["wq"], x, L.seed_fold(seed, 1), qc, method), nq, hd)
     if cfg.qk_norm:
         q = L.rmsnorm(params["q_norm"], q, cfg.norm_eps)
-    if rope is not None:
+    if rope is not None and kv_source is None:
         q = L.apply_rope(q, *rope)
 
+    new_cache = kv_cache
     if isinstance(kv_cache, PagedKV):
         out = _paged_decode(params, x, q, positions, seed, cfg, kv_cache, method, rope)
+    elif kv_cache is not None and cache_index is None and not write_kv:
+        k, v = kv_cache  # a precomputed (k, v): the cached cross-KV
+        out = dispatch_attention(q, k, v, positions, causal=causal and kv_source is None,
+                                 cfg=cfg)
     else:
-        k = _split_heads(L.dense(params["wk"], x, L.seed_fold(seed, 2), qc, method), nkv, hd)
-        v = _split_heads(L.dense(params["wv"], x, L.seed_fold(seed, 3), qc, method), nkv, hd)
+        src = x if kv_source is None else kv_source
+        k = _split_heads(L.dense(params["wk"], src, L.seed_fold(seed, 2), qc, method), nkv, hd)
+        v = _split_heads(L.dense(params["wv"], src, L.seed_fold(seed, 3), qc, method), nkv, hd)
         if cfg.qk_norm:
             k = L.rmsnorm(params["k_norm"], k, cfg.norm_eps)
-        if rope is not None:
+        if rope is not None and kv_source is None:
             k = L.apply_rope(k, *rope)
-        if kv_cache is None:
+        causal = causal and kv_source is None
+        if write_kv:  # the full cache built from the source (cross-attention prefill)
+            if kv_cache is None:
+                new_cache = (k, v)
+            else:
+                kv_cache[0].copy_(k)
+                kv_cache[1].copy_(v)
+            out = dispatch_attention(q, k, v, positions, causal=causal, cfg=cfg)
+        elif kv_cache is None:
             out = dispatch_attention(q, k, v, positions, causal=causal, cfg=cfg)
         else:
             out = _dense_cache_attend(q, k, v, positions, kv_cache, cache_index,
                                       causal=causal, cfg=cfg)
     out = out.reshape(*x.shape[:-1], nq * hd)
-    return L.dense(params["wo"], out, L.seed_fold(seed, 4), qc, method), kv_cache
+    return L.dense(params["wo"], out, L.seed_fold(seed, 4), qc, method), new_cache

@@ -138,6 +138,30 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (xf * inv * params["scale"].to(torch.float32)).to(x.dtype)
 
 
+def init_layernorm(d: int, dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """(x − mean(x)) / √(mean((x − mean(x))²) + eps) · scale + bias.  Both
+    means sum in :func:`rmsnorm`'s fixed pairwise order and divide exactly,
+    and the root is 1/√ in float64 rounded once to f32, so a row normalizes
+    to the same bits on the card and on the CPU."""
+    xf = x.to(torch.float32)
+    d = xf.shape[-1]
+    xc = xf - F.div_exact(_tree_sum(xf), d)
+    var = F.div_exact(_tree_sum(xc * xc), d) + eps
+    inv = (1.0 / torch.sqrt(var.to(torch.float64))).to(torch.float32)
+    out = xc * inv * params["scale"].to(torch.float32)
+    return (out + params["bias"].to(torch.float32)).to(x.dtype)
+
+
+def make_norm(kind: str):
+    """The ``(init, apply)`` pair of ``cfg.norm``: rmsnorm or layernorm."""
+    return (init_rmsnorm, rmsnorm) if kind == "rmsnorm" else (init_layernorm, layernorm)
+
+
 @functools.lru_cache(maxsize=None)
 def _inv_freq_host(head_dim: int, theta: float) -> np.ndarray:
     """1 / θ^(2i / hd), the reference's formula, in float64 on the host and
@@ -180,6 +204,39 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     x1 = x[..., : hd // 2].to(torch.float32)
     x2 = x[..., hd // 2:].to(torch.float32)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sinusoidal_host(max_len: int, d: int) -> np.ndarray:
+    pos = np.arange(max_len)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    ang = pos / np.power(10000.0, dim / d)
+    out = np.zeros((max_len, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return out
+
+
+_SINUSOIDAL: dict = {}
+
+
+def sinusoidal_positions(max_len: int, d: int, device="cpu") -> torch.Tensor:
+    """The absolute position table [max_len, d] f32 (sin on even columns,
+    cos on odd), the reference's numpy float64 computation rounded once to
+    f32: the same bits on every device.  Built once a (shape, device)."""
+    key = (max_len, d, torch.device(device))
+    if key not in _SINUSOIDAL:
+        with torch.inference_mode(False):
+            _SINUSOIDAL[key] = torch.from_numpy(_sinusoidal_host(max_len, d)).to(device)
+    return _SINUSOIDAL[key]
+
+
+def add_absolute_positions(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """x [B, S, D] plus the rows of the absolute position table (max(4096,
+    S) rows, positions clamped into it) in x's dtype, as the reference
+    adds them."""
+    pe = sinusoidal_positions(max(4096, x.shape[1]), x.shape[-1], x.device)
+    return x + pe[torch.clamp(positions.long(), 0, pe.shape[0] - 1)].to(x.dtype)
 
 
 def init_embedding(vocab: int, d: int, dtype, generator, device) -> dict:

@@ -1,19 +1,28 @@
-"""Uniform model API (the dense, MoE, SSM and hybrid families).
+"""Uniform model API over the six families.
 
 ``build_model(cfg, attn_backend=None)`` → ``Model(cfg, forward, head,
 cache_spec)`` with
 
     forward(params, tokens, seed, *, positions=None, caches=None,
-            cache_index=None, method="quartet", features_only=False,
-            token_valid=None, return_aux=False)
+            cache_index=None, extra=None, build_cross=False,
+            method="quartet", features_only=False, token_valid=None,
+            return_aux=False)
         -> (logits | features, caches), and with return_aux also the f32
            aux loss (the MoE layers' router losses; 0 for a dense model)
     head(params, features, seed, method="quartet") -> f32 logits
+
+``extra`` carries the enc-dec family's ``source_embeds`` (or ``memory``)
+and the VLM's ``image_embeds``; ``build_cross`` makes an enc-dec forward
+with caches run the encoder and write its cross-KV cache (a VLM writes it
+whenever it gets ``image_embeds`` and a cache).  The enc-dec head is the
+decoder's final norm and the tied unembedding.
     cache_spec(batch, max_len) -> the decode cache as a tree of (shape,
         dtype) leaves, stacked [L, ...]: dense and MoE (K, V)
         [L, B, max_len, Hkv, hd]; SSM (conv [L, B, K-1, Di], h [L, B, Di,
         N]); hybrid {"attn": (K, V) [n_super, B, max_len, Hkv, hd],
-        "mamba": (conv [L, B, K-1, Di + 2N], h [L, B, nh, hd, N])}
+        "mamba": (conv [L, B, K-1, Di + 2N], h [L, B, nh, hd, N])};
+        enc-dec and VLM {"self": (K, V) [L, B, max_len, Hkv, hd],
+        "cross": (K, V) [L | n_super, B, T_src | n_img, Hkv, hd]}
 
 :func:`cache_map` and :func:`cache_leaves` walk such a tree (dict keys
 sorted, tuples in order: the reference's ``jax.tree`` order).  Weights come
@@ -62,6 +71,14 @@ def cache_leaves(tree) -> list:
 
 
 def _cache_spec(cfg: ModelConfig, batch: int, max_len: int):
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import encdec_cache_spec
+
+        return encdec_cache_spec(cfg, batch, max_len)
+    if cfg.family == "vlm":
+        from repro_torch.models.vlm import vlm_cache_spec
+
+        return vlm_cache_spec(cfg, batch, max_len)
     if cfg.family == "hybrid":
         from repro_torch.models.hybrid import hybrid_cache_spec
 
@@ -82,25 +99,42 @@ def build_model(cfg: ModelConfig, *, attn_backend: str | None = None) -> Model:
     config (evaluation with the flash kernel: ``attn_backend="flash"``)."""
     if attn_backend is not None:
         cfg = dataclasses.replace(cfg, attn_backend=attn_backend)
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec", "vlm"):
+        raise ValueError(f"unknown family {cfg.family!r}")
     want = {"ssm": "mamba1", "hybrid": "mamba2"}.get(cfg.family)
     if want is not None and cfg.ssm_variant != want:
         raise NotImplementedError(f"ssm variant {cfg.ssm_variant!r} in family {cfg.family!r} "
                                   f"is not ported")
+    head_fn, body = lm_head_apply, lm_forward
     if cfg.family == "hybrid":
         from repro_torch.models.hybrid import hybrid_forward as body
-    else:
-        body = lm_forward
+    elif cfg.family == "encdec":
+        from repro_torch.models.encdec import encdec_forward, encdec_head as head_fn
+    elif cfg.family == "vlm":
+        from repro_torch.models.vlm import vlm_forward
 
     def forward(params, tokens, seed, *, positions=None, caches=None, cache_index=None,
-                method="quartet", features_only=False, token_valid=None, return_aux=False):
-        return body(params, tokens, cfg, seed, positions=positions, caches=caches,
-                    cache_index=cache_index, method=method, features_only=features_only,
-                    token_valid=token_valid, return_aux=return_aux)
+                extra=None, build_cross=False, method="quartet", features_only=False,
+                token_valid=None, return_aux=False):
+        kw = dict(positions=positions, caches=caches, cache_index=cache_index, method=method,
+                  features_only=features_only)
+        extra = extra or {}
+        if cfg.family == "encdec":
+            out = encdec_forward(params, tokens, cfg, seed, memory=extra.get("memory"),
+                                 source_embeds=extra.get("source_embeds"),
+                                 build_cross=build_cross, **kw)
+        elif cfg.family == "vlm":
+            out = vlm_forward(params, tokens, cfg, seed, image_embeds=extra.get("image_embeds"),
+                              **kw)
+        else:
+            return body(params, tokens, cfg, seed, token_valid=token_valid,
+                        return_aux=return_aux, **kw)
+        if return_aux:  # no router: the aux loss is 0
+            return (*out, torch.zeros((), dtype=torch.float32, device=tokens.device))
+        return out
 
     def head(params, x, seed, method="quartet"):
-        return lm_head_apply(params, x, cfg, seed, method)
+        return head_fn(params, x, cfg, seed, method)
 
     def cache_spec(batch, max_len):
         return _cache_spec(cfg, batch, max_len)

@@ -61,10 +61,11 @@ def mlp(params: dict, x: torch.Tensor, seed: int, cfg: ModelConfig,
 
 
 def init_dense_block(cfg: ModelConfig, dtype, generator, device) -> dict:
+    init_norm, _ = L.make_norm(cfg.norm)
     return {
-        "attn_norm": L.init_rmsnorm(cfg.d_model, dtype, device),
+        "attn_norm": init_norm(cfg.d_model, dtype, device),
         "attn": init_attention(cfg, dtype, generator, device),
-        "mlp_norm": L.init_rmsnorm(cfg.d_model, dtype, device),
+        "mlp_norm": init_norm(cfg.d_model, dtype, device),
         "mlp": init_mlp(cfg, dtype, generator, device),
     }
 
@@ -76,11 +77,12 @@ def dense_block(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: in
     the forward's rope table (``layers.rope_table``)."""
     # token_valid is the MoE block's (padding lanes must not compete for
     # expert capacity); a dense block has no cross-token competition
-    h, _ = attention(params["attn"], L.rmsnorm(params["attn_norm"], x, cfg.norm_eps),
+    _, norm = L.make_norm(cfg.norm)
+    h, _ = attention(params["attn"], norm(params["attn_norm"], x, cfg.norm_eps),
                      positions, L.seed_fold(seed, 100), cfg, causal=cfg.is_causal_lm,
                      kv_cache=cache, cache_index=cache_index, method=method, rope=rope)
     x = x + h
-    return x + mlp(params["mlp"], L.rmsnorm(params["mlp_norm"], x, cfg.norm_eps),
+    return x + mlp(params["mlp"], norm(params["mlp_norm"], x, cfg.norm_eps),
                    L.seed_fold(seed, 200), cfg, method), 0.0
 
 
@@ -139,7 +141,7 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
         "embed": L.init_embedding(cfg.vocab_size, cfg.d_model, dtype, generator, device),
         "layers": _stacked_init(lambda: block_init(cfg, dtype, generator, device),
                                 cfg.num_layers),
-        "final_norm": L.init_rmsnorm(cfg.d_model, dtype, device),
+        "final_norm": L.make_norm(cfg.norm)[0](cfg.d_model, dtype, device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.init_dense(cfg.d_model, cfg.vocab_size, dtype, generator, device)
@@ -149,7 +151,7 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
 def lm_head_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, seed: int,
                   method: str = "quartet") -> torch.Tensor:
     """Final norm + unembedding → f32 logits."""
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = L.make_norm(cfg.norm)[1](params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = L.unembed(params["embed"], x, L.seed_fold(seed, 999), cfg.quartet,
                            cfg.quantize_lm_head, method)
@@ -181,14 +183,14 @@ def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: int, 
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-    if cfg.pos_embed != "rope":
-        raise NotImplementedError(f"pos_embed {cfg.pos_embed!r} is not ported yet")
     x = L.embed(params["embed"], tokens)
+    if cfg.pos_embed == "absolute":
+        x = L.add_absolute_positions(x, positions)
     _, block = _blocks(cfg)
     # the rope table depends on the positions alone: built once, read by
     # every layer's attention (an SSM has none)
     rope = (L.rope_table(positions, cfg.head_dim_, cfg.rope_theta)
-            if cfg.family in ("dense", "moe") else None)
+            if cfg.family in ("dense", "moe") and cfg.pos_embed == "rope" else None)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device) if return_aux else None
     for i in range(cfg.num_layers):

@@ -1,10 +1,11 @@
 """Continuous-batching inference engine over the paged MXFP4 KV pool.
 
-Port of ``repro.serve.engine`` for the dense and MoE families.  ``Engine``
-multiplexes requests over a fixed set of decode slots:
+Port of ``repro.serve.engine``.  ``Engine`` multiplexes requests over a
+fixed set of decode slots:
 
-* ``submit(prompt, max_new, sampling=...) -> Request`` queues work
-  (``.tokens`` fills in as the engine runs);
+* ``submit(prompt, max_new, extra=..., sampling=...) -> Request`` queues
+  work (``.tokens`` fills in as the engine runs; ``extra`` holds an
+  enc-dec request's ``source_embeds``, a VLM request's ``image_embeds``);
 * ``step()`` admits queued requests into free slots (reserving pages for
   prompt + max_new), advances the prefilling slots, then steps every
   decoding slot in one batched call (or, with speculation, drafts,
@@ -42,22 +43,28 @@ Rollback is logical: the slot's length shrinks on the host and the pages
 stay mapped within the admission reservation; draft positions past the
 budget write to the scratch page.
 
-**The state pool** (the SSM and hybrid families): ``decode_backend=None``
-or ``"statepool"`` keeps each slot's recurrent state in the quantized
-double-buffer rings of :class:`~repro_torch.serve.state_pool.StatePool`,
-and the hybrid's attention KV in its paged KV plane (admission reserves
-prompt + max_new positions there);
+**The state pool** (the SSM, hybrid, enc-dec and VLM families):
+``decode_backend=None`` or ``"statepool"`` keeps each slot's recurrent
+state in the quantized double-buffer rings of
+:class:`~repro_torch.serve.state_pool.StatePool`, the hybrid's attention KV
+and the enc-dec and VLM families' self-attention KV in its paged KV plane
+(admission reserves prompt + max_new positions there), and their
+cross-attention KV in its cross plane, encoded once at admission;
 ``"dense_slots"`` keeps per-slot dense caches
 (:class:`~repro_torch.serve.paged_cache.DenseSlotCache`), the parity
 oracle.  Both prefill one slot at a time, one ``[1, C]`` chunk or all of
 its ``[1, 1]`` remainder tokens per tick: a recurrence must never consume a
-padding token.  Speculation and the prefix cache need a paged family and
-raise for these backends.
+padding token.  Speculation needs a paged family and raises for these
+backends.  The prefix cache does too, but for the enc-dec and VLM families
+on ``statepool``, where it turns on cross-KV sharing: requests whose
+conditioning is byte-identical alias one encoded set of cross pages
+(:class:`~repro_torch.serve.state_pool.CrossIndex`) and skip the encode;
+warm is token-exact against cold, both reading the same pages.
 
-The reference keeps its prefix and speculation counts in a telemetry
-registry; until telemetry is ported the engine keeps the same names in the
-plain dict ``Engine.counters``.  The enc-dec and VLM families and
-multi-device serving are not ported yet.
+The reference keeps its prefix, speculation and encode counts in a
+telemetry registry; until telemetry is ported the engine keeps the same
+names in the plain dict ``Engine.counters``.  Multi-device serving is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -76,7 +83,7 @@ from repro_torch.serve.scheduler import Request, RequestState, Scheduler
 from repro_torch.serve.spec.config import SpecConfig
 from repro_torch.serve.spec.proposers import build_proposer
 from repro_torch.serve.spec.verify import accept_tokens
-from repro_torch.serve.state_pool import StatePool
+from repro_torch.serve.state_pool import StatePool, cross_key
 from repro_torch.serve.steps import build_paged_steps, build_state_steps, marshal_prefill_batch
 from repro_torch.train.serve import make_chunk_prefill_step, make_decode_step
 
@@ -84,6 +91,8 @@ PAGED_FAMILIES = ("dense", "moe")
 COUNTERS = ("prefix_lookups", "prefix_hit_requests", "prefix_shared_tokens",
             "prefix_inserted_pages", "prefix_evicted_pages", "prefix_cow_pages",
             "spec_acceptance_rate")
+# the conditioning a state-pool cross family encodes at admission
+EMBED_KEY = {"encdec": "source_embeds", "vlm": "image_embeds"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,16 +107,17 @@ class EngineConfig:
     keep_logits: bool = False  # record per-step logits on each Request (tests)
     # paged families: None follows ModelConfig.attn_backend ("paged" for a
     # paged model, else "gather"); "paged" attends over the pool; "gather" is
-    # the dense oracle.  State families (ssm, hybrid): None or "statepool"
-    # (the quantized state rings and KV plane), "dense_slots" (per-slot dense
-    # caches, the oracle)
+    # the dense oracle.  State families (ssm, hybrid, encdec, vlm): None or
+    # "statepool" (the quantized state rings, KV plane and cross plane),
+    # "dense_slots" (per-slot dense caches, the oracle)
     decode_backend: str | None = None
     # pool size (pages incl. the scratch page); None → one full reservation
     # (ceil(max_len / page_size) pages) per slot + scratch
     n_pages: int | None = None
     # radix-index prompt prefixes, alias cached full pages into new slots
     # (refcounted, copy-on-write), prefill only the tail, LRU-evict under
-    # pool pressure
+    # pool pressure; on a state-pool enc-dec or VLM engine, alias the cross
+    # pages of byte-identical conditioning instead and skip its encode
     prefix_cache: bool = False
     # run PagedCache.check_invariants after every allocator mutation
     debug_cache: bool = False
@@ -134,10 +144,12 @@ class Engine:
                 f"speculative decoding needs a paged family (dense/moe): {family!r} serving "
                 f"has no multi-token verify step (a recurrence scores one token per state "
                 f"transition, and the state rings hold no history to roll back)")
-        if cfg.prefix_cache and not self.paged:
+        if cfg.prefix_cache and not self.paged and (self.backend != "statepool"
+                                                    or family not in EMBED_KEY):
             raise ValueError(
-                f"prefix caching needs shareable pages (a paged family, dense/moe); "
-                f"{family!r} has none")
+                f"prefix caching needs shareable pages: a paged family (dense/moe, prompt "
+                f"prefixes) or a statepool enc-dec/VLM engine (cross-KV sharing); "
+                f"{family!r} on {self.backend!r} has neither")
         self.model, self.params = model, params
         self.spec = cfg.spec
         self.device = params["embed"]["table"].device
@@ -146,6 +158,9 @@ class Engine:
         self.steps = 0
         self.counters = dict.fromkeys(COUNTERS, 0)
         self.prefix = self.proposer = None
+        self.cross_share = False  # cross-KV sharing (a statepool cross family's prefix cache)
+        self._cross_keys: dict[int, str | None] = {}  # rid -> conditioning's content key
+        self._cross_plan: dict[int, list[int]] = {}  # rid -> matched cross pages
         if not self.paged:
             self._init_state_backend(model, cfg)
             return
@@ -181,6 +196,9 @@ class Engine:
                                    page_size=cfg.page_size, kv_dtype=cfg.kv_dtype,
                                    device=self.device, debug=cfg.debug_cache)
             self._state_steps = build_state_steps(model, method=cfg.method, pool=self.cache)
+            if self.cache.cross is not None:  # the encodes at admission are counted too
+                self.counters["cross_encode_calls"] = 0
+            self.cross_share = cfg.prefix_cache and self.cache.cross is not None
             return
         self.cache = P.DenseSlotCache(model, n_slots=cfg.n_slots, max_len=cfg.max_len,
                                       device=self.device)
@@ -189,10 +207,27 @@ class Engine:
 
     # ------------------------------------------------------------------ API
 
-    def submit(self, prompt, max_new: int, arrival_time: float | None = None,
+    def submit(self, prompt, max_new: int, extra: dict | None = None,
+               arrival_time: float | None = None,
                sampling: SamplingParams | None = None) -> Request:
+        """Queue a request.  ``extra`` holds its conditioning tensors (moved
+        to the engine's device); a statepool enc-dec or VLM engine encodes
+        them at admission, so there they must come with the request."""
         now = time.monotonic() if arrival_time is None else arrival_time
-        return self.sched.submit(prompt, max_new, arrival_time=now, sampling=sampling)
+        embed = EMBED_KEY.get(self.model.cfg.family)
+        if self.backend == "statepool" and embed is not None and (
+                extra is None or extra.get(embed) is None):
+            raise ValueError(f"statepool {self.model.cfg.family!r} serving encodes the cross-KV "
+                             f"once at admission: submit() needs extra[{embed!r}]")
+        key = cross_key(extra) if self.cross_share else None  # hashed once, on the host
+        if extra is not None:
+            extra = {k: None if v is None else torch.as_tensor(v).to(self.device)
+                     for k, v in extra.items()}
+        req = self.sched.submit(prompt, max_new, extra=extra, arrival_time=now,
+                                sampling=sampling)
+        if self.cross_share:
+            self._cross_keys[req.rid] = key
+        return req
 
     @torch.inference_mode()
     def step(self, now: float | None = None) -> dict:
@@ -204,7 +239,11 @@ class Engine:
         def can_admit(req: Request) -> bool:
             total = req.prompt_len + req.max_new
             if self.backend == "statepool":
-                return self.cache.can_admit(total)
+                match = self.cache.cross_match(self._cross_keys.get(req.rid), now)
+                ok = self.cache.can_admit(total, cross_shared=bool(match))
+                if ok and match:
+                    self._cross_plan[req.rid] = match
+                return ok
             if self.backend == "dense_slots":  # mapped statically
                 return True
             if self.prefix is None:
@@ -291,7 +330,7 @@ class Engine:
             self.cache.reset_slot(req.slot)
             return
         if self.backend == "statepool":
-            self.cache.alloc(req.slot, total)
+            self._state_admit(req, total, now)
             return
         if self.prefix is None:
             self.cache.alloc(req.slot, total)
@@ -317,6 +356,29 @@ class Engine:
         else:
             req.prefill_pos = covered
         c["prefix_shared_tokens"] += covered
+
+    def _state_admit(self, req: Request, total: int, now: float) -> None:
+        """A state-pool admission: the planes' pages, and for a cross family
+        the request's cross-KV, aliased from the cross index (warm: no
+        encode) or encoded once into its cross pages (cold), then
+        published when sharing is on."""
+        c = self.counters
+        match, key = self._cross_plan.pop(req.rid, []), self._cross_keys.pop(req.rid, None)
+        self.cache.alloc(req.slot, total, cross_shared=match)
+        if self.cache.cross is None:
+            return
+        if self.cross_share:
+            c["prefix_lookups"] += 1
+        if match:
+            c["prefix_hit_requests"] += 1
+            c["prefix_shared_tokens"] += self.cache.cross_tokens
+            return
+        embeds = req.extra[EMBED_KEY[self.model.cfg.family]]
+        self._state_steps.encode_cross(self.params, embeds,
+                                       self._tensor(self.cache.cross.tables[req.slot]))
+        c["cross_encode_calls"] += 1
+        if self.cross_share:
+            c["prefix_inserted_pages"] += self.cache.cross_publish(key, req.slot, now)
 
     def _cow_guard(self, spans) -> None:
         """Before a write phase, detach every still-shared page in each
@@ -376,7 +438,7 @@ class Engine:
             elif self.backend == "dense_slots":
                 start = torch.full((1,), req.prefill_pos, dtype=torch.int32, device=self.device)
                 logits = self._dense_chunk(self.params, tokens, start,
-                                           self.cache.slot(req.slot))[0]
+                                           self.cache.slot(req.slot), req.extra)[0]
             else:
                 self._cow_guard([(req.slot, req.prefill_pos, n)])
                 logits = self._steps.prefill_chunk(
@@ -391,10 +453,12 @@ class Engine:
         page out, then its ring cursor advanced."""
         sp = self.cache
         kv_row = None if sp.kv is None else self._tensor(sp.kv.tables[req.slot])
+        cross_row = None if sp.cross is None else self._tensor(sp.cross.tables[req.slot])
         read = np.array([sp.ring_read[req.slot]], np.int32)
         write = np.array([sp.ring_write_id(req.slot)], np.int32)
         logits = self._state_steps.prefill_chunk(self.params, tokens, req.prefill_pos, kv_row,
-                                                 self._tensor(read), self._tensor(write))
+                                                 cross_row, self._tensor(read),
+                                                 self._tensor(write), req.extra)
         one = np.zeros((self.config.n_slots,), bool)
         one[req.slot] = True
         sp.ring_advance(one)
@@ -414,9 +478,10 @@ class Engine:
         args = (self.params, self._tensor(tokens), self._tensor(positions))
         if self.backend == "statepool":
             read, write = self.cache.ring_ids(mask)
-            kv = self.cache.kv
+            kv, cross = self.cache.kv, self.cache.cross
             logits = self._state_steps.decode_all(
-                *args, None if kv is None else self._tensor(kv.tables), self._tensor(read),
+                *args, None if kv is None else self._tensor(kv.tables),
+                None if cross is None else self._tensor(cross.tables), self._tensor(read),
                 self._tensor(write), self._tensor(mask))
             self.cache.ring_advance(mask)
         elif self.backend == "dense_slots":

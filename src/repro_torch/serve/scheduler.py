@@ -38,6 +38,7 @@ class Request:
     rid: int
     prompt: np.ndarray  # [P] int32
     max_new: int
+    extra: Any = None  # per-request conditioning (source or image embeddings)
     sampling: Any = None  # SamplingParams | None (None → greedy argmax)
     state: RequestState = RequestState.QUEUED
     slot: int = -1
@@ -96,8 +97,8 @@ class Scheduler:
         self.free_slots = deque(range(n_slots))
         self._ids = itertools.count()
 
-    def submit(self, prompt: np.ndarray, max_new: int, arrival_time: float = 0.0,
-               sampling: Any = None) -> Request:
+    def submit(self, prompt: np.ndarray, max_new: int, extra: Any = None,
+               arrival_time: float = 0.0, sampling: Any = None) -> Request:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -106,7 +107,7 @@ class Scheduler:
         if prompt.size + max_new > self.max_len:
             raise ValueError(
                 f"prompt({prompt.size}) + max_new({max_new}) exceeds max_len {self.max_len}")
-        req = Request(rid=next(self._ids), prompt=prompt, max_new=max_new,
+        req = Request(rid=next(self._ids), prompt=prompt, max_new=max_new, extra=extra,
                       sampling=sampling, arrival_time=arrival_time)
         self.queue.append(req)
         return req

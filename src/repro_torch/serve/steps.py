@@ -1,7 +1,8 @@
 """Device steps for paged-KV serving, and for the state pool.
 
 Port of ``repro.serve.steps.build_paged_steps`` and ``build_state_steps``
-(the SSM and hybrid families' state pool; :class:`StateSteps`).  On the ``"paged"``
+(the state pool of the SSM, hybrid, enc-dec and VLM families;
+:class:`StateSteps`).  On the ``"paged"``
 backend (the default) every step attends directly over the packed pool:
 
 * ``decode_all``  — one token for every slot in one call (S == 1);
@@ -49,7 +50,12 @@ import torch
 from repro_torch.models.registry import Model
 from repro_torch.serve import paged_cache as P
 from repro_torch.serve.paged_cache import PagedKV, prefill_chunk_layout
-from repro_torch.train.serve import make_chunk_prefill_step, make_decode_step, make_verify_step
+from repro_torch.train.serve import (
+    cast_params,
+    make_chunk_prefill_step,
+    make_decode_step,
+    make_verify_step,
+)
 
 
 def marshal_prefill_batch(n_slots: int, chunk: int, items):
@@ -186,56 +192,79 @@ class StateSteps(NamedTuple):
     non-paged families' counterpart of :class:`PagedSteps`."""
 
     # (params, tokens [B,1], positions [B], kv_tables [B,P] | None,
-    #  ring_read [B], ring_write [B], mask [B]) -> logits [B,V]
+    #  cross_tables [B,Pc] | None, ring_read [B], ring_write [B], mask [B])
+    #   -> logits [B,V]
     decode_all: Callable
-    # (params, tokens [1,C], start: int, kv_row [P] | None, ring_read [1],
-    #  ring_write [1]) -> last-token logits [1,V]
+    # (params, tokens [1,C], start: int, kv_row [P] | None, cross_row [Pc] |
+    #  None, ring_read [1], ring_write [1], extra) -> last-token logits [1,V]
     prefill_chunk: Callable
+    # (params, embeds [1,T,D], cross_row [Pc]) -> None: one request's
+    # cross-KV into its cross pages; None without a cross plane
+    encode_cross: Callable | None = None
 
 
 def build_state_steps(model: Model, *, method: str, pool) -> StateSteps:
     """Steps over a :class:`~repro_torch.serve.state_pool.StatePool`.  Each
     assembles the family's dense cache tree from the planes (the KV plane's
     pages gathered and dequantized, B4b, and sliced to ``max_len``; the
-    ring read pages gathered, B4b on packed rings), runs the unmodified
-    ``train.serve`` decode or chunk step on it, then writes back: the new
-    tokens' K/V quantized into their pages (B4a, K and V in one launch;
-    masked lanes write page 0), each lane's whole new recurrent state into
-    its ring write page (B4a).  With ``kv_dtype="dense"`` the planes hold
-    the values bit for bit, so the tokens equal the dense-slot oracle's."""
-    decode = make_decode_step(model, method=method)
-    chunk = make_chunk_prefill_step(model, method=method)
-    dtype = getattr(torch, model.cfg.dtype)
-    rings, kv = pool.rings, pool.kv
-    ps, max_len = pool.page_size, pool.max_len
-    ssm = model.cfg.family == "ssm"
+    cross plane's likewise, sliced to ``cross_tokens``: cross attention is
+    not causal, so a page's tail would be attended; the ring read pages
+    gathered, B4b on packed rings), runs the unmodified ``train.serve``
+    decode or chunk step on it, then writes back: the new tokens' K/V
+    quantized into their pages (B4a, K and V in one launch; masked lanes
+    write page 0), each lane's whole new recurrent state into its ring
+    write page (B4a).  The cross plane is written only by
+    ``encode_cross``, at admission.  With ``kv_dtype="dense"`` the planes
+    hold the values bit for bit, so the tokens equal the dense-slot
+    oracle's.
 
-    def assemble(tables, read):
+    As in the reference, an enc-dec prefill runs ``build_cross=False`` and
+    reads the pooled cross-KV, while a VLM prefill passes ``extra`` through,
+    so its cross blocks recompute their K/V from the image (the oracle's
+    path: a cross attention that reads a cache rotates its queries, one
+    built from the source does not) and the pooled cross-KV it was handed
+    is not read; decode steps read the pooled cross-KV."""
+    decode = make_decode_step(model, method=method)
+    chunk = make_chunk_prefill_step(model, method=method, build_cross=False)
+    dtype = getattr(torch, model.cfg.dtype)
+    family = model.cfg.family
+    rings, kv, cross = pool.rings, pool.kv, pool.cross
+    ps, max_len, n_src = pool.page_size, pool.max_len, pool.cross_tokens
+    kv_key = pool.kv_key
+
+    def assemble(tables, cross_tables, read):
         state = tuple(r.gather(read) for r in rings)
-        if ssm:
+        if family == "ssm":
             return state
         k, v = P.gather_pages(kv.pool, tables, dtype)
-        return {"attn": (k[:, :, :max_len], v[:, :, :max_len]), "mamba": state}
+        caches = {kv_key: (k[:, :, :max_len], v[:, :, :max_len])}
+        if cross is None:
+            caches["mamba"] = state
+        else:
+            k, v = P.gather_pages(cross.pool, cross_tables, dtype)
+            caches["cross"] = (k[:, :, :n_src], v[:, :, :n_src])
+        return caches
 
     def write_back(caches, page_ids, offsets, k_new, v_new, write):
         """The step updated the gathered tree in place: its new tokens' K/V
         (when there is a KV plane) and every ring leaf go back."""
         if kv is not None:
             P.scatter_tokens(kv.pool, page_ids, offsets, k_new, v_new)
-        for r, leaf in zip(rings, caches if ssm else caches["mamba"]):
+        for r, leaf in zip(rings, caches if family == "ssm" else caches.get("mamba", ())):
             r.scatter(write, leaf)
 
-    def decode_all(params, tokens, positions, kv_tables, ring_read, ring_write, mask):
+    def decode_all(params, tokens, positions, kv_tables, cross_tables, ring_read, ring_write,
+                   mask):
         """One token for every slot.  Masked lanes read the zero ring sentinel
-        (and their stale KV tables) and write page 0 of every plane; the host
+        (and their stale tables) and write page 0 of every plane; the host
         does not advance their ring cursor, so their state is untouched (the
         dense oracle's masked merge)."""
         pos_safe = torch.where(mask, positions, torch.zeros_like(positions))
-        caches = assemble(kv_tables, ring_read)
+        caches = assemble(kv_tables, cross_tables, ring_read)
         logits = decode(params, tokens, pos_safe, caches)[0]
         page_ids = offsets = k_new = v_new = None
         if kv is not None:
-            k2, v2 = caches["attn"]
+            k2, v2 = caches[kv_key]
             bidx = torch.arange(tokens.shape[0], device=tokens.device)
             pos = pos_safe.long()
             page_ids = torch.where(mask, kv_tables[bidx, pos // ps], torch.zeros_like(pos_safe))
@@ -243,16 +272,18 @@ def build_state_steps(model: Model, *, method: str, pool) -> StateSteps:
         write_back(caches, page_ids, offsets, k_new, v_new, ring_write)
         return logits
 
-    def prefill_chunk(params, tokens, start, kv_row, ring_read, ring_write):
+    def prefill_chunk(params, tokens, start, kv_row, cross_row, ring_read, ring_write,
+                      extra=None):
         """One slot's [1, C] prompt chunk: its K/V at positions start .. start
         + C − 1 into the slot's pages, its whole new state from its read page
-        into its write page."""
+        into its write page; a cross cache the step rewrote is dropped."""
         start_t = torch.full((1,), start, dtype=torch.int32, device=tokens.device)
-        caches = assemble(None if kv_row is None else kv_row[None], ring_read)
-        logits = chunk(params, tokens, start_t, caches)[0]
+        caches = assemble(None if kv_row is None else kv_row[None],
+                          None if cross_row is None else cross_row[None], ring_read)
+        logits = chunk(params, tokens, start_t, caches, extra)[0]
         page_ids = offsets = k_new = v_new = None
         if kv is not None:
-            k2, v2 = caches["attn"]
+            k2, v2 = caches[kv_key]
             C = tokens.shape[1]
             s0 = min(start, k2.shape[2] - C)  # a dynamic slice clamps its start
             pos = start + torch.arange(C, device=tokens.device)
@@ -261,4 +292,23 @@ def build_state_steps(model: Model, *, method: str, pool) -> StateSteps:
         write_back(caches, page_ids, offsets, k_new, v_new, ring_write)
         return logits
 
-    return StateSteps(decode_all, prefill_chunk)
+    if cross is None:
+        return StateSteps(decode_all, prefill_chunk)
+    if family == "encdec":
+        from repro_torch.models.encdec import encode_cross_kv
+    else:
+        from repro_torch.models.vlm import encode_cross_kv
+
+    @torch.inference_mode()
+    def encode_cross(params, embeds, cross_row):
+        """One request's cross-KV, written once (at admission): [1, T_src, D]
+        conditioning → every layer's (k, v) → all T_src tokens
+        quantize-scattered over the slot's cross pages (B4a, K and V of
+        every layer in one launch).  The params are cast as the chunk and
+        decode steps cast them, so a dense plane holds, bit for bit, what a
+        ``build_cross=True`` prefill attends over."""
+        ks, vs = encode_cross_kv(cast_params(params, dtype), embeds, model.cfg, 0, method)
+        pos = torch.arange(ks.shape[2], device=embeds.device)
+        P.scatter_tokens(cross.pool, cross_row[pos // ps], pos % ps, ks[:, 0], vs[:, 0])
+
+    return StateSteps(decode_all, prefill_chunk, encode_cross)

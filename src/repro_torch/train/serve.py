@@ -7,8 +7,10 @@ Each step runs the model forward with explicit per-token positions over a
 cache that it updates in place: dense caches ``(K, V)`` [L, B, T, Hkv, hd]
 written at ``cache_index`` (the gather serving backend and whole-prompt
 prefill), a :class:`~repro_torch.kernels.paged_attention.PagedKV` pool,
-an SSM's ``(conv, h)`` state, or a hybrid's tree of both
-(``Model.cache_spec``).  Each casts the floating leaves of the params
+an SSM's ``(conv, h)`` state, a hybrid's tree of both, or an enc-dec or
+VLM model's ``{"self", "cross"}`` tree (``Model.cache_spec``).  Each step
+passes ``extra`` (the enc-dec family's ``source_embeds``, the VLM's
+``image_embeds``) to the forward, as the reference's steps do.  Each casts the floating leaves of the params
 to the compute dtype first, as the reference's steps do.
 The reference builds the multi-token step on a model with
 ``attn_rows_shared=False``; the port always computes causal bounds and rope
@@ -50,14 +52,19 @@ def cast_params(params, dtype: torch.dtype):
     return params.to(dtype) if params.is_floating_point() else params
 
 
-def make_chunk_prefill_step(model: Model, *, method: str = "quartet") -> Callable:
+def make_chunk_prefill_step(model: Model, *, method: str = "quartet",
+                            build_cross: bool = True) -> Callable:
     """Chunked prefill over dense caches: ``tokens [B, C]`` at absolute
-    positions ``start [B] + 0..C-1``, writing K/V there."""
+    positions ``start [B] + 0..C-1``, writing K/V there.  With
+    ``build_cross`` (the default) an enc-dec model runs its encoder on
+    ``extra`` and writes its cross caches on every chunk (the same values
+    each time); ``build_cross=False`` attends over cross caches already
+    written (the state pool writes them once, at admission)."""
 
     dtype = getattr(torch, model.cfg.dtype)
 
     @torch.inference_mode()
-    def prefill_chunk(params, tokens, start, caches, token_valid=None):
+    def prefill_chunk(params, tokens, start, caches, extra=None, token_valid=None):
         """tokens [B, C], start [B] → (last-token logits [B, V], caches,
         start + C).  The head runs on the last row only."""
         params = cast_params(params, dtype)
@@ -65,7 +72,8 @@ def make_chunk_prefill_step(model: Model, *, method: str = "quartet") -> Callabl
         positions = start[:, None] + torch.arange(C, dtype=torch.int32,
                                                   device=tokens.device)[None, :]
         feats, caches = model.forward(params, tokens, 0, positions=positions, caches=caches,
-                                      cache_index=start, method=method, features_only=True,
+                                      cache_index=start, extra=extra, build_cross=build_cross,
+                                      method=method, features_only=True,
                                       token_valid=token_valid)
         return model.head(params, feats[:, -1:], 0, method)[:, 0], caches, start + C
 
@@ -75,10 +83,10 @@ def make_chunk_prefill_step(model: Model, *, method: str = "quartet") -> Callabl
 def make_prefill_step(model: Model, *, method: str = "quartet") -> Callable:
     chunk = make_chunk_prefill_step(model, method=method)
 
-    def prefill(params, tokens, caches):
+    def prefill(params, tokens, caches, extra=None):
         """tokens [B, S] → (next-token logits [B, V], caches, next_pos [B])."""
         start = torch.zeros((tokens.shape[0],), dtype=torch.int32, device=tokens.device)
-        return chunk(params, tokens, start, caches)
+        return chunk(params, tokens, start, caches, extra)
 
     return prefill
 
@@ -87,12 +95,12 @@ def make_decode_step(model: Model, *, method: str = "quartet") -> Callable:
     dtype = getattr(torch, model.cfg.dtype)
 
     @torch.inference_mode()
-    def decode(params, token, position, caches, token_valid=None):
+    def decode(params, token, position, caches, extra=None, token_valid=None):
         """token [B, 1], position [B] → (logits [B, V], caches, position + 1)."""
         params = cast_params(params, dtype)
         logits, caches = model.forward(params, token, 0, positions=position[:, None],
-                                       caches=caches, cache_index=position, method=method,
-                                       token_valid=token_valid)
+                                       caches=caches, cache_index=position, extra=extra,
+                                       method=method, token_valid=token_valid)
         return logits[:, -1, :], caches, position + 1
 
     return decode
@@ -109,14 +117,14 @@ def make_verify_step(model: Model, *, method: str = "quartet") -> Callable:
 
     @torch.inference_mode()
     def verify(params, tokens, start, caches, positions=None, features_only=False,
-               token_valid=None):
+               token_valid=None, extra=None):
         params = cast_params(params, dtype)
         S = tokens.shape[1]
         if positions is None:
             positions = start[:, None] + torch.arange(S, dtype=torch.int32,
                                                       device=tokens.device)[None, :]
         out, caches = model.forward(params, tokens, 0, positions=positions, caches=caches,
-                                    cache_index=start, method=method,
+                                    cache_index=start, extra=extra, method=method,
                                     features_only=features_only, token_valid=token_valid)
         return out, caches
 
@@ -124,10 +132,12 @@ def make_verify_step(model: Model, *, method: str = "quartet") -> Callable:
 
 
 def greedy_generate(model: Model, params, prompt: torch.Tensor, max_new: int, max_len: int,
-                    method: str = "quartet", sampling=None) -> torch.Tensor:
+                    extra=None, method: str = "quartet", sampling=None) -> torch.Tensor:
     """Reference generation loop: prefill ``prompt`` [B, P] into dense
-    caches of ``max_len`` positions, then ``max_new − 1`` decode steps →
-    int32 tokens [B, max_new].  ``sampling`` (a
+    caches of ``max_len`` positions, then ``max_new − 1`` decode steps, each
+    given ``extra`` as the reference's are (so a VLM's decode steps
+    recompute the cross K/V from the image, unrotated queries) → int32
+    tokens [B, max_new].  ``sampling`` (a
     :class:`~repro_torch.serve.sampling.SamplingParams`; None or temperature
     0 is greedy argmax) draws token t of batch row b with
     ``row_key(seed, b, t)``, the engine's keys, so a one-row sampled
@@ -148,9 +158,9 @@ def greedy_generate(model: Model, params, prompt: torch.Tensor, max_new: int, ma
     prefill = make_prefill_step(model, method=method)
     decode = make_decode_step(model, method=method)
     caches = init_cache(model, B, max_len, prompt.device)
-    logits, caches, pos = prefill(params, prompt, caches)
+    logits, caches, pos = prefill(params, prompt, caches, extra)
     out = [pick(logits, 0)]
     for t in range(1, max_new):
-        logits, caches, pos = decode(params, out[-1], pos, caches)
+        logits, caches, pos = decode(params, out[-1], pos, caches, extra)
         out.append(pick(logits, t))
     return torch.cat(out, dim=1)

@@ -242,5 +242,5 @@ def test_build_model_gates():
     cfg = get_reduced_config(ARCH)
     with pytest.raises(NotImplementedError, match="mamba1"):
         build_model(dataclasses.replace(cfg, ssm_variant="mamba1"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(dataclasses.replace(cfg, family="encdec"))
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(cfg, family="retnet"))

@@ -13,8 +13,6 @@ prefix cache raise for the SSM family.  The kernels' half (B4a and B4b on
 the ring views, on the card) is the ``cuda``-marked case.
 """
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -221,9 +219,10 @@ def test_gates_for_the_ssm_family(ssm):
     qwen = build_model(get_reduced_config("qwen3-1.7b"))
     with pytest.raises(ValueError, match="dense/moe use PagedCache"):
         StatePool(qwen, n_slots=2, max_len=16, device="cpu")
-    encdec = model._replace(cfg=dataclasses.replace(cfg, family="encdec"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        StatePool(encdec, n_slots=2, max_len=16, device="cpu")
+    # the enc-dec family's pool now carries its cross-KV plane (no rings)
+    encdec = StatePool(build_model(get_reduced_config("whisper-tiny")), n_slots=2, max_len=16,
+                       device="cpu")
+    assert encdec.cross is not None and encdec.cross_tokens == 64 and not encdec.rings
 
 
 @pytest.mark.cuda
