@@ -171,7 +171,29 @@
    under the prefix cache encoding nothing and token-exact against the
    first, the VLM's logits moved by its gates, and statepool (dense
    planes) token-exact against ``dense_slots``; with ``times``, the cross
-   plane's gather of a decode tick and its scatter of a source timed.
+   plane's gather of a decode tick and its scatter of a source timed.  A
+   one-chunk VLM prompt, and (in the hybrid phase) a one-chunk zamba2-7b
+   prompt, read no quantized state: their first-token log-probs must equal
+   the teacher-forced forward's bit for bit.
+4i. Quartet training of the SSM, hybrid, enc-dec and VLM families
+   (``--phases state-train``): B2 and B3 bit for bit against their plain
+   versions at falcon-mamba-7b's and zamba2-7b's in_proj backward operands
+   (N 16384, and 14576 padded to 14592), and each whole backward on the
+   kernels against the plain versions; each family's reduced config one
+   step from equal states with the kernels and with their plain versions on
+   the card (bit for bit) and on the CPU (loss, nll, grad-norm and the
+   updated parameters, tolerances in
+   :func:`train_state_reduced_card_vs_cpu`); then whisper-tiny at full
+   depth, falcon-mamba-7b at 4 of 64 layers, zamba2-7b at 12 of 81 (the
+   shared block applied twice) and llama-3.2-vision-11b at one super-block
+   (gates set), each 3 Quartet steps of 8 x 512 tokens through
+   ``train.loop.train`` (the cross families with ``extra_batch``): step 0's
+   loss in (1, 12) (the VLM's, with 128256 tokens, in (1, ln(V) + 1)),
+   finite grad-norms above 1e-3, the VLM's cross-block
+   gradients non-zero, B1/B2/B3 launches against
+   :func:`state_train_launches`, the median step, tokens/s, peak memory and
+   one profiled step's device idle share; with ``times``, B1, B2 and B3
+   over one falcon-mamba-7b in_proj's training launches (4 x 512 tokens).
 5. Times each kernel (CUDA events, median, L2 flushed before each launch)
    beside its plain version and, where one PyTorch call computes the same
    function, that call, at serving, training and evaluation shapes; B1, B2,
@@ -337,6 +359,25 @@ VLM_GATES = (0.5, -0.3)
 # first-token log-probs against the teacher-forced forward: the dense
 # engine's gate (max |Δ|, mean |Δ|)
 CROSS_LOGPROB_MAX, CROSS_LOGPROB_MEAN = 5.0, 1.0
+
+# the state-train phase: Quartet training of the SSM, hybrid, enc-dec and VLM
+# families at their published widths, STATE_TRAIN_STEPS steps of
+# STATE_TRAIN_BATCH x TRAIN_SEQ tokens; by arch: (layers, None for full depth;
+# microbatches; the 8-bit AdamW with a bf16 master).  whisper-tiny at full
+# depth; falcon-mamba-7b at 4 of 64 layers (687,591,424 parameters, ~11 GB as
+# f32 master, gradients and two moments; Mamba1's a, bx and h take 268 MB a
+# sequence each, so one layer's backward under remat holds ~1 GB a sequence:
+# the 8 sequences fit one microbatch); zamba2-7b at 12 of 81 (two groups, so
+# the shared block is applied twice; 1,370,644,416, ~22 GB);
+# llama-3.2-vision-11b at one super-block, 5 dense layers and a cross block
+# (2,359,349,250: an f32 AdamW step holds about eight f32 copies of them at
+# once, ~75 GB of the card's 80, so the 8-bit AdamW and a bf16 master, as the
+# moe-train phase trains)
+STATE_TRAIN_STEPS, STATE_TRAIN_BATCH = 3, 8
+STATE_TRAIN = {"whisper-tiny": (None, 1, False), "falcon-mamba-7b": (4, 1, False),
+               "zamba2-7b": (12, 1, False), "llama-3.2-vision-11b": (5, 1, True)}
+STATE_TRAIN_PATH = {"whisper-tiny": "whisper_train", "falcon-mamba-7b": "falcon_mamba_train",
+                    "zamba2-7b": "zamba2_train", "llama-3.2-vision-11b": "vlm_train"}
 
 # the baselines phase: each baseline method on one full-width llama-paper-200m
 # linear of BASELINE_ROWS tokens (4 x 512), card against CPU; each training
@@ -2169,16 +2210,15 @@ class PlainOps:
             for i in range(0, a.shape[0], self.CHUNK)])
 
 
-def backward_operands(torch, K, N, gen, device="cuda"):
+def backward_operands(torch, K, N, gen, device="cuda", T=TRAIN_TOKENS_MB):
     """The four backward Stage-1 operands of one full-width linear [K, N]
-    over one microbatch, as ``quartet._backward_kernels`` passes them:
-    dy [T, N] (bf16, row-major), and three views with unit stride along
-    their rows: the dequantized weight Wq [K, N] (f32, the transpose of the
-    [N, K] codes' values), xqᵀ [K, T] (f32) and dyᵀ [N, T] (bf16)."""
+    over one microbatch of T tokens, as ``quartet._backward_kernels`` passes
+    them: dy [T, N] (bf16, row-major), and three views with unit stride
+    along their rows: the dequantized weight Wq [K, N] (f32, the transpose
+    of the [N, K] codes' values), xqᵀ [K, T] (f32) and dyᵀ [N, T] (bf16)."""
     from repro_torch.core.quartet import _dequant_codes
     from repro_torch.kernels import hadamard_quant as HQ
 
-    T = TRAIN_TOKENS_MB
     x = torch.randn((T, K), generator=gen, device=device).to(torch.bfloat16)
     w = (torch.randn((K, N), generator=gen, device=device) / K**0.5).to(torch.bfloat16)
     dy = (torch.randn((T, N), generator=gen, device=device) * 1e-3).to(torch.bfloat16)
@@ -2599,25 +2639,26 @@ def profile_train_step(torch, model, opt, state, batcher, device="cuda"):
     return out
 
 
-def time_training_kernels(torch, cfg, timer, device="cuda"):
-    """Each training kernel over the launches of one full-width linear (the
-    up projection, K 1280, N 3456) in one microbatch of 16 x 512 tokens,
-    beside its plain version, its least time and, where one exists, one
-    PyTorch call computing the same function."""
+def time_training_kernels(torch, cfg, timer, device="cuda", K=None, N=None, T=TRAIN_TOKENS_MB,
+                          tag="train"):
+    """Each training kernel over the launches of one full-width linear (by
+    default the up projection, K 1280, N 3456) in one microbatch of T
+    tokens (16 x 512), beside its plain version, its least time and, where
+    one exists, one PyTorch call computing the same function."""
     from repro_torch.core import fastrng
     from repro_torch.kernels import hadamard_quant as HQ
     from repro_torch.kernels import mxfp4_matmul as MM
     from repro_torch.kernels import sr_hadamard_quant as SR
 
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
-    d, f, T = cfg.d_model, cfg.d_ff, TRAIN_TOKENS_MB
+    d, f = K or cfg.d_model, N or cfg.d_ff
     rec = {}
 
     # forward Stage 1: x [T, K] and the Wᵀ view, bf16
     x = torch.randn((T, d), generator=gen, device=device).to(torch.bfloat16)
     w = (torch.randn((d, f), generator=gen, device=device) / d**0.5).to(torch.bfloat16)
     n = x.numel() + w.numel()
-    rec[("hadamard_quest_quantize", "train")] = dict(
+    rec[("hadamard_quest_quantize", tag)] = dict(
         ms=timer(lambda: (HQ.hadamard_quest_quantize(x), HQ.hadamard_quest_quantize(w.t()))),
         device_ms=timer.device(lambda: (HQ.hadamard_quest_quantize(x),
                                         HQ.hadamard_quest_quantize(w.t()))),
@@ -2631,7 +2672,7 @@ def time_training_kernels(torch, cfg, timer, device="cuda"):
     # and 4/32 B of scale), and B2_F32_OPS + B2_INT32_OPS operations an
     # element, bound by the int32 work at H100_INT32_OPS or by all of it at
     # the issue rate H100_F32_OPS, whichever is longer
-    opnds = backward_operands(torch, d, f, gen, device)
+    opnds = backward_operands(torch, d, f, gen, device, T)
     signs = {k: fastrng.rademacher(7, v.shape[1], salt=11, device=device)
              for k, v in opnds.items()}
     nbytes = sum(v.numel() * (v.element_size() + 1 + 4 / 32) for v in opnds.values())
@@ -2643,7 +2684,7 @@ def time_training_kernels(torch, cfg, timer, device="cuda"):
     def sr(fn):
         return lambda: [fn(v, signs[k], 7, 0.75, i) for i, (k, v) in enumerate(opnds.items(), 1)]
 
-    rec[("sr_hadamard_quantize", "train")] = dict(
+    rec[("sr_hadamard_quantize", tag)] = dict(
         ms=timer(sr(SR.sr_hadamard_quantize)),
         device_ms=timer.device(sr(SR.sr_hadamard_quantize)),
         plain_ms=timer(sr(SR.sr_hadamard_quantize_plain)),
@@ -2667,7 +2708,7 @@ def time_training_kernels(torch, cfg, timer, device="cuda"):
                  + a.shape[0] * b.shape[1] * 4 for a, sa, b, sb in args)
     nops = sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, _, b, _ in args)
     by_bytes, by_ops = nbytes / H100_BYTES_PER_S, nops / H100_INT8_OPS
-    rec[("mxfp4_matmul", "train")] = dict(
+    rec[("mxfp4_matmul", tag)] = dict(
         ms=timer(lambda: [MM.mxfp4_matmul(*a) for a in args]),
         plain_ms=timer(lambda: [MM.mxfp4_matmul_plain(*a) for a in args]),
         bound_ms=max(by_bytes, by_ops) * 1e3,
@@ -4162,6 +4203,17 @@ def serve_hybrid(torch, ops, device="cuda"):
         raise AssertionError(f"MXFP4-plane first-token log-probs vs teacher-forced beyond "
                              f"({SSM_LOGPROB_MAX}, {SSM_LOGPROB_MEAN}): {lp}")
     del eng, reqs
+    # a one-chunk prompt reads no quantized state (the zero ring sentinel,
+    # its own chunk's K/V): its first token equals the teacher-forced
+    # forward's bit for bit
+    one = [prompts[0][:SSM_CHUNK]]
+    _, r1, _, _, _, _ = _ssm_run(torch, model, params, one, 1, keep_logits=True)
+    summary["one_chunk_first_token_logprob_vs_teacher_forced"] = one_lp = \
+        _first_token_vs_teacher_forced(torch, model, params, one, r1, device)
+    if one_lp[0][0] != 0:
+        raise AssertionError(f"a one-chunk hybrid prompt's first-token log-probs differ from "
+                             f"the teacher-forced forward's: {one_lp}")
+    del r1
 
     # the oracle at full width, HYBRID_ORACLE_LAYERS deep (2 groups and a
     # 1-layer tail): dense planes hold the state bit for bit, so statepool's
@@ -4598,6 +4650,14 @@ def serve_cross(torch, ops, arch, device="cuda"):
         raise AssertionError(f"{arch} launches {counts} != predicted {predicted} "
                              f"(step calls {step_calls})")
     lp = _cross_first_token(torch, model, params, prompts, extras, reqs, device)
+    # a one-chunk VLM prompt reads no quantized state (its cross K/V are
+    # recomputed from the image, its self-KV is the chunk's own): its first
+    # token equals the teacher-forced forward's bit for bit (whisper's reads
+    # the pooled MXFP4 cross-KV)
+    one_chunk = [x for (x, _), p in zip(lp, prompts) if p.size <= CROSS_CHUNK]
+    if vlm and any(x != 0 for x in one_chunk):
+        raise AssertionError(f"one-chunk VLM prompts' first-token log-probs differ from the "
+                             f"teacher-forced forward's: max |Δ| {one_chunk}")
     encodes = eng.counters["cross_encode_calls"]
     warm, wwall, _, _ = _cross_wave(torch, eng, prompts, extras, CROSS_NEW)
     if eng.counters["cross_encode_calls"] != encodes or \
@@ -4641,7 +4701,8 @@ def serve_cross(torch, ops, arch, device="cuda"):
                "dense_state_bytes_per_decode_step":
                    sp.dense_state_bytes_per_decode_step(sp.max_len),
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "first_token_logprob_vs_teacher_forced": lp}
+               "first_token_logprob_vs_teacher_forced": lp,
+               "one_chunk_first_token_logprob_max_abs": one_chunk}
     log(f"  mxfp4 planes: {json.dumps(summary)}")
     if not all(x < CROSS_LOGPROB_MAX and y < CROSS_LOGPROB_MEAN for x, y in lp):
         raise AssertionError(f"MXFP4-plane first-token log-probs vs teacher-forced beyond "
@@ -4753,13 +4814,347 @@ def time_cross_kernels(torch, timer, device="cuda"):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 4i: Quartet training of the SSM, hybrid, enc-dec and VLM families
+# ---------------------------------------------------------------------------
+
+
+def state_train_launches(cfg) -> dict[str, int]:
+    """B1, B2 and B3 launches of one microbatch of a Quartet train step,
+    from the model's code.  A quantized linear's forward takes 2 B1 and 1
+    B3, its backward 4 B2 and 2 B3; remat runs forwards again.  A layer
+    under one checkpoint runs its forward twice.  Under the hierarchical
+    remat (the hybrid's and the VLM's super-blocks, each layer inside
+    checkpointed again) the backward recomputes a super-block's forward,
+    which runs its inner layers as checkpoints, then each inner layer's
+    forward again; the recompute stops once the super-block's last saved
+    tensor is back (``torch.utils.checkpoint``'s early stop), which is the
+    input of its last inner layer: so a super-block's own block (the shared
+    attention, the cross block) runs twice, each inner layer but its last
+    three times, the last twice.  The heads stay bf16 (``quantize_lm_head``
+    is off, as in the reference)."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":  # in, x, dt, out projections
+        fwd, apps = 2 * 4 * L, 4 * L
+    elif cfg.family == "encdec":  # 6 an encoder layer, 10 a decoder layer
+        lin = 6 * cfg.encoder_layers + 10 * L
+        fwd, apps = 2 * lin, lin
+    elif cfg.family == "hybrid":  # the shared block's 7, a Mamba2 layer's in and out
+        from repro_torch.models.hybrid import split_counts
+
+        n_super, per, tail = split_counts(cfg)
+        fwd = 7 * 2 * n_super + 2 * (n_super * (3 * (per - 1) + 2) + 2 * tail)
+        apps = 7 * n_super + 2 * L
+    else:  # the VLM: a cross block's 7 (wk, wv on the image), a dense layer's 7
+        from repro_torch.models.vlm import split_counts
+
+        n_super, per = split_counts(cfg)
+        fwd = 7 * 2 * n_super + 7 * n_super * (3 * (per - 1) + 2)
+        apps = 7 * n_super + 7 * L
+    return {"hadamard_quest_quantize": 2 * fwd, "sr_hadamard_quantize": 4 * apps,
+            "mxfp4_matmul": fwd + 2 * apps}
+
+
+def state_train_config(arch: str):
+    """``arch`` at its published widths, its depth cut to STATE_TRAIN's
+    layers (None: full depth), Quartet on the kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_engine import kernel_config
+
+    cfg = get_config(arch)
+    layers = STATE_TRAIN[arch][0]
+    return kernel_config(dataclasses.replace(cfg, num_layers=layers) if layers else cfg)
+
+
+def check_state_train_kernels(torch, device="cuda"):
+    """B2 and B3 bit for bit against their plain versions at the backward
+    operands of the new training shapes: falcon-mamba-7b's in_proj (K 4096,
+    N 16384) and zamba2-7b's (K 3584, N 14576, not a multiple of 32: dy and
+    Wq padded to 14592 along N, as ``quartet._backward_kernels`` pads them),
+    over one microbatch of STATE_TRAIN_BATCH x TRAIN_SEQ tokens; then each
+    whole ``quartet_linear`` backward on the kernels against the plain
+    versions (rtol 1e-5, as the kernels phase holds it).  Returns the max
+    abs errors."""
+    from repro_torch.core import fastrng
+    from repro_torch.core.quartet import (QuartetConfig, _backward_kernels, _forward_kernels,
+                                          _pad32)
+    from repro_torch.kernels import mxfp4_matmul as MM
+    from repro_torch.kernels import sr_hadamard_quant as SR
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    seed, T = 4321, STATE_TRAIN_BATCH * TRAIN_SEQ
+    err = {"sr_hadamard_quantize": 0.0, "mxfp4_matmul": 0.0, "quartet_linear backward": 0.0}
+    for name, K, N in (("falcon-mamba-7b in_proj", 4096, 16384),
+                       ("zamba2-7b in_proj", 3584, 14576)):
+        opnds = backward_operands(torch, K, N, gen, device, T)
+        opnds["dy"], opnds["Wq"] = _pad32(opnds["dy"], -1), _pad32(opnds["Wq"], -1)
+        codes = {}
+        for salt, (what, x) in enumerate(opnds.items(), 1):
+            signs = fastrng.rademacher(seed, x.shape[1], salt=11 if salt < 3 else 12,
+                                       device=device)
+            got = SR.sr_hadamard_quantize(x, signs, seed, salt=salt)
+            want = SR.sr_hadamard_quantize_plain(x, signs, seed, salt=salt)
+            if not all(torch.equal(g, w_) for g, w_ in zip(got, want)):
+                raise AssertionError(f"sr_hadamard_quantize at {name} {what} {tuple(x.shape)} "
+                                     f"differs from its plain version")
+            codes[what] = got
+        for what, (a, b) in (("dx", ("dy", "Wq")), ("dW", ("xqᵀ", "dyᵀ"))):
+            args = (*codes[a], codes[b][0].t(), codes[b][1].t())
+            got, want = MM.mxfp4_matmul(*args), MM.mxfp4_matmul_plain(*args)
+            if not torch.equal(got, want):
+                raise AssertionError(f"mxfp4_matmul at {name} {what}: max |Δ| "
+                                     f"{float((got - want).abs().max())}")
+        qc = QuartetConfig(use_kernels=True)
+        x = torch.randn((STATE_TRAIN_BATCH, TRAIN_SEQ, K), generator=gen,
+                        device=device).to(torch.bfloat16)
+        w = (torch.randn((K, N), generator=gen, device=device) / K**0.5).to(torch.bfloat16)
+        dy = (torch.randn((*x.shape[:-1], N), generator=gen, device=device)
+              * 1e-3).to(torch.bfloat16)
+        _, res = _forward_kernels(x, w, qc)
+        dx, dw = _backward_kernels(qc, seed, res, dy)
+        pdx, pdw = _backward_kernels(qc, seed, res, dy, ops=PlainOps())
+        for what, a, b in (("dx", dx, pdx), ("dW", dw, pdw)):
+            if not torch.allclose(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max())):
+                raise AssertionError(f"quartet_linear backward at {name} {what}: kernels vs "
+                                     f"plain max |Δ| {float((a - b).abs().max())}")
+            err["quartet_linear backward"] = max(err["quartet_linear backward"],
+                                                 float((a - b).abs().max()))
+        del opnds, codes, x, w, dy, res
+    torch.cuda.synchronize()
+    return err
+
+
+def _reduced_conditioning(torch, cfg, batch: int):
+    """f32 standard normals from SEED on the CPU: the enc-dec model's
+    ``source_embeds`` or the VLM's ``image_embeds`` of a reduced config, or
+    {} for the other families."""
+    n = {"encdec": cfg.max_source_len, "vlm": cfg.num_image_tokens}.get(cfg.family)
+    if n is None:
+        return {}
+    x = torch.randn((batch, n, cfg.d_model), generator=torch.Generator().manual_seed(SEED))
+    return {"source_embeds" if cfg.family == "encdec" else "image_embeds": x}
+
+
+def train_state_reduced_card_vs_cpu(torch, device="cuda"):
+    """Each family's reduced config (f32 compute, Quartet) takes one train
+    step (AdamW at a constant lr of 1e-3, so the step moves every
+    parameter; clip 1.0; 4 x 64 tokens, with the conditioning of the cross
+    families; the VLM's gates at VLM_GATES) from the same weights and batch
+    three times: on the card with the kernels, on the card with their plain
+    versions behind ``kernels.ops``'s signatures (:class:`PlainOps`), and on
+    the CPU (the plain versions).  Returns (by arch, the relative
+    differences of loss, nll and grad-norm card vs CPU and the updated
+    parameters' differences; the archs out of tolerance).
+
+    Tolerance.  Kernels against plain versions on the card: loss, nll,
+    grad-norm, every updated parameter and moment bit for bit (the kernels
+    equal their plain versions, and a step on one device is deterministic).
+    Card against CPU: loss and nll rtol 1e-5, the moe-train phase's step-0
+    bound (the rest of the step rounds differently on the card: the blocked
+    softmax by up to 1.04e-7 relative, the SSD's einsums and the
+    broadcast parameters' gradient sums in their own orders); grad-norm
+    rtol 1e-3, the dense check's step-0 bound; every updated parameter
+    within 2·lr of the CPU's (AdamW's first step moves an element by
+    lr·g/(|g| + eps) plus the decay).  The share of parameters more than
+    1e-3·lr apart is reported, not bounded: those rounding differences reach
+    the backward's stochastic roundings, a flipped decision moves a
+    gradient row or column by a grid step, the layers below take it as a
+    changed input and flip more, and AdamW's first update follows each
+    element's sign (reduced zamba2-7b: 1.5% of its parameters, 4.6% of the
+    shared block's wq).  Attention key biases are left out of the
+    parameters' comparison (their gradient is rounding noise: softmax is
+    invariant to them)."""
+    import repro_torch.core.quartet as Q
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.convert import init_params
+    from repro_torch.data.pipeline import SyntheticC4Dataset, TokenBatcher
+    from repro_torch.launch.serve_engine import kernel_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.state import make_train_state
+    from repro_torch.train.steps import _leaf_paths, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    lr, plain, kernel_ops = 1e-3, PlainOps(), Q._kernel_ops
+    out, bad = {}, []
+    for arch in STATE_TRAIN:
+        cfg = kernel_config(get_reduced_config(arch, dtype="float32"))
+        model = build_model(cfg)
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        if cfg.family == "vlm":
+            params["cross_layers"]["gate_attn"].fill_(VLM_GATES[0])
+            params["cross_layers"]["gate_mlp"].fill_(VLM_GATES[1])
+        opt = adamw(lr)
+        step = make_train_step(model, opt)
+        batch = {k: torch.from_numpy(v) for k, v in TokenBatcher(
+            SyntheticC4Dataset(cfg.vocab_size, seed=SEED), 4, 64).batch(0).items()}
+        batch.update(_reduced_conditioning(torch, cfg, 4))
+        on_card = {k: v.to(device) for k, v in batch.items()}
+        cpu = make_train_state(params, opt)
+        card, mc = step(_to_device(torch, cpu, device), on_card)
+        Q._kernel_ops = lambda ops: plain if ops is None else ops
+        try:
+            card_plain, mpl = step(_to_device(torch, cpu, device), on_card)
+        finally:
+            Q._kernel_ops = kernel_ops
+        cpu, mp = step(cpu, batch)
+        same = all(float(mc[k]) == float(mpl[k]) for k in ("loss", "nll", "grad_norm")) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves((card.params, card.opt_state)),
+                                              tree_leaves((card_plain.params,
+                                                           card_plain.opt_state)))
+            if isinstance(a, torch.Tensor))
+        rec = {"kernels_equal_plain_versions_on_card": same}
+        rec.update({k: abs(float(mc[k]) - float(mp[k])) / abs(float(mp[k]))
+                    for k in ("loss", "nll", "grad_norm")})
+        worst, off, n, by_leaf = 0.0, 0, 0, {}
+        for path, a, b in zip(_leaf_paths(cpu.params), tree_leaves(card.params),
+                              tree_leaves(cpu.params)):
+            if tuple(path[-2:]) == ("wk", "b"):
+                continue
+            d = (a.cpu() - b).abs()
+            k = int((d > 1e-3 * lr).sum())
+            worst, off, n = max(worst, float(d.max())), off + k, n + d.numel()
+            if k:
+                by_leaf[".".join(path)] = k / d.numel()
+        rec.update(param_max_abs_over_lr=worst / lr, param_share_off=off / n,
+                   param_share_off_by_leaf=dict(sorted(by_leaf.items(),
+                                                       key=lambda kv: -kv[1])[:6]))
+        out[arch] = rec
+        if (not same or rec["loss"] > 1e-5 or rec["nll"] > 1e-5 or rec["grad_norm"] > 1e-3
+                or worst > 2 * lr):
+            bad.append(arch)
+    log(f"  reduced families, one Quartet step from equal states, the kernels against their "
+        f"plain versions on the card and card vs CPU: {json.dumps(out)} (tolerance: kernels = "
+        f"plain versions bit for bit; card vs CPU loss, nll 1e-5, grad-norm 1e-3, parameters "
+        f"within 2·lr)")
+    return out, bad
+
+
+def train_state_full_width(torch, ops, arch, device="cuda"):
+    """``arch`` at its published widths (STATE_TRAIN's depth), random
+    weights from SEED (the VLM's gates at VLM_GATES), STATE_TRAIN_STEPS
+    Quartet steps of STATE_TRAIN_BATCH x TRAIN_SEQ tokens of synthetic
+    C4-like data through ``train.loop.train`` (the cross families with
+    ``extra_batch``: a 1500-frame source or 1600 image tokens a sequence,
+    bf16 normals from SEED + row, as the cross phase draws them), AdamW on a
+    cosine schedule (the VLM: the 8-bit AdamW with a bf16 master).  Gates:
+    step 0's loss in (1, 12), or in (1, ln(V) + 1) where that is wider (the
+    VLM's vocabulary), every step's loss and grad-norm finite (a
+    non-finite gradient leaf makes the norm so) and the norm above 1e-3;
+    for the VLM, after the steps, every cross-block leaf's gradient (the
+    gates' included) finite and non-zero on two sequences; B1, B2 and B3
+    launches equal to :func:`state_train_launches`.  Then one more step
+    under ``torch.profiler``: device time against wall time.  Returns
+    (summary, launch counts, vector-body launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.convert import init_params
+    from repro_torch.data.pipeline import SyntheticC4Dataset, TokenBatcher
+    from repro_torch.launch.serve_engine import make_extra
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, adamw8bit, cosine_warmup
+    from repro_torch.train.loop import train
+    from repro_torch.train.losses import chunked_lm_loss
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    _, micro, eight = STATE_TRAIN[arch]
+    cfg = state_train_config(arch)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    if cfg.family == "vlm":
+        params["cross_layers"]["gate_attn"].fill_(VLM_GATES[0])
+        params["cross_layers"]["gate_mlp"].fill_(VLM_GATES[1])
+    n_params = sum(p.numel() for p in _leaves(params))
+    rows = [make_extra(cfg, SEED + i, device) for i in range(STATE_TRAIN_BATCH)]
+    extra = ({k: torch.cat([r[k] for r in rows]) for k in rows[0]} if rows[0] else None)
+    batcher = TokenBatcher(SyntheticC4Dataset(cfg.vocab_size, seed=SEED), STATE_TRAIN_BATCH,
+                           TRAIN_SEQ)
+    opt = (adamw8bit if eight else adamw)(cosine_warmup(3e-4, STATE_TRAIN_STEPS))
+    master = "bfloat16" if eight else "float32"
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, hist = train(model, opt, batcher, STATE_TRAIN_STEPS, params=params,
+                        extra_batch=extra, microbatch=micro, master_dtype=master,
+                        device=device, log_every=1, log_fn=lambda m: log("  " + m))
+    wall = time.perf_counter() - t0
+    counts, vec = ops.launch_counts(), ops.vector_launches()
+    del params
+    per_mb = state_train_launches(cfg)
+    predicted = {k: 0 for k in counts}
+    predicted.update({k: v * micro * STATE_TRAIN_STEPS for k, v in per_mb.items()})
+    if counts != predicted:
+        raise AssertionError(f"{arch} training launches {counts} != predicted {predicted}")
+    losses, norms = [h["loss"] for h in hist], [h["grad_norm"] for h in hist]
+    # the reference's bound, (1, 12), "≈ ln(V) at init", written for its
+    # reduced vocabulary of 512; its init laws give unit-variance logits, so
+    # step 0's loss is about ln(V) + 1/2: 12.26 for the VLM's 128256 tokens,
+    # whose upper bound is therefore ln(V) + 1
+    top = max(12.0, math.log(cfg.vocab_size) + 1)
+    if not (1 < losses[0] < top and all(math.isfinite(x) for x in losses + norms)
+            and all(g > 1e-3 for g in norms)):
+        raise AssertionError(f"{arch}: loss {losses}, grad-norm {norms} (step 0's loss must lie "
+                             f"in (1, {top:.2f}); all finite; norms above 1e-3)")
+    summary = {"arch": arch, "layers": cfg.num_layers, "stored_params": n_params,
+               "optimizer": "adamw8bit, bf16 master" if eight else "adamw, f32 master",
+               "steps": STATE_TRAIN_STEPS, "batch": STATE_TRAIN_BATCH, "seq": TRAIN_SEQ,
+               "microbatches": micro, "init_s": init_s, "loss": losses,
+               "ln_vocab": math.log(cfg.vocab_size), "step0_loss_bound": [1.0, top],
+               "grad_norm": norms,
+               "step_s": [h["dt"] for h in hist]}
+    med = statistics.median(h["dt"] for h in hist[1:])  # step 0 carries first-use costs
+    summary.update(median_step_s=med, tokens_per_s=STATE_TRAIN_BATCH * TRAIN_SEQ / med,
+                   wall_s=wall, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches=counts, predicted_launches=predicted,
+                   predicted_per_microbatch=per_mb)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in batcher.batch(STATE_TRAIN_STEPS).items()}
+    if extra:
+        batch.update(extra)
+    if cfg.family == "vlm":  # the gates and the cross blocks learn
+        cp = tree_map(lambda p: p.to(torch.bfloat16), state.params)
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(cp["cross_layers"])]
+        names = [n for n, _ in _named_leaves(cp["cross_layers"])]
+        cp["cross_layers"] = tree_unflatten(cp["cross_layers"], leaves)
+        feats, _ = model.forward(cp, batch["tokens"][:2], 1, extra={
+            "image_embeds": batch["image_embeds"][:2]}, features_only=True)
+        loss, _ = chunked_lm_loss(model.head, cp, feats, batch["labels"][:2], 1)
+        grads = torch.autograd.grad(loss, leaves)
+        summary["cross_grad_max_abs"] = {n: float(g.abs().max()) for n, g in zip(names, grads)}
+        if not all(torch.isfinite(g).all() and g.abs().max() > 0 for g in grads):
+            raise AssertionError(f"VLM cross-block gradients zero or non-finite: "
+                                 f"{summary['cross_grad_max_abs']}")
+        del cp, leaves, feats, loss, grads
+    step_fn = make_train_step(model, opt, microbatch=micro)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = step_fn(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    busy = sum((getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0))
+               for e in prof.key_averages() if str(e.device_type).endswith("CUDA")) / 1e3
+    summary.update(profiled_step_ms=pwall * 1e3, device_busy_ms=busy,
+                   device_idle_share=1 - busy / (pwall * 1e3))
+    del state, m, batch, extra
+    torch.cuda.empty_cache()
+    return summary, counts, vec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernels,engine,features,moe,train,moe-train,variants,baselines,"
-                            "dense-configs,ssm,hybrid,cross,times",
+                            "dense-configs,ssm,hybrid,cross,state-train,times",
                     help="comma-separated subset of kernels,engine,features,moe,train,"
-                         "moe-train,variants,baselines,dense-configs,ssm,hybrid,cross,times")
+                         "moe-train,variants,baselines,dense-configs,ssm,hybrid,cross,"
+                         "state-train,times")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -5022,6 +5417,32 @@ def main() -> int:
             for (name, tag), r in time_cross_kernels(torch, Timer(torch)).items():
                 log(f"[cross] {name} {tag}: {json.dumps(r)}")
         log(f"[cross] done in {time.perf_counter() - t0:.1f} s")
+    if "state-train" in phases:
+        t0 = time.perf_counter()
+        serr = check_state_train_kernels(torch)
+        for name, e in serr.items():
+            err[name] = max(err.get(name, 0.0), e)
+        log(f"[state-train] B2 and B3 at falcon-mamba-7b's and zamba2-7b's in_proj backward "
+            f"operands equal their plain versions bit for bit; the whole backward on the "
+            f"kernels against the plain versions: {json.dumps(serr)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        _, bad = train_state_reduced_card_vs_cpu(torch)
+        for arch, path in STATE_TRAIN_PATH.items():
+            summary, counts[path], vectors[path] = train_state_full_width(torch, ops, arch)
+            log(f"[state-train] launches on the {arch} training path: {counts[path]} "
+                f"(predicted {summary['predicted_launches']})")
+            log(f"[state-train] {json.dumps(summary)}")
+            log(f"[state-train] {arch} done ({time.perf_counter() - t0:.1f} s)")
+        if "times" in phases:
+            # B1, B2 and B3 over one falcon-mamba-7b in_proj's training
+            # launches (K 4096, N 16384) at 4 x 512 tokens
+            for (name, tag), r in time_training_kernels(
+                    torch, None, Timer(torch), K=4096, N=16384, T=4 * TRAIN_SEQ,
+                    tag="falcon-mamba-7b in_proj").items():
+                log(f"[state-train] {name} {tag}: {json.dumps(r)}")
+        if bad:
+            raise AssertionError(f"reduced training card vs CPU out of tolerance: {bad}")
+        log(f"[state-train] done in {time.perf_counter() - t0:.1f} s")
     if vectors:
         # every B1 call on the main paths, and every B2 call on the training
         # paths, reads and writes through the vector body (a thread per group,
@@ -5029,7 +5450,8 @@ def main() -> int:
         for tag, name, paths in (("b1", "hadamard_quest_quantize", list(vectors)),
                                  ("b2", "sr_hadamard_quantize",
                                   [p for p in ("train", "moe_train", "grad_compress",
-                                               "starcoder2_train") if p in vectors])):
+                                               "starcoder2_train", *STATE_TRAIN_PATH.values())
+                                   if p in vectors])):
             vs = {p: (vectors[p][name], counts[p][name]) for p in paths}
             log(f"[{tag}] vector-body launches / all launches, by path: {json.dumps(vs)}")
             if any(v != n or n == 0 for v, n in vs.values()):

@@ -3,9 +3,10 @@
     python -m repro_torch.launch.train --arch llama-paper-200m --steps 5 \\
         --batch 32 --seq 512 --microbatch 2
 
-Port of ``repro.launch.train`` for one card.  Trains ``--arch`` (a member
-of the paper's Llama family or a MoE config; ``--reduced`` for its
-CPU-scale stand-in) from random weights drawn from ``--seed`` on synthetic
+Port of ``repro.launch.train`` for one card.  Trains ``--arch`` (any
+config of the registry: the paper's Llama family, the other dense configs,
+MoE, SSM, hybrid, enc-dec or VLM; ``--reduced`` for its CPU-scale
+stand-in) from random weights drawn from ``--seed`` on synthetic
 C4-like data (or a memmap token file, ``--data``), with AdamW on a cosine
 schedule with 10% warmup at the paper's learning rate.  ``--opt8bit``
 takes the 8-bit AdamW and a bf16 master, as the reference trains its large
@@ -16,7 +17,11 @@ plain PyTorch, as the reference computes them); ``--grad-compress`` adds the
 SR-int8 gradient round trip with error feedback.  On ``cuda`` (the
 default) the Quartet linears run on the Hopper kernels; without a GPU it
 exits non-zero unless ``--device cpu`` is given,
-which runs the kernels' plain versions.  With ``--checkpoint-dir`` the
+which runs the kernels' plain versions.  As in the reference, no source
+or image is drawn here: an enc-dec arch raises the encoder's error for want
+of ``source_embeds``, and a VLM's cross blocks, given no ``image_embeds``,
+attend over the text itself; ``train.loop.train(extra_batch=...)`` trains
+either with its conditioning.  With ``--checkpoint-dir`` the
 state is saved every ``--checkpoint-every`` steps and at the end; the same
 command started again resumes from the latest checkpoint there.
 """

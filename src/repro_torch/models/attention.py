@@ -26,6 +26,9 @@ from repro_torch.kernels.paged_attention import PagedKV, paged_attention, scatte
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
+# the widest key chunk of blocked attention: a 512-token training sequence
+# takes one chunk, and a shorter call is padded to at most this width
+KV_CHUNK_MAX = 512
 
 
 def init_attention(cfg: ModelConfig, dtype, generator, device) -> dict:
@@ -54,12 +57,19 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Online-softmax GQA attention over KV chunks (f32 state).
 
     q [B, S, Hq, hd], k/v [B, T, Hkv, hd], q_positions [B, S] absolute
-    positions (per row); key t sits at position t."""
+    positions (per row); key t sits at position t.
+
+    Every chunk is ``min(kv_chunk, KV_CHUNK_MAX)`` keys wide whatever T is:
+    the last one is padded with masked zero keys.  So a query row's products
+    and sums run at one shape for any T, and keys past the ones it sees
+    (masked, or padding) add exact zeros: a serving step's row over a slot's
+    whole cache view computes what the teacher-forced forward computes over
+    the prompt's keys."""
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     group = Hq // Hkv
     scale = float(np.float32(1.0 / np.sqrt(hd)))
-    ck = min(kv_chunk, T)
+    ck = min(kv_chunk, KV_CHUNK_MAX)
     qf = (q.to(torch.float32) * scale).reshape(B, S, Hkv, group, hd)
     m = torch.full((B, S, Hkv, group), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
@@ -67,10 +77,15 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for t0 in range(0, T, ck):
         kj = k[:, t0:t0 + ck].to(torch.float32)
         vj = v[:, t0:t0 + ck].to(torch.float32)
+        pad = ck - kj.shape[1]
+        if pad:
+            kj, vj = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (kj, vj))
         s = torch.einsum("bskgd,bckd->bskgc", qf, kj)
-        if causal:
-            kv_pos = torch.arange(t0, t0 + kj.shape[1], device=q.device)
-            mask = q_positions[:, :, None, None, None] >= kv_pos
+        if causal or pad:
+            kv_pos = torch.arange(t0, t0 + ck, device=q.device)
+            mask = q_positions[:, :, None, None, None] >= kv_pos if causal else None
+            if pad:
+                mask = kv_pos < T if mask is None else mask & (kv_pos < T)
             s = torch.where(mask, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, torch.amax(s, dim=-1))
         p = torch.exp(s - m_new[..., None])

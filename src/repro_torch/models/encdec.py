@@ -11,12 +11,15 @@ decoder layer ``i`` takes ``seed + i·LAYER_SEED_STRIDE`` (its self
 attention folded with 100, its cross attention with 150, its MLP with 200).
 
 The decode cache is ``{"self": (K, V) [L, B, T, Hkv, hd], "cross": (K, V)
-[L, B, T_src, Hkv, hd]}``, updated in place.
+[L, B, T_src, Hkv, hd]}``, updated in place.  When training (grad enabled,
+no cache) with ``cfg.remat`` each encoder and decoder layer runs under
+``torch.utils.checkpoint``, as the reference checkpoints both layer scans.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -64,6 +67,16 @@ def init_encdec_lm(cfg: ModelConfig, generator: torch.Generator, device) -> dict
     }
 
 
+def _encoder_layer(lp: dict, x: torch.Tensor, pos: torch.Tensor, s: int, cfg: ModelConfig,
+                   method: str) -> torch.Tensor:
+    _, norm = L.make_norm(cfg.norm)
+    h, _ = attention(lp["attn"], norm(lp["attn_norm"], x, cfg.norm_eps), pos,
+                     L.seed_fold(s, 100), cfg, causal=False, method=method)
+    x = x + h
+    return x + mlp(lp["mlp"], norm(lp["mlp_norm"], x, cfg.norm_eps), L.seed_fold(s, 200),
+                   cfg, method)
+
+
 def encode(params: dict, source_embeds: torch.Tensor, cfg: ModelConfig, seed: int,
            method: str = "quartet") -> torch.Tensor:
     """source_embeds [B, T_src, D] → memory [B, T_src, D]: absolute
@@ -73,14 +86,14 @@ def encode(params: dict, source_embeds: torch.Tensor, cfg: ModelConfig, seed: in
     pos = torch.arange(T, dtype=torch.int32, device=source_embeds.device).expand(B, T)
     x = source_embeds + L.sinusoidal_positions(T, cfg.d_model,
                                                source_embeds.device)[None].to(source_embeds.dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.encoder_layers):
         lp = layer_slice(params["encoder"]["layers"], i)
         s = (seed + i * LAYER_SEED_STRIDE) & _U32
-        h, _ = attention(lp["attn"], norm(lp["attn_norm"], x, cfg.norm_eps), pos,
-                         L.seed_fold(s, 100), cfg, causal=False, method=method)
-        x = x + h
-        x = x + mlp(lp["mlp"], norm(lp["mlp_norm"], x, cfg.norm_eps), L.seed_fold(s, 200),
-                    cfg, method)
+        if remat:
+            x = checkpoint(_encoder_layer, lp, x, pos, s, cfg, method, use_reentrant=False)
+        else:
+            x = _encoder_layer(lp, x, pos, s, cfg, method)
     return norm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
 
@@ -141,13 +154,8 @@ def encdec_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: i
             raise ValueError("the encoder needs memory or source_embeds")
         memory = encode(params, source_embeds, cfg, L.seed_fold(seed, 7), method)
     x = L.add_absolute_positions(L.embed(params["embed"], tokens), positions)
-    for i in range(cfg.num_layers):
-        lp = layer_slice(params["decoder"]["layers"], i)
-        s = (seed + i * LAYER_SEED_STRIDE) & _U32
-        sc = cc = None
-        if caches is not None:
-            sc = (caches["self"][0][i], caches["self"][1][i])
-            cc = (caches["cross"][0][i], caches["cross"][1][i])
+
+    def layer(lp, x, memory, s, sc, cc):
         h, _ = attention(lp["self_attn"], norm(lp["self_norm"], x, cfg.norm_eps), positions,
                          L.seed_fold(s, 100), cfg, causal=True, kv_cache=sc,
                          cache_index=cache_index, method=method)
@@ -156,8 +164,20 @@ def encdec_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: i
                          L.seed_fold(s, 150), cfg, causal=False, kv_source=memory,
                          kv_cache=cc, write_kv=build_cross, method=method)
         x = x + h
-        x = x + mlp(lp["mlp"], norm(lp["mlp_norm"], x, cfg.norm_eps), L.seed_fold(s, 200),
-                    cfg, method)
+        return x + mlp(lp["mlp"], norm(lp["mlp_norm"], x, cfg.norm_eps), L.seed_fold(s, 200),
+                       cfg, method)
+
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    for i in range(cfg.num_layers):
+        lp = layer_slice(params["decoder"]["layers"], i)
+        s = (seed + i * LAYER_SEED_STRIDE) & _U32
+        if remat:
+            x = checkpoint(layer, lp, x, memory, s, None, None, use_reentrant=False)
+        elif caches is None:
+            x = layer(lp, x, memory, s, None, None)
+        else:
+            x = layer(lp, x, memory, s, (caches["self"][0][i], caches["self"][1][i]),
+                      (caches["cross"][0][i], caches["cross"][1][i]))
     out = x if features_only else encdec_head(params, x, cfg, seed, method)
     return out, caches
 

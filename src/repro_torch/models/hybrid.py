@@ -12,8 +12,11 @@ tail layer ``i`` takes ``seed_fold(seed, 4242) + i·LAYER_SEED_STRIDE``.
 
 The decode cache is a tree, ``{"attn": (K, V) [n_super, B, T, Hkv, hd],
 "mamba": (conv [L, B, K-1, Di + 2N], h [L, B, nh, hd, N])}``, updated in
-place.  When training (grad enabled, no cache) with ``cfg.remat`` each
-block runs under ``torch.utils.checkpoint``.
+place.  When training (grad enabled, no cache) with ``cfg.remat`` the
+remat is the reference's hierarchical one: each super-block (the shared
+block's application and its group of Mamba2 layers) runs under
+``torch.utils.checkpoint``, and inside it each Mamba2 layer again, as does
+each tail layer.
 """
 
 from __future__ import annotations
@@ -76,22 +79,25 @@ def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: i
     rope = L.rope_table(positions, cfg.head_dim_, cfg.rope_theta)  # one table, 13 readers
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
 
-    def run(block, p, x, s, cache):
-        if remat:
-            return checkpoint(block, p, x, positions, s, cfg, None, method, None, None, rope,
-                              use_reentrant=False)[0]
-        return block(p, x, positions, s, cfg, cache, method, cache_index, None, rope)[0]
-
     def mamba(x, j, s):
+        p = layer_slice(params["mamba_layers"], j)
+        if remat:
+            return checkpoint(mamba2_block, p, x, positions, s, cfg, None, method, None, None,
+                              rope, use_reentrant=False)[0]
         cache = None if caches is None else (caches["mamba"][0][j], caches["mamba"][1][j])
-        return run(mamba2_block, layer_slice(params["mamba_layers"], j), x, s, cache)
+        return mamba2_block(p, x, positions, s, cfg, cache, method, cache_index, None, rope)[0]
 
-    for sp in range(n_super):
+    def super_block(x, sp):
         a_cache = None if caches is None else (caches["attn"][0][sp], caches["attn"][1][sp])
-        x = run(dense_block, params["shared_attn"], x, (seed + sp * 7919) & _U32, a_cache)
+        x = dense_block(params["shared_attn"], x, positions, (seed + sp * 7919) & _U32, cfg,
+                        a_cache, method, cache_index, None, rope)[0]
         seed0 = (seed + sp * ((per * LAYER_SEED_STRIDE) % 2**32)) & _U32
         for i in range(per):
             x = mamba(x, sp * per + i, (seed0 + i * LAYER_SEED_STRIDE) & _U32)
+        return x
+
+    for sp in range(n_super):
+        x = checkpoint(super_block, x, sp, use_reentrant=False) if remat else super_block(x, sp)
     seed0 = L.seed_fold(seed, 4242)
     for i in range(tail):
         x = mamba(x, n_super * per + i, (seed0 + i * LAYER_SEED_STRIDE) & _U32)

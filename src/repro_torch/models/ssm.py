@@ -47,11 +47,31 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y + b[None, None, :], xp[:, -(K - 1):, :]
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
+def _finite_or_zero(t: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isinf(t), torch.zeros_like(t), t)
+
+
+class _Softplus(torch.autograd.Function):
     """``jax.nn.softplus`` (``logaddexp(x, 0)``) in f32: max(x, 0) +
-    log1p(exp(−|x|))."""
-    x = x.to(torch.float32)
-    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+    log1p(exp(−|x|)), with ``logaddexp``'s own derivative, exp(x − y).
+    Autograd through max and |x| would take their subgradients at x = 0 and
+    give 1 there, not ½; a Quartet projection's output is exactly 0 often
+    enough (sums of FP4 grid values cancel) for that to move dt's gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return g * torch.exp(_finite_or_zero(x) - _finite_or_zero(y))
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    return _Softplus.apply(x.to(torch.float32))
 
 
 def init_mamba1_block(cfg: ModelConfig, dtype, generator, device) -> dict:
@@ -79,10 +99,13 @@ def selective_scan(h: torch.Tensor, a: torch.Tensor, bx: torch.Tensor) -> torch.
     """h_t = a_t · h_{t−1} + bx_t over time, from ``h`` [B, Di, N] (f32),
     with a, bx [B, S, Di, N] → every h_t, [B, S, Di, N].  A product and a
     sum, each rounded (no fused multiply-add), so a step rounds alike on
-    every device."""
+    every device.  The steps read a and bx through one ``unbind`` each,
+    whose backward stacks the steps' gradients once (indexing ``a[:, t]``
+    would have autograd build a full-size gradient of a at every step:
+    quadratic in S)."""
     hs = []
-    for t in range(bx.shape[1]):
-        h = a[:, t] * h + bx[:, t]
+    for a_t, bx_t in zip(a.unbind(1), bx.unbind(1)):
+        h = a_t * h + bx_t
         hs.append(h)
     return torch.stack(hs, dim=1)
 

@@ -18,11 +18,18 @@ and a cache, each cross block recomputes its K/V from the image and writes
 them into the cache (prefill); without ``image_embeds`` it reads the
 cached cross-KV (decode), and then, as in the reference, its queries are
 rotated (attention ropes q iff it has no ``kv_source``).
+
+When training (grad enabled, no cache) with ``cfg.remat`` the remat is the
+reference's hierarchical one: each super-block runs under
+``torch.utils.checkpoint``, and inside it each dense layer again, so the
+backward keeps a super-block's input and, while it runs that super-block,
+its layers' inputs.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -133,17 +140,27 @@ def vlm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: int,
     x = L.embed(params["embed"], tokens)
     n_super, per = split_counts(cfg)
     rope = L.rope_table(positions, cfg.head_dim_, cfg.rope_theta)  # one table, every layer
-    for sp in range(n_super):
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+
+    def dense(x, j, s):
+        if remat:
+            return checkpoint(dense_block, layer_slice(params["layers"], j), x, positions, s,
+                              cfg, None, method, None, None, rope, use_reentrant=False)[0]
+        cache = None if caches is None else (caches["self"][0][j], caches["self"][1][j])
+        return dense_block(layer_slice(params["layers"], j), x, positions, s, cfg, cache,
+                           method, cache_index, None, rope)[0]
+
+    def super_block(x, sp):
         cache = None if caches is None else (caches["cross"][0][sp], caches["cross"][1][sp])
         x = cross_block(layer_slice(params["cross_layers"], sp), x, image_embeds, positions,
                         (seed + sp * 7919) & _U32, cfg, cache, method, rope)
         seed0 = (seed + sp * ((per * LAYER_SEED_STRIDE) % 2**32)) & _U32
         for i in range(per):
-            j = sp * per + i
-            cache = None if caches is None else (caches["self"][0][j], caches["self"][1][j])
-            x, _ = dense_block(layer_slice(params["layers"], j), x, positions,
-                               (seed0 + i * LAYER_SEED_STRIDE) & _U32, cfg, cache, method,
-                               cache_index, None, rope)
+            x = dense(x, sp * per + i, (seed0 + i * LAYER_SEED_STRIDE) & _U32)
+        return x
+
+    for sp in range(n_super):
+        x = checkpoint(super_block, x, sp, use_reentrant=False) if remat else super_block(x, sp)
     out = x if features_only else lm_head_apply(params, x, cfg, seed, method)
     return out, caches
 

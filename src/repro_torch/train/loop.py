@@ -26,7 +26,8 @@ from repro_torch.train.straggler import StragglerMonitor
 
 
 def _to_device(batch: dict, device) -> dict:
-    return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
+    return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v)))
+            .to(device) for k, v in batch.items()}
 
 
 def train(
@@ -46,6 +47,7 @@ def train(
     log_fn: Callable = print,
     grad_compress: bool = False,
     microbatch: int = 1,
+    extra_batch: dict | None = None,
     seed: int = 0,
     params: dict | None = None,
     device="cuda",
@@ -54,7 +56,9 @@ def train(
     drawn from ``seed``) on ``device``, or from the latest checkpoint in
     ``checkpoint_dir`` when it holds one.  Returns the final state and one
     metrics dict per step run (loss, grad_norm, nll, tokens, step, dt in
-    seconds)."""
+    seconds).  ``extra_batch`` (the enc-dec family's ``source_embeds``, the
+    VLM's ``image_embeds``: tensors or arrays with the batch's rows) joins
+    every step's batch, on ``device``, as in the reference."""
     if params is None:
         params = init_params(model.cfg, torch.Generator(device=device).manual_seed(seed),
                              device)
@@ -74,8 +78,9 @@ def train(
         on_straggler=lambda s, dt, mu: log_fn(
             f"[straggler] step {s}: {dt:.2f}s vs ewma {mu:.2f}s"))
     history = []
+    extra = _to_device(extra_batch, device) if extra_batch else {}
     for step in range(start_step, total_steps):
-        batch = _to_device(batcher.batch(step), device)
+        batch = {**_to_device(batcher.batch(step), device), **extra}
         monitor.step_start()
         state, metrics = step_fn(state, batch)
         metrics = {k: float(v) for k, v in metrics.items()}  # synchronises

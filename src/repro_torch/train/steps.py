@@ -10,6 +10,9 @@ Under a baseline method (``core.baselines``) the weights that reach
 ``baseline_linear`` go to the model in f32, uncast: it casts them itself and
 hands back an f32 dW, which the reference's ``jax.grad`` delivers to the
 master unrounded (an f32 gradient even for a bf16 master).
+A batch's ``source_embeds`` (enc-dec) or ``image_embeds`` (VLM) reach the
+forward as its ``extra``, in the train and the eval step alike, and a
+microbatch takes its rows of them as it takes its tokens.
 The per-step ``seed`` is derived from the step counter exactly as the
 reference derives it, ``((step + 1) · microbatch) mod 2^32`` and then
 ``seed + i`` for microbatch i, so every stochastic rounding draws the
@@ -34,6 +37,13 @@ from repro_torch.train.state import TrainState
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 _MASK = 0xFFFFFFFF
+_EXTRA = ("source_embeds", "image_embeds")
+
+
+def _extra(batch: dict) -> dict | None:
+    """The batch's conditioning for ``model.forward``'s ``extra``: the
+    enc-dec family's ``source_embeds``, the VLM's ``image_embeds``."""
+    return {k: v for k, v in batch.items() if k in _EXTRA} or None
 
 
 def _cast(params, dtype):
@@ -64,8 +74,8 @@ def make_train_step(model: Model, optimizer: Optimizer, *, method: str = "quarte
     baseline = method in BASELINE_METHODS
 
     def loss_fn(cparams, batch, seed):
-        feats, _, aux = model.forward(cparams, batch["tokens"], seed, method=method,
-                                      features_only=True, return_aux=True)
+        feats, _, aux = model.forward(cparams, batch["tokens"], seed, extra=_extra(batch),
+                                      method=method, features_only=True, return_aux=True)
         loss, metrics = chunked_lm_loss(model.head, cparams, feats, batch["labels"], seed,
                                         batch.get("loss_mask"), z_loss, chunk=loss_chunk,
                                         method=method)
@@ -128,7 +138,7 @@ def make_eval_step(model: Model, *, method: str = "quartet") -> Callable:
     @torch.no_grad()
     def eval_step(params, batch):
         logits, _ = model.forward(_cast(params, compute_dtype), batch["tokens"], 0,
-                                  method=method)
+                                  extra=_extra(batch), method=method)
         _, metrics = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
         return metrics
 

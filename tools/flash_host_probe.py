@@ -14,6 +14,14 @@ bytes) and each one's max |Δ| from a float64 evaluation of the same
 attention.  The evaluations run on the CPU; JAX is imported only in the
 settings that ask for it.
 
+``--cuda-test N`` runs the ``cuda`` test that once failed,
+``tests/test_torch_kernels.py::test_kernels_match_plain_on_card``, N times,
+each in a fresh process as the ``cuda`` tests run (``JAX_PLATFORMS=cpu``,
+JAX imported by the test file, CUDA initialized, the default threads), with
+a recorder around ``flash_attention_plain``:
+every call's inputs and result are hashed, and the probe prints the
+passes and failures and, per input, the number of distinct results.
+
 ``--ops`` cuts the plain version down to one op at a time: each of its ops
 (:data:`OPS`: the scores' product, the mask, the row max, the exponentials,
 the row sum, the probabilities' product with V, the final division) on
@@ -117,6 +125,73 @@ def worker(threads: str, with_jax: bool, with_cuda: bool, reps: int, op: str = "
     print(json.dumps({"threads": torch.get_num_threads(), "results": seen}))
 
 
+def _digest(*ts) -> str:
+    """A hash of tensors' dtypes and values (bf16 widened to f32 exactly)."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(str(t.dtype).encode())
+        h.update(t.detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def recording(plain, seen: dict):
+    """``plain`` (``flash_attention_plain``) wrapped: each call's result
+    digest recorded in ``seen`` under its inputs' digest."""
+    def recorded(q, k, v, causal=True, **kw):
+        out = plain(q, k, v, causal, **kw)
+        seen[_digest(q, k, v) + repr((causal, sorted(kw.items())))] = _digest(out)
+        return out
+
+    return recorded
+
+
+def record_pytest(out_path: str) -> int:
+    """One run of the ``cuda`` test with ``flash_attention_plain`` wrapped:
+    {inputs' hash: result's hash} written to ``out_path`` as JSON."""
+    import pytest
+
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels import flash_attention as FA
+
+    seen = {}
+    FA.flash_attention_plain = recording(FA.flash_attention_plain, seen)
+    rc = pytest.main(["-q", "-p", "no:cacheprovider", "-m", "cuda",
+                      os.path.join(os.path.dirname(HERE), "tests", "test_torch_kernels.py")
+                      + "::test_kernels_match_plain_on_card"])
+    with open(out_path, "w") as f:
+        json.dump({"rc": int(rc), "results": seen}, f)
+    return 0
+
+
+def cuda_test_loop(n: int) -> int:
+    """``n`` fresh runs of :func:`record_pytest`; prints the passes and
+    failures and the inputs whose plain result was not always the same."""
+    import tempfile
+
+    # as the cuda tests run: the reference's JAX on the CPU
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": os.pathsep.join(filter(None, [SRC, os.environ.get("PYTHONPATH")]))}
+    rcs, by_input, first_failure = [], {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(n):
+            path = os.path.join(tmp, f"run{i}.json")
+            run = subprocess.run([sys.executable, __file__, "--record-pytest", path],
+                                 capture_output=True, text=True, timeout=900, env=env)
+            rec = json.load(open(path)) if os.path.exists(path) else {"rc": -1, "results": {}}
+            rcs.append(rec["rc"])
+            if rec["rc"] != 0 and first_failure is None:
+                first_failure = (run.stdout + run.stderr)[-3000:]
+            for key, res in rec["results"].items():
+                by_input.setdefault(key, set()).add(res)
+    print(json.dumps({"runs": n, "passed": rcs.count(0), "failed": n - rcs.count(0),
+                      "rcs": rcs, "plain_calls_recorded": len(by_input),
+                      "inputs_with_more_than_one_result":
+                          sum(len(v) > 1 for v in by_input.values())}), flush=True)
+    if first_failure:
+        print(f"first failing run's output:\n{first_failure}", flush=True)
+    return 0 if rcs.count(0) == n else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--procs", type=int, default=6)
@@ -124,7 +199,15 @@ def main() -> int:
     ap.add_argument("--ops", action="store_true",
                     help="each op of the plain version alone, in the setting that wanders")
     ap.add_argument("--worker", nargs=4, metavar=("THREADS", "JAX", "CUDA", "OP"))
+    ap.add_argument("--cuda-test", type=int, default=0, metavar="N",
+                    help="run the cuda test that once failed N times, recording B6's plain "
+                         "results")
+    ap.add_argument("--record-pytest", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.record_pytest:
+        return record_pytest(args.record_pytest)
+    if args.cuda_test:
+        return cuda_test_loop(args.cuda_test)
     if args.worker:
         worker(args.worker[0], args.worker[1] == "1", args.worker[2] == "1", args.reps,
                args.worker[3])
