@@ -194,6 +194,19 @@
    :func:`state_train_launches`, the median step, tokens/s, peak memory and
    one profiled step's device idle share; with ``times``, B1, B2 and B3
    over one falcon-mamba-7b in_proj's training launches (4 x 512 tokens).
+4j. The engine's telemetry (``--phases telemetry``): qwen3-1.7b at full
+   width and depth on the engine phase's 8 requests (paged backend, the
+   kernels), telemetry off (the hub's per-tick work stubbed out) and at its
+   defaults in turns for tok/s, then fully on (JSONL metrics, request
+   traces, Prometheus text, pool health every 4 ticks, the profiler and its
+   Chrome trace): tokens, pool bytes and launch counts equal to the off
+   run's, the metrics and trace files valid, ``prefill_calls`` and
+   ``decode_calls`` equal to the step calls, pool health on the card equal
+   to the same reduction over the pool copied to the host, the per-phase
+   utilization printed; then whisper-tiny (full depth; ``kv`` and
+   ``cross`` health) and falcon-mamba-7b (full width, 4 layers; ``state``
+   health) on the state pool, fully on against off in tokens, pool bytes
+   and launches, health card = host.
 5. Times each kernel (CUDA events, median, L2 flushed before each launch)
    beside its plain version and, where one PyTorch call computes the same
    function, that call, at serving, training and evaluation shapes; B1, B2,
@@ -213,7 +226,9 @@ when run outside a checkout of the repository.  ``--phases`` runs a subset
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -221,6 +236,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -378,6 +394,16 @@ STATE_TRAIN = {"whisper-tiny": (None, 1, False), "falcon-mamba-7b": (4, 1, False
                "zamba2-7b": (12, 1, False), "llama-3.2-vision-11b": (5, 1, True)}
 STATE_TRAIN_PATH = {"whisper-tiny": "whisper_train", "falcon-mamba-7b": "falcon_mamba_train",
                     "zamba2-7b": "zamba2_train", "llama-3.2-vision-11b": "vlm_train"}
+
+# the telemetry phase: pool health sampled every TEL_QUANT_STRIDE ticks, the
+# first TEL_HEALTH_CHECKS samples of each run checked card against host;
+# falcon-mamba-7b at full width, TEL_SSM_LAYERS of its 64 layers,
+# TEL_SSM_REQUESTS of the ssm phase's prompts, TEL_SSM_NEW new each
+TEL_QUANT_STRIDE, TEL_HEALTH_CHECKS = 4, 2
+# telemetry off and at its defaults timed in TEL_AB_ROUNDS rounds of (off,
+# defaults, defaults, off)
+TEL_AB_ROUNDS = 2
+TEL_SSM_LAYERS, TEL_SSM_REQUESTS, TEL_SSM_NEW = 4, 4, 16
 
 # the baselines phase: each baseline method on one full-width llama-paper-200m
 # linear of BASELINE_ROWS tokens (4 x 512), card against CPU; each training
@@ -1008,6 +1034,7 @@ def _count_step_calls(eng, attr: str = "_steps") -> dict:
     calls = {}
 
     def wrap(name, fn):
+        @functools.wraps(fn)  # keeps a Step's shape signatures readable
         def counted(*a, **k):
             calls[name] = calls.get(name, 0) + 1
             return fn(*a, **k)
@@ -1321,6 +1348,15 @@ def run_engine(torch, model, params, waves, *, spec=None, prefix=False, keep_log
             "draft_calls": draft_calls, "tok_per_s": toks / wall, "ticks": ticks}
 
 
+PREFIX_COUNTERS = ("prefix_lookups", "prefix_hit_requests", "prefix_shared_tokens",
+                   "prefix_inserted_pages", "prefix_evicted_pages", "prefix_cow_pages")
+
+
+def _engine_counts(eng, names) -> dict:
+    """The named counters of the engine's telemetry registry."""
+    return {n: eng.telemetry.registry.counter(n).value for n in names}
+
+
 def _first_divergence(a: list, b: list):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
@@ -1513,8 +1549,11 @@ def serve_features(torch, ops, device="cuda"):
             "prefix_inserted_pages": pages[0] + sum(n - PREFIX_TOKENS // PAGE_SIZE
                                                     for n in pages[1:]),
             "prefix_evicted_pages": 0, "prefix_cow_pages": 0, "spec_acceptance_rate": 0}
-    if warm["eng"].counters != want:
-        raise AssertionError(f"prefix counts {warm['eng'].counters} != predicted {want}")
+    prefix_counts = {**_engine_counts(warm["eng"], PREFIX_COUNTERS),
+                     "spec_acceptance_rate": warm["eng"].telemetry.registry.gauge(
+                         "spec_acceptance_rate").value}
+    if prefix_counts != want:
+        raise AssertionError(f"prefix counts {prefix_counts} != predicted {want}")
     # warm against cold: the same tokens (the CPU twin is token-exact on the
     # paged backend), and first-token log-probs predicted equal (each row's
     # arithmetic does not depend on the other rows of its call, and the
@@ -1523,7 +1562,7 @@ def serve_features(torch, ops, device="cuda"):
           for w, c in zip(warm["reqs"], cold["reqs"])]
     ttft = {tag: float(np.mean([run["ttft"][r.rid] for r in run["reqs"][1:]]))
             for tag, run in (("cold", cold), ("warm", warm))}
-    out["prefix"] = {"prompts": [int(p.size) for p in pprompts], "counts": warm["eng"].counters,
+    out["prefix"] = {"prompts": [int(p.size) for p in pprompts], "counts": prefix_counts,
                      "step_calls": {"cold": cold["calls"], "warm": warm["calls"]},
                      "ttft_mean_s_wave2": ttft, "tok_per_s": {"cold": cold["tok_per_s"],
                                                               "warm": warm["tok_per_s"]},
@@ -4658,12 +4697,13 @@ def serve_cross(torch, ops, arch, device="cuda"):
     if vlm and any(x != 0 for x in one_chunk):
         raise AssertionError(f"one-chunk VLM prompts' first-token log-probs differ from the "
                              f"teacher-forced forward's: max |Δ| {one_chunk}")
-    encodes = eng.counters["cross_encode_calls"]
+    encodes = eng.telemetry.registry.counter("cross_encode_calls").value
     warm, wwall, _, _ = _cross_wave(torch, eng, prompts, extras, CROSS_NEW)
-    if eng.counters["cross_encode_calls"] != encodes or \
+    if eng.telemetry.registry.counter("cross_encode_calls").value != encodes or \
             [r.tokens for r in warm] != [r.tokens for r in reqs]:
         raise AssertionError(f"{arch} second wave: encodes {encodes} -> "
-                             f"{eng.counters['cross_encode_calls']}, tokens equal "
+                             f"{eng.telemetry.registry.counter('cross_encode_calls').value}, "
+                             f"tokens equal "
                              f"{[r.tokens for r in warm] == [r.tokens for r in reqs]}")
     eng.cache.check_invariants()
     sp = eng.cache
@@ -4689,7 +4729,7 @@ def serve_cross(torch, ops, arch, device="cuda"):
                "decode_tick_ms_median": 1e3 * sorted(ticks["decode"])[len(ticks["decode"]) // 2],
                "step_calls": step_calls, "launches": counts, "predicted_launches": predicted,
                "warm_wave_wall_s": wwall, "cross_encode_calls": encodes,
-               "counters": dict(eng.counters),
+               "counters": _engine_counts(eng, PREFIX_COUNTERS + ("cross_encode_calls",)),
                "cross_bytes_per_request": cross_req,
                "cross_bytes_per_request_bf16": cross_req_dense,
                "cross_pages_per_request": cpp, "cross_plane_bytes": cross.cache_bytes(),
@@ -5147,14 +5187,328 @@ def train_state_full_width(torch, ops, arch, device="cuda"):
     return summary, counts, vec
 
 
+# ---------------------------------------------------------------------------
+# the telemetry phase: the engine's telemetry at full width
+# ---------------------------------------------------------------------------
+
+
+def _telemetry_off(eng) -> None:
+    """Telemetry off as far as the engine allows: the hub's per-tick work
+    (``end_tick``: gauges, histograms, the EWMA, sampling, sinks) and its
+    phase sections, and the tracer's events, replaced by no-ops on this
+    engine; the counters' increments and the steps' shape signatures stay."""
+    tel = eng.telemetry
+    tel.end_tick = tel.phase = tel.tracer.event = tel.tracer.tokens = lambda *a: None
+
+
+def _time_end_tick(eng) -> list:
+    """Host seconds of each ``end_tick`` of ``eng`` (the hub's per-tick
+    work at its defaults), appended to the returned list."""
+    spent, inner = [], eng.telemetry.end_tick
+
+    def timed(*a):
+        s0 = time.perf_counter()
+        inner(*a)
+        spent.append(time.perf_counter() - s0)
+
+    eng.telemetry.end_tick = timed
+    return spent
+
+
+def _full_telemetry(root: str, tag: str):
+    """Telemetry fully on: every sink, pool health every TEL_QUANT_STRIDE
+    ticks, the profiler and its trace file, under ``root``."""
+    from repro_torch.serve import TelemetryConfig
+
+    return TelemetryConfig(
+        metrics_path=os.path.join(root, f"{tag}.metrics.jsonl"),
+        trace_path=os.path.join(root, f"{tag}.requests.jsonl"),
+        prometheus_path=os.path.join(root, f"{tag}.prom"),
+        quant_stride=TEL_QUANT_STRIDE, emit_every_ticks=TEL_QUANT_STRIDE,
+        profile_trace_path=os.path.join(root, f"{tag}.trace.json"))
+
+
+def _host_state_pool(sp):
+    """A view of a StatePool with every plane's tensors copied to the host
+    (the allocator's arrays and the ring cursor shared)."""
+    def host(plane):
+        if plane is None:
+            return None
+        view = copy.copy(plane)
+        view.pool = {k: v.cpu() for k, v in plane.pool.items()}
+        return view
+
+    view = copy.copy(sp)
+    view.kv, view.cross = host(sp.kv), host(sp.cross)
+    view.rings = tuple(host(r) for r in sp.rings)
+    return view
+
+
+def _health_card_vs_cpu(eng) -> dict:
+    """The pool-health reduction on the card equals the same reduction over
+    the pool copied to the host, exactly, and the telemetry's gauges of this
+    tick's sample equal the card's numbers.  Returns the card's sample."""
+    from repro_torch.serve.telemetry.quant_health import (pool_health, sample_pool_health,
+                                                          sample_state_health)
+
+    if eng.backend == "paged":
+        card = sample_pool_health(eng.cache)
+        cpu = pool_health({k: v.cpu() for k, v in eng.cache.pool.items()},
+                          eng.cache.page_mask())
+        kv = card
+    else:
+        card = sample_state_health(eng.cache)
+        cpu = sample_state_health(_host_state_pool(eng.cache))
+        kv = card.get("kv")
+    if card != cpu:
+        raise AssertionError(f"pool health on the card {card} != on the host {cpu}")
+    g = eng.telemetry.registry.gauge
+    want = {}
+    if kv is not None:
+        want.update(kv_clip_fraction_k=kv["k"]["clip_frac"], kv_zero_fraction_v=kv["v"]["zero_frac"])
+    if "cross" in card:
+        want["cross_clip_fraction_v"] = card["cross"]["v"]["clip_frac"]
+    if "state" in card:
+        want["state_clip_fraction"] = card["state"]["clip_frac"]
+    got = {k: g(k).value for k in want}
+    if got != want:
+        raise AssertionError(f"telemetry gauges {got} != the card's sample {want}")
+    return card
+
+
+def _telemetry_run(torch, ops, eng, prompts, max_new, extras=None, health=0):
+    """Every request at t = 0 on ``eng`` (the wall clock as its clock), to
+    the end; with ``health`` > 0 the first ``health`` ticks that sampled the
+    pool are checked card against host.  Returns (tokens by request, wall
+    s, launch counts, pool health samples checked, median decode tick s
+    (a tick with nothing queued or prefilling; each ends in a host read))."""
+    extras = extras or [None] * len(prompts)
+    samples, decode_ticks = [], []
+    gc.collect()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new, extra=x, arrival_time=0.0) for p, x in zip(prompts, extras)]
+    seen = 0
+    while eng.sched.pending:
+        decode = not (eng.sched.queue or eng.sched.prefilling())
+        s0 = time.perf_counter()
+        eng.step(now=s0 - t0)
+        if decode:
+            decode_ticks.append(time.perf_counter() - s0)
+        n = eng.telemetry.registry.counter("quant_health_samples").value
+        if n > seen:
+            seen = n
+            if len(samples) < health:
+                samples.append(_health_card_vs_cpu(eng))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for r in reqs:
+        if len(r.tokens) != max_new:
+            raise AssertionError(f"request {r.rid} finished with {len(r.tokens)} tokens")
+    return [r.tokens for r in reqs], wall, counts, samples, statistics.median(decode_ticks)
+
+
+def _same_pool(torch, a, b) -> bool:
+    pa = a.cache.pool if a.backend == "paged" else a.cache.pools()
+    pb = b.cache.pool if b.backend == "paged" else b.cache.pools()
+
+    def leaves(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from leaves(t[k])
+        elif isinstance(t, (tuple, list)):
+            for v in t:
+                yield from leaves(v)
+        elif t is not None:
+            yield t
+
+    return all(torch.equal(x, y) for x, y in zip(leaves(pa), leaves(pb), strict=True))
+
+
+def _health_summary(samples) -> list:
+    """The fractions of each checked sample (the histograms left out)."""
+    def strip(h):
+        return {k: strip(v) if isinstance(v, dict) else v for k, v in h.items()
+                if k != "scale_hist"}
+    return [strip(h) for h in samples]
+
+
+def serve_telemetry(torch, ops, device="cuda"):
+    """The engine's telemetry on the card.  qwen3-1.7b at full width and
+    depth on the engine phase's 8 requests (paged backend, the kernels):
+    telemetry off (the hub's per-tick work stubbed, ``_telemetry_off``)
+    and at its defaults in turns (off, defaults, defaults, off) for tok/s,
+    then fully on (JSONL metrics, request traces, Prometheus text, pool
+    health every TEL_QUANT_STRIDE ticks, the profiler with its trace file):
+    tokens, pool bytes and launch counts equal to the off run's, the files
+    valid, ``prefill_calls``/``decode_calls`` equal to the step calls, the
+    first TEL_HEALTH_CHECKS health samples equal on the card and on the
+    host.  Then whisper-tiny (full depth, ``kv`` and ``cross`` health) and
+    falcon-mamba-7b (full width, TEL_SSM_LAYERS layers, ``state`` health)
+    on the state pool, off against fully on.  Returns (summary, launch
+    counts of the fully-on qwen3-1.7b run)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import init_params
+    from repro_torch.launch.serve_engine import kernel_config, make_extra
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, EngineConfig
+    from repro_torch.serve.telemetry.profiling import validate_trace_file
+    from repro_torch.serve.telemetry.schema import validate_metrics_file
+
+    out = {"device": nvidia_smi_line()}
+    root = tempfile.mkdtemp(prefix="telemetry-")
+    cfg = kernel_config(get_config("qwen3-1.7b"))
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    model = build_model(cfg)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(MIN_PROMPT, MAX_PROMPT + 1)))
+               .astype(np.int32) for _ in range(N_REQUESTS)]
+
+    def engine(tel=None):
+        return Engine(model, params, EngineConfig(
+            n_slots=N_SLOTS, max_len=MAX_LEN, page_size=PAGE_SIZE, kv_dtype="mxfp4",
+            prefill_chunk=PREFILL_CHUNK, telemetry=tel))
+
+    _telemetry_run(torch, ops, engine(), prompts, MAX_NEW)  # warm-up
+    toks = N_REQUESTS * MAX_NEW
+    rates = {"off": [], "defaults": []}
+    ticks = {"off": [], "defaults": []}
+    end_tick = []
+    runs = {}
+    for mode in ("off", "defaults", "defaults", "off") * TEL_AB_ROUNDS:
+        eng = engine()
+        if mode == "off":
+            _telemetry_off(eng)
+        else:
+            end_tick.append(_time_end_tick(eng))
+        tokens, wall, counts, _, tick = _telemetry_run(torch, ops, eng, prompts, MAX_NEW)
+        rates[mode].append(toks / wall)
+        ticks[mode].append(tick)
+        runs.setdefault(mode, (eng, tokens, counts))
+        if (tokens, counts) != runs[mode][1:]:
+            raise AssertionError(f"telemetry {mode}: tokens or launches differ between runs")
+        del eng
+    off_eng, off_tokens, off_counts = runs["off"]
+    if runs["defaults"][1] != off_tokens or runs["defaults"][2] != off_counts:
+        raise AssertionError("telemetry at its defaults changed the tokens or the launches")
+
+    def spread(xs):
+        return (max(xs) - min(xs)) / statistics.mean(xs)
+
+    out["tok_per_s"] = {
+        "order": f"(off, defaults, defaults, off) x {TEL_AB_ROUNDS}",
+        "off": rates["off"], "defaults": rates["defaults"],
+        "gap_defaults_vs_off": statistics.mean(rates["defaults"]) / statistics.mean(rates["off"])
+        - 1, "spread_off": spread(rates["off"]), "spread_defaults": spread(rates["defaults"]),
+        "decode_tick_median_s": ticks,
+        "tick_gap_defaults_vs_off": statistics.median(ticks["defaults"])
+        / statistics.median(ticks["off"]) - 1,
+        "end_tick_median_ms": [1e3 * statistics.median(x) for x in end_tick],
+        "end_tick_share_of_decode_tick": statistics.median(x for e in end_tick for x in e)
+        / statistics.median(ticks["defaults"])}
+    log(f"  qwen3-1.7b tok/s, telemetry off vs defaults in turns: {json.dumps(out['tok_per_s'])}"
+        f" | {out['device']}")
+
+    eng = engine(_full_telemetry(root, "qwen3"))
+    calls = _count_step_calls(eng)
+    tokens, wall, counts, samples, _ = _telemetry_run(torch, ops, eng, prompts, MAX_NEW,
+                                                      health=TEL_HEALTH_CHECKS)
+    if tokens != off_tokens or counts != off_counts or not _same_pool(torch, eng, off_eng):
+        raise AssertionError(f"telemetry fully on changed the tokens, the pool or the launches "
+                             f"({counts} vs {off_counts})")
+    snap = eng.telemetry.finalize()
+    c = snap["counters"]
+    if (c["prefill_calls"], c["decode_calls"]) != (calls["prefill_all"], calls["decode_all"]):
+        raise AssertionError(f"prefill/decode calls {c['prefill_calls']}/{c['decode_calls']} != "
+                             f"step calls {calls}")
+    if len(samples) < TEL_HEALTH_CHECKS:
+        raise AssertionError(f"only {len(samples)} pool-health samples checked")
+    n_lines = validate_metrics_file(eng.telemetry.cfg.metrics_path)
+    trace = validate_trace_file(eng.telemetry.cfg.profile_trace_path)
+    util = eng.telemetry.profiler.utilization_summary()
+    out["qwen3"] = {
+        "fully_on_tok_per_s": toks / wall, "step_calls": calls, "launches": counts,
+        "metrics_lines": n_lines, "trace_events": len(trace["traceEvents"]),
+        "health_checked": _health_summary(samples),
+        "compile_counts": eng.compile_counts(),
+        "costs": eng.telemetry.profiler.phase_costs(), "utilization": util,
+        "tick_p50_s": {k: snap["histograms"][f"{k}_tick_s"].get("p50")
+                       for k in ("prefill", "decode")}}
+    log(f"  qwen3-1.7b utilization (profiled ticks): {json.dumps(util)} | {out['device']}")
+    log(eng.telemetry.summary())
+    del eng, off_eng, runs, params
+    torch.cuda.empty_cache()
+
+    # the state pool: whisper-tiny (self- and cross-KV planes) and
+    # falcon-mamba-7b (state rings), off against fully on
+    for tag, arch, layers in (("whisper", WHISPER_ARCH, None),
+                              ("falcon_mamba", SSM_ARCH, TEL_SSM_LAYERS)):
+        scfg = kernel_config(get_config(arch))
+        if layers is not None:
+            scfg = dataclasses.replace(scfg, num_layers=layers)
+        sparams = init_params(scfg, torch.Generator(device=device).manual_seed(SEED), device)
+        smodel = build_model(scfg)
+        srng = np.random.default_rng(SEED)
+        if arch == WHISPER_ARCH:
+            sprompts = [srng.integers(0, scfg.vocab_size, n).astype(np.int32)
+                        for n in CROSS_PROMPTS]
+            extras = [make_extra(scfg, SEED + i, device) for i in range(len(sprompts))]
+            chunk, new = CROSS_CHUNK, CROSS_NEW
+        else:
+            sprompts = [srng.integers(0, scfg.vocab_size,
+                                      int(srng.integers(SSM_MIN_PROMPT, SSM_MAX_PROMPT + 1)))
+                        .astype(np.int32) for _ in range(TEL_SSM_REQUESTS)]
+            extras, chunk, new = None, SSM_CHUNK, TEL_SSM_NEW
+        max_len = -(-(max(p.size for p in sprompts) + new) // PAGE_SIZE) * PAGE_SIZE
+
+        def sengine(tel=None):
+            return Engine(smodel, sparams, EngineConfig(
+                n_slots=N_SLOTS, max_len=max_len, page_size=PAGE_SIZE, kv_dtype="mxfp4",
+                prefill_chunk=chunk, telemetry=tel))
+
+        a = sengine()
+        _telemetry_off(a)
+        a_tokens, a_wall, a_counts, _, _ = _telemetry_run(torch, ops, a, sprompts, new, extras)
+        b = sengine(_full_telemetry(root, tag))
+        b_tokens, b_wall, b_counts, samples, _ = _telemetry_run(
+            torch, ops, b, sprompts, new, extras, health=TEL_HEALTH_CHECKS)
+        if b_tokens != a_tokens or b_counts != a_counts or not _same_pool(torch, a, b):
+            raise AssertionError(f"{arch}: telemetry fully on changed the tokens, the pool or "
+                                 f"the launches ({b_counts} vs {a_counts})")
+        want = {"kv", "cross"} if arch == WHISPER_ARCH else {"state"}
+        if not samples or any(set(h) != want for h in samples):
+            raise AssertionError(f"{arch}: health samples {[sorted(h) for h in samples]} "
+                                 f"!= {sorted(want)}")
+        snap = b.telemetry.finalize()
+        validate_metrics_file(b.telemetry.cfg.metrics_path)
+        validate_trace_file(b.telemetry.cfg.profile_trace_path)
+        out[tag] = {"arch": arch, "layers": scfg.num_layers, "requests": len(sprompts),
+                    "tok_per_s_off": len(sprompts) * new / a_wall,
+                    "tok_per_s_fully_on": len(sprompts) * new / b_wall,
+                    "launches": b_counts, "health_checked": _health_summary(samples),
+                    "gauges": {k: v for k, v in snap["gauges"].items()
+                               if k.startswith(("kv_", "cross_", "state_")) and v},
+                    "utilization": b.telemetry.profiler.utilization_summary()}
+        log(f"  {arch}: on = off in tokens, pool and launches; health card = host "
+            f"({len(samples)} samples) | {json.dumps(out[tag]['gauges'])}")
+        del a, b, sparams
+        torch.cuda.empty_cache()
+    return out, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernels,engine,features,moe,train,moe-train,variants,baselines,"
-                            "dense-configs,ssm,hybrid,cross,state-train,times",
+                            "dense-configs,ssm,hybrid,cross,state-train,telemetry,times",
                     help="comma-separated subset of kernels,engine,features,moe,train,"
                          "moe-train,variants,baselines,dense-configs,ssm,hybrid,cross,"
-                         "state-train,times")
+                         "state-train,telemetry,times")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -5443,6 +5797,15 @@ def main() -> int:
         if bad:
             raise AssertionError(f"reduced training card vs CPU out of tolerance: {bad}")
         log(f"[state-train] done in {time.perf_counter() - t0:.1f} s")
+    if "telemetry" in phases:
+        t0 = time.perf_counter()
+        summary, tcounts = serve_telemetry(torch, ops)
+        missing = [k for k in ("hadamard_quest_quantize", "mxfp4_matmul", "paged_attention",
+                               "kv_quant_pack") if tcounts[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the telemetry path: {missing}")
+        log(f"[telemetry] {json.dumps(summary)}")
+        log(f"[telemetry] done in {time.perf_counter() - t0:.1f} s")
     if vectors:
         # every B1 call on the main paths, and every B2 call on the training
         # paths, reads and writes through the vector body (a thread per group,

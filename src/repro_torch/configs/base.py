@@ -114,6 +114,19 @@ class ModelConfig:
             total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return total
 
+    def n_active_params(self) -> int:
+        """Parameters a token uses, the reference's formula: a MoE model's
+        top-k experts only."""
+        if self.family != "moe":
+            return self.n_params()
+        d, f, hd = self.d_model, self.d_ff, self.head_dim_
+        attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
+        ffn = (3 if self.mlp == "swiglu" else 2) * d * f
+        act = attn + self.experts_per_token * ffn + d * self.num_experts
+        if self.moe_dense_residual:
+            act += ffn
+        return self.num_layers * act
+
 
 def _mamba_params(cfg: ModelConfig) -> int:
     """One Mamba block's weights: in/x/dt/out projections, the conv and A."""

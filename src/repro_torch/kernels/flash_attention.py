@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._work import counted, nbytes
 
 NEG_INF = -1e30
 BLOCK = 64  # the kernel's query and key block
@@ -130,6 +131,19 @@ def _device(q: torch.Tensor) -> bool:
     return True
 
 
+def _cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+          q_heads: int = 1, kv_heads: int = 1):
+    """q, k, v read and the output written once; 4·S·T·hd operations a
+    (batch, query head), half of them when causal, as ``chip_smoke.py``'s
+    times phase counts them.  [B·Hq, S, hd] or [B, S, Hq, hd] alike."""
+    S, hd = (q.shape[1], q.shape[2]) if q.dim() == 3 else (q.shape[1], q.shape[3])
+    T = k.shape[1]
+    bh = q.numel() // (S * hd)
+    return (4 * bh * S * T * hd * (0.5 if causal else 1.0),
+            2 * nbytes(q) + nbytes(k) + nbytes(v))
+
+
+@counted(_cost)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
                     q_heads: int = 1, kv_heads: int = 1) -> torch.Tensor:
     """q [B·Hq, S, hd], k/v [B·Hkv, T, hd] (any strides with a contiguous
@@ -154,6 +168,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
 flash_attention.launches = 0
 
 
+@counted(_cost)
 def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True) -> torch.Tensor:
     """[B, S, Hq, hd] × [B, T, Hkv, hd] (GQA) → [B, S, Hq, hd] in q's dtype."""

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.core import formats as F
 from repro_torch.kernels import _build
+from repro_torch.kernels._work import counted, nbytes
 
 GROUP = 32
 _E2M1_MAX = 6.0
@@ -128,6 +129,13 @@ def _experts_entry():
     return fn
 
 
+def _cost(x: torch.Tensor):
+    """x read; a code byte and a mask byte an element and an f32 scale a
+    group of 32 written."""
+    return 0, nbytes(x) + x.numel() * 2 + x.numel() // 32 * 4
+
+
+@counted(_cost)
 def hadamard_quest_quantize(x: torch.Tensor):
     """x [M, K] (any strides; f32 or bf16) → (codes int8 [M, K], scales f32
     [M, K/32], mask bool [M, K]).  CPU tensors take the plain version; CUDA
@@ -169,6 +177,7 @@ def hadamard_quest_quantize_experts_plain(x: torch.Tensor):
     return codes.reshape(e, m, k), scales.reshape(e, m, -1), mask.reshape(e, m, k)
 
 
+@counted(_cost)
 def hadamard_quest_quantize_experts(x: torch.Tensor):
     """x [E, M, K] (any strides: the transposed view of stacked weights
     [E, K, N] is read in place) → (codes int8 [E, M, K], scales f32

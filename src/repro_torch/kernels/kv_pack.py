@@ -35,8 +35,13 @@ import torch
 from repro_torch.core import formats as F
 from repro_torch.core import quantizers as Q
 from repro_torch.kernels import _build
+from repro_torch.kernels._work import counted, nbytes
 
 GROUP = 32
+# magnitude index of ±6.0: a quantized element on this code was at (or
+# clipped to) the top of the E2M1 grid; the share of such codes in a pool is
+# the clip-rate gauge of ``serve.telemetry.quant_health``
+E2M1_SAT_IDX = 7
 # head-wide blocks (one scale a row of K values, 32 not dividing K) the
 # kernels are built for: zamba2-7b's attention head (kHeadBlock in
 # csrc/kv_pack.cu)
@@ -188,6 +193,32 @@ def _launch_quant(name, sources, lead, page_ids, offsets, n_pages, ps):
     kv_quant_pack.launches += 1
 
 
+def _quant_cost(x: torch.Tensor, block: int = GROUP):
+    """x read; half a code byte an element and a scale byte a block written."""
+    return 0, nbytes(x) + x.numel() // 2 + x.numel() // block
+
+
+def _scatter_cost(leaves, page_ids: torch.Tensor) -> tuple[int, int]:
+    """Each (codes, scales, x) source read and its codes and scale codes
+    written, 8 bytes of page id and offset a token."""
+    return 0, 8 * page_ids.numel() + sum(
+        _quant_cost(x, 2 * codes.shape[-1] // scales.shape[-1])[1] for codes, scales, x in leaves)
+
+
+def _gather_cost(leaves, tables: torch.Tensor, dtype: torch.dtype) -> tuple[int, int]:
+    """Each (codes, scales) leaf's pages that ``tables`` names read once
+    (per layer) and the dense values written in ``dtype``; the tables read."""
+    B, P = tables.shape
+    out = 0
+    for codes, scales in leaves:
+        L, _, ps, H, kh = codes.shape
+        rows = L * B * P * ps * H
+        out += rows * (kh + scales.shape[-1]) + rows * 2 * kh * torch.empty(
+            (), dtype=dtype).element_size()
+    return 0, out + 4 * tables.numel()
+
+
+@counted(_quant_cost)
 def kv_quant_pack(x: torch.Tensor, block: int = GROUP):
     """x [M, K] (f32 or bf16) → (codes u8 [M, K/2], scales u8 [M, K/block]).
     CPU tensors take the plain version; CUDA tensors launch the kernel
@@ -233,6 +264,8 @@ def _scatter(name: str, leaves, page_ids: torch.Tensor, offsets: torch.Tensor) -
                   n_pages, ps)
 
 
+@counted(lambda pool_codes, pool_scales, page_ids, offsets, x:
+         _scatter_cost([(pool_codes, pool_scales, x)], page_ids))
 def kv_quant_scatter(pool_codes: torch.Tensor, pool_scales: torch.Tensor,
                      page_ids: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -> None:
     """Quantize ``x`` and write each row in place at (page_ids[n],
@@ -250,6 +283,8 @@ def kv_quant_scatter(pool_codes: torch.Tensor, pool_scales: torch.Tensor,
     _scatter("kv_quant_scatter", [(pool_codes, pool_scales, x)], page_ids, offsets)
 
 
+@counted(lambda k_codes, k_scales, v_codes, v_scales, page_ids, offsets, k, v:
+         _scatter_cost([(k_codes, k_scales, k), (v_codes, v_scales, v)], page_ids))
 def kv_quant_scatter_kv(k_codes: torch.Tensor, k_scales: torch.Tensor, v_codes: torch.Tensor,
                         v_scales: torch.Tensor, page_ids: torch.Tensor, offsets: torch.Tensor,
                         k: torch.Tensor, v: torch.Tensor) -> None:
@@ -315,6 +350,14 @@ def _launch_dequant(name, sources, tables, n_out_chunks, chunk, total, n_tbl, n_
     return outs
 
 
+def _dequant_cost(codes: torch.Tensor, scales: torch.Tensor, dtype: torch.dtype = torch.float32):
+    """Codes and scale codes read; two values a code byte written in
+    ``dtype``."""
+    return 0, nbytes(codes) + nbytes(scales) + codes.numel() * 2 * torch.empty(
+        (), dtype=dtype).element_size()
+
+
+@counted(_dequant_cost)
 def kv_dequant_unpack(codes: torch.Tensor, scales: torch.Tensor,
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(codes u8 [M, K/2], scales u8 [M, K/32], or [M, 1] for a head-wide
@@ -353,6 +396,7 @@ def _gather(name: str, leaves, tables: torch.Tensor, dtype: torch.dtype):
                            n_pages, dtype, (L, B, P * ps, H, 2 * kh))
 
 
+@counted(lambda codes, scales, tables, dtype: _gather_cost([(codes, scales)], tables, dtype))
 def kv_gather_dequant(codes: torch.Tensor, scales: torch.Tensor, tables: torch.Tensor,
                       dtype: torch.dtype) -> torch.Tensor:
     """Pool leaves [L, n_pages, ps, H, K/2] and [L, n_pages, ps, H,
@@ -365,6 +409,8 @@ def kv_gather_dequant(codes: torch.Tensor, scales: torch.Tensor, tables: torch.T
     return _gather("kv_gather_dequant", [(codes, scales)], tables, dtype)[0]
 
 
+@counted(lambda k_codes, k_scales, v_codes, v_scales, tables, dtype:
+         _gather_cost([(k_codes, k_scales), (v_codes, v_scales)], tables, dtype))
 def kv_gather_dequant_kv(k_codes: torch.Tensor, k_scales: torch.Tensor, v_codes: torch.Tensor,
                          v_scales: torch.Tensor, tables: torch.Tensor, dtype: torch.dtype):
     """(:func:`kv_gather_dequant` of the K leaves, of the V leaves), both

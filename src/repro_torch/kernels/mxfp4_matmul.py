@@ -18,6 +18,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._work import counted, nbytes
 
 GROUP = 32
 
@@ -86,6 +87,17 @@ def _entry():
     return fn
 
 
+def _cost(a_codes, a_scales, b_codes, b_scales):
+    """2·M·N·K operations (an expert axis multiplies them); every operand
+    read and the f32 product written."""
+    *lead, m, k = a_codes.shape
+    n = b_codes.shape[-1]
+    e = a_codes.numel() // (m * k) if m * k else 0
+    return (2 * e * m * n * k,
+            sum(nbytes(t) for t in (a_codes, a_scales, b_codes, b_scales)) + e * m * n * 4)
+
+
+@counted(_cost)
 def mxfp4_matmul(a_codes, a_scales, b_codes, b_scales) -> torch.Tensor:
     """(A codes [M, K], scales [M, K/32]) × (B codes [K, N], scales
     [K/32, N]) → f32 [M, N].  On the card B must be K-major (the transposed
@@ -128,6 +140,7 @@ def mxfp4_matmul(a_codes, a_scales, b_codes, b_scales) -> torch.Tensor:
 mxfp4_matmul.launches = 0
 
 
+@counted(_cost)
 def mxfp4_matmul_experts(a_codes, a_scales, b_codes, b_scales) -> torch.Tensor:
     """(A codes [E, M, K], scales [E, M, K/32]) × (B codes [E, K, N], scales
     [E, K/32, N]) → f32 [E, M, N] in one launch, counted in

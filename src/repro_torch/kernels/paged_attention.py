@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._work import counted, nbytes
 from repro_torch.kernels.kv_pack import kv_quant_scatter_kv, unpack_dequant
 
 GROUP = 32
@@ -215,6 +216,26 @@ def _entry():
     return fn
 
 
+def _cost(q: torch.Tensor, pool: dict, tables: torch.Tensor, lengths: torch.Tensor):
+    """This call's data, as ``chip_smoke.attention_bytes_ops`` counts it:
+    q read and the output written once; a slot's lengths[b] + S − 1 visible
+    positions of K and V read once, with their table entries; 4·Hq·hd
+    operations a visible (row, position) pair.  Reads ``lengths`` (a host
+    sync: counting is for the first call of a step's shape only)."""
+    B, S, Hq, hd = q.shape if q.dim() == 4 else (q.shape[0], 1, *q.shape[1:])
+    packed = "k_codes" in pool
+    leaves = ([pool["k_codes"], pool["k_scales"]] if packed else [pool["k"]])
+    ps, Hkv = leaves[0].shape[1:3]
+    kv_tok = sum(t[0, 0].numel() * t.element_size() for t in leaves)  # one position, K
+    ops, total = 0, 2 * nbytes(q)
+    for n in lengths.tolist():
+        seen = max(n + S - 1, 0)
+        total += 2 * kv_tok * seen + 4 * -(-seen // ps)
+        ops += sum(4 * Hq * hd * (n + s) for s in range(S) if n + s > 0)
+    return ops, total
+
+
+@counted(_cost)
 def paged_attention(q: torch.Tensor, pool: dict, tables: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
     """Decode / multi-query attention over one layer's pool slice.

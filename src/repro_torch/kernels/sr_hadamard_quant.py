@@ -36,6 +36,7 @@ import torch
 from repro_torch.core import fastrng
 from repro_torch.core import formats as F
 from repro_torch.kernels import _build
+from repro_torch.kernels._work import counted, nbytes
 from repro_torch.kernels.hadamard_quant import (_H_SCALE, _butterfly32, _device, vector_ok,
                                                 vector_ok_experts)
 
@@ -108,6 +109,13 @@ def _entry():
     return fn
 
 
+def _cost(x: torch.Tensor, *args, **kwargs):
+    """x read; a code byte an element and an f32 scale a group of 32
+    written."""
+    return 0, nbytes(x) + x.numel() + x.numel() // 32 * 4
+
+
+@counted(_cost)
 def sr_hadamard_quantize(x: torch.Tensor, signs: torch.Tensor, seed: int,
                          prescale: float = 0.75, salt: int = 0):
     """x [M, K] (any strides; f32 or bf16), signs [K] → (codes int8 [M, K],
@@ -164,6 +172,7 @@ def _seeds_u32(seeds: torch.Tensor, device) -> torch.Tensor:
     return torch.where(s >= 2**31, s - 2**32, s).to(torch.int32).contiguous()
 
 
+@counted(_cost)
 def sr_hadamard_quantize_experts(x: torch.Tensor, signs: torch.Tensor, seeds: torch.Tensor,
                                  prescale: float = 0.75, salt: int = 0):
     """x [E, M, K] (any strides: the backward's transposed views are read in

@@ -29,6 +29,14 @@ reports tokens per verify call and draft acceptance;
 ``--temperature/--top-k/--top-p/--sample-seed`` turn on per-request
 sampling; ``--prefix-cache`` shares the pages of cached prompt prefixes
 (``--debug-cache`` audits the allocator after every mutation).
+
+Observability (``serve.telemetry``): ``--metrics-out m.jsonl`` streams
+registry snapshots as JSON lines, ``--trace-out t.jsonl`` writes one line
+per retired request (spans, derived TTFT/TPOT), ``--quant-stride N``
+samples the MXFP4 pool's clip, zero and scale health every N ticks,
+``--profile-out trace.json`` profiles the run (per-phase utilization and
+bandwidth gauges and a Chrome trace-event file), and the run ends with the
+telemetry summary table.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.convert import init_params
 from repro_torch.core.quartet import check_kernel_config
 from repro_torch.models import build_model
-from repro_torch.serve import Engine, EngineConfig, SamplingParams, SpecConfig
+from repro_torch.serve import Engine, EngineConfig, SamplingParams, SpecConfig, TelemetryConfig
 from repro_torch.serve.spec import aggregate_stats
 
 STATE = ("statepool", "dense_slots")
@@ -146,6 +154,17 @@ def main():
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--sample-seed", type=int, default=0)
+    # observability (repro_torch.serve.telemetry)
+    ap.add_argument("--metrics-out", default=None,
+                    help="stream registry snapshots as JSON lines here")
+    ap.add_argument("--trace-out", default=None,
+                    help="write per-request span traces as JSON lines here")
+    ap.add_argument("--quant-stride", type=int, default=0,
+                    help="sample the MXFP4 pool's clip/zero/scale health every N ticks (0 = off)")
+    ap.add_argument("--profile-out", default=None,
+                    help="profile the run: per-phase roofline/bandwidth gauges and a Chrome "
+                         "trace-event JSON (tick phases, request lifecycles, new step shapes) "
+                         "written here")
     args = ap.parse_args()
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -173,20 +192,24 @@ def main():
         n_slots=args.slots, max_len=args.max_len, page_size=args.page_size,
         kv_dtype=args.kv, prefill_chunk=args.prefill_chunk, method=args.method,
         decode_backend=args.decode_backend, prefix_cache=args.prefix_cache,
-        debug_cache=args.debug_cache, spec=spec))
+        debug_cache=args.debug_cache, spec=spec,
+        telemetry=TelemetryConfig(metrics_path=args.metrics_out, trace_path=args.trace_out,
+                                  quant_stride=args.quant_stride,
+                                  profile_trace_path=args.profile_out)))
     done, elapsed = run_workload(engine, workload, extra=make_extra(cfg, args.seed, args.device),
                                  sampling=sampling)
 
     total_tokens = sum(len(r.tokens) for r in done)
-    ttfts = [r.ttft() for r in done]
+    engine.telemetry.finalize()
     where = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
     print(f"\n{cfg.name} [{cfg.family}] kv={args.kv} decode={engine.decode_backend} "
           f"slots={args.slots} on {where}"
           + (f" spec={args.spec}(k={args.spec_k})" if spec else ""))
     print(f"  {len(done)} requests, {total_tokens} tokens in {elapsed:.2f}s wall "
-          f"→ {total_tokens / elapsed:.1f} tok/s, mean TTFT {np.mean(ttfts):.3f}s "
-          f"(virtual clock), {'state' if engine.decode_backend in STATE else 'KV pool'} "
+          f"→ {total_tokens / elapsed:.1f} tok/s, "
+          f"{'state' if engine.decode_backend in STATE else 'KV pool'} "
           f"{engine.cache_bytes()} bytes")
+    print(engine.telemetry.summary())
     if engine.decode_backend == "statepool":
         planes = {}
         for kind, plane in engine.cache.planes():
@@ -197,8 +220,19 @@ def main():
         print(f"  spec: {agg['tokens_per_decode_call']} tok/verify-call, "
               f"acceptance {agg['acceptance_rate']} "
               f"({agg['drafts_accepted']}/{agg['drafts_proposed']} drafts)")
-    if args.prefix_cache or "cross_encode_calls" in engine.counters:
-        print(f"  counters: {engine.counters}")
+    if engine.prefix is not None or engine.cross_share or engine.decode_backend == "statepool":
+        c = engine.telemetry.registry.counter
+        print("  prefix/encode: " + ", ".join(
+            f"{name} {c(name).value}" for name in (
+                "prefix_lookups", "prefix_hit_requests", "prefix_shared_tokens",
+                "prefix_inserted_pages", "prefix_evicted_pages", "prefix_cow_pages",
+                "cross_encode_calls")))
+    if engine.telemetry.profiler is not None:
+        print(f"  utilization: {engine.telemetry.profiler.utilization_summary()}")
+    for label, path in (("metrics", args.metrics_out), ("traces", args.trace_out),
+                        ("profile trace", args.profile_out)):
+        if path:
+            print(f"  {label} → {path}")
 
 
 if __name__ == "__main__":

@@ -61,10 +61,18 @@ conditioning is byte-identical alias one encoded set of cross pages
 (:class:`~repro_torch.serve.state_pool.CrossIndex`) and skip the encode;
 warm is token-exact against cold, both reading the same pages.
 
-The reference keeps its prefix, speculation and encode counts in a
-telemetry registry; until telemetry is ported the engine keeps the same
-names in the plain dict ``Engine.counters``.  Multi-device serving is not
-ported yet.
+**Telemetry** (``EngineConfig(telemetry=TelemetryConfig(...))``, see
+:mod:`repro_torch.serve.telemetry`): every engine carries an
+:class:`~repro_torch.serve.telemetry.EngineTelemetry` hub, as the
+reference's does.  Its registry holds the counters (requests, tokens, step
+calls, prefix and speculation counts), the scheduler and pool gauges and
+the latency histograms; its tracer derives TTFT, TPOT, queue wait and
+latency from each request's spans; each tick's prefill, decode and verify
+sections are timed on the host clock (``*_tick_s``), and the tick ends in
+``end_tick``.  Read a count as ``engine.telemetry.registry.counter(name)
+.value``.  The default configuration adds no device synchronisation to a
+tick; sinks, pool-health sampling and the profiler are opt-in.
+Multi-device serving is not ported yet.
 """
 
 from __future__ import annotations
@@ -84,13 +92,12 @@ from repro_torch.serve.spec.config import SpecConfig
 from repro_torch.serve.spec.proposers import build_proposer
 from repro_torch.serve.spec.verify import accept_tokens
 from repro_torch.serve.state_pool import StatePool, cross_key
-from repro_torch.serve.steps import build_paged_steps, build_state_steps, marshal_prefill_batch
+from repro_torch.serve.steps import (Step, build_paged_steps, build_state_steps,
+                                     marshal_prefill_batch, n_signatures)
+from repro_torch.serve.telemetry import EngineTelemetry, TelemetryConfig
 from repro_torch.train.serve import make_chunk_prefill_step, make_decode_step
 
 PAGED_FAMILIES = ("dense", "moe")
-COUNTERS = ("prefix_lookups", "prefix_hit_requests", "prefix_shared_tokens",
-            "prefix_inserted_pages", "prefix_evicted_pages", "prefix_cow_pages",
-            "spec_acceptance_rate")
 # the conditioning a state-pool cross family encodes at admission
 EMBED_KEY = {"encdec": "source_embeds", "vlm": "image_embeds"}
 
@@ -123,6 +130,11 @@ class EngineConfig:
     debug_cache: bool = False
     # speculative decoding; None → plain decode
     spec: SpecConfig | None = None
+    # observability (serve.telemetry).  None → metrics and tracing still
+    # collected in memory (host dicts, no sinks, no device sampling); a
+    # TelemetryConfig streams JSONL metrics and traces, writes Prometheus
+    # text, samples pool quantization health at a tick stride, or profiles
+    telemetry: TelemetryConfig | None = None
 
 
 class Engine:
@@ -153,17 +165,23 @@ class Engine:
         self.model, self.params = model, params
         self.spec = cfg.spec
         self.device = params["embed"]["table"].device
-        self.sched = Scheduler(cfg.n_slots, cfg.max_len, cfg.prefill_chunk)
+        self.telemetry = EngineTelemetry(cfg.telemetry)
+        self.sched = Scheduler(cfg.n_slots, cfg.max_len, cfg.prefill_chunk,
+                               tracer=self.telemetry.tracer)
         self.completed: list[Request] = []
         self.steps = 0
-        self.counters = dict.fromkeys(COUNTERS, 0)
         self.prefix = self.proposer = None
         self.cross_share = False  # cross-KV sharing (a statepool cross family's prefix cache)
         self._cross_keys: dict[int, str | None] = {}  # rid -> conditioning's content key
         self._cross_plan: dict[int, list[int]] = {}  # rid -> matched cross pages
-        if not self.paged:
+        if self.paged:
+            self._init_paged_backend(model, cfg)
+        else:
             self._init_state_backend(model, cfg)
-            return
+        self.telemetry.attach(self)
+
+    def _init_paged_backend(self, model: Model, cfg: EngineConfig) -> None:
+        """The paged pool, its steps, the prefix index and the proposer."""
         pages_per_slot, n_pages = P.reservation_sizing(
             cfg.n_slots, cfg.max_len, cfg.page_size, self.spec.k if self.spec else 0)
         if cfg.n_pages is not None:
@@ -196,14 +214,12 @@ class Engine:
                                    page_size=cfg.page_size, kv_dtype=cfg.kv_dtype,
                                    device=self.device, debug=cfg.debug_cache)
             self._state_steps = build_state_steps(model, method=cfg.method, pool=self.cache)
-            if self.cache.cross is not None:  # the encodes at admission are counted too
-                self.counters["cross_encode_calls"] = 0
             self.cross_share = cfg.prefix_cache and self.cache.cross is not None
             return
         self.cache = P.DenseSlotCache(model, n_slots=cfg.n_slots, max_len=cfg.max_len,
                                       device=self.device)
-        self._dense_decode = make_decode_step(model, method=cfg.method)
-        self._dense_chunk = make_chunk_prefill_step(model, method=cfg.method)
+        self._dense_decode = Step("decode_all", make_decode_step(model, method=cfg.method))
+        self._dense_chunk = Step("prefill_chunk", make_chunk_prefill_step(model, method=cfg.method))
 
     # ------------------------------------------------------------------ API
 
@@ -227,14 +243,20 @@ class Engine:
                                 sampling=sampling)
         if self.cross_share:
             self._cross_keys[req.rid] = key
+        self.telemetry.registry.counter("requests_submitted").inc()
         return req
 
     @torch.inference_mode()
     def step(self, now: float | None = None) -> dict:
         """One scheduler tick: admit → chunked prefill (batched on the paged
         backend, per slot on the gather backend) → batched decode (or draft,
-        verify and accept) → retire.  Returns counts for the caller's loop."""
+        verify and accept) → retire.  Returns counts for the caller's loop.
+        Each section is timed on the host clock for the telemetry; a section
+        ends at the host read of its logits where it has one (see
+        ``serve.telemetry``)."""
         now = time.monotonic() if now is None else now
+        reg = self.telemetry.registry
+        t_tick = time.perf_counter()
 
         def can_admit(req: Request) -> bool:
             total = req.prompt_len + req.max_new
@@ -256,23 +278,39 @@ class Engine:
             return ok
 
         admitted = self.sched.admit(can_admit, on_admit=lambda req: self._on_admit(req, now))
-        if self.proposer is not None:
-            for req in admitted:
+        for req in admitted:
+            if self.proposer is not None:
                 self.proposer.on_admit(req)
+            self.telemetry.tracer.event(req.rid, "admit", now)
+        reg.counter("requests_admitted").inc(len(admitted))
+        if self.sched.queue and self.sched.free_slots:
+            # a slot is free but the FIFO head did not fit: page pressure
+            reg.counter("admission_blocked_pages").inc()
+
+        t0 = time.perf_counter()
+        did_prefill = False
         if self._steps is not None and self._steps.prefill_all is not None:
             batch = self.sched.prefill_batch()
             if batch:
                 self._prefill_tick(batch, now)
+                did_prefill = True
         else:
             for req in self.sched.prefilling():
                 self._advance_prefill(req, now)
+                did_prefill = True
+        if did_prefill:
+            self.telemetry.phase("prefill", now, t_tick, t0, time.perf_counter())
         decoding = self.sched.decoding()
         if decoding:
+            t0 = time.perf_counter()
             if self.spec is not None:
                 self._spec_tick(decoding, now)
+                self.telemetry.phase("verify", now, t_tick, t0, time.perf_counter())
             else:
                 self._decode_tick(decoding, now)
+                self.telemetry.phase("decode", now, t_tick, t0, time.perf_counter())
         self.steps += 1
+        self.telemetry.end_tick(self, now, time.perf_counter() - t_tick)
         return {"admitted": len(admitted), "prefilling": len(self.sched.prefilling()),
                 "decoding": len(self.sched.decoding()),
                 "queued": len(self.sched.queue), "step": self.steps}
@@ -287,6 +325,17 @@ class Engine:
 
     def cache_bytes(self) -> int:
         return self.cache.cache_bytes()
+
+    def compile_counts(self) -> dict[str, int]:
+        """Distinct operand-shape signatures per step (the reference's
+        compiled variants; the telemetry's ``jit_compiled_*`` gauges)."""
+        if self.backend == "paged":
+            return self._steps.compile_counts()
+        if self.backend == "statepool":
+            return self._state_steps.compile_counts()
+        return {"decode_all": n_signatures(self._dense_decode),
+                "prefill_chunk": n_signatures(self._dense_chunk), "verify_all": 0,
+                "prefill_all": 0}
 
     # ------------------------------------------------------------- internals
 
@@ -335,50 +384,50 @@ class Engine:
         if self.prefix is None:
             self.cache.alloc(req.slot, total)
             return
-        c = self.counters
+        c = self.telemetry.registry.counter
         match = self._admit_plan.pop(req.rid, [])
         shortfall = self._fresh_pages_needed(req, match) - self.cache.free_pages
         if shortfall > 0:
-            c["prefix_evicted_pages"] += self.prefix.evict(self.cache, shortfall, exclude=match)
+            c("prefix_evicted_pages").inc(self.prefix.evict(self.cache, shortfall, exclude=match))
         self.cache.alloc(req.slot, total, shared=match)
-        c["prefix_lookups"] += 1
+        c("prefix_lookups").inc()
         if not match:
             return
-        c["prefix_hit_requests"] += 1
+        c("prefix_hit_requests").inc()
         covered = len(match) * self.config.page_size
         if covered == req.prompt_len:
             # full-prefix hit: only the last prompt token is prefilled again
             # (its logits give the first token); it rewrites, with the same
             # bits, into the last shared page, which is detached now
             req.prefill_pos = req.prompt_len - 1
-            c["prefix_cow_pages"] += self.cache.cow_range(req.slot, req.prefill_pos, 1)
+            c("prefix_cow_pages").inc(self.cache.cow_range(req.slot, req.prefill_pos, 1))
             covered -= 1
         else:
             req.prefill_pos = covered
-        c["prefix_shared_tokens"] += covered
+        c("prefix_shared_tokens").inc(covered)
 
     def _state_admit(self, req: Request, total: int, now: float) -> None:
         """A state-pool admission: the planes' pages, and for a cross family
         the request's cross-KV, aliased from the cross index (warm: no
         encode) or encoded once into its cross pages (cold), then
         published when sharing is on."""
-        c = self.counters
+        c = self.telemetry.registry.counter
         match, key = self._cross_plan.pop(req.rid, []), self._cross_keys.pop(req.rid, None)
         self.cache.alloc(req.slot, total, cross_shared=match)
         if self.cache.cross is None:
             return
         if self.cross_share:
-            c["prefix_lookups"] += 1
+            c("prefix_lookups").inc()
         if match:
-            c["prefix_hit_requests"] += 1
-            c["prefix_shared_tokens"] += self.cache.cross_tokens
+            c("prefix_hit_requests").inc()
+            c("prefix_shared_tokens").inc(self.cache.cross_tokens)
             return
         embeds = req.extra[EMBED_KEY[self.model.cfg.family]]
         self._state_steps.encode_cross(self.params, embeds,
                                        self._tensor(self.cache.cross.tables[req.slot]))
-        c["cross_encode_calls"] += 1
+        c("cross_encode_calls").inc()
         if self.cross_share:
-            c["prefix_inserted_pages"] += self.cache.cross_publish(key, req.slot, now)
+            c("prefix_inserted_pages").inc(self.cache.cross_publish(key, req.slot, now))
 
     def _cow_guard(self, spans) -> None:
         """Before a write phase, detach every still-shared page in each
@@ -387,16 +436,17 @@ class Engine:
         is copied at admission."""
         if self.prefix is None:
             return
+        cow = self.telemetry.registry.counter("prefix_cow_pages")
         for slot, start, n in spans:
-            self.counters["prefix_cow_pages"] += self.cache.cow_range(slot, start, n)
+            cow.inc(self.cache.cow_range(slot, start, n))
 
     def _prefix_insert(self, req: Request, tokens: np.ndarray, now: float) -> None:
         """Publish ``req``'s fully written pages under the token chain
         ``tokens`` (partial tail pages are never published)."""
         if self.prefix is None:
             return
-        self.counters["prefix_inserted_pages"] += self.prefix.insert(
-            self.cache, tokens, self.cache.tables[req.slot], now)
+        self.telemetry.registry.counter("prefix_inserted_pages").inc(self.prefix.insert(
+            self.cache, tokens, self.cache.tables[req.slot], now))
 
     # -- prefill -------------------------------------------------------------
 
@@ -406,6 +456,11 @@ class Engine:
         req.first_token_time = now
         req.state = RequestState.DECODE
         self._prefix_insert(req, req.prompt, now)
+        # the first token rides on a prefill call: it counts toward
+        # tokens_generated, not decode_tokens
+        self.telemetry.tracer.event(req.rid, "first_token", now)
+        self.telemetry.tracer.tokens(req.rid, now, 1)
+        self.telemetry.registry.counter("tokens_generated").inc()
         self._maybe_finish(req, now)
 
     def _prefill_tick(self, batch, now: float) -> None:
@@ -418,6 +473,9 @@ class Engine:
         logits = self._steps.prefill_all(
             self.params, self._tensor(tokens), self._tensor(start), self._tensor(n_valid),
             self.cache.pool, self._tensor(self.cache.tables), self._tensor(mask))
+        reg = self.telemetry.registry
+        reg.counter("prefill_calls").inc()
+        reg.counter("prompt_tokens_prefilled").inc(sum(n for _, _, n in batch))
         picks = torch.argmax(logits, dim=-1).tolist()  # first maximum wins
         for req, pos, n in batch:
             req.prefill_pos = pos + n
@@ -445,6 +503,8 @@ class Engine:
                     self.params, tokens, req.prefill_pos,
                     self._tensor(self.cache.tables[req.slot]), self.cache.pool)
             req.prefill_pos += n
+            self.telemetry.registry.counter("prefill_calls").inc()
+            self.telemetry.registry.counter("prompt_tokens_prefilled").inc(n)
         if req.prefill_pos == req.prompt_len:
             self._first_token(req, logits[0], now)
 
@@ -495,11 +555,16 @@ class Engine:
             logits = self._steps.decode_all(*args, self.cache.pool,
                                             self._tensor(self.cache.tables), self._tensor(mask))
         picks = torch.argmax(logits, dim=-1).tolist()
+        reg = self.telemetry.registry
+        reg.counter("decode_calls").inc()
         for req in decoding:
             row = logits[req.slot]
             self._emit(req, row, self._sample(req, row, len(req.tokens), picks[req.slot]))
             req.decode_calls += 1
+            self.telemetry.tracer.tokens(req.rid, now, 1)
             self._maybe_finish(req, now)
+        reg.counter("tokens_generated").inc(len(decoding))
+        reg.counter("decode_tokens").inc(len(decoding))
 
     def _spec_tick(self, decoding: list[Request], now: float) -> None:
         """Draft → one batched verify → accept / roll back.
@@ -529,6 +594,8 @@ class Engine:
             self.params, self._tensor(tokens), self._tensor(start), self.cache.pool,
             self._tensor(self.cache.tables), self._tensor(mask))
         picks = torch.argmax(logits, dim=-1).tolist()  # [B][k + 1]
+        reg = self.telemetry.registry
+        reg.counter("verify_calls").inc()
         for req in decoding:
             base = len(req.tokens)
             target = [self._sample(req, logits[req.slot, i], base + i, picks[req.slot][i])
@@ -548,14 +615,16 @@ class Engine:
             proposed = min(n_emit if stopped else k, k)
             req.draft_proposed += proposed
             req.draft_accepted += min(n_acc, proposed)
+            reg.counter("tokens_generated").inc(n_emit)
+            reg.counter("decode_tokens").inc(n_emit)
+            reg.counter("drafts_proposed").inc(proposed)
+            reg.counter("drafts_accepted").inc(min(n_acc, proposed))
+            self.telemetry.tracer.tokens(req.rid, now, n_emit)
             self._maybe_finish(req, now)
             if not req.done:
                 self.proposer.on_accept(req)
-        reqs = self.completed + list(self.sched.active.values())
-        proposed = sum(r.draft_proposed for r in reqs)
-        if proposed:
-            self.counters["spec_acceptance_rate"] = (
-                sum(r.draft_accepted for r in reqs) / proposed)
+        if (total := reg.counter("drafts_proposed").value):
+            reg.gauge("spec_acceptance_rate").set(reg.counter("drafts_accepted").value / total)
 
     def _maybe_finish(self, req: Request, now: float) -> None:
         eos = self.config.eos_id
@@ -577,3 +646,7 @@ class Engine:
         if self.proposer is not None:
             self.proposer.on_retire(req)
         self.completed.append(req)
+        reg = self.telemetry.registry
+        reg.counter(f"requests_retired_{reason}").inc()
+        if (tpc := req.tokens_per_decode_call()) is not None:
+            reg.histogram("tokens_per_decode_call").observe(tpc)

@@ -255,8 +255,17 @@ class PagedCache:
         ``live_pages() + free_pages == n_pages - 1`` always."""
         return int((self.refcounts > 0).sum())
 
+    def occupancy(self) -> float:
+        """Live fraction of the allocatable pool (scratch page excluded), the
+        telemetry ``pool_occupancy`` gauge.  Counts physical pages, so a
+        prefix-shared page counts once however many slots alias it."""
+        allocatable = self.n_pages - 1
+        return self.live_pages() / allocatable if allocatable else 0.0
+
     def page_mask(self) -> np.ndarray:
-        """[n_pages] bool: True where the page is live."""
+        """[n_pages] bool: True where the page is live (referenced by a slot
+        table or an external pin); the operand of the telemetry pool-health
+        reduction.  The scratch page 0 is never referenced, never counted."""
         return self.refcounts > 0
 
     def ensure(self, slot: int, n_tokens: int) -> int:

@@ -87,7 +87,8 @@ class Scheduler:
     """Slot/queue bookkeeping.  ``can_admit`` is a callback the engine wires
     to the page allocator."""
 
-    def __init__(self, n_slots: int, max_len: int, prefill_chunk: int = 16):
+    def __init__(self, n_slots: int, max_len: int, prefill_chunk: int = 16,
+                 tracer: Any = None):
         if prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         self.n_slots, self.max_len = n_slots, max_len
@@ -95,6 +96,7 @@ class Scheduler:
         self.queue: deque[Request] = deque()
         self.active: dict[int, Request] = {}  # slot -> request
         self.free_slots = deque(range(n_slots))
+        self.tracer = tracer  # telemetry.Tracer | None: the submit and retire spans
         self._ids = itertools.count()
 
     def submit(self, prompt: np.ndarray, max_new: int, extra: Any = None,
@@ -110,6 +112,8 @@ class Scheduler:
         req = Request(rid=next(self._ids), prompt=prompt, max_new=max_new, extra=extra,
                       sampling=sampling, arrival_time=arrival_time)
         self.queue.append(req)
+        if self.tracer is not None:
+            self.tracer.event(req.rid, "submit", arrival_time)
         return req
 
     def admit(self, can_admit, on_admit=None) -> list[Request]:
@@ -155,6 +159,8 @@ class Scheduler:
         slot = req.slot
         del self.active[slot]
         self.free_slots.append(slot)
+        if self.tracer is not None:
+            self.tracer.event(req.rid, "retire", now)
         return slot
 
     @property

@@ -103,6 +103,7 @@ def _draft_loop(engine, decoding, k, *, steps, pool, params, tables):
             tok = engine._sample(r, logits[r.slot], len(r.tokens) + j, picks[r.slot])
             drafts[r.slot, j] = tok
             cur[r.slot, 0] = tok
+    engine.telemetry.registry.counter("draft_decode_calls").inc(k)
     return drafts
 
 
@@ -230,6 +231,7 @@ class DraftModelProposer(Proposer):
                     toks = eng._tensor(ctxs[r.slot][None, have:have + step])
                     self._steps.prefill_chunk(self.params, toks, have, table_row,
                                               self.cache.pool)
+                    eng.telemetry.registry.counter("draft_prefill_calls").inc()
                     have += step
                 self.synced[r.slot] = have
             return
@@ -245,6 +247,7 @@ class DraftModelProposer(Proposer):
             self._steps.prefill_all(self.params, eng._tensor(tokens), eng._tensor(start),
                                     eng._tensor(n_valid), self.cache.pool,
                                     eng._tensor(self.cache.tables), eng._tensor(mask))
+            eng.telemetry.registry.counter("draft_prefill_calls").inc()
             for r in behind:
                 self.synced[r.slot] = min(self.synced[r.slot] + n_valid[r.slot],
                                           targets[r.slot])

@@ -307,6 +307,13 @@ class StatePool:
         self.ring_cur = np.zeros((n_slots,), np.int32)
         self.ring_active = np.zeros((n_slots,), bool)
 
+    def pools(self) -> dict:
+        """Every plane's device tensors: ``{"kv": dict | None, "cross": dict |
+        None, "rings": (dict, ...)}`` (the steps write them in place)."""
+        return {"kv": self.kv.pool if self.kv else None,
+                "cross": self.cross.pool if self.cross else None,
+                "rings": tuple(r.pool for r in self.rings)}
+
     def planes(self):
         """(kind, plane) pairs."""
         if self.kv is not None:
@@ -446,13 +453,23 @@ class StatePool:
         for kind, p in (("attn_kv", self.kv), ("cross_kv", self.cross)):
             if p is not None:
                 stats[kind] = {"pages_total": p.n_pages - 1, "pages_free": p.free_pages,
-                               "occupancy": p.live_pages() / (p.n_pages - 1)}
+                               "occupancy": p.occupancy()}
         if self.rings:
             total = sum(r.n_pages - 1 for r in self.rings)
             used = int(self.ring_active.sum()) * RING_DEPTH * len(self.rings)
             stats["state_ring"] = {"pages_total": total, "pages_free": total - used,
                                    "occupancy": used / total if total else 0.0}
         return stats
+
+    def ring_page_mask(self) -> np.ndarray:
+        """[n_pages] bool over any one ring plane's pages (every plane shares
+        the static layout): True where the page holds a slot's current
+        state, the quant-health sampling weight."""
+        mask = np.zeros((1 + self.n_slots * RING_DEPTH,), bool)
+        for s in range(self.n_slots):
+            if self.ring_active[s] and int(self.ring_read[s]) != 0:
+                mask[int(self.ring_read[s])] = True
+        return mask
 
     def state_bytes_per_decode_step(self, n_tokens: int) -> int:
         """State bytes one slot's decode step moves through the pool at

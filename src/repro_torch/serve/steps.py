@@ -38,6 +38,12 @@ logits are garbage the host never reads.  Every batched step passes
 ``token_valid`` (the unmasked slots' lanes; in ``prefill_all`` also only a
 row's first ``n_valid`` tokens) to the model, exactly as the reference's
 steps build it, so padding lanes never compete for MoE expert capacity.  The pool is updated in place.
+
+Each step is a :class:`Step`: it records the operand-shape signatures it
+has been called with, the port's counterpart of the reference's compiled
+variants (``compile_counts``, the telemetry's ``jit_compiled_*`` gauges: a
+fixed-shape engine reads 1 for each step it used), and hands its calls to
+an attached profiler, which costs the first call of each signature.
 """
 
 from __future__ import annotations
@@ -56,6 +62,43 @@ from repro_torch.train.serve import (
     make_decode_step,
     make_verify_step,
 )
+
+
+def _signature(x):
+    """The operand-shape signature of one argument: shapes and dtypes of its
+    tensors (through dicts, tuples and lists), the type of anything else."""
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.dtype
+    if isinstance(x, dict):
+        return tuple((k, _signature(v)) for k, v in x.items())
+    if isinstance(x, (tuple, list)):
+        return tuple(_signature(v) for v in x)
+    return None if x is None else type(x).__name__
+
+
+class Step:
+    """A step function that records the distinct operand-shape signatures it
+    has been called with (the weights, its first argument, are fixed for an
+    engine's lifetime and left out).  With a ``profiler`` attached
+    (``serve.telemetry.profiling.EngineProfiler``) every call goes through
+    it, which costs the first call of each signature."""
+
+    def __init__(self, name: str, fn: Callable):
+        self.name, self.fn = name, fn
+        self.signatures: set = set()
+        self.profiler = None
+
+    def __call__(self, *args, **kwargs):
+        sig = _signature((args[1:], kwargs))
+        self.signatures.add(sig)
+        if self.profiler is not None:
+            return self.profiler.call(self, sig, args, kwargs)
+        return self.fn(*args, **kwargs)
+
+
+def n_signatures(fn) -> int:
+    """Distinct signatures a :class:`Step` has seen (0 for None)."""
+    return len(getattr(fn, "signatures", ()))
 
 
 def marshal_prefill_batch(n_slots: int, chunk: int, items):
@@ -83,6 +126,12 @@ class PagedSteps(NamedTuple):
     prefill_chunk: Callable
     # (params, tokens [B,S], start [B], pool, tables, mask) -> logits [B,S,V]
     verify_all: Callable
+
+    def compile_counts(self) -> dict[str, int]:
+        """Distinct operand-shape signatures per step, the counterpart of the
+        reference's compiled variants (a shape storm shows as a count > 1 on
+        a fixed-shape step)."""
+        return {name: n_signatures(fn) for name, fn in zip(self._fields, self)}
 
 
 def build_paged_steps(model: Model, *, method: str, page_size: int,
@@ -152,7 +201,7 @@ def build_paged_steps(model: Model, *, method: str, page_size: int,
         return logits
 
     if decode_backend == "paged":
-        return PagedSteps(decode_all, prefill_all, prefill_chunk, verify_all)
+        return _paged_steps(decode_all, prefill_all, prefill_chunk, verify_all)
 
     def gather_decode_all(params, tokens, positions, pool, tables, mask):
         """One decode step for every slot over the gathered dense view; the
@@ -184,7 +233,12 @@ def build_paged_steps(model: Model, *, method: str, page_size: int,
         P.scatter_tokens(pool, page_ids.reshape(-1), (pos % ps).reshape(-1), k_new, v_new)
         return _head_by_column(params, feats)
 
-    return PagedSteps(gather_decode_all, None, prefill_chunk, gather_verify_all)
+    return _paged_steps(gather_decode_all, None, prefill_chunk, gather_verify_all)
+
+
+def _paged_steps(*fns) -> PagedSteps:
+    return PagedSteps(*(None if f is None else Step(name, f)
+                        for name, f in zip(PagedSteps._fields, fns)))
 
 
 class StateSteps(NamedTuple):
@@ -201,6 +255,14 @@ class StateSteps(NamedTuple):
     # (params, embeds [1,T,D], cross_row [Pc]) -> None: one request's
     # cross-KV into its cross pages; None without a cross plane
     encode_cross: Callable | None = None
+
+    def compile_counts(self) -> dict[str, int]:
+        """The key set of :meth:`PagedSteps.compile_counts`, as the
+        reference keeps it: no verify step, and the once-per-admission
+        encode under the otherwise unused ``prefill_all`` key."""
+        return {"decode_all": n_signatures(self.decode_all),
+                "prefill_chunk": n_signatures(self.prefill_chunk), "verify_all": 0,
+                "prefill_all": n_signatures(self.encode_cross)}
 
 
 def build_state_steps(model: Model, *, method: str, pool) -> StateSteps:
@@ -293,7 +355,7 @@ def build_state_steps(model: Model, *, method: str, pool) -> StateSteps:
         return logits
 
     if cross is None:
-        return StateSteps(decode_all, prefill_chunk)
+        return StateSteps(Step("decode_all", decode_all), Step("prefill_chunk", prefill_chunk))
     if family == "encdec":
         from repro_torch.models.encdec import encode_cross_kv
     else:
@@ -311,4 +373,5 @@ def build_state_steps(model: Model, *, method: str, pool) -> StateSteps:
         pos = torch.arange(ks.shape[2], device=embeds.device)
         P.scatter_tokens(cross.pool, cross_row[pos // ps], pos % ps, ks[:, 0], vs[:, 0])
 
-    return StateSteps(decode_all, prefill_chunk, encode_cross)
+    return StateSteps(Step("decode_all", decode_all), Step("prefill_chunk", prefill_chunk),
+                      Step("encode_cross", encode_cross))

@@ -71,6 +71,11 @@ def _extra(cfg, seed: int) -> dict:
 _MODELS = {}
 
 
+def _count(eng, name: str) -> int:
+    """One counter of the engine's telemetry registry."""
+    return eng.telemetry.registry.counter(name).value
+
+
 def _setup(arch):
     """(cfg, model, params) of the reduced arch, the VLM's gates set."""
     if arch not in _MODELS:
@@ -229,7 +234,7 @@ def test_statepool_dense_matches_dense_slots(arch):
     retired self- and cross-KV pages are reused and must not leak into a
     later request."""
     eng, pooled = _run(arch, "statepool")
-    assert eng.decode_backend == "statepool" and eng.counters["cross_encode_calls"] == 5
+    assert eng.decode_backend == "statepool" and _count(eng, "cross_encode_calls") == 5
     assert eng.cache.kv.free_pages == eng.cache.kv.n_pages - 1  # every page back
     assert eng.cache.cross.free_pages == eng.cache.cross.n_pages - 1
     _, oracle = _run(arch, "dense_slots")
@@ -255,12 +260,11 @@ def test_cross_sharing_warm_exact_vs_cold(arch):
     other = eng.submit(p2, 5, extra=ex)
     eng.drain()
     assert warm.tokens == cold.tokens and len(other.tokens) == 5
-    c = eng.counters
-    assert c["cross_encode_calls"] == 1 and c["prefix_hit_requests"] == 2
-    assert c["prefix_shared_tokens"] == 2 * eng.cache.cross_tokens
+    assert _count(eng, "cross_encode_calls") == 1 and _count(eng, "prefix_hit_requests") == 2
+    assert _count(eng, "prefix_shared_tokens") == 2 * eng.cache.cross_tokens
     eng.submit(p1, 3, extra=_extra(cfg, 9))
     eng.drain()
-    assert c["cross_encode_calls"] == 2 and c["prefix_lookups"] == 4
+    assert _count(eng, "cross_encode_calls") == 2 and _count(eng, "prefix_lookups") == 4
     eng.cache.check_invariants()
 
 
@@ -277,7 +281,7 @@ def test_cross_index_evicts_under_pressure():
         eng.drain()
         assert len(h.tokens) == 2
     eng.cache.check_invariants()
-    assert eng.counters["cross_encode_calls"] == 6
+    assert _count(eng, "cross_encode_calls") == 6
     # headroom 2 beyond 2 slots: at most 4 sets cached at once
     assert len(eng.cache.cross_index) <= 4
     assert eng.cache.cross_index.cached_pages() == 8 * len(eng.cache.cross_index)

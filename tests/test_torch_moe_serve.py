@@ -205,8 +205,9 @@ def test_moe_prefix_cache_warm_equals_cold(qwen_moe):
         warm_eng, warm = _run(model, params, None, kv=kv, prefix=True, waves=waves)
         _, cold = _run(model, params, None, kv=kv, waves=waves)
         assert [h.tokens for h in warm] == [h.tokens for h in cold]
-        assert warm_eng.counters["prefix_hit_requests"] == 2
-        assert warm_eng.counters["prefix_cow_pages"] == 1
+        counter = warm_eng.telemetry.registry.counter
+        assert counter("prefix_hit_requests").value == 2
+        assert counter("prefix_cow_pages").value == 1
         warm_eng.cache.check_invariants()
 
 

@@ -308,12 +308,13 @@ def test_warm_vs_cold_token_exact(qwen_setup, kv, backend, spec):
     cold_eng, cold = _run_engine(model, params, waves, kv=kv, backend=backend, spec=spec)
     if not (kv == "mxfp4" and backend == "gather"):
         assert warm == cold, (kv, backend, spec)
-    counts = {k: v for k, v in warm_eng.counters.items() if k != "spec_acceptance_rate"}
+    counts = {k: warm_eng.telemetry.registry.counter(k).value for k in WARM_COUNTS}
     assert counts == WARM_COUNTS
-    assert not any(v for k, v in cold_eng.counters.items() if k != "spec_acceptance_rate")
+    assert not any(cold_eng.telemetry.registry.counter(k).value for k in WARM_COUNTS)
     warm_eng.cache.check_invariants()
     if spec:
-        assert warm_eng.counters["spec_acceptance_rate"] == 1.0 or kv == "mxfp4"
+        rate = warm_eng.telemetry.registry.gauge("spec_acceptance_rate").value
+        assert rate == 1.0 or kv == "mxfp4"
 
 
 def test_cached_payload_immutable_under_decode_and_spec(qwen_setup):
@@ -350,7 +351,7 @@ def test_eviction_under_pool_pressure(qwen_setup):
         handles.append(eng.submit(rng.integers(0, cfg.vocab_size, 9).astype(np.int32), 3))
         eng.drain()
     assert all(len(h.tokens) == 3 for h in handles)
-    assert eng.counters["prefix_evicted_pages"] > 0
+    assert eng.telemetry.registry.counter("prefix_evicted_pages").value > 0
     cache = eng.cache
     cache.check_invariants()
     assert cache.live_pages() + cache.free_pages == cache.n_pages - 1

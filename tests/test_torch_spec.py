@@ -154,7 +154,7 @@ def test_self_spec_token_exact(qwen_setup, kv, backend):
         assert s.tokens == b.tokens
         assert s.acceptance_rate() == 1.0
         assert s.tokens_per_decode_call() > 1.0
-    assert eng.counters["spec_acceptance_rate"] == 1.0
+    assert eng.telemetry.registry.gauge("spec_acceptance_rate").value == 1.0
     assert eng.cache.free_pages == eng.cache.n_pages - 1  # every page came back
     # the reference's fleet accounting reads the port's requests alike
     assert aggregate_stats(spec_h) == jaggregate_stats(spec_h)
