@@ -207,6 +207,22 @@
    ``cross`` health) and falcon-mamba-7b (full width, 4 layers; ``state``
    health) on the state pool, fully on against off in tokens, pool bytes
    and launches, health card = host.
+4k. Multi-device serving (``--phases multidevice [--devices N]``; N
+   defaults to the cards the process sees, and ``--devices`` raises if it
+   sees fewer): B4a, B4b and B5 at a rank's 1 and 2 KV heads (groups 2, 4
+   and 16) and B1/B3 at a rank's 32 experts, against their plain versions
+   on the card; then one process a card (NCCL over ``tcp://localhost``).
+   On one card: a one-rank world, where ``make_engine`` with
+   ``ShardingConfig(1, 1)`` gives the engine phase's tokens on its traffic
+   and ``Placement(tp=2)`` raises.  On N cards, every rank: qwen3-1.7b at
+   full width and depth on the engine phase's traffic at tp 1 (each rank
+   alone), then at tp N, tp N/2 x dp 2 and dp N: the tokens equal tp 1's
+   bit for bit, each rank's pool after tp N's drain equals tp 1's head
+   slice, and tp N's B1, B3, B4a and B5 launches a rank equal tp 1's;
+   qwen3-moe-235b-a22b (8 of 94 layers) and llama-3.2-vision-11b (full
+   depth, the state pool) at tp 1 and tp N, tokens equal.  Reported, no
+   gate: tok/s, TTFT, the all-gathers' device ms a tick, each rank's pool
+   and peak bytes, by layout.
 5. Times each kernel (CUDA events, median, L2 flushed before each launch)
    beside its plain version and, where one PyTorch call computes the same
    function, that call, at serving, training and evaluation shapes; B1, B2,
@@ -401,9 +417,19 @@ STATE_TRAIN_PATH = {"whisper-tiny": "whisper_train", "falcon-mamba-7b": "falcon_
 # TEL_SSM_REQUESTS of the ssm phase's prompts, TEL_SSM_NEW new each
 TEL_QUANT_STRIDE, TEL_HEALTH_CHECKS = 4, 2
 # telemetry off and at its defaults timed in TEL_AB_ROUNDS rounds of (off,
-# defaults, defaults, off)
-TEL_AB_ROUNDS = 2
+# defaults, defaults, off): one, since the whole default run took 1180.8 s
+# of its 1200 on an H100 80GB HBM3 whose host ran every phase ~30% slower,
+# and a second round never resolved the gap within the host's spread
+TEL_AB_ROUNDS = 1
 TEL_SSM_LAYERS, TEL_SSM_REQUESTS, TEL_SSM_NEW = 4, 4, 16
+
+# the multidevice phase: the KV-head and expert counts a rank holds at tp 4
+# (qwen3-1.7b's 8 heads over 4 ranks: 2 of group 2; llama-3.2-vision-11b's:
+# 2 of group 4; qwen3-moe-235b-a22b's 4: 1 of group 16, and 32 of its 128
+# experts), the kernels' per-rank shapes; the collectives' timeout (s)
+MD_HEADS = (("qwen3-1.7b", 2, 2), ("llama-3.2-vision-11b", 2, 4),
+            ("qwen3-moe-235b-a22b", 1, 16))
+MD_EXPERTS, MD_TIMEOUT_S = 32, 300
 
 # the baselines phase: each baseline method on one full-width llama-paper-200m
 # linear of BASELINE_ROWS tokens (4 x 512), card against CPU; each training
@@ -1226,6 +1252,7 @@ def serve_full_width(torch, ops, device="cuda", arch="qwen3-1.7b", tf_gate=False
     if tf_gate and not all(x < 5.0 and y < 1.0 for v in tf.values() for x, y in v):
         raise AssertionError(f"first-token log-probs vs teacher-forced out of tolerance: {tf}")
     summary["arch"] = arch
+    summary["tokens"] = [list(r.tokens) for r in paged_reqs]
     del params
     torch.cuda.empty_cache()
     return summary, counts, gsummary, gcounts
@@ -5501,14 +5528,362 @@ def serve_telemetry(torch, ops, device="cuda"):
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 4k: multi-device serving
+# ---------------------------------------------------------------------------
+
+
+def check_tp_kernels(torch, cfg, device="cuda"):
+    """The kernels at the shapes a tensor-parallel rank gives them, against
+    their plain versions on the card: B5 at each of MD_HEADS' head counts
+    and groups (decode, verify and prefill rows, the split's edges, both
+    pools, f32 and bf16, the dense checks' tolerances); B4a's K+V scatter of
+    a rank's head block, sliced out of the whole K/V as
+    ``models.attention`` slices it (strided rows), bit for bit; B4b's K+V
+    gather and its 2-d form at those head counts, bit for bit over every
+    (byte, scale code) pair; B1 and B3 on the expert axis at MD_EXPERTS
+    experts (a qwen3-moe-235b-a22b rank's at tp 4), bit for bit, with B5 at
+    its group of 16 over one head.  Returns {kernel: max abs error}."""
+    from repro_torch.kernels import kv_pack as KV
+    from repro_torch.kernels import paged_attention as PA
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 28)
+    worst = 0.0
+    n_pp = MAX_LEN // PAGE_SIZE + 1
+    n_pages = 1 + N_SLOTS * (MAX_LEN // PAGE_SIZE)
+    hd = cfg.head_dim_
+    for arch, hkv, group in MD_HEADS:
+        c = dataclasses.replace(cfg, num_kv_heads=hkv, num_heads=hkv * group)
+        worst = max(worst, _check_paged_edges_at(
+            torch, PA, c, gen, device, n_pp,
+            lambda full, S: [1, 16, 32, full - S + 1, 1, 300, 17, MAX_LEN - S],
+            S_values=(1, SPEC_K + 1, PREFILL_CHUNK)))
+        heads = 4 * hkv  # the model's, over 4 ranks; the last rank's block
+        for n_tok in (N_SLOTS, N_SLOTS * PREFILL_CHUNK):
+            kv = (torch.randn((2, n_tok, heads, hd), generator=gen, device=device) * 1.5
+                  ).to(torch.bfloat16)
+            k, v = kv[0, :, heads - hkv:], kv[1, :, heads - hkv:]
+            perm = torch.randperm((n_pages - 1) * PAGE_SIZE, generator=gen, device=device)[:n_tok]
+            pid, off = (1 + perm // PAGE_SIZE).to(torch.int32), (perm % PAGE_SIZE).to(torch.int32)
+            pools = [[torch.zeros((1, n_pages, PAGE_SIZE, hkv, w), dtype=torch.uint8,
+                                  device=device) for w in (hd // 2, hd // 32) * 2]
+                     for _ in range(2)]
+            KV.kv_quant_scatter_kv(*(t[0] for t in pools[0]), pid, off, k, v)
+            plain_quant_scatter(torch, pools[1][0], pools[1][1], pid, off, k[None])
+            plain_quant_scatter(torch, pools[1][2], pools[1][3], pid, off, v[None])
+            if not all(torch.equal(g, w) for g, w in zip(*pools)):
+                raise AssertionError(f"kv_quant_scatter_kv at {hkv} of {heads} heads, "
+                                     f"{n_tok} tokens: differs from its plain version")
+        check_gather_dequant(torch, c, gen, device)
+    moe = check_moe_kernels(torch, dataclasses.replace(
+        moe_config(), num_experts=MD_EXPERTS, num_kv_heads=1, num_heads=16))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"paged_attention": max(worst, moe["paged_attention"]), "kv_quant_pack": 0.0,
+            "kv_dequant_unpack": 0.0, "hadamard_quest_quantize": moe["hadamard_quest_quantize"],
+            "mxfp4_matmul": moe["mxfp4_matmul"]}
+
+
+def md_layouts(world: int) -> list[tuple[int, int]]:
+    """(tp, dp) layouts of ``world`` ranks: tp N, tp N/2 x dp 2, dp N."""
+    if world == 1:
+        return [(1, 1)]
+    out = [(world, 1)]
+    if world % 2 == 0 and world > 2:
+        out.append((world // 2, 2))
+    return out + [(1, world)]
+
+
+def _md_run(torch, model, params, prompts, ecfg: dict, sharding, extras=None,
+            max_new: int = MAX_NEW) -> dict:
+    """``prompts`` at t = 0 on a plain Engine (``sharding`` None) or on
+    ``make_engine``; returns the tokens in rid order, the (replica's)
+    engine, and tok/s, TTFT of this rank's requests, ticks, the tiled
+    all-gathers' count, bytes and device ms (CUDA events), this rank's pool
+    and peak bytes."""
+    from repro_torch.distributed.context import stats
+    from repro_torch.serve import Engine, EngineConfig, make_engine
+
+    cfg = EngineConfig(**ecfg, sharding=sharding)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(model, params, cfg) if sharding is None else make_engine(model, params, cfg)
+    extras = extras or [None] * len(prompts)
+    stats.reset()
+    stats.timing = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new, extra=x, arrival_time=0.0) for p, x in zip(prompts, extras)]
+    first, ticks = {}, 0
+    while eng.sched.pending:
+        eng.step(now=time.perf_counter() - t0)
+        ticks += 1
+        for r in reqs:
+            if r.tokens and r.rid not in first:
+                first[r.rid] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats.timing = False
+    gather_ms = stats.device_ms()
+    tokens = [list(r.tokens) for r in sorted(eng.completed, key=lambda r: r.rid)]
+    one = getattr(eng, "engine", eng)
+    if len(tokens) != len(prompts) or any(len(t) != max_new for t in tokens):
+        raise AssertionError(f"{sharding}: {[len(t) for t in tokens]} tokens a request")
+    return {"engine": one, "tokens": tokens, "summary": {
+        "tok_per_s": sum(map(len, tokens)) / wall, "wall_s": wall, "ticks": ticks,
+        "ttft_s": first, "allgather_calls": stats.calls,
+        "allgather_mb": stats.bytes / 1e6, "allgather_ms_per_tick": gather_ms / ticks,
+        "rank_pool_bytes": one.rank_bytes(), "pool_bytes": one.cache_bytes(),
+        "peak_bytes": torch.cuda.max_memory_allocated()}}
+
+
+def _md_model(torch, cfg, device):
+    from repro_torch.convert import init_params
+    from repro_torch.models import build_model
+
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    if cfg.family == "vlm":
+        params["cross_layers"]["gate_attn"].fill_(VLM_GATES[0])
+        params["cross_layers"]["gate_mlp"].fill_(VLM_GATES[1])
+    return build_model(cfg), params
+
+
+def _md_rank_work(torch, rank: int, world: int, device, engine_tokens) -> dict:
+    """What one rank checks and measures (see the phase's docstring)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_engine import kernel_config, make_extra
+    from repro_torch.serve import Placement, ShardingConfig
+
+    out = {"rank": rank, "world": world, "layouts": {}, "launches": {}}
+    cfg = kernel_config(get_config("qwen3-1.7b"))
+    model, params = _md_model(torch, cfg, device)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(MIN_PROMPT, MAX_PROMPT + 1)))
+               .astype(np.int32) for _ in range(N_REQUESTS)]
+    ecfg = dict(n_slots=N_SLOTS, max_len=MAX_LEN, page_size=PAGE_SIZE, kv_dtype="mxfp4",
+                prefill_chunk=PREFILL_CHUNK)
+    # tp 1's reference on this rank: the plain Engine, or on one card the
+    # engine phase's own run of the same traffic when it ran
+    base = None
+    if world > 1 or engine_tokens is None:
+        _md_run(torch, model, params, prompts[:2], ecfg, None, max_new=2)  # first-use costs
+        ops.reset_launch_counts()
+        base = _md_run(torch, model, params, prompts, ecfg, None)
+        out["launches"]["tp1"] = base_counts = ops.launch_counts()
+        out["layouts"]["tp1"] = base["summary"]
+        if engine_tokens is not None and base["tokens"] != engine_tokens:
+            raise AssertionError(f"rank {rank}: tp 1 tokens differ from the engine phase's")
+    want_tokens = engine_tokens if base is None else base["tokens"]
+    for tp, dp in md_layouts(world):
+        name = f"tp{tp}xdp{dp}"
+        ops.reset_launch_counts()
+        run = _md_run(torch, model, params, prompts, ecfg, ShardingConfig(tp, dp))
+        out["launches"][name] = counts = ops.launch_counts()
+        out["layouts"][name] = run["summary"]
+        if run["tokens"] != want_tokens:
+            raise AssertionError(f"rank {rank}: {name} tokens differ from tp 1's: first at "
+                                 f"{_first_divergence(run['tokens'], want_tokens)}")
+        if rank == 0:
+            log(f"  [rank 0] qwen3-1.7b {name}: tokens = tp 1's; "
+                f"{json.dumps({k: v for k, v in run['summary'].items() if k != 'ttft_s'})}")
+        if dp == 1 and base is not None:
+            eng = run["engine"]
+            want = eng.placement.shard_pool(base["engine"].cache.pool)
+            bad = [k for k, v in want.items() if not torch.equal(eng.cache.pool[k], v)]
+            if bad:
+                raise AssertionError(f"rank {rank}: {name} pool leaves {bad} differ from tp 1's "
+                                     f"head slice")
+            # every rank of a TP group launches what one device launches
+            if counts != base_counts:
+                raise AssertionError(f"rank {rank}: {name} launches {counts} != tp 1's "
+                                     f"{base_counts}")
+            out["pool_slice_equal"] = {name: sorted(want)}
+        del run
+    if world == 1:
+        try:
+            Placement(tp=2)
+        except ValueError as e:
+            out["placement_tp2_raises"] = str(e)
+        else:
+            raise AssertionError("Placement(tp=2) formed in a one-rank world")
+        return out
+    # the gather backend (blocked attention over a rank's gathered heads) on
+    # the engine phase's gather run, tp 1 and tp N
+    gecfg = dict(ecfg, decode_backend="gather")
+    gbase = _md_run(torch, model, params, prompts[:GATHER_REQUESTS], gecfg, None,
+                    max_new=GATHER_NEW)
+    ops.reset_launch_counts()
+    run = _md_run(torch, model, params, prompts[:GATHER_REQUESTS], gecfg,
+                  ShardingConfig(world, 1), max_new=GATHER_NEW)
+    out["launches"][f"gather_tp{world}"] = ops.launch_counts()
+    want = run["engine"].placement.shard_pool(gbase["engine"].cache.pool)
+    if run["tokens"] != gbase["tokens"] or any(
+            not torch.equal(run["engine"].cache.pool[k], v) for k, v in want.items()):
+        raise AssertionError(f"rank {rank}: gather tp {world} tokens or pool slice differ "
+                             f"from tp 1's")
+    out["layouts"]["gather_tp1"], out["layouts"][f"gather_tp{world}"] = \
+        gbase["summary"], run["summary"]
+    if rank == 0:
+        log(f"  [rank 0] gather tp {world}: tokens and pool slice = tp 1's; "
+            f"{json.dumps({k: v for k, v in run['summary'].items() if k != 'ttft_s'})}")
+    out["allgather_alone_ms"] = _md_time_gathers(torch, cfg, world, device)
+    del model, params, base, gbase, run
+    # qwen3-moe-235b-a22b (MOE_LAYERS of 94) and llama-3.2-vision-11b on the
+    # state pool, at tp 1 and at tp N
+    vcfg = kernel_config(get_config(VLM_ARCH))
+    vrng = np.random.default_rng(SEED + 13)
+    vprompts = [vrng.integers(0, vcfg.vocab_size, n).astype(np.int32) for n in CROSS_PROMPTS]
+    vmax = -(-(max(CROSS_PROMPTS) + CROSS_NEW) // PAGE_SIZE) * PAGE_SIZE
+    for tag, mcfg, mprompts, extras, mecfg, new in (
+            ("moe", moe_config(), prompts, None, ecfg, MAX_NEW),
+            ("vlm", vcfg, vprompts, [make_extra(vcfg, SEED + i, device)
+                                     for i in range(len(vprompts))],
+             dict(ecfg, max_len=vmax, prefill_chunk=CROSS_CHUNK), CROSS_NEW)):
+        model, params = _md_model(torch, mcfg, device)
+        base = _md_run(torch, model, params, mprompts, mecfg, None, extras, new)
+        ops.reset_launch_counts()
+        run = _md_run(torch, model, params, mprompts, mecfg, ShardingConfig(world, 1), extras,
+                      new)
+        out["launches"][f"{tag}_tp{world}"] = ops.launch_counts()
+        if run["tokens"] != base["tokens"]:
+            raise AssertionError(f"rank {rank}: {tag} tp {world} tokens differ from tp 1's: "
+                                 f"first at {_first_divergence(run['tokens'], base['tokens'])}")
+        if rank == 0:
+            log(f"  [rank 0] {tag} tp {world}: tokens = tp 1's; "
+                f"{json.dumps({k: v for k, v in run['summary'].items() if k != 'ttft_s'})}")
+        out["layouts"][f"{tag}_tp1"] = base["summary"]
+        out["layouts"][f"{tag}_tp{world}"] = run["summary"]
+        del model, params, base, run
+    return out
+
+
+def _md_time_gathers(torch, cfg, world: int, device, reps: int = 50) -> dict:
+    """The tiled all-gather of one layer's attention output alone, every
+    rank released together by a barrier: the device ms a call (CUDA events
+    over ``reps`` calls) at a decode tick's [8, 1, Hq/N, hd] and a prefill
+    tick's [8, 64, Hq/N, hd] bf16 (a rank's wait for the slowest rank is
+    what the serving runs' gather times hold besides)."""
+    from repro_torch.distributed.context import activate_mesh, all_gather_tiled
+    from repro_torch.launch.mesh import make_serve_meshes
+
+    mesh = make_serve_meshes(world, 1)[0]
+    out = {}
+    with activate_mesh(mesh):
+        for tag, S in (("decode", 1), ("prefill", PREFILL_CHUNK)):
+            x = torch.randn((N_SLOTS, S, cfg.num_heads // world, cfg.head_dim_),
+                            device=device).to(torch.bfloat16)
+            for _ in range(5):
+                all_gather_tiled(x, 2)
+            torch.distributed.barrier()
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                all_gather_tiled(x, 2)
+            b.record()
+            torch.cuda.synchronize()
+            out[tag] = {"shape": list(x.shape), "ms_a_call": a.elapsed_time(b) / reps,
+                        "ms_a_tick": a.elapsed_time(b) / reps * cfg.num_layers}
+    return out
+
+
+def multidevice_rank(rank: int, world: int, init_method: str, out_dir: str,
+                     engine_tokens) -> None:
+    """One rank of the multidevice phase: its own process on N cards, the
+    phase's own process on one.  Joins an NCCL world on ``cuda:{rank}`` and
+    writes its results to ``out_dir/rank{rank}.json``."""
+    import torch
+
+    sys.path.insert(0, SRC)
+    from repro_torch.launch.mesh import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["LOCAL_RANK"] = str(rank)
+    device = init_distributed(rank=rank, world_size=world, init_method=init_method,
+                              timeout_s=MD_TIMEOUT_S)
+    out = _md_rank_work(torch, rank, world, device, engine_tokens)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    torch.distributed.destroy_process_group()
+
+
+def serve_multidevice(torch, devices: int | None, engine_tokens):
+    """The multidevice phase (its docstring entry 4k).  Returns (kernel
+    errors, summary, per-rank launches of rank 0 on the TP path)."""
+    import socket
+
+    import torch.multiprocessing
+
+    from repro_torch.configs import get_config
+
+    seen = torch.cuda.device_count()
+    world = seen if devices is None else devices
+    if world > seen:
+        raise AssertionError(f"--devices {world}: this process sees {seen} card(s)")
+    t0 = time.perf_counter()
+    err = check_tp_kernels(torch, get_config("qwen3-1.7b"))
+    log(f"[multidevice] B5, B4a and B4b at {[h for _, h, _ in MD_HEADS]} heads a rank (groups "
+        f"{[g for _, _, g in MD_HEADS]}) and B1/B3 at {MD_EXPERTS} experts equal their plain "
+        f"versions (max |Δ| {json.dumps(err)}; {time.perf_counter() - t0:.1f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    init_method = f"tcp://localhost:{port}"
+    out_dir = tempfile.mkdtemp(prefix="multidevice-")
+    args = (world, init_method, out_dir, engine_tokens)
+    if world == 1:
+        multidevice_rank(0, *args)
+    else:
+        torch.multiprocessing.start_processes(multidevice_rank, args=args, nprocs=world,
+                                              join=True, start_method="spawn")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    summary = {"world": world, "devices_seen": seen, "layouts": {}}
+    for name in ranks[0]["layouts"]:
+        per = [rk["layouts"][name] for rk in ranks]
+        ttft = sorted(v for p in per for v in p["ttft_s"].values())
+        summary["layouts"][name] = {
+            "tok_per_s": min(p["tok_per_s"] for p in per),
+            "wall_s": max(p["wall_s"] for p in per), "ticks": per[0]["ticks"],
+            "ttft_mean_s": sum(ttft) / len(ttft), "ttft_max_s": ttft[-1],
+            "allgather_calls_rank0": per[0]["allgather_calls"],
+            "allgather_mb_rank0": per[0]["allgather_mb"],
+            "allgather_ms_per_tick": [p["allgather_ms_per_tick"] for p in per],
+            "pool_bytes": per[0]["pool_bytes"],
+            "rank_pool_bytes": [p["rank_pool_bytes"] for p in per],
+            "peak_bytes": [p["peak_bytes"] for p in per]}
+    summary["launches_rank0"] = ranks[0]["launches"]
+    if world > 1:
+        summary["allgather_alone_ms"] = [rk["allgather_alone_ms"] for rk in ranks]
+    summary["pool_slice_equal"] = ranks[0].get("pool_slice_equal")
+    if world == 1:
+        summary["placement_tp2_raises"] = ranks[0]["placement_tp2_raises"]
+    counts = ranks[0]["launches"][f"tp{world}xdp1"]
+    summary["phase_s"] = time.perf_counter() - t0
+    return err, summary, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernels,engine,features,moe,train,moe-train,variants,baselines,"
-                            "dense-configs,ssm,hybrid,cross,state-train,telemetry,times",
+                            "dense-configs,ssm,hybrid,cross,state-train,telemetry,multidevice,"
+                            "times",
                     help="comma-separated subset of kernels,engine,features,moe,train,"
                          "moe-train,variants,baselines,dense-configs,ssm,hybrid,cross,"
-                         "state-train,telemetry,times")
+                         "state-train,telemetry,multidevice,times")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="multidevice phase: the cards to serve on, one process each "
+                         "(default: every card the process sees; raises if it sees fewer)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -5564,6 +5939,7 @@ def main() -> int:
     cfg = get_config("qwen3-1.7b")
     tcfg = get_config(TRAIN_ARCH)
     err, counts, rec, vectors = {}, {}, {}, {}
+    engine_tokens = None
     if "kernels" in phases:
         t0 = time.perf_counter()
         err = check_kernels(torch, cfg)
@@ -5575,6 +5951,7 @@ def main() -> int:
     if "engine" in phases:
         t0 = time.perf_counter()
         summary, counts["engine"], gsummary, counts["gather"] = serve_full_width(torch, ops)
+        engine_tokens = summary.pop("tokens")
         vectors["engine"] = summary["vector_launches"]
         vectors["gather"] = gsummary["vector_launches"]
         log(f"[engine] launches on the main path (paged backend): {counts['engine']}")
@@ -5694,6 +6071,7 @@ def main() -> int:
         t0 = time.perf_counter()
         summary, counts["starcoder2"], gsummary, counts["starcoder2_gather"] = \
             serve_full_width(torch, ops, arch=DENSE_ARCH, tf_gate=True)
+        summary.pop("tokens")
         vectors["starcoder2"] = summary["vector_launches"]
         vectors["starcoder2_gather"] = gsummary["vector_launches"]
         log(f"[dense-configs] {DENSE_ARCH} launches on the paged backend: "
@@ -5806,6 +6184,19 @@ def main() -> int:
             raise AssertionError(f"kernels never launched on the telemetry path: {missing}")
         log(f"[telemetry] {json.dumps(summary)}")
         log(f"[telemetry] done in {time.perf_counter() - t0:.1f} s")
+    if "multidevice" in phases:
+        merr, summary, counts["multidevice"] = serve_multidevice(torch, args.devices,
+                                                                 engine_tokens)
+        for name, e in merr.items():
+            err[name] = max(err.get(name, 0.0), e)
+        log(f"[multidevice] launches a rank on the tensor-parallel path (rank 0): "
+            f"{counts['multidevice']}")
+        missing = [k for k in ("hadamard_quest_quantize", "mxfp4_matmul", "paged_attention",
+                               "kv_quant_pack") if counts["multidevice"][k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the multidevice path: {missing}")
+        log(f"[multidevice] {json.dumps(summary)}")
+        log(f"[multidevice] done in {summary['phase_s']:.1f} s")
     if vectors:
         # every B1 call on the main paths, and every B2 call on the training
         # paths, reads and writes through the vector body (a thread per group,

@@ -72,6 +72,16 @@ class ModelConfig:
     # "paged" (serving steps attend over the paged pool with the kernel)
     attn_backend: str = "paged"
     attn_kv_chunk: int = 1024
+    # tensor-parallel serving (set by the serving steps through
+    # dataclasses.replace, never by hand): with ``tp_axis`` naming the active
+    # mesh's axis of ``tp_size`` ranks, a KV cache operand whose head count is
+    # not ``num_kv_heads`` is this rank's head slice — the rank attends over
+    # its heads and all-gathers the outputs on the head axis — and a MoE layer
+    # runs its rank's E/tp experts and all-gathers them (models.attention,
+    # models.moe).  Slices and concatenations only, no reduction, so the
+    # tokens equal one device's bit for bit.  None → one device.
+    tp_axis: str | None = None
+    tp_size: int = 1
     # training: recompute each layer's forward in the backward
     # (torch.utils.checkpoint), keeping only the layer inputs
     remat: bool = True

@@ -13,6 +13,14 @@ new tokens' K/V into the pool and attends over it with the paged-attention
 kernel (:func:`_paged_decode`).  Cross attention (the enc-dec and VLM
 families) takes its keys and values from a source (``kv_source``) or from
 a precomputed ``(k, v)`` cache, with unrotated keys and no causal mask.
+
+Tensor-parallel serving (``cfg.tp_axis``, set by the serving steps): a pool
+or dense cache whose head count is not ``num_kv_heads`` holds this rank's
+block of KV heads.  The rank then writes its block of the new K/V, attends
+over its heads (the paged kernel over its query groups; blocked attention
+at the model's head count, :func:`_tp_dense_attend`), and all-gathers the
+outputs on the head axis (``distributed.context.all_gather_tiled``) before
+the output projection, which every rank computes whole.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import all_gather_tiled, tp_rank
 from repro_torch.kernels.flash_attention import mha_flash
 from repro_torch.kernels.paged_attention import PagedKV, paged_attention, scatter_token
 from repro_torch.models import layers as L
@@ -117,6 +126,9 @@ def _dense_cache_attend(q, k, v, positions, cache, cache_index, *, causal: bool,
     whole cache.  The causal mask on the query positions hides every entry
     past a query, stale ones included."""
     ck, cv = cache
+    sharded = _tp_sharded(cfg, ck.shape[2])
+    if sharded:  # a head-sliced cache (the gather backend under tensor parallelism)
+        _, k, v = _tp_slice_heads(q, k, v, cfg, ck.shape[2])
     B, S = q.shape[:2]
     T = ck.shape[1]
     start = torch.clamp(cache_index.to(torch.int64), 0, T - S)
@@ -124,7 +136,47 @@ def _dense_cache_attend(q, k, v, positions, cache, cache_index, *, causal: bool,
     bidx = torch.arange(B, device=q.device)[:, None]
     ck[bidx, idx] = k.to(ck.dtype)
     cv[bidx, idx] = v.to(cv.dtype)
+    if sharded:
+        return _tp_dense_attend(q, ck, cv, positions, causal, cfg)
     return blocked_attention(q, ck, cv, positions, causal=causal, kv_chunk=cfg.attn_kv_chunk)
+
+
+def _tp_sharded(cfg: ModelConfig, local_kv_heads: int) -> bool:
+    """A KV cache operand announces a tensor-parallel head slice by its head
+    count (the reference's shape-based detection): a replicated pool leaf
+    keeps the model's count and is attended whole."""
+    return cfg.tp_axis is not None and local_kv_heads != cfg.num_kv_heads
+
+
+def _tp_slice_heads(q, k, v, cfg: ModelConfig, local_kv_heads: int):
+    """This rank's contiguous block of ``local_kv_heads`` KV heads of the
+    freshly projected k/v, and its GQA query groups (q is kv-head-major:
+    head h of group g sits at ``g * group + h``).  Only a slice; the tiled
+    all-gather of the attention output is a concatenation."""
+    r = tp_rank(cfg.tp_axis)
+    group = cfg.num_heads // cfg.num_kv_heads
+    kv = slice(r * local_kv_heads, (r + 1) * local_kv_heads)
+    qs = slice(r * local_kv_heads * group, (r + 1) * local_kv_heads * group)
+    return q[:, :, qs], k[:, :, kv], v[:, :, kv]
+
+
+def _tp_dense_attend(q, k, v, positions, causal: bool, cfg: ModelConfig) -> torch.Tensor:
+    """Attention of this rank's block of KV heads ``k``/``v`` [B, T, Hkv/tp,
+    hd] from a dense cache, all-gathered on the head axis.  The rank attends
+    at the model's head count, its heads in place and zeros in the others',
+    and keeps its block of the output: on the card a batched GEMM picks its
+    kernel, and so its bits, by the batch count (B·Hkv here), so a call over
+    fewer heads rounds a head otherwise than one device does (the paged
+    kernel's heads are independent, and it takes the slice itself)."""
+    r, local = tp_rank(cfg.tp_axis), k.shape[2]
+    group = cfg.num_heads // cfg.num_kv_heads
+    blk = slice(r * local, (r + 1) * local)
+    kp = k.new_zeros((*k.shape[:2], cfg.num_kv_heads, k.shape[3]))
+    vp = torch.zeros_like(kp)
+    kp[:, :, blk], vp[:, :, blk] = k, v
+    out = dispatch_attention(q, kp, vp, positions, causal=causal, cfg=cfg)
+    return all_gather_tiled(out[:, :, r * local * group:(r + 1) * local * group], 2,
+                            cfg.tp_axis)
 
 
 def _paged_decode(params: dict, x: torch.Tensor, q: torch.Tensor, positions: torch.Tensor,
@@ -132,7 +184,9 @@ def _paged_decode(params: dict, x: torch.Tensor, q: torch.Tensor, positions: tor
     """Decode / batched prefill directly over the pool: quantize-scatter the
     S new tokens' K/V (``positions[b, s]`` picks page and offset), then run
     the paged-attention kernel with per-row causal bounds.  Padding tokens
-    are positioned on a scratch page by the caller, so no mask is needed."""
+    are positioned on a scratch page by the caller, so no mask is needed.
+    A head-sliced pool (tensor parallelism) takes this rank's heads and
+    all-gathers the outputs on the head axis."""
     hd, nkv = cfg.head_dim_, cfg.num_kv_heads
     qc = cfg.quartet
     k = _split_heads(L.dense(params["wk"], x, L.seed_fold(seed, 2), qc, method), nkv, hd)
@@ -141,14 +195,18 @@ def _paged_decode(params: dict, x: torch.Tensor, q: torch.Tensor, positions: tor
         k = L.rmsnorm(params["k_norm"], k, cfg.norm_eps)
     if rope is not None:
         k = L.apply_rope(k, *rope)
-    ps = next(iter(paged.pool.values())).shape[1]
+    kleaf = next(iter(paged.pool.values()))
+    ps = kleaf.shape[1]
+    sharded = _tp_sharded(cfg, kleaf.shape[2])
+    if sharded:
+        q, k, v = _tp_slice_heads(q, k, v, cfg, kleaf.shape[2])
     B = x.shape[0]
     bidx = torch.arange(B, device=x.device)[:, None]
     page_ids = paged.tables[bidx, (positions // ps).long()]
     scatter_token(paged.pool, page_ids, positions % ps, k, v)
     lengths = (positions[:, 0] + 1).to(torch.int32)
     out = paged_attention(q.contiguous(), paged.pool, paged.tables, lengths)
-    return out
+    return all_gather_tiled(out, 2, cfg.tp_axis) if sharded else out
 
 
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: int,
@@ -186,8 +244,11 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: int,
         out = _paged_decode(params, x, q, positions, seed, cfg, kv_cache, method, rope)
     elif kv_cache is not None and cache_index is None and not write_kv:
         k, v = kv_cache  # a precomputed (k, v): the cached cross-KV
-        out = dispatch_attention(q, k, v, positions, causal=causal and kv_source is None,
-                                 cfg=cfg)
+        causal = causal and kv_source is None
+        if _tp_sharded(cfg, k.shape[2]):  # this rank's heads of the cross plane
+            out = _tp_dense_attend(q, k, v, positions, causal, cfg)
+        else:
+            out = dispatch_attention(q, k, v, positions, causal=causal, cfg=cfg)
     else:
         src = x if kv_source is None else kv_source
         k = _split_heads(L.dense(params["wk"], src, L.seed_fold(seed, 2), qc, method), nkv, hd)
@@ -201,8 +262,12 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, seed: int,
             if kv_cache is None:
                 new_cache = (k, v)
             else:
-                kv_cache[0].copy_(k)
-                kv_cache[1].copy_(v)
+                if _tp_sharded(cfg, kv_cache[0].shape[2]):  # a head-sliced cache
+                    _, k_loc, v_loc = _tp_slice_heads(q, k, v, cfg, kv_cache[0].shape[2])
+                else:
+                    k_loc, v_loc = k, v
+                kv_cache[0].copy_(k_loc)
+                kv_cache[1].copy_(v_loc)
             out = dispatch_attention(q, k, v, positions, causal=causal, cfg=cfg)
         elif kv_cache is None:
             out = dispatch_attention(q, k, v, positions, causal=causal, cfg=cfg)

@@ -40,8 +40,10 @@ gated slot's gradient once (:class:`_Combine`).
 Capacity ``c = max(32, round_up(k·g/E·capacity_factor, 32))`` with
 ``g = min(4096, B·S)`` counted over all lanes, masked ones included; tokens
 over capacity are dropped.  ``token_valid`` zero-gates padding lanes, so they
-never compete for capacity.  Tensor-parallel experts and the FP4 all-gather
-(``fp4_allgather``) are multi-device work (ROADMAP A8).
+never compete for capacity.  In a tensor-parallel serving step
+(``cfg.tp_axis``) each rank runs its block of E/tp experts and all-gathers
+their outputs on the expert axis.  The FP4 all-gather of training
+(``fp4_allgather``) waits for the training half of multi-device work.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ import torch
 import torch.nn.functional as Fn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import all_gather_tiled, tp_rank
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention, init_attention
 from repro_torch.models.transformer import init_mlp, mlp
@@ -78,12 +81,13 @@ def init_moe_ffn(cfg: ModelConfig, dtype, generator, device) -> dict:
 
 
 def _expert_ffn(xe: torch.Tensor, params: dict, seed: int, cfg: ModelConfig,
-                method: str) -> torch.Tensor:
+                method: str, expert_offset: int = 0) -> torch.Tensor:
     """xe [E, T', D] → [E, T', D]: every expert's SwiGLU, each of its three
-    linears one stacked call; expert e's seeds are seed_fold(seed, 20) + e in
-    uint32, as the reference's vmap carries them."""
+    linears one stacked call; expert e's seeds are seed_fold(seed, 20) +
+    expert_offset + e in uint32, as the reference's vmap carries them (a
+    tensor-parallel rank's block of experts starts at ``expert_offset``)."""
     qc = cfg.quartet
-    seeds = (L.seed_fold(seed, 20)
+    seeds = (L.seed_fold(seed, 20) + expert_offset
              + torch.arange(xe.shape[0], dtype=torch.int64, device=xe.device)) & 0xFFFFFFFF
     g = L.dense_experts(params["gate"], xe, L.seed_fold(seeds, 21), qc, method)
     u = L.dense_experts(params["up"], xe, L.seed_fold(seeds, 22), qc, method)
@@ -249,7 +253,22 @@ def moe_ffn(params: dict, x: torch.Tensor, seed: int, cfg: ModelConfig,
     slots = _slots(sel_idx, sel_gate, g, k)
     xe = _Dispatch.apply(xg, sel_idx, *slots)  # [G, E, c, D]
     xe = xe.transpose(0, 1).reshape(E, G * c, D)
-    ye = _expert_ffn(xe, params, seed, cfg, method)
+    tp = cfg.tp_size if cfg.tp_axis is not None and cfg.tp_size > 1 and E % cfg.tp_size == 0 \
+        else 1
+    if tp > 1:
+        # expert parallelism in a tensor-parallel serving step: this rank's
+        # contiguous block of E/tp experts (weights and dispatched tokens),
+        # then the blocks all-gathered back to the whole expert axis — a
+        # concatenation, so the combine below adds in one device's order.
+        # Routing and capacity ran on replicated inputs, the same on every rank
+        r, El = tp_rank(cfg.tp_axis), E // tp
+        blk = slice(r * El, (r + 1) * El)
+        eparams = {**params, "gate": params["gate"][blk], "up": params["up"][blk],
+                   "down": params["down"][blk]}
+        ye = _expert_ffn(xe[blk], eparams, seed, cfg, method, expert_offset=r * El)
+        ye = all_gather_tiled(ye, 0, cfg.tp_axis)
+    else:
+        ye = _expert_ffn(xe, params, seed, cfg, method)
     ye = ye.reshape(E, G, c, D).transpose(0, 1)
     ye = ye * sel_gate[..., None].to(ye.dtype)
 

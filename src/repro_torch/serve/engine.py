@@ -72,19 +72,34 @@ sections are timed on the host clock (``*_tick_s``), and the tick ends in
 ``end_tick``.  Read a count as ``engine.telemetry.registry.counter(name)
 .value``.  The default configuration adds no device synchronisation to a
 tick; sinks, pool-health sampling and the profiler are opt-in.
-Multi-device serving is not ported yet.
+
+**Multi-device serving** (``EngineConfig(sharding=ShardingConfig(tp, dp))``,
+see :mod:`repro_torch.serve.placement`): one process a rank.  With
+``tp > 1`` every rank of a group runs this engine on the same submits; its
+pool (or the state pool's KV and cross planes) holds the rank's KV heads,
+its steps attend over them and all-gather the outputs, a MoE layer runs the
+rank's experts, and the weights are broadcast from the group's first rank,
+so the tokens equal one device's bit for bit.  The group's first rank
+broadcasts each tick's clock and each submit's arrival time, the only host
+inputs that could differ, and with ``debug_cache`` the ranks compare a hash
+of each tick's schedule.  ``dp > 1`` needs replicas
+(``serve.replica.make_engine``).  Tensor parallelism shards heads, so it
+serves the paged families and the state-pool enc-dec and VLM engines, not
+the state rings of the SSM and hybrid families.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import zlib
 
 import numpy as np
 import torch
 
 from repro_torch.models.registry import Model, cache_map
 from repro_torch.serve import paged_cache as P
+from repro_torch.serve.placement import Placement, ShardingConfig
 from repro_torch.serve.prefix_cache import PrefixIndex
 from repro_torch.serve.sampling import GREEDY, SamplingParams, get_sampler
 from repro_torch.serve.scheduler import Request, RequestState, Scheduler
@@ -135,10 +150,18 @@ class EngineConfig:
     # TelemetryConfig streams JSONL metrics and traces, writes Prometheus
     # text, samples pool quantization health at a tick stride, or profiles
     telemetry: TelemetryConfig | None = None
+    # multi-device serving: ``tp`` ranks shard this engine's pool, attention
+    # and experts (a process a rank); ``dp > 1`` only through
+    # ``serve.replica.make_engine`` (an Engine given dp > 1 raises)
+    sharding: ShardingConfig | None = None
 
 
 class Engine:
-    def __init__(self, model: Model, params: dict, config: EngineConfig | None = None):
+    def __init__(self, model: Model, params: dict, config: EngineConfig | None = None, *,
+                 placement: Placement | None = None, ids=None):
+        """``placement`` (default: ``Placement(config.sharding.tp)``) is this
+        rank's tensor-parallel group; ``ids`` a request-id counter shared
+        with other replicas."""
         self.config = cfg = config or EngineConfig()
         family = model.cfg.family
         self.paged = family in PAGED_FAMILIES
@@ -162,12 +185,25 @@ class Engine:
                 f"prefix caching needs shareable pages: a paged family (dense/moe, prompt "
                 f"prefixes) or a statepool enc-dec/VLM engine (cross-KV sharing); "
                 f"{family!r} on {self.backend!r} has neither")
-        self.model, self.params = model, params
+        if placement is None and cfg.sharding is not None and cfg.sharding.dp > 1:
+            raise ValueError("dp > 1 needs data-parallel replicas: build the engine with "
+                             "serve.replica.make_engine / ReplicatedEngine")
+        tp = placement.tp if placement is not None else (cfg.sharding.tp if cfg.sharding
+                                                         else 1)
+        if tp > 1 and not self.paged and (self.backend != "statepool"
+                                          or family not in EMBED_KEY):
+            raise ValueError(
+                f"tensor-parallel serving shards pooled KV on the head axis: a paged family "
+                f"(dense/moe) or a statepool enc-dec/VLM engine; {family!r} on "
+                f"{self.backend!r} keeps recurrent-state rings or dense slots, which have no "
+                f"head axis to shard")
+        self.placement = placement if placement is not None else Placement(tp)
+        self.model, self.params = model, self.placement.replicate(params)
         self.spec = cfg.spec
         self.device = params["embed"]["table"].device
         self.telemetry = EngineTelemetry(cfg.telemetry)
         self.sched = Scheduler(cfg.n_slots, cfg.max_len, cfg.prefill_chunk,
-                               tracer=self.telemetry.tracer)
+                               tracer=self.telemetry.tracer, ids=ids)
         self.completed: list[Request] = []
         self.steps = 0
         self.prefix = self.proposer = None
@@ -195,14 +231,18 @@ class Engine:
         self.cache = P.PagedCache(model.cfg, n_slots=cfg.n_slots,
                                   pages_per_slot=pages_per_slot, page_size=cfg.page_size,
                                   n_pages=n_pages, kv_dtype=cfg.kv_dtype,
-                                  device=self.device, debug=cfg.debug_cache)
+                                  device=self.device, debug=cfg.debug_cache,
+                                  placement=self.placement)
         self.decode_backend = cfg.decode_backend or (
             "paged" if model.cfg.attn_backend == "paged" else "gather")
         self._steps = build_paged_steps(model, method=cfg.method, page_size=cfg.page_size,
-                                        decode_backend=self.decode_backend)
+                                        decode_backend=self.decode_backend,
+                                        placement=self.placement)
         self.prefix = PrefixIndex(cfg.page_size) if cfg.prefix_cache else None
         self._admit_plan: dict[int, list[int]] = {}  # rid -> matched page ids
         self.proposer = build_proposer(self, self.spec) if self.spec is not None else None
+        if hasattr(self.proposer, "params"):  # a draft model: its weights too
+            self.placement.replicate(self.proposer.params)
 
     def _init_state_backend(self, model: Model, cfg: EngineConfig) -> None:
         """The state pool's rings and their steps, or the dense-slot oracle's
@@ -212,8 +252,10 @@ class Engine:
         if self.backend == "statepool":
             self.cache = StatePool(model, n_slots=cfg.n_slots, max_len=cfg.max_len,
                                    page_size=cfg.page_size, kv_dtype=cfg.kv_dtype,
-                                   device=self.device, debug=cfg.debug_cache)
-            self._state_steps = build_state_steps(model, method=cfg.method, pool=self.cache)
+                                   device=self.device, debug=cfg.debug_cache,
+                                   placement=self.placement)
+            self._state_steps = build_state_steps(model, method=cfg.method, pool=self.cache,
+                                                  placement=self.placement)
             self.cross_share = cfg.prefix_cache and self.cache.cross is not None
             return
         self.cache = P.DenseSlotCache(model, n_slots=cfg.n_slots, max_len=cfg.max_len,
@@ -229,7 +271,8 @@ class Engine:
         """Queue a request.  ``extra`` holds its conditioning tensors (moved
         to the engine's device); a statepool enc-dec or VLM engine encodes
         them at admission, so there they must come with the request."""
-        now = time.monotonic() if arrival_time is None else arrival_time
+        now = self.placement.broadcast_float(
+            time.monotonic() if arrival_time is None else arrival_time)
         embed = EMBED_KEY.get(self.model.cfg.family)
         if self.backend == "statepool" and embed is not None and (
                 extra is None or extra.get(embed) is None):
@@ -254,7 +297,7 @@ class Engine:
         Each section is timed on the host clock for the telemetry; a section
         ends at the host read of its logits where it has one (see
         ``serve.telemetry``)."""
-        now = time.monotonic() if now is None else now
+        now = self.placement.broadcast_float(time.monotonic() if now is None else now)
         reg = self.telemetry.registry
         t_tick = time.perf_counter()
 
@@ -286,6 +329,8 @@ class Engine:
         if self.sched.queue and self.sched.free_slots:
             # a slot is free but the FIFO head did not fit: page pressure
             reg.counter("admission_blocked_pages").inc()
+        if self.config.debug_cache and self.placement.tp > 1:
+            self._check_schedule_agrees()
 
         t0 = time.perf_counter()
         did_prefill = False
@@ -324,7 +369,31 @@ class Engine:
         return self.completed
 
     def cache_bytes(self) -> int:
+        """The whole pool's bytes (every rank's heads under tensor
+        parallelism, as the reference's global arrays count them)."""
         return self.cache.cache_bytes()
+
+    def rank_bytes(self) -> int:
+        """The pool bytes this rank holds (the dense slots are never sharded)."""
+        return getattr(self.cache, "rank_bytes", self.cache.cache_bytes)()
+
+    def _check_schedule_agrees(self) -> None:
+        """Raise unless every rank of the tensor-parallel group holds the same
+        schedule this tick (slots, requests, positions, page tables, ring
+        cursor): ranks whose host decisions diverged would otherwise wait in
+        different collectives."""
+        h = zlib.crc32(repr(sorted((slot, r.rid, r.prefill_pos, len(r.tokens))
+                                   for slot, r in self.sched.active.items())).encode())
+        caches = [self.cache] if self.paged else [p for _, p in self.cache.planes()
+                                                  if hasattr(p, "tables")]
+        for c in caches:
+            h = zlib.crc32(np.ascontiguousarray(c.tables).tobytes(), h)
+        if self.backend == "statepool":
+            h = zlib.crc32(self.cache.ring_read.tobytes() + self.cache.ring_cur.tobytes(), h)
+        seen = self.placement.all_gather_ints([h])
+        if any(v != seen[0] for v in seen):
+            raise RuntimeError(f"tensor-parallel ranks diverged at tick {self.steps}: "
+                               f"schedule hashes {[v[0] for v in seen]}")
 
     def compile_counts(self) -> dict[str, int]:
         """Distinct operand-shape signatures per step (the reference's

@@ -135,12 +135,18 @@ class PagedCache:
     def __init__(self, cfg, *, n_slots: int, pages_per_slot: int, page_size: int,
                  n_pages: int | None = None, kv_dtype: str = "mxfp4", device="cuda",
                  debug: bool = False, geometry: tuple[int, int, int] | None = None,
-                 dtype: str | torch.dtype | None = None):
+                 dtype: str | torch.dtype | None = None, placement=None):
         """``geometry=(layers, kv_heads, head_dim)`` with ``dtype`` sizes the
         pool explicitly instead of from ``cfg`` (which may then be None): how
         :class:`~repro_torch.serve.state_pool.StatePool` carves the
         attention-KV plane out of a family whose cache tree is not one
-        stacked (K, V) pair (the hybrid's ``"attn"`` stacks)."""
+        stacked (K, V) pair (the hybrid's ``"attn"`` stacks).
+
+        With a tensor-parallel ``placement`` (``serve.placement``) the pool
+        holds this rank's ``kv_heads / tp`` heads (``local_heads``) when tp
+        divides the head count, else all of them (replicated).
+        :meth:`cache_bytes` reports the whole pool, as the reference's
+        global arrays do; :meth:`rank_bytes` this rank's share."""
         if kv_dtype not in ("mxfp4", "dense"):
             raise ValueError(f"kv_dtype must be 'mxfp4' or 'dense', got {kv_dtype!r}")
         if geometry is None:
@@ -158,13 +164,17 @@ class PagedCache:
         self.pages_per_slot, self.n_pages = pages_per_slot, n_pages
         self.kv_dtype = kv_dtype
         self.layers, self.kv_heads, self.head_dim = L, H, hd
+        Hl = placement.local_heads(H) if placement is not None else H
+        self.local_heads = Hl
+        # the sharded pool's group, over which pool health sums its counts
+        self.shard_group = placement.group if Hl != H else None
         if kv_dtype == "dense":
-            shape = (L, n_pages, page_size, H, hd)
+            shape = (L, n_pages, page_size, Hl, hd)
             self.pool = {"k": torch.zeros(shape, dtype=dtype, device=device),
                          "v": torch.zeros(shape, dtype=dtype, device=device)}
         else:
-            cshape = (L, n_pages, page_size, H, hd // 2)
-            sshape = (L, n_pages, page_size, H, hd // quant_block(hd))
+            cshape = (L, n_pages, page_size, Hl, hd // 2)
+            sshape = (L, n_pages, page_size, Hl, hd // quant_block(hd))
             self.pool = {name: torch.zeros(shape, dtype=torch.uint8, device=device)
                          for name, shape in (("k_codes", cshape), ("k_scales", sshape),
                                              ("v_codes", cshape), ("v_scales", sshape))}
@@ -393,9 +403,13 @@ class PagedCache:
 
     # -- accounting ---------------------------------------------------------
 
-    def cache_bytes(self) -> int:
-        """Persistent KV bytes held by the pool."""
+    def rank_bytes(self) -> int:
+        """Persistent KV bytes this rank holds."""
         return sum(t.numel() * t.element_size() for t in self.pool.values())
+
+    def cache_bytes(self) -> int:
+        """Persistent KV bytes of the whole pool (every rank's heads)."""
+        return self.rank_bytes() * (self.kv_heads // self.local_heads)
 
 
 class DenseSlotCache:

@@ -54,6 +54,7 @@ class Request:
     decode_calls: int = 0  # batched decode/verify invocations that fed this slot
     draft_proposed: int = 0  # drafted tokens scored on this request's behalf
     draft_accepted: int = 0  # drafted tokens the target model agreed with
+    replica: int | None = None  # the data-parallel replica serving it (None: one engine)
 
     @property
     def prompt_len(self) -> int:
@@ -88,7 +89,7 @@ class Scheduler:
     to the page allocator."""
 
     def __init__(self, n_slots: int, max_len: int, prefill_chunk: int = 16,
-                 tracer: Any = None):
+                 tracer: Any = None, ids=None):
         if prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         self.n_slots, self.max_len = n_slots, max_len
@@ -97,10 +98,13 @@ class Scheduler:
         self.active: dict[int, Request] = {}  # slot -> request
         self.free_slots = deque(range(n_slots))
         self.tracer = tracer  # telemetry.Tracer | None: the submit and retire spans
-        self._ids = itertools.count()
+        # data-parallel replicas share one counter (``ids``), so rids stay
+        # unique across them and their completions merge in submission order
+        self._ids = ids if ids is not None else itertools.count()
 
-    def submit(self, prompt: np.ndarray, max_new: int, extra: Any = None,
-               arrival_time: float = 0.0, sampling: Any = None) -> Request:
+    def check_request(self, prompt: np.ndarray, max_new: int) -> np.ndarray:
+        """The prompt as int32 [P], or ValueError for a request this
+        scheduler cannot take."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -109,6 +113,11 @@ class Scheduler:
         if prompt.size + max_new > self.max_len:
             raise ValueError(
                 f"prompt({prompt.size}) + max_new({max_new}) exceeds max_len {self.max_len}")
+        return prompt
+
+    def submit(self, prompt: np.ndarray, max_new: int, extra: Any = None,
+               arrival_time: float = 0.0, sampling: Any = None) -> Request:
+        prompt = self.check_request(prompt, max_new)
         req = Request(rid=next(self._ids), prompt=prompt, max_new=max_new, extra=extra,
                       sampling=sampling, arrival_time=arrival_time)
         self.queue.append(req)

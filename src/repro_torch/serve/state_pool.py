@@ -257,7 +257,11 @@ class StatePool:
 
     def __init__(self, model: Model, *, n_slots: int, max_len: int, page_size: int = 16,
                  kv_dtype: str = "mxfp4", device="cuda", debug: bool = False,
-                 cross_headroom: int = 2):
+                 cross_headroom: int = 2, placement=None):
+        """A tensor-parallel ``placement`` shards the KV and cross planes on
+        their head axis as it shards a paged pool (``PagedCache``); the
+        rings have no head axis, and the engine refuses tensor parallelism
+        for the families that have them."""
         cfg = model.cfg
         if cfg.family not in STATE_FAMILIES:
             raise ValueError(f"StatePool covers {STATE_FAMILIES}, got {cfg.family!r} "
@@ -278,7 +282,8 @@ class StatePool:
             (L_kv, _, _, H, hd), dtype = spec[self.kv_key][0]
             self.kv = PagedCache(None, n_slots=n_slots, pages_per_slot=-(-max_len // page_size),
                                  page_size=page_size, kv_dtype=kv_dtype, device=device,
-                                 debug=debug, geometry=(L_kv, H, hd), dtype=dtype)
+                                 debug=debug, geometry=(L_kv, H, hd), dtype=dtype,
+                                 placement=placement)
 
         # the cross-KV plane: K [L_c, 1, T_src, Hkv, hd]; the headroom beyond
         # one page set a slot keeps retired but cached sources alive
@@ -292,7 +297,7 @@ class StatePool:
                                     page_size=page_size,
                                     n_pages=1 + (n_slots + cross_headroom) * cpp,
                                     kv_dtype=kv_dtype, device=device, debug=debug,
-                                    geometry=(L_c, H, hd), dtype=dtype)
+                                    geometry=(L_c, H, hd), dtype=dtype, placement=placement)
             self.cross_tokens = int(T_src)
         self.cross_index = CrossIndex()
 
@@ -428,6 +433,12 @@ class StatePool:
 
     def cache_bytes(self) -> int:
         return sum(p.cache_bytes() for _, p in self.planes())
+
+    def rank_bytes(self) -> int:
+        """The bytes this rank holds: its heads of the KV and cross planes
+        under tensor parallelism, and the rings."""
+        return sum(p.rank_bytes() if kind != "state_ring" else p.cache_bytes()
+                   for kind, p in self.planes())
 
     def bits_per_element(self) -> float:
         """Storage bits per state element over every page of every plane."""

@@ -48,12 +48,15 @@ an attached profiler, which costs the first call of each signature.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.models.registry import Model
+from repro_torch.distributed.context import activate_mesh
+from repro_torch.models.registry import Model, build_model
 from repro_torch.serve import paged_cache as P
 from repro_torch.serve.paged_cache import PagedKV, prefill_chunk_layout
 from repro_torch.train.serve import (
@@ -134,10 +137,39 @@ class PagedSteps(NamedTuple):
         return {name: n_signatures(fn) for name, fn in zip(self._fields, self)}
 
 
+def tp_model(model: Model, placement) -> Model:
+    """The model a tensor-parallel placement's steps run: rebuilt with
+    ``cfg.tp_axis`` / ``tp_size`` set, so its shape-based detection slices
+    heads and experts (``models.attention``, ``models.moe``); the model
+    itself at tp 1."""
+    if placement is None or placement.tp == 1:
+        return model
+    return build_model(dataclasses.replace(model.cfg, tp_axis=placement.AXIS,
+                                           tp_size=placement.tp))
+
+
+def _on_mesh(fn: Callable, placement) -> Callable:
+    """``fn`` run under its placement's mesh (the model's all-gathers find
+    their group there); ``fn`` itself at tp 1."""
+    if placement is None or placement.tp == 1:
+        return fn
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with activate_mesh(placement.mesh):
+            return fn(*args, **kwargs)
+    return run
+
+
 def build_paged_steps(model: Model, *, method: str, page_size: int,
-                      decode_backend: str = "paged") -> PagedSteps:
+                      decode_backend: str = "paged", placement=None) -> PagedSteps:
+    """``placement`` (``serve.placement.Placement``, tp > 1) makes every step
+    run this rank's share of a tensor-parallel engine: the model rebuilt
+    with ``tp_axis`` / ``tp_size``, under the placement's mesh, over a pool
+    that holds this rank's heads (the reference's ``shard_map`` body)."""
     if decode_backend not in ("paged", "gather"):
         raise ValueError(f"decode_backend must be 'paged' or 'gather', got {decode_backend!r}")
+    model = tp_model(model, placement)
     decode = make_decode_step(model, method=method)
     verify = make_verify_step(model, method=method)
     chunk = make_chunk_prefill_step(model, method=method)
@@ -201,7 +233,7 @@ def build_paged_steps(model: Model, *, method: str, page_size: int,
         return logits
 
     if decode_backend == "paged":
-        return _paged_steps(decode_all, prefill_all, prefill_chunk, verify_all)
+        return _paged_steps(placement, decode_all, prefill_all, prefill_chunk, verify_all)
 
     def gather_decode_all(params, tokens, positions, pool, tables, mask):
         """One decode step for every slot over the gathered dense view; the
@@ -233,11 +265,11 @@ def build_paged_steps(model: Model, *, method: str, page_size: int,
         P.scatter_tokens(pool, page_ids.reshape(-1), (pos % ps).reshape(-1), k_new, v_new)
         return _head_by_column(params, feats)
 
-    return _paged_steps(gather_decode_all, None, prefill_chunk, gather_verify_all)
+    return _paged_steps(placement, gather_decode_all, None, prefill_chunk, gather_verify_all)
 
 
-def _paged_steps(*fns) -> PagedSteps:
-    return PagedSteps(*(None if f is None else Step(name, f)
+def _paged_steps(placement, *fns) -> PagedSteps:
+    return PagedSteps(*(None if f is None else Step(name, _on_mesh(f, placement))
                         for name, f in zip(PagedSteps._fields, fns)))
 
 
@@ -265,7 +297,7 @@ class StateSteps(NamedTuple):
                 "prefill_all": n_signatures(self.encode_cross)}
 
 
-def build_state_steps(model: Model, *, method: str, pool) -> StateSteps:
+def build_state_steps(model: Model, *, method: str, pool, placement=None) -> StateSteps:
     """Steps over a :class:`~repro_torch.serve.state_pool.StatePool`.  Each
     assembles the family's dense cache tree from the planes (the KV plane's
     pages gathered and dequantized, B4b, and sliced to ``max_len``; the
@@ -285,7 +317,13 @@ def build_state_steps(model: Model, *, method: str, pool) -> StateSteps:
     so its cross blocks recompute their K/V from the image (the oracle's
     path: a cross attention that reads a cache rotates its queries, one
     built from the source does not) and the pooled cross-KV it was handed
-    is not read; decode steps read the pooled cross-KV."""
+    is not read; decode steps read the pooled cross-KV.
+
+    ``placement`` (tp > 1, the enc-dec and VLM families): the KV and cross
+    planes hold this rank's heads, and the steps run as
+    :func:`build_paged_steps`'s do; ``encode_cross`` keeps the rank's heads
+    of the source's K/V."""
+    model = tp_model(model, placement)
     decode = make_decode_step(model, method=method)
     chunk = make_chunk_prefill_step(model, method=method, build_cross=False)
     dtype = getattr(torch, model.cfg.dtype)
@@ -354,8 +392,11 @@ def build_state_steps(model: Model, *, method: str, pool) -> StateSteps:
         write_back(caches, page_ids, offsets, k_new, v_new, ring_write)
         return logits
 
+    def step(name, fn):
+        return Step(name, _on_mesh(fn, placement))
+
     if cross is None:
-        return StateSteps(Step("decode_all", decode_all), Step("prefill_chunk", prefill_chunk))
+        return StateSteps(step("decode_all", decode_all), step("prefill_chunk", prefill_chunk))
     if family == "encdec":
         from repro_torch.models.encdec import encode_cross_kv
     else:
@@ -370,8 +411,12 @@ def build_state_steps(model: Model, *, method: str, pool) -> StateSteps:
         decode steps cast them, so a dense plane holds, bit for bit, what a
         ``build_cross=True`` prefill attends over."""
         ks, vs = encode_cross_kv(cast_params(params, dtype), embeds, model.cfg, 0, method)
+        local = cross.local_heads
+        if local != ks.shape[3]:  # a head-sharded plane: this rank's heads
+            heads = slice(placement.rank * local, (placement.rank + 1) * local)
+            ks, vs = ks[:, :, :, heads], vs[:, :, :, heads]
         pos = torch.arange(ks.shape[2], device=embeds.device)
         P.scatter_tokens(cross.pool, cross_row[pos // ps], pos % ps, ks[:, 0], vs[:, 0])
 
-    return StateSteps(Step("decode_all", decode_all), Step("prefill_chunk", prefill_chunk),
-                      Step("encode_cross", encode_cross))
+    return StateSteps(step("decode_all", decode_all), step("prefill_chunk", prefill_chunk),
+                      step("encode_cross", encode_cross))

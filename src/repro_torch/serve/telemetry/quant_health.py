@@ -61,11 +61,13 @@ def _pages(mask: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.nonzero(np.asarray(mask))[0]).to(device)
 
 
-def pool_health(pool: dict, page_mask: np.ndarray) -> dict:
+def pool_health(pool: dict, page_mask: np.ndarray, group=None, shards: int = 1) -> dict:
     """Packed MXFP4 pool ([L, P, ps, H, hd/2] codes, [L, P, ps, H, nb] scale
     codes per stream) + mapped-page mask → per-stream health dict of Python
     numbers: ``{"k": {"clip_frac", "zero_frac", "scale_hist" (256 ints),
-    "n_elems"}, "v": {...}, "mapped_pages"}``."""
+    "n_elems"}, "v": {...}, "mapped_pages"}``.  A pool sharded on its head
+    axis over ``shards`` ranks sums its int64 counts over their ``group``
+    first, so every rank reads the whole pool's health, exactly."""
     if "k_codes" not in pool:
         raise ValueError("pool_health needs a packed (mxfp4) pool")
     ids = _pages(page_mask, pool["k_codes"].device)
@@ -75,9 +77,12 @@ def pool_health(pool: dict, page_mask: np.ndarray) -> dict:
         scales = pool[f"{s}_scales"].index_select(1, ids)
         parts += [_code_counts(codes),
                   torch.bincount(scales.reshape(-1).long(), minlength=N_SCALE_BINS)]
-    counts = torch.cat(parts).tolist()  # the one host read
+    counts = torch.cat(parts)
+    if group is not None:
+        torch.distributed.all_reduce(counts, group=group)
+    counts = counts.tolist()  # the one host read
     L, _, ps, H, half = pool["k_codes"].shape
-    n = len(ids) * L * ps * H * half * 2
+    n = len(ids) * L * ps * H * shards * half * 2
     out: dict = {"mapped_pages": len(ids)}
     for i, s in enumerate(("k", "v")):
         base = i * (2 + N_SCALE_BINS)
@@ -96,7 +101,8 @@ def sample_pool_health(cache) -> dict | None:
     mask = cache.page_mask()
     if not mask.any():
         return None
-    return pool_health(cache.pool, mask)
+    return pool_health(cache.pool, mask, cache.shard_group,
+                       cache.kv_heads // cache.local_heads)
 
 
 def ring_health(pool: dict, page_mask: np.ndarray) -> dict:

@@ -1,0 +1,42 @@
+"""Tensor-parallel serving of the port on the CPU: reduced qwen3-1.7b on
+two gloo ranks against one device, gather backend (the parity oracle).
+
+Each rank gathers its heads of the pool into dense caches (B4b's plain
+version), attends over them at the model's head count, all-gathers the
+outputs on the head axis and scatters its heads of the new tokens back
+(B4a's): tokens equal TP 1's bit for bit, and each rank's pool equals the
+TP 1 pool's head slice.  With the prefix cache:
+``tests/test_torch_serve_tp_gather_prefix.py``.
+"""
+
+import pytest
+import torch
+
+import _tp_ranks as R
+
+pytestmark = pytest.mark.sharded
+
+CASES = [("qwen3-1.7b", "gather", False)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def sweep(tmp_path_factory):
+    return R.sweep(tmp_path_factory, CASES)
+
+
+@pytest.mark.parametrize("case", CASES, ids=R.case_id)
+def test_tp2_gather_token_exact(sweep, case):
+    R.assert_tokens_equal(sweep, case)
+
+
+@pytest.mark.parametrize("case", CASES, ids=R.case_id)
+def test_tp2_gather_pool_is_the_head_slice(sweep, case):
+    R.assert_pools_are_head_slices(sweep, case)
