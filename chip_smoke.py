@@ -134,8 +134,8 @@
    step 2 and resumed bit for bit.
 4f. The SSM family (``--phases ssm``): B4a and B4b through their 2-d
    entries on the state rings' views at falcon-mamba-7b's full width, bit
-   for bit against their plain versions; falcon-mamba-7b at full width and
-   depth serving 8 requests from MXFP4 state rings (the ``statepool``
+   for bit against their plain versions; falcon-mamba-7b at full width, 16
+   of its 64 layers, serving 8 requests from MXFP4 state rings (the ``statepool``
    backend): B1, B3, B4a and B4b launches against the prediction, tok/s,
    TTFT, ticks, ring bytes against the dense slots', peak memory, and the
    first-token log-probs within stated bounds of the teacher-forced
@@ -148,7 +148,7 @@
    tables and the 2-d dequantize over every (byte, scale code) pair) and on
    the zamba2 rings' views; rope at hd 112 card = CPU bit for bit and one
    full-width Mamba2 block card against CPU within stated bounds;
-   zamba2-7b at full width and depth serving the first HYBRID_REQUESTS of
+   zamba2-7b at full width, 21 of its 81 layers, serving the first HYBRID_REQUESTS of
    the ssm phase's prompts from an MXFP4 attention-KV plane and MXFP4 rings
    (launches against the prediction, tok/s, TTFT, ticks, prefill calls by
    shape, plane bytes against the dense slots', peak memory, first-token
@@ -223,6 +223,34 @@
    depth, the state pool) at tp 1 and tp N, tokens equal.  Reported, no
    gate: tok/s, TTFT, the all-gathers' device ms a tick, each rank's pool
    and peak bytes, by layout.
+4l. FSDP data-parallel training (``--phases dp-train [--devices N]``; N as
+   the multidevice phase takes it): B2's window entry against its plain
+   version at llama-paper-7b's backward operands (the transposed [4096,
+   Bp_l] and [10944, Bp_l] column blocks and a [Bp_l, 4096] dy row block of
+   rank windows r = 0 .. 3 of Bp = 4 x 2 x 512 tokens), bit for bit, each
+   equal to the slice of the whole operand's launch; with ``times`` rank
+   0's window launches timed.  B1, B2 and B3 against their plain versions at
+   one llama-paper-7b layer's linears (q/k/v/o, gate/up, down) at 1024 and
+   2048 tokens (the one-card run's and a dp-4 rank's microbatch): B1 on x
+   and Wᵀ, B2 on the backward operands and B3's dx and dW bit for bit, B3's
+   forward within rtol 1e-6 (down's forward and gate/up's dx contract over
+   d_ff 10944, B3's K tail).  On one card, a world of one (NCCL over
+   ``tcp://localhost``): llama-paper-200m at full width and depth, 2 steps
+   of 8 x 512 in 2 microbatches under ``make_local_mesh()`` through the
+   anchors, fp4_allgather off and on, equal bit for bit to the step without
+   a mesh (loss, grad-norm, launches, every parameter); llama-paper-7b at
+   full width, 2 of its 32 layers, one step of 4 x 512 at dp 1: loss in
+   (1, 12), grad-norm above 1e-3, 28 launches of each of B1, B2 and B3 a
+   layer a microbatch.  On N cards, one process a card: llama-paper-200m at
+   dp N against dp 1 on 32 x 512 (loss within 1e-6, grad-norm within 1e-4,
+   gradients within 1e-3 relative L2, launches a rank equal, at most a
+   1e-3 share of the parameters more than 1e-3·lr apart after step 0);
+   B1 on a rank's shard of four 7B weights' Wᵀ (wq, wo, up, down) bit for
+   bit, its gathered codes equal to the whole Wᵀ's, and B3 on them within
+   rtol 1e-6; then llama-paper-7b at full width and depth,
+   3 steps of 32 x 512 with fp4_allgather off and on (step 0's losses equal
+   within 1e-6, in (1, 12)); reported: tokens/s, peak bytes a rank, the
+   collectives' MB and device ms a step.
 5. Times each kernel (CUDA events, median, L2 flushed before each launch)
    beside its plain version and, where one PyTorch call computes the same
    function, that call, at serving, training and evaluation shapes; B1, B2,
@@ -242,6 +270,7 @@ when run outside a checkout of the repository.  ``--phases`` runs a subset
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -255,6 +284,7 @@ import sys
 import tempfile
 import time
 
+T_START = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
@@ -347,6 +377,9 @@ DENSE_ARCH, DENSE_TRAIN_LAYERS, DENSE_TRAIN_STEPS, TRAIN_C4_STEPS = "starcoder2-
 SSM_ARCH, SSM_REQUESTS, SSM_MIN_PROMPT, SSM_MAX_PROMPT, SSM_NEW, SSM_CHUNK = (
     "falcon-mamba-7b", 8, 64, 192, 32, 64)
 SSM_ORACLE_LAYERS, SSM_ORACLE_REQUESTS, SSM_ORACLE_NEW = 2, 4, 8
+# the default run's time (the [total] line, held under 1000 s since the
+# dp-train phase joined it) cuts the depth: SSM_LAYERS of falcon-mamba-7b's 64
+SSM_LAYERS = 16
 # the hybrid phase: zamba2-7b at full width and depth (81 Mamba2 layers at d
 # 3584, Di 7168, N 64, 112 SSM heads of 64; the shared attention + SwiGLU
 # block, 32 heads of 112, before each of 13 groups of 6, then a 3-layer
@@ -357,6 +390,9 @@ SSM_ORACLE_LAYERS, SSM_ORACLE_REQUESTS, SSM_ORACLE_NEW = 2, 4, 8
 # width, HYBRID_ORACLE_LAYERS deep (2 groups and a 1-layer tail), on the
 # first SSM_ORACLE_REQUESTS prompts
 HYBRID_ARCH, HYBRID_ORACLE_LAYERS = "zamba2-7b", 13
+# the default run's time cuts the depth: HYBRID_LAYERS of zamba2-7b's 81 (3
+# groups of 6 and the 3-layer tail, the shared block applied 3 times)
+HYBRID_LAYERS = 21
 # of the ssm phase's prompts the hybrid serves the first HYBRID_REQUESTS (a
 # [1, 1] call of its 81 layers and 13 attentions takes ~0.33 s of host
 # time: all 8 prompts held the phase at 224 s)
@@ -430,6 +466,27 @@ TEL_SSM_LAYERS, TEL_SSM_REQUESTS, TEL_SSM_NEW = 4, 4, 16
 MD_HEADS = (("qwen3-1.7b", 2, 2), ("llama-3.2-vision-11b", 2, 4),
             ("qwen3-moe-235b-a22b", 1, 16))
 MD_EXPERTS, MD_TIMEOUT_S = 32, 300
+
+# the dp-train phase: FSDP data-parallel Quartet training.  B2's window at
+# llama-paper-7b's backward operands for DP_WORLD ranks of DP_MB_ROWS x
+# TRAIN_SEQ tokens a microbatch (Bp = 4 x 2 x 512); on one card a world of
+# one: llama-paper-200m (full width and depth) DP_ONE_STEPS steps of
+# DP_ONE_BATCH x TRAIN_SEQ through the anchors against no mesh, and
+# llama-paper-7b at full width, DP_7B_ONE_LAYERS of its 32 layers, one step
+# of DP_7B_ONE_BATCH x TRAIN_SEQ; on N cards (--devices N) llama-paper-200m
+# at dp N against dp 1 on DP_CHECK_BATCH x TRAIN_SEQ, then llama-paper-7b at
+# full width and depth DP_7B_STEPS steps of DP_7B_BATCH x TRAIN_SEQ, with
+# fp4_allgather off and on; TRAIN_MICRO microbatches throughout
+DP_ARCH, DP_7B_ARCH = "llama-paper-200m", "llama-paper-7b"
+DP_WORLD, DP_MB_ROWS = 4, 2
+DP_ONE_STEPS, DP_ONE_BATCH, DP_7B_ONE_LAYERS, DP_7B_ONE_BATCH = 2, 8, 2, 4
+DP_CHECK_BATCH, DP_7B_STEPS, DP_7B_BATCH, DP_TIMEOUT_S = 32, 3, 32, 900
+# the 7B linears' kernel checks: the one-card run's and a dp-4 rank's tokens
+# a microbatch; the 200m check's bound on the share of parameters that
+# AdamW's first update leaves more than DP_PARAM_TOL·lr apart at dp N and 1
+DP_LINEAR_TOKENS = (DP_7B_ONE_BATCH // TRAIN_MICRO * TRAIN_SEQ,
+                    DP_7B_BATCH // TRAIN_MICRO // DP_WORLD * TRAIN_SEQ)
+DP_PARAM_TOL, DP_PARAM_SHARE = 1e-3, 1e-3
 
 # the baselines phase: each baseline method on one full-width llama-paper-200m
 # linear of BASELINE_ROWS tokens (4 x 512), card against CPU; each training
@@ -3876,7 +3933,7 @@ def _first_token_vs_teacher_forced(torch, model, params, prompts, reqs, device="
 
 
 def serve_ssm(torch, ops, device="cuda"):
-    """SSM_ARCH at full width and depth from MXFP4 state rings (the
+    """SSM_ARCH at full width, SSM_LAYERS deep, from MXFP4 state rings (the
     ``statepool`` backend, its default): SSM_REQUESTS requests, launches of
     B1, B3, B4a and B4b against a prediction, first-token log-probs against
     the teacher-forced forward; then, SSM_ORACLE_LAYERS layers deep, the
@@ -3891,7 +3948,7 @@ def serve_ssm(torch, ops, device="cuda"):
     from repro_torch.launch.serve_engine import kernel_config
     from repro_torch.models import build_model
 
-    cfg = kernel_config(get_config(SSM_ARCH))
+    cfg = kernel_config(dataclasses.replace(get_config(SSM_ARCH), num_layers=SSM_LAYERS))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4179,7 +4236,7 @@ def _hybrid_prefill_shapes(prompts) -> dict:
 
 
 def serve_hybrid(torch, ops, device="cuda"):
-    """HYBRID_ARCH at full width and depth from an MXFP4 attention-KV plane
+    """HYBRID_ARCH at full width, HYBRID_LAYERS deep, from an MXFP4 attention-KV plane
     (PAGE_SIZE) and MXFP4 state rings (the ``statepool`` backend): the first
     HYBRID_REQUESTS of the ssm phase's prompts, SSM_NEW new each; launches of B1, B3, B4a and B4b
     against a prediction, first-token log-probs against the teacher-forced
@@ -4195,7 +4252,7 @@ def serve_hybrid(torch, ops, device="cuda"):
     from repro_torch.launch.serve_engine import kernel_config
     from repro_torch.models import build_model
 
-    cfg = kernel_config(get_config(HYBRID_ARCH))
+    cfg = kernel_config(dataclasses.replace(get_config(HYBRID_ARCH), num_layers=HYBRID_LAYERS))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5872,18 +5929,560 @@ def serve_multidevice(torch, devices: int | None, engine_tokens):
     return err, summary, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 4l: FSDP data-parallel training
+# ---------------------------------------------------------------------------
+
+
+def check_dp_window_kernels(torch, timer=None, device="cuda"):
+    """B2's window entry against its plain version at llama-paper-7b's
+    backward operands, for rank windows r = 0 .. DP_WORLD-1 of a logical
+    microbatch of Bp = DP_WORLD x DP_MB_ROWS x TRAIN_SEQ tokens: the
+    transposed xqᵀ [4096, Bp_l] (f32) and dyᵀ [10944, Bp_l] (bf16) column
+    blocks (hashing row length Bp) and a dy [Bp_l, 4096] row block (bf16),
+    bit for bit, and each equal to the slice of the whole operand's launch.
+    With ``timer``, rank 0's three window launches timed beside their plain
+    versions and their bound.  Returns (max |Δ|, times or None)."""
+    from repro_torch.core import fastrng
+    from repro_torch.kernels import sr_hadamard_quant as SR
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 29)
+    bl = DP_MB_ROWS * TRAIN_SEQ
+    bp = DP_WORLD * bl
+    d, f = 4096, 10944
+    src = {"xqᵀ": torch.randn((bp, d), generator=gen, device=device),
+           "dyᵀ": (torch.randn((bp, f), generator=gen, device=device) * 1e-3).to(torch.bfloat16),
+           "dy": (torch.randn((bp, d), generator=gen, device=device) * 1e-3).to(torch.bfloat16)}
+    signs_b = fastrng.rademacher(SEED, bp, salt=12, device=device)
+    signs_n = fastrng.rademacher(SEED, d, salt=11, device=device)
+    rank0 = []
+    for tag, x in src.items():
+        if tag == "dy":  # rows, blocks along N: offset r·Bp_l·N
+            full = SR.sr_hadamard_quantize(x, signs_n, SEED, salt=1)
+        else:  # the transposed view, blocks along the tokens
+            full = SR.sr_hadamard_quantize(x.t(), signs_b, SEED, salt=3 if tag == "xqᵀ" else 4)
+        for r in range(DP_WORLD):
+            blk = x[r * bl:(r + 1) * bl]
+            if tag == "dy":
+                args = (blk, signs_n, SEED, 0.75, 1, r * bl * d, None)
+                want_full = [t[r * bl:(r + 1) * bl] for t in full]
+            else:
+                sb = fastrng.rademacher(SEED, bl, salt=12, device=device, offset=r * bl)
+                if not torch.equal(sb, signs_b[r * bl:(r + 1) * bl]):
+                    raise AssertionError("rademacher's window is not the whole vector's slice")
+                args = (blk.t(), sb, SEED, 0.75, 3 if tag == "xqᵀ" else 4, r * bl, bp)
+                want_full = [full[0][:, r * bl:(r + 1) * bl],
+                             full[1][:, r * bl // 32:(r + 1) * bl // 32]]
+            got = SR.sr_hadamard_quantize(*args)
+            plain = SR.sr_hadamard_quantize_plain(*args)
+            for g, w, wf in zip(got, plain, want_full):
+                if not (torch.equal(g, w) and torch.equal(g, wf)):
+                    raise AssertionError(f"B2's window {tag} rank {r}: kernel, plain version "
+                                         f"and the whole operand's slice differ")
+            if r == 0:
+                rank0.append(args)
+    times = None
+    if timer is not None:
+        n_el = sum(a[0].numel() for a in rank0)
+        nbytes = sum(a[0].numel() * (a[0].element_size() + 1 + 4 / 32) for a in rank0)
+        by_bytes = nbytes / H100_BYTES_PER_S
+        by_ops = max(n_el * B2_INT32_OPS / H100_INT32_OPS,
+                     n_el * (B2_F32_OPS + B2_INT32_OPS) / H100_F32_OPS)
+        times = dict(
+            ms=timer(lambda: [SR.sr_hadamard_quantize(*a) for a in rank0]),
+            device_ms=timer.device(lambda: [SR.sr_hadamard_quantize(*a) for a in rank0]),
+            plain_ms=timer(lambda: [SR.sr_hadamard_quantize_plain(*a) for a in rank0]),
+            bound_ms=max(by_bytes, by_ops) * 1e3,
+            bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=None,
+            operands={tag: list(a[0].shape) for tag, a in zip(src, rank0)})
+    del src
+    torch.cuda.empty_cache()
+    return 0.0, times
+
+
+def _b1_held(torch, x, what: str):
+    """B1 on ``x`` against its plain version, codes, scales and mask bit
+    for bit; returns the kernel's (codes, scales, mask)."""
+    from repro_torch.kernels import hadamard_quant as HQ
+
+    got, want = HQ.hadamard_quest_quantize(x), HQ.hadamard_quest_quantize_plain(x)
+    for g, w_, part in zip(got, want, ("codes", "scales", "mask")):
+        if not torch.equal(g, w_):
+            raise AssertionError(f"hadamard_quest_quantize {what} {tuple(x.shape)} (strides "
+                                 f"{x.stride()}): {part} differ at {int((g != w_).sum())} places")
+    return got
+
+
+def _b3_held(torch, args, what: str, exact: bool) -> tuple[float, bool]:
+    """B3 on ``args`` against its plain version: bit for bit (``exact``,
+    as ``check_training_kernels`` holds the backward GEMMs) or within
+    ``check_kernels``' rtol 1e-6 / atol 1e-5.  Returns (max |Δ|, equal)."""
+    from repro_torch.kernels import mxfp4_matmul as MM
+
+    got, want = MM.mxfp4_matmul(*args), MM.mxfp4_matmul_plain(*args)
+    diff, equal = float((got - want).abs().max()), bool(torch.equal(got, want))
+    if not (equal if exact else torch.allclose(got, want, rtol=1e-6, atol=1e-5)):
+        raise AssertionError(f"mxfp4_matmul {what} {tuple(args[0].shape)} x "
+                             f"{tuple(args[2].shape)}: max |Δ| {diff}")
+    return diff, equal
+
+
+def dp_linear_shapes(cfg) -> list[tuple[str, int, int]]:
+    """(names, K, N) of one layer's distinct Quartet linear shapes."""
+    names: dict = {}
+    for name, K, N in linear_shapes(cfg):
+        names.setdefault((K, N), []).append(name)
+    return [("/".join(v), K, N) for (K, N), v in names.items()]
+
+
+def check_dp_linear_kernels(torch, device="cuda") -> dict:
+    """B1, B2 and B3 against their plain versions at one llama-paper-7b
+    layer's Quartet linears, at the token counts of the dp-train path's
+    microbatches (DP_LINEAR_TOKENS: the one-card 7B run's 2 rows of 512,
+    and a rank's 4 rows at dp 4).  For each distinct (K, N), q/k/v/o (4096,
+    4096), gate/up (4096, 10944) and down (10944, 4096): B1 on x [T, K] and
+    on the Wᵀ view [N, K] bit for bit; B3's forward on their codes within
+    ``check_kernels``' tolerance; B2 on the four backward operands bit for
+    bit and B3's dx [T, N]·[N, K] and dW [K, T]·[T, N] bit for bit.  d_ff
+    10944 is 85.5 of B3's 128-wide K stages, so down's forward and gate/up's
+    dx run B3's zero-filled K tail.  Returns max |Δ| by kernel and whether
+    every B3 forward was bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import fastrng
+    from repro_torch.kernels import sr_hadamard_quant as SR
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    seed = 2929
+    err = {"hadamard_quest_quantize": 0.0, "sr_hadamard_quantize": 0.0, "mxfp4_matmul": 0.0}
+    fwd_equal = True
+    for T in DP_LINEAR_TOKENS:
+        for names, K, N in dp_linear_shapes(get_config(DP_7B_ARCH)):
+            tag = f"llama-paper-7b {names} at {T} tokens"
+            x = torch.randn((T, K), generator=gen, device=device).mul_(1.9).to(torch.bfloat16)
+            w = (torch.randn((K, N), generator=gen, device=device) / K**0.5).to(torch.bfloat16)
+            xc, xs, _ = _b1_held(torch, x, f"{tag} x")
+            wc, ws, _ = _b1_held(torch, w.t(), f"{tag} Wᵀ")
+            diff, equal = _b3_held(torch, (xc, xs, wc.t(), ws.t()), f"{tag} forward", False)
+            err["mxfp4_matmul"], fwd_equal = max(err["mxfp4_matmul"], diff), fwd_equal and equal
+            del x, w, xc, xs, wc, ws
+            codes = {}
+            for salt, (what, op) in enumerate(backward_operands(torch, K, N, gen, device,
+                                                                T).items(), 1):
+                signs = fastrng.rademacher(seed, op.shape[1], salt=11 if salt < 3 else 12,
+                                           device=device)
+                got = SR.sr_hadamard_quantize(op, signs, seed, salt=salt)
+                want = SR.sr_hadamard_quantize_plain(op, signs, seed, salt=salt)
+                if not all(torch.equal(g, w_) for g, w_ in zip(got, want)):
+                    raise AssertionError(f"sr_hadamard_quantize {tag} {what} "
+                                         f"{tuple(op.shape)} differs from its plain version")
+                codes[what] = got
+            for what, (a, b) in (("dx", ("dy", "Wq")), ("dW", ("xqᵀ", "dyᵀ"))):
+                diff, _ = _b3_held(torch, (*codes[a], codes[b][0].t(), codes[b][1].t()),
+                                   f"{tag} {what}", True)
+                err["mxfp4_matmul"] = max(err["mxfp4_matmul"], diff)
+            del codes
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "forward_bit_for_bit": fwd_equal,
+            "tokens": list(DP_LINEAR_TOKENS)}
+
+
+def check_dp_shard_kernels(torch, mesh, world: int, device="cuda") -> dict:
+    """On each rank of an N-card data mesh, at one llama-paper-7b layer's
+    Quartet weights as fp4_allgather takes them (the same whole W on every
+    rank, from SEED; a rank's contiguous shard by the sharding rules, K over
+    ``data`` for wq and up, N for wo and down): B1 on the shard's Wᵀ view
+    ([N, K/n] or [N/n, K], as ``quest_qdq_gathered`` passes it) against its
+    plain version bit for bit; its codes and scales all-gathered as
+    ``quest_qdq_gathered`` gathers them, equal bit for bit to B1 on the
+    whole Wᵀ; B3 on x's codes (a rank's microbatch of tokens) and the
+    gathered codes against its plain version within ``check_kernels``'
+    tolerance.  Returns max |Δ| by kernel."""
+    from repro_torch.distributed import context as C
+    from repro_torch.distributed import sharding as SH
+
+    T = DP_7B_BATCH // TRAIN_MICRO // world * TRAIN_SEQ
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    err = {"hadamard_quest_quantize": 0.0, "mxfp4_matmul": 0.0}
+    d, f = 4096, 10944
+    for path, K, N in (("attn/wq", d, d), ("attn/wo", d, d), ("mlp/up", d, f),
+                       ("mlp/down", f, d)):
+        w = (torch.randn((K, N), generator=gen, device=device) / K**0.5).to(torch.bfloat16)
+        grp, name = path.split("/")
+        spec = SH.param_partition({"layers": {grp: {name: {"w": w[None]}}}},
+                                  mesh)["layers"][grp][name]["w"]
+        dim = SH.sharded_dim(spec, mesh) - 1
+        shard = SH.shard_leaf(w[None], spec, mesh)[0].contiguous()
+        tag = f"llama-paper-7b {path} shard {tuple(shard.shape)} at dp {world}"
+        sc, ss, _ = _b1_held(torch, shard.t(), f"{tag} Wᵀ")
+        codes = C.gather_data(sc, 1 - dim, mesh).contiguous()
+        scales = C.gather_data(ss, 1 - dim, mesh).contiguous()
+        wc, ws, _ = _b1_held(torch, w.t(), f"{tag} whole Wᵀ")
+        if not (torch.equal(codes, wc) and torch.equal(scales, ws)):
+            raise AssertionError(f"{tag}: the gathered codes and scales differ from B1 on the "
+                                 f"whole Wᵀ")
+        x = torch.randn((T, K), generator=gen, device=device).mul_(1.9).to(torch.bfloat16)
+        xc, xs, _ = _b1_held(torch, x, f"{tag} x")
+        diff, _ = _b3_held(torch, (xc, xs, codes.t(), scales.t()), f"{tag} gathered", False)
+        err["mxfp4_matmul"] = max(err["mxfp4_matmul"], diff)
+        del w, shard, sc, ss, codes, scales, wc, ws, x, xc, xs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "tokens": T}
+
+
+def _dp_model(arch: str, fp4: bool = False, layers: int | None = None):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_engine import kernel_config
+    from repro_torch.models import build_model
+
+    cfg = kernel_config(get_config(arch))
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if fp4:
+        cfg = dataclasses.replace(cfg, quartet=dataclasses.replace(cfg.quartet,
+                                                                   fp4_allgather=True))
+    return build_model(cfg)
+
+
+def _grad_opt(torch):
+    """An optimizer whose state keeps the step's clipped f32 gradients and
+    whose updates are 0: a step's gradients, read from its state."""
+    from repro_torch.optim.adamw import Optimizer
+    from repro_torch.tree import tree_map
+
+    def init(params):
+        return {"g": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                    device=p.device), params)}
+
+    def update(grads, state, params):
+        return tree_map(torch.zeros_like, grads), {"g": grads}
+
+    return Optimizer(init, update)
+
+
+def _dp_steps(torch, ops, model, params, opt, batcher, steps, *, mesh=None, rank=0, ranks=1,
+              timed=False, specs=None):
+    """``steps`` train steps of ``model`` from whole ``params`` under
+    ``mesh`` (this rank's shards and rows; with ``specs``, ``params`` are
+    already this rank's shards) or none.  Returns (losses, grad-norms, final
+    state, launches, per-step seconds, collectives by step, peak bytes)."""
+    from repro_torch.distributed import context as C
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.train.state import make_train_state
+    from repro_torch.train.steps import make_train_step
+
+    if mesh is not None and specs is None:
+        specs = SH.param_partition(params, mesh)
+        params = SH.shard_tree(params, specs, mesh)
+    state = make_train_state(params, opt)
+    del params
+    step = make_train_step(model, opt, microbatch=TRAIN_MICRO, param_specs=specs)
+    losses, gnorms, dts, colls = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with C.activate_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        for s in range(steps):
+            b = batcher.batch(s) if mesh is None else batcher.rank_batch(s, rank, ranks,
+                                                                         TRAIN_MICRO)
+            batch = {k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+            C.stats.reset()
+            C.stats.timing = timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            dts.append(time.perf_counter() - t0)
+            colls.append({k: dict(v, device_ms=C.stats.device_ms(k))
+                          for k, v in C.stats.summary().items()})
+            C.stats.timing = False
+    return (losses, gnorms, state, ops.launch_counts(), dts, colls,
+            torch.cuda.max_memory_allocated())
+
+
+def _dp_join_world(torch, rank: int, world: int, init_method: str):
+    from repro_torch.launch.mesh import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["LOCAL_RANK"] = str(rank)
+    return init_distributed(rank=rank, world_size=world, init_method=init_method,
+                            timeout_s=DP_TIMEOUT_S)
+
+
+def dp_train_one_card(torch, ops, init_method: str) -> tuple[dict, dict, dict]:
+    """The one-card dp-train work, in a world of one (this process):
+    llama-paper-200m through the anchors (``make_local_mesh()``, fp4_allgather
+    off and on) against ``make_train_step`` without a mesh, bit for bit in
+    loss, grad-norm and every parameter; then llama-paper-7b at full width,
+    DP_7B_ONE_LAYERS layers, one step at dp 1, its launches against 28 a
+    layer a microbatch each.  Returns (summary, launches, vector launches)
+    of the 7B run."""
+    from repro_torch.configs.llama_paper import LEARNING_RATES
+    from repro_torch.convert import init_params
+    from repro_torch.data.pipeline import SyntheticC4Dataset, TokenBatcher
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adamw, cosine_warmup
+
+    _dp_join_world(torch, 0, 1, init_method)
+    try:
+        mesh = make_local_mesh()
+        out = {}
+        model = _dp_model(DP_ARCH)
+        params = init_params(model.cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+        batcher = TokenBatcher(SyntheticC4Dataset(model.cfg.vocab_size, seed=SEED),
+                               DP_ONE_BATCH, TRAIN_SEQ)
+
+        def opt():
+            return adamw(cosine_warmup(LEARNING_RATES[DP_ARCH], DP_ONE_STEPS))
+
+        runs = {"no_mesh": _dp_steps(torch, ops, model, params, opt(), batcher, DP_ONE_STEPS),
+                "mesh": _dp_steps(torch, ops, model, params, opt(), batcher, DP_ONE_STEPS,
+                                  mesh=mesh),
+                "mesh_fp4": _dp_steps(torch, ops, _dp_model(DP_ARCH, fp4=True), params, opt(),
+                                      batcher, DP_ONE_STEPS, mesh=mesh)}
+        base = runs["no_mesh"]
+        for name, r in runs.items():
+            same = (r[0] == base[0] and r[1] == base[1] and r[3] == base[3] and all(
+                torch.equal(a, b) for a, b in zip(_leaves(r[2].params), _leaves(base[2].params))))
+            if not same:
+                raise AssertionError(f"dp-train: the one-rank {name} run differs from the run "
+                                     f"without a mesh: loss {r[0]} vs {base[0]}, grad-norm "
+                                     f"{r[1]} vs {base[1]}, launches {r[3]} vs {base[3]}")
+        out["one_rank_200m"] = {"loss": base[0], "grad_norm": base[1], "launches": base[3],
+                                "equal_bit_for_bit": list(runs)}
+        del runs, base, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        model = _dp_model(DP_7B_ARCH, layers=DP_7B_ONE_LAYERS)
+        params = init_params(model.cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+        n_params = sum(p.numel() for p in _leaves(params))
+        batcher = TokenBatcher(SyntheticC4Dataset(model.cfg.vocab_size, seed=SEED),
+                               DP_7B_ONE_BATCH, TRAIN_SEQ)
+        losses, gnorms, state, counts, dts, colls, peak = _dp_steps(
+            torch, ops, model, params, adamw(cosine_warmup(LEARNING_RATES[DP_7B_ARCH], 1)),
+            batcher, 1, mesh=mesh)
+        vec = ops.vector_launches()
+        del state, params
+        predicted = 28 * DP_7B_ONE_LAYERS * TRAIN_MICRO
+        bad = [k for k in ("hadamard_quest_quantize", "sr_hadamard_quantize", "mxfp4_matmul")
+               if counts[k] != predicted]
+        if bad or not (1 < losses[0] < 12 and gnorms[0] > 1e-3):
+            raise AssertionError(f"dp-train 7B ({DP_7B_ONE_LAYERS} layers): loss {losses}, "
+                                 f"grad-norm {gnorms}, launches {counts} (predicted "
+                                 f"{predicted} each of B1, B2, B3)")
+        out["7b_layers"] = {"layers": DP_7B_ONE_LAYERS, "params": n_params,
+                            "batch": DP_7B_ONE_BATCH, "loss": losses, "grad_norm": gnorms,
+                            "step_s": dts, "peak_bytes": peak, "launches": counts,
+                            "predicted_launches_each": predicted}
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out, counts, vec
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _leaf_names(tree, prefix="") -> list[str]:
+    """Each leaf's path, in ``tree_leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def _rel_l2(torch, a, b) -> float:
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    return float(torch.linalg.vector_norm(a - b) / torch.clamp(torch.linalg.vector_norm(b),
+                                                                 min=1e-30))
+
+
+def dp_train_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
+    """One rank of the dp-train phase on N cards: llama-paper-200m at dp N
+    against dp 1 (every rank also runs the dp-1 step on the whole batch),
+    then llama-paper-7b at full width and depth at dp N, fp4_allgather off
+    and on.  Writes its results to ``out_dir/rank{rank}.json``."""
+    import torch
+
+    sys.path.insert(0, SRC)
+    from repro_torch.configs.llama_paper import LEARNING_RATES
+    from repro_torch.convert import init_params
+    from repro_torch.data.pipeline import SyntheticC4Dataset, TokenBatcher
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.tree import tree_leaves
+
+    _dp_join_world(torch, rank, world, init_method)
+    mesh = make_local_mesh()
+    out = {"rank": rank}
+    # dp N against dp 1, from equal states, on the same global batch
+    model = _dp_model(DP_ARCH)
+    params = init_params(model.cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    batcher = TokenBatcher(SyntheticC4Dataset(model.cfg.vocab_size, seed=SEED), DP_CHECK_BATCH,
+                           TRAIN_SEQ)
+    lr = cosine_warmup(LEARNING_RATES[DP_ARCH], 10)
+    one = _dp_steps(torch, ops, model, params, _grad_opt(torch), batcher, 1)
+    dp = _dp_steps(torch, ops, model, params, _grad_opt(torch), batcher, 1, mesh=mesh,
+                   rank=rank, ranks=world)
+    specs = SH.param_partition(params, mesh)
+    want = SH.shard_tree(one[2].opt_state["g"], specs, mesh)
+    names = _leaf_names(want)
+    rel = [_rel_l2(torch, a, b) for a, b in zip(tree_leaves(dp[2].opt_state["g"]),
+                                                tree_leaves(want))]
+    one_a = _dp_steps(torch, ops, model, params, adamw(lr), batcher, 1)
+    dp_a = _dp_steps(torch, ops, model, params, adamw(lr), batcher, 1, mesh=mesh, rank=rank,
+                     ranks=world)
+    slices = SH.shard_tree(one_a[2].params, specs, mesh)
+    # AdamW's first update is about ±lr an element whatever the gradient, so
+    # the parameters are held by the share of elements apart by more than
+    # DP_PARAM_TOL·lr (a sign the split sum flips moves one by up to 2·lr;
+    # a wrong shard or wrong gradients move about half of them)
+    lr1, far, total, max_param = float(lr(1)), 0, 0, 0.0
+    for a, b in zip(tree_leaves(dp_a[2].params), tree_leaves(slices)):
+        diff = (a.to(torch.float32) - b.to(torch.float32)).abs()
+        far += int((diff > DP_PARAM_TOL * lr1).sum())
+        total += diff.numel()
+        max_param = max(max_param, float(diff.max()))
+    out["check_200m"] = {"loss_dp1": one[0][0], "loss_dp": dp[0][0], "grad_norm_dp1": one[1][0],
+                         "grad_norm_dp": dp[1][0], "grad_rel_l2_max": max(rel),
+                         "grad_rel_l2": dict(zip(names, rel)),
+                         "launches_dp1": one[3], "launches_dp": dp[3],
+                         "param_max_abs_diff_after_step0": max_param,
+                         "param_share_apart_after_step0": far / total, "lr_step1": lr1}
+    del one, dp, one_a, dp_a, want, slices, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["shard_kernels"] = check_dp_shard_kernels(torch, mesh, world)
+    # llama-paper-7b at full width and depth
+    batcher = TokenBatcher(SyntheticC4Dataset(32000, seed=SEED), DP_7B_BATCH, TRAIN_SEQ)
+    for fp4 in (False, True):
+        model = _dp_model(DP_7B_ARCH, fp4=fp4)
+        params = init_params(model.cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+        out["params_7b"] = sum(p.numel() for p in _leaves(params))
+        specs = SH.param_partition(params, mesh)
+        shards = _tree_map(lambda t: t.contiguous(), SH.shard_tree(params, specs, mesh))
+        del params  # the whole bf16 weights (13.4 GB) leave before the peak is read
+        torch.cuda.empty_cache()
+        r = _dp_steps(torch, ops, model, shards,
+                      adamw(cosine_warmup(LEARNING_RATES[DP_7B_ARCH], DP_7B_STEPS)), batcher,
+                      DP_7B_STEPS, mesh=mesh, rank=rank, ranks=world, timed=True, specs=specs)
+        del shards
+        out["fp4" if fp4 else "bf16"] = {
+            "loss": r[0], "grad_norm": r[1], "step_s": r[4], "collectives": r[5],
+            "peak_bytes": r[6], "launches": r[3]}
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    torch.distributed.destroy_process_group()
+
+
+def dp_train(torch, ops, devices: int | None, timer=None):
+    """The dp-train phase (its docstring entry 4l).  Returns (max |Δ| of
+    B1, B2 and B3 against their plain versions, B2's window times, summary,
+    launches and vector launches of the one-card 7B run, or of rank 0's 7B
+    run on N cards)."""
+    import socket
+
+    import torch.multiprocessing
+
+    seen = torch.cuda.device_count()
+    world = seen if devices is None else devices
+    if world > seen:
+        raise AssertionError(f"--devices {world}: this process sees {seen} card(s)")
+    t0 = time.perf_counter()
+    werr, times = check_dp_window_kernels(torch, timer)
+    log(f"[dp-train] B2's window equals its plain version and the whole operand's slice bit "
+        f"for bit at llama-paper-7b's backward operands, {DP_WORLD} rank windows "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t1 = time.perf_counter()
+    linears = check_dp_linear_kernels(torch)
+    err = dict(linears["max_abs_err"])
+    err["sr_hadamard_quantize"] = max(err["sr_hadamard_quantize"], werr)
+    log(f"[dp-train] B1, B2 and B3 agree with their plain versions at llama-paper-7b's "
+        f"linears, {list(DP_LINEAR_TOKENS)} tokens: {json.dumps(linears)} "
+        f"({time.perf_counter() - t1:.1f} s)")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    init_method = f"tcp://localhost:{port}"
+    summary = {"world": world, "devices_seen": seen, "linear_kernels": linears}
+    if world == 1:
+        one, counts, vec = dp_train_one_card(torch, ops, init_method)
+        summary.update(one)
+    else:
+        out_dir = tempfile.mkdtemp(prefix="dp-train-")
+        torch.multiprocessing.start_processes(dp_train_rank,
+                                              args=(world, init_method, out_dir),
+                                              nprocs=world, join=True, start_method="spawn")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        chk = [rk["check_200m"] for rk in ranks]
+        c0 = chk[0]
+        log(f"[dp-train] rank 0: {json.dumps(ranks[0])}")
+        bad = []
+        if abs(c0["loss_dp"] / c0["loss_dp1"] - 1) > 1e-6:
+            bad.append(f"loss {c0['loss_dp']} vs {c0['loss_dp1']}")
+        if abs(c0["grad_norm_dp"] / c0["grad_norm_dp1"] - 1) > 1e-4:
+            bad.append(f"grad-norm {c0['grad_norm_dp']} vs {c0['grad_norm_dp1']}")
+        if max(c["grad_rel_l2_max"] for c in chk) > 1e-3:
+            bad.append(f"gradients' relative L2 {[c['grad_rel_l2_max'] for c in chk]}")
+        if any(c["launches_dp"] != c["launches_dp1"] for c in chk):
+            bad.append(f"launches a rank {[c['launches_dp'] for c in chk]} vs dp 1 "
+                       f"{c0['launches_dp1']}")
+        if max(c["param_share_apart_after_step0"] for c in chk) > DP_PARAM_SHARE:
+            bad.append(f"share of parameters more than {DP_PARAM_TOL}·lr apart after step 0 "
+                       f"{[c['param_share_apart_after_step0'] for c in chk]}")
+        for key in ("bf16", "fp4"):
+            loss = ranks[0][key]["loss"]
+            if not all(math.isfinite(v) and 1 < v < 12 for v in loss):
+                bad.append(f"7B {key} losses {loss}")
+        if abs(ranks[0]["fp4"]["loss"][0] / ranks[0]["bf16"]["loss"][0] - 1) > 1e-6:
+            bad.append(f"7B step 0 loss fp4_allgather on {ranks[0]['fp4']['loss'][0]} vs off "
+                       f"{ranks[0]['bf16']['loss'][0]}")
+        if bad:
+            raise AssertionError(f"dp-train at dp {world}: {bad}")
+        summary["check_200m"] = chk
+        summary["shard_kernels"] = [rk["shard_kernels"] for rk in ranks]
+        for rk in ranks:
+            for k, v in rk["shard_kernels"]["max_abs_err"].items():
+                err[k] = max(err.get(k, 0.0), v)
+        summary["params_7b"] = ranks[0]["params_7b"]
+        tokens = DP_7B_BATCH * TRAIN_SEQ
+        for key in ("bf16", "fp4"):
+            per = [rk[key] for rk in ranks]
+            steps = [max(p["step_s"][s] for p in per) for s in range(DP_7B_STEPS)]
+            summary[f"7b_{key}"] = {
+                "loss": per[0]["loss"], "grad_norm": per[0]["grad_norm"], "step_s": steps,
+                "tokens_per_s_last_steps": tokens * (DP_7B_STEPS - 1) / sum(steps[1:]),
+                "peak_bytes": [p["peak_bytes"] for p in per],
+                "collectives_rank0_by_step": per[0]["collectives"],
+                "launches_rank0": per[0]["launches"]}
+        counts = ranks[0]["bf16"]["launches"]
+        vec = None
+    summary["phase_s"] = time.perf_counter() - t0
+    return err, times, summary, counts, vec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernels,engine,features,moe,train,moe-train,variants,baselines,"
                             "dense-configs,ssm,hybrid,cross,state-train,telemetry,multidevice,"
-                            "times",
+                            "dp-train,times",
                     help="comma-separated subset of kernels,engine,features,moe,train,"
                          "moe-train,variants,baselines,dense-configs,ssm,hybrid,cross,"
-                         "state-train,telemetry,multidevice,times")
+                         "state-train,telemetry,multidevice,dp-train,times")
     ap.add_argument("--devices", type=int, default=None,
-                    help="multidevice phase: the cards to serve on, one process each "
-                         "(default: every card the process sees; raises if it sees fewer)")
+                    help="multidevice and dp-train phases: the cards to run on, one process "
+                         "each (default: every card the process sees; raises if it sees "
+                         "fewer)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -6197,6 +6796,23 @@ def main() -> int:
             raise AssertionError(f"kernels never launched on the multidevice path: {missing}")
         log(f"[multidevice] {json.dumps(summary)}")
         log(f"[multidevice] done in {summary['phase_s']:.1f} s")
+    if "dp-train" in phases:
+        derr, dtimes, summary, counts["dp_train"], dvec = dp_train(
+            torch, ops, args.devices, Timer(torch) if "times" in phases else None)
+        for k, v in derr.items():
+            err[k] = max(err.get(k, 0.0), v)
+        if dvec is not None:
+            vectors["dp_train"] = dvec
+        missing = [k for k in ("hadamard_quest_quantize", "sr_hadamard_quantize",
+                               "mxfp4_matmul") if counts["dp_train"][k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the dp-train path: {missing}")
+        log(f"[dp-train] launches a rank on the data-parallel training path: "
+            f"{counts['dp_train']}")
+        if dtimes is not None:
+            log(f"[dp-train] B2 window, rank 0's llama-paper-7b operands: {json.dumps(dtimes)}")
+        log(f"[dp-train] {json.dumps(summary)}")
+        log(f"[dp-train] done in {summary['phase_s']:.1f} s")
     if vectors:
         # every B1 call on the main paths, and every B2 call on the training
         # paths, reads and writes through the vector body (a thread per group,
@@ -6204,7 +6820,8 @@ def main() -> int:
         for tag, name, paths in (("b1", "hadamard_quest_quantize", list(vectors)),
                                  ("b2", "sr_hadamard_quantize",
                                   [p for p in ("train", "moe_train", "grad_compress",
-                                               "starcoder2_train", *STATE_TRAIN_PATH.values())
+                                               "starcoder2_train", *STATE_TRAIN_PATH.values(),
+                                               "dp_train")
                                    if p in vectors])):
             vs = {p: (vectors[p][name], counts[p][name]) for p in paths}
             log(f"[{tag}] vector-body launches / all launches, by path: {json.dumps(vs)}")
@@ -6250,6 +6867,7 @@ def main() -> int:
                             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                             "launches_by_path": {"moe_train": expert_b2}})
         log(json.dumps({"kernels": kernels}))
+    log(f"[total] {time.perf_counter() - T_START:.1f} s since the script started")
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

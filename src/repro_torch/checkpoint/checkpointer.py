@@ -21,6 +21,15 @@ directory per step)::
   step counters) as an int32 scalar, as the reference's step is.
 * The step rides in ``meta.json``; the data pipeline is indexed by step, so
   a resume replays the exact token stream.
+* Data-parallel state (``shardings=(mesh, specs)``, the state's
+  PartitionSpec tree as ``distributed.sharding.partition_state`` gives it)
+  is written whole, as the reference writes it: every rank gathers each
+  sharded leaf in turn (a collective) and data rank 0 writes.  ``restore``
+  with ``shardings`` reads the whole leaves and keeps this rank's slices,
+  so a checkpoint written at one data-parallel width restores at any other
+  (the reference's elastic ``restore(shardings=)``).  A blocking save and
+  every restore end or start at a barrier of the data ranks, so no rank
+  reads a step that rank 0 is still writing.
 """
 
 from __future__ import annotations
@@ -43,6 +52,25 @@ def _leaves(tree) -> list:
     if tree is None:
         return []
     return [tree]
+
+
+def _with_specs(tree, specs) -> list:
+    """(leaf, its PartitionSpec) pairs in :func:`_leaves` order."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree) for pair in _with_specs(tree[k], specs[k])]
+    if isinstance(tree, (tuple, list)):
+        return [pair for c, s in zip(tree, specs) for pair in _with_specs(c, s)]
+    if tree is None:
+        return []
+    return [(tree, specs)]
+
+
+def _barrier(mesh) -> None:
+    from repro_torch.distributed.context import data_group
+    from repro_torch.distributed.sharding import data_rank_and_size
+
+    if data_rank_and_size(mesh)[1] > 1:
+        torch.distributed.barrier(group=data_group(mesh))
 
 
 def _unflatten(like, it):
@@ -79,11 +107,29 @@ class Checkpointer:
 
     # ----------------------------------------------------------- save
     def save(self, step: int, state, extra_meta: dict | None = None,
-             blocking: bool = False) -> None:
+             blocking: bool = False, shardings=None) -> None:
         """Copy ``state`` to the host now; write it on a background thread
-        (or here, with ``blocking``)."""
+        (or here, with ``blocking``).  With ``shardings=(mesh, specs)``
+        every data rank must call it: the leaves are gathered whole one at
+        a time, and data rank 0 alone writes."""
         self.wait()  # one outstanding write at a time
-        host = [_to_host(leaf) for leaf in _leaves(state)]
+        if shardings is None:
+            host = [_to_host(leaf) for leaf in _leaves(state)]
+        else:
+            from repro_torch.distributed.sharding import data_rank_and_size, unshard_leaf
+
+            mesh, specs = shardings
+            writer = data_rank_and_size(mesh)[0] == 0
+            host = []
+            for leaf, spec in _with_specs(state, specs):
+                whole = unshard_leaf(leaf, spec, mesh) if isinstance(leaf, torch.Tensor) else leaf
+                if writer:
+                    host.append(_to_host(whole))
+                del whole
+            if not writer:
+                if blocking:
+                    _barrier(mesh)
+                return
         meta = {
             "step": int(step),
             "num_leaves": len(host),
@@ -108,6 +154,8 @@ class Checkpointer:
 
         if blocking:
             write()
+            if shardings is not None:
+                _barrier(shardings[0])
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
@@ -135,27 +183,47 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, state_like, step: int | None = None, device=None):
+    def restore(self, state_like, step: int | None = None, device=None, shardings=None):
         """Restore into the structure of ``state_like`` → ``(state, meta)``.
         Tensors land on ``device`` (by default each like-leaf's own) in the
         dtype they were saved in; int leaves come back as Python ints.
-        Raises ``ValueError`` when the leaf count or a shape differs."""
+        With ``shardings=(mesh, specs)`` ``state_like`` holds this rank's
+        shards and each whole leaf read is cut to its slice.  Raises
+        ``ValueError`` when the leaf count or a shape differs."""
+        if shardings is not None:
+            self.wait()
+            _barrier(shardings[0])
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         d = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
-        like = _leaves(state_like)
+        if shardings is None:
+            pairs = [(leaf, None) for leaf in _leaves(state_like)]
+        else:
+            from repro_torch.distributed.sharding import shard_leaf
+
+            mesh, specs = shardings
+            pairs = _with_specs(state_like, specs)
+        like = [leaf for leaf, _ in pairs]
         if meta["num_leaves"] != len(like):
             raise ValueError(f"checkpoint has {meta['num_leaves']} leaves, "
                              f"state needs {len(like)}")
-        for i, (leaf, shape) in enumerate(zip(like, meta["shapes"])):
+
+        def cut(t, spec):
+            return t if spec is None else shard_leaf(t, spec, mesh)
+
+        for i, ((leaf, spec), shape) in enumerate(zip(pairs, meta["shapes"])):
             want = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else ()
-            if tuple(shape) != want:
-                raise ValueError(f"leaf {i}: checkpoint shape {tuple(shape)} != expected {want}")
+            got = tuple(shape)
+            if isinstance(leaf, torch.Tensor) and spec is not None:
+                got = tuple(cut(torch.empty(shape, device="meta"), spec).shape)
+            if got != want:
+                raise ValueError(f"leaf {i}: checkpoint shape {tuple(shape)} (this rank's "
+                                 f"{got}) != expected {want}")
         out = []
-        for i, leaf in enumerate(like):
+        for i, (leaf, spec) in enumerate(pairs):
             arr = np.load(os.path.join(d, f"{i}.npy"))
             dtype = meta["dtypes"][i]
             if not isinstance(leaf, torch.Tensor):
@@ -165,5 +233,5 @@ class Checkpointer:
                 t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr.view(np.dtype(dtype)).copy())
-            out.append(t.to(leaf.device if device is None else device))
+            out.append(cut(t, spec).contiguous().to(leaf.device if device is None else device))
         return _unflatten(state_like, iter(out)), meta

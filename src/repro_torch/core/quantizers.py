@@ -133,16 +133,22 @@ def sr_absmax(x: torch.Tensor, key: tuple[int, int], fmt: Format = F.MXFP4,
 
 
 def sr_absmax_fast(x: torch.Tensor, seed, fmt: Format = F.MXFP4,
-                   scale_mode: str = "ceil", salt: int = 0) -> QuantResult:
+                   scale_mode: str = "ceil", salt: int = 0, offset: int = 0,
+                   row_len: int | None = None) -> QuantResult:
     """Stochastic rounding with per-block AbsMax scales and uniforms from the
     counter hash over the element's index in ``[..., K/block, block]``
-    (``core.fastrng``).  A tensor of seeds [E] takes x [E, ...], slice e
-    hashed at seeds[e] over its own index, as the reference's vmap over the
-    leading axis draws."""
+    (``core.fastrng``), or in the window (``offset``, ``row_len``) of a
+    larger logical [rows, row_len] operand that x [rows, K] is a block of.
+    A tensor of seeds [E] takes x [E, ...], slice e hashed at seeds[e] over
+    its own index, as the reference's vmap over the leading axis draws."""
     scales = F.quantize_scale(_block_scales(x, fmt, "absmax"), fmt, scale_mode)
     xb = F.to_blocks(x.to(torch.float32), _block(x, fmt))
     per_slice = isinstance(seed, torch.Tensor)
-    u = fastrng.uniform(seed, xb.shape[1:] if per_slice else xb.shape, salt, x.device)
+    if offset or row_len is not None:
+        u = fastrng.uniform(seed, x.shape[1:] if per_slice else x.shape, salt, x.device,
+                            offset, row_len).reshape(xb.shape)
+    else:
+        u = fastrng.uniform(seed, xb.shape[1:] if per_slice else xb.shape, salt, x.device)
     q = F.stochastic_round_to_grid(xb / scales[..., None], fmt.grid, u)
     return _finish(x, scales, fmt, q)
 

@@ -37,6 +37,25 @@ compute Quartet alone (MXFP4 both ways, group 32, QuEST, SR, the random
 Hadamard, f32 accumulation): with ``use_kernels=True`` any other
 configuration raises (:func:`check_kernel_config`), where the reference's
 kernel path would compute Quartet in its place.
+
+Data-parallel training (``distributed.context``'s plan): a rank holds block
+r of n equal blocks of the microbatch's tokens, and the backward's
+token-axis draws take that block's window of the logical microbatch (dy's
+SR at salt 1, the dW operands xqᵀ and dyᵀ at salts 3 and 4, and the signs
+ξ_B at salt 12), so every stochastic rounding draws the bits one device
+draws at those elements.  dW leaves a rank as its f32 partial sum over its
+tokens; the caller's gather reduces it across ranks.
+
+With ``fp4_allgather`` (the reference's beyond-paper option) a weight
+crosses the data ranks as MXFP4 codes: :func:`quest_qdq_gathered` rotates
+and QuEST-quantizes the rank's shard of Wᵀ (B1 on the card; shard-local,
+since the Hadamard and scale blocks lie along K), all-gathers its int8
+codes and f32 scales (1.125 B a weight against bf16's 2), and hands them
+to :func:`quartet_linear_pq`, Quartet with the weight operand already
+rotated and quantized (B3 on x's codes and the gathered ones).  Its
+backward returns dW in the rotated space; :func:`quest_qdq_gathered`'s
+reduce-scatters that f32 sum to the shard before the mask ⊙ and H⁻¹,
+which are shard-local too.
 """
 
 from __future__ import annotations
@@ -49,6 +68,7 @@ from repro_torch.core import fastrng, threefry
 from repro_torch.core import formats as F
 from repro_torch.core import quantizers as Q
 from repro_torch.core.hadamard import hadamard_transform, randomized_hadamard_transform
+from repro_torch.distributed import context as C
 
 SR_PRESCALE = 0.75  # the ¾ factor of Algorithm 1
 SR_POSTSCALE = 16.0 / 9.0  # undoes (¾)² on the GEMM product
@@ -71,6 +91,10 @@ class QuartetConfig:
     bwd_hadamard: str = "random"  # BWD_HADAMARDS
     use_kernels: bool = False
     accum_dtype: str = "float32"
+    # beyond-paper: FSDP-sharded weights cross the data ranks as MXFP4 codes
+    # (quantize shard-local, all-gather codes and scales, dequantize); the
+    # paper's forward, with a cheaper gather (quest_qdq_gathered)
+    fp4_allgather: bool = False
 
     @property
     def fwd_fmt(self) -> F.Format:
@@ -208,13 +232,15 @@ def _forward_plain(x, w, cfg, seed: int):
 # ---------------------------------------------------------------------------
 
 
-def _bwd_quantize(gh: torch.Tensor, cfg: QuartetConfig, seed, salt: int) -> torch.Tensor:
+def _bwd_quantize(gh: torch.Tensor, cfg: QuartetConfig, seed, salt: int,
+                  window=(0, None)) -> torch.Tensor:
     """SR (or RTN) of ¾·(an operand already rotated, blocks on the last
     axis) with ceil scales; ``seed`` an int, or a tensor [E] of per-expert
-    seeds for gh [E, ...]."""
+    seeds for gh [E, ...]; ``window`` (offset, row length) of the logical
+    operand that the SR's uniforms are drawn from."""
     fmt = cfg.bwd_fmt
     if cfg.bwd_rounding == "sr":
-        v = Q.sr_absmax_fast(gh * SR_PRESCALE, seed, fmt, "ceil", salt).values
+        v = Q.sr_absmax_fast(gh * SR_PRESCALE, seed, fmt, "ceil", salt, *window).values
     elif cfg.bwd_rounding == "rtn":
         v = Q.rtn_absmax(gh * SR_PRESCALE, fmt, scale_mode="ceil").values
     else:
@@ -231,26 +257,42 @@ def _maybe_rht(x: torch.Tensor, signs: torch.Tensor, cfg: QuartetConfig,
     return x
 
 
-def _bwd_gemm(a: torch.Tensor, b: torch.Tensor, cfg: QuartetConfig, seed, salts) -> torch.Tensor:
+def _bwd_gemm(a: torch.Tensor, b: torch.Tensor, cfg: QuartetConfig, seed, salts,
+              windows=((0, None), (0, None))) -> torch.Tensor:
     """a [..., L] @ bᵀ for b [..., M, L] (L the contraction, blocks along it;
     a leading expert axis on both with a tensor of seeds): both quantized
-    and the product times 16/9, or with ``bwd_rounding`` "none" the
-    unquantized f32 product."""
+    (each drawing its uniforms in its window) and the product times 16/9,
+    or with ``bwd_rounding`` "none" the unquantized f32 product."""
     if cfg.bwd_rounding == "none":
         return _gemm(a, b.transpose(-1, -2), cfg.accum_dtype)
-    aq = _bwd_quantize(a, cfg, seed, salt=salts[0])
-    bq = _bwd_quantize(b, cfg, seed, salt=salts[1])
+    aq = _bwd_quantize(a, cfg, seed, salts[0], windows[0])
+    bq = _bwd_quantize(b, cfg, seed, salts[1], windows[1])
     return SR_POSTSCALE * _gemm(aq, bq.transpose(-1, -2), cfg.accum_dtype)
 
 
-def _backward_plain(cfg, seed, res, dy):
-    """``_bwd_rotate_quantize_gemms`` + the weight mask and H⁻¹ of the
-    reference's ``_quartet_bwd``."""
-    xq_v, wq_v, m_x, m_w = res
+def _token_window(bflat: int, window) -> tuple[int, int | None]:
+    """(offset, row length) of a rank's ``bflat`` tokens in the logical
+    microbatch's token axis, ``window`` = (rank, ranks): (0, None) on one
+    rank.  Across ranks no rank pads (the logical axis pads only at its
+    end), so a rank's token count must be a multiple of the group."""
+    r, n = window
+    if n == 1:
+        return 0, None
+    if bflat % 32:
+        raise ValueError(f"a data rank's {bflat} tokens are not a multiple of 32: the "
+                         f"logical microbatch's padding would fall inside the ranks")
+    return r * bflat, n * bflat
+
+
+def _bwd_plain_gemms(cfg, seed, xq_v, wq_v, m_x, dy, window=(0, 1)):
+    """The reference's ``_bwd_rotate_quantize_gemms`` on the plain path →
+    (dx [..., K] with the activation mask and H⁻¹ applied, dW_rot [K, N] f32
+    in the rotated-quantized weight space)."""
     K, N = wq_v.shape
     dyf = dy.to(torch.float32)
     lead = dy.shape[:-1]
     Bflat = dyf.numel() // N
+    off_b, row_b = _token_window(Bflat, window)
 
     # dx = H⁻¹( 16/9 · (SR(¾·Ĥ_N dy) @ SR(¾·Ĥ_N Wᵀ)ᵀ) ⊙ M_x )
     dy_p = _pad32(dyf, -1)
@@ -259,33 +301,40 @@ def _backward_plain(cfg, seed, res, dy):
     signs_n = fastrng.rademacher(seed, Np, salt=11, device=dy.device)
     g_h = _maybe_rht(dy_p, signs_n, cfg, -1)
     wt_h = _maybe_rht(wq_p, signs_n, cfg, -1)  # blocks along N
-    dx_rot = _bwd_gemm(g_h, wt_h, cfg, seed, (1, 2))
+    dx_rot = _bwd_gemm(g_h, wt_h, cfg, seed, (1, 2), ((off_b * Np, None), (0, None)))
     dx = hadamard_transform(dx_rot * m_x, g=cfg.group, dim=-1)  # H⁻¹ = H
 
     # dW_rot = 16/9 · SR(¾·Ĥ_B Xᵀ)ᵀ @ SR(¾·Ĥ_B dy)
     xf = _pad32(xq_v.to(torch.float32).reshape(Bflat, K), 0)
     gf = _pad32(dyf.reshape(Bflat, N), 0)
     Bp = xf.shape[0]
-    signs_b = fastrng.rademacher(seed, Bp, salt=12, device=dy.device)
+    signs_b = fastrng.rademacher(seed, Bp, salt=12, device=dy.device, offset=off_b)
     x2 = _maybe_rht(xf, signs_b, cfg, 0)
     g2 = _maybe_rht(gf, signs_b, cfg, 0)
-    dw_rot = _bwd_gemm(x2.t(), g2.t(), cfg, seed, (3, 4))  # [K, Bp] · [N, Bp]ᵀ
-    dw = hadamard_transform(dw_rot * m_w, g=cfg.group, dim=0)  # H⁻¹ along K
-    return dx.reshape(*lead, K), dw
+    # [K, Bp] · [N, Bp]ᵀ
+    dw_rot = _bwd_gemm(x2.t(), g2.t(), cfg, seed, (3, 4), ((off_b, row_b), (off_b, row_b)))
+    return dx.reshape(*lead, K), dw_rot
 
 
-def _backward_kernels(cfg, seed, res, dy, ops=None):
-    """The reference's ``_quartet_bwd_kernels``: backward Stage 1 on the
-    four operands, the MXFP4 GEMM for dx and dW."""
+def _backward_plain(cfg, seed, res, dy, window=(0, 1)):
+    """``_bwd_plain_gemms`` + the weight mask and H⁻¹ of the reference's
+    ``_quartet_bwd``."""
+    xq_v, wq_v, m_x, m_w = res
+    dx, dw_rot = _bwd_plain_gemms(cfg, seed, xq_v, wq_v, m_x, dy, window)
+    return dx, hadamard_transform(dw_rot * m_w, g=cfg.group, dim=0)  # H⁻¹ along K
+
+
+def _bwd_kernel_gemms(cfg, seed, xc, xs, wq_v, m_x, dy, window=(0, 1), ops=None):
+    """:func:`_bwd_plain_gemms` on the kernels: backward Stage 1 on the four
+    operands, the MXFP4 GEMM for dx and dW_rot (x's saved codes and scales,
+    the weight's dequantized values wq_v [K, N])."""
     K = _kernel_ops(ops)
-
-    xc, xs, wtc, wts, m_x, m_w = res
     g = cfg.group
-    wq_v = _dequant_codes(wtc, wts, g).t()  # [K, N]
     Kdim, N = wq_v.shape
     lead = dy.shape[:-1]
     dy2 = dy.reshape(-1, N)  # bf16 or f32: the kernel reads either exactly
     Bflat = dy2.shape[0]
+    off_b, row_b = _token_window(Bflat, window)
 
     # dx: Stage 1 on dy [B, Np] and on Wq [K, Np] along N; the GEMM's B is
     # the transposed view of the Wq codes
@@ -293,7 +342,8 @@ def _backward_kernels(cfg, seed, res, dy, ops=None):
     wq_p = _pad32(wq_v, -1)
     Np = dy_p.shape[-1]
     signs_n = fastrng.rademacher(seed, Np, salt=11, device=dy.device)
-    gc, gs = K.sr_hadamard_quantize(dy_p, signs_n, seed, salt=1)
+    rows = {"offset": off_b * Np} if window[1] > 1 else {}
+    gc, gs = K.sr_hadamard_quantize(dy_p, signs_n, seed, salt=1, **rows)
     wtc2, wts2 = K.sr_hadamard_quantize(wq_p, signs_n, seed, salt=2)
     dx_rot = SR_POSTSCALE * K.mxfp4_matmul(gc, gs, wtc2.t(), wts2.t())
     dx = hadamard_transform(dx_rot * m_x.reshape(Bflat, Kdim), g=g, dim=-1)
@@ -303,12 +353,21 @@ def _backward_kernels(cfg, seed, res, dy, ops=None):
     xq_v = _pad32(_dequant_codes(xc, xs, g).reshape(Bflat, Kdim), 0)
     gf = _pad32(dy2, 0)
     Bp = xq_v.shape[0]
-    signs_b = fastrng.rademacher(seed, Bp, salt=12, device=dy.device)
-    x2c, x2s = K.sr_hadamard_quantize(xq_v.t(), signs_b, seed, salt=3)
-    g2c, g2s = K.sr_hadamard_quantize(gf.t(), signs_b, seed, salt=4)
+    signs_b = fastrng.rademacher(seed, Bp, salt=12, device=dy.device, offset=off_b)
+    cols = {"offset": off_b, "row_len": row_b} if window[1] > 1 else {}
+    x2c, x2s = K.sr_hadamard_quantize(xq_v.t(), signs_b, seed, salt=3, **cols)
+    g2c, g2s = K.sr_hadamard_quantize(gf.t(), signs_b, seed, salt=4, **cols)
     dw_rot = SR_POSTSCALE * K.mxfp4_matmul(x2c, x2s, g2c.t(), g2s.t())
-    dw = hadamard_transform(dw_rot * m_w, g=g, dim=0)
-    return dx.reshape(*lead, Kdim), dw
+    return dx.reshape(*lead, Kdim), dw_rot
+
+
+def _backward_kernels(cfg, seed, res, dy, ops=None, window=(0, 1)):
+    """The reference's ``_quartet_bwd_kernels``: backward Stage 1 on the
+    four operands, the MXFP4 GEMM for dx and dW, the weight mask and H⁻¹."""
+    xc, xs, wtc, wts, m_x, m_w = res
+    wq_v = _dequant_codes(wtc, wts, cfg.group).t()  # [K, N]
+    dx, dw_rot = _bwd_kernel_gemms(cfg, seed, xc, xs, wq_v, m_x, dy, window, ops)
+    return dx, hadamard_transform(dw_rot * m_w, g=cfg.group, dim=0)
 
 
 class _QuartetLinear(torch.autograd.Function):
@@ -324,7 +383,7 @@ class _QuartetLinear(torch.autograd.Function):
                       else _forward_plain(x, w, cfg, seed))
             if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
                 ctx.save_for_backward(*res)
-        ctx.seed, ctx.cfg = seed, cfg
+        ctx.seed, ctx.cfg, ctx.window = seed, cfg, C.token_window()
         ctx.dtypes = (x.dtype, w.dtype)
         return y.to(x.dtype)
 
@@ -338,9 +397,10 @@ class _QuartetLinear(torch.autograd.Function):
             dx = _gemm(dyf, w.t(), cfg.accum_dtype)
             dw = _gemm(x.reshape(-1, x.shape[-1]).t(), dyf.reshape(-1, dy.shape[-1]),
                        cfg.accum_dtype)
+        elif cfg.use_kernels:
+            dx, dw = _backward_kernels(cfg, seed, res, dy, window=ctx.window)
         else:
-            bwd = _backward_kernels if cfg.use_kernels else _backward_plain
-            dx, dw = bwd(cfg, seed, res, dy)
+            dx, dw = _backward_plain(cfg, seed, res, dy, ctx.window)
         return dx.to(ctx.dtypes[0]), dw.to(ctx.dtypes[1]), None, None
 
 
@@ -350,6 +410,115 @@ def quartet_linear(x: torch.Tensor, w: torch.Tensor, seed: int,
     (Python int) that drives the backward's stochastic rounding."""
     _check(cfg)
     return _QuartetLinear.apply(x, w, seed & 0xFFFFFFFF, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the FP4 all-gather (beyond-paper): FSDP weight shards cross as MXFP4 codes
+# ---------------------------------------------------------------------------
+
+
+class _QuestQDQGathered(torch.autograd.Function):
+    """w (a rank's shard [K/n, N] or [K, N/n], or a whole [K, N]) →
+    (values f32 [K, N], mask [shard], codes int8 [N, K], scales f32
+    [N, K/32]): H₃₂ and QuEST on the shard's Wᵀ (B1 on the card), the codes
+    and scales all-gathered over the data ranks, dequantized.  Only the
+    values carry a gradient: the backward reduce-scatters the f32 dW_rot to
+    the shard, then applies the shard's mask and H⁻¹ along K."""
+
+    @staticmethod
+    def forward(ctx, w, cfg, dim):
+        plan = C.current_plan() if dim is not None else None
+        if cfg.use_kernels:
+            codes, scales, mask_t = _kernel_ops(None).hadamard_quest_quantize(
+                w.t(), group=cfg.group)
+        else:
+            wh = hadamard_transform(w.to(torch.float32), g=cfg.group, dim=0)
+            q = Q.quest(wh.t(), cfg.fwd_fmt)  # blocks along K
+            codes, scales, mask_t = q.codes, q.scales, q.mask
+        if plan is not None:
+            # W's dim ↔ Wᵀ's other dim; contiguous [N, K] as B1 writes it
+            codes = C.gather_data(codes, 1 - dim, plan.mesh).contiguous()
+            scales = C.gather_data(scales, 1 - dim, plan.mesh).contiguous()
+        vals = _dequant_codes(codes, scales, cfg.group).t()  # f32 [K, N], bf16-exact
+        mask = mask_t.t()
+        ctx.save_for_backward(mask)
+        ctx.plan, ctx.dim, ctx.group, ctx.dtype = plan, dim, cfg.group, w.dtype
+        ctx.mark_non_differentiable(mask, codes, scales)
+        return vals, mask, codes, scales
+
+    @staticmethod
+    def backward(ctx, dvals, *_):
+        (mask,) = ctx.saved_tensors
+        d = dvals.to(torch.float32)
+        plan = ctx.plan
+        if plan is not None:
+            # the f32 sum over the ranks, scattered to this rank's shard before
+            # the mask ⊙ and H⁻¹ (both block-local along K)
+            d = C.reduce_scatter_data(d, ctx.dim, plan.mesh)
+        dw = hadamard_transform(d * mask, g=ctx.group, dim=0)
+        return dw.to(ctx.dtype), None, None
+
+
+def quest_qdq_gathered(w: torch.Tensor, cfg: QuartetConfig):
+    """The reference's ``quest_qdq_gathered``: → (w_vals f32 [K, N], w_mask,
+    codes int8 [N, K], scales f32 [N, K/32]), the rotated-quantized weight
+    whole on every data rank.  ``w`` is a rank's shard when the train
+    step's anchors left it sharded (``distributed.context.fsdp_dim``), else
+    the whole weight; the mask stays the shard's."""
+    _check(cfg)
+    return _QuestQDQGathered.apply(w, cfg, C.fsdp_dim(w))
+
+
+class _QuartetLinearPQ(torch.autograd.Function):
+    """Quartet with the weight operand pre-rotated and pre-quantized: the
+    forward quantizes x alone (B1, then B3 on the gathered codes on the
+    card); the backward is Algorithm 1's, returning dW_rot in the rotated
+    space for :class:`_QuestQDQGathered` to finish."""
+
+    @staticmethod
+    def forward(ctx, x, w_vals, w_mask, seed, cfg, codes, scales):
+        if cfg.use_kernels:
+            K = _kernel_ops(None)
+            xc, xs, xm = K.hadamard_quest_quantize(x, group=cfg.group)
+            y = K.mxfp4_matmul(xc, xs, codes.t(), scales.t())
+            res = (xc, xs, xm, codes, scales)
+        else:
+            xh = hadamard_transform(x.to(torch.float32), g=cfg.group, dim=-1)
+            xq = _fwd_quantize(xh, cfg, _forward_key(seed))
+            xv = xq.values.to(torch.bfloat16)
+            wv = w_vals.to(torch.bfloat16)  # exact
+            y = _gemm(xv, wv, cfg.accum_dtype)
+            res = (xv, wv, xq.mask)
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            ctx.save_for_backward(*res)
+        ctx.seed, ctx.cfg, ctx.window, ctx.dtype = seed, cfg, C.token_window(), x.dtype
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        cfg, seed = ctx.cfg, ctx.seed
+        if cfg.use_kernels:
+            xc, xs, xm, codes, scales = ctx.saved_tensors
+            wq_v = _dequant_codes(codes, scales, cfg.group).t()
+            dx, dw_rot = _bwd_kernel_gemms(cfg, seed, xc, xs, wq_v, xm, dy, ctx.window)
+        else:
+            xv, wv, xm = ctx.saved_tensors
+            dx, dw_rot = _bwd_plain_gemms(cfg, seed, xv, wv, xm, dy, ctx.window)
+        return dx.to(ctx.dtype), dw_rot, None, None, None, None, None
+
+
+def quartet_linear_pq(x: torch.Tensor, w_vals: torch.Tensor, w_mask: torch.Tensor, seed: int,
+                      cfg: QuartetConfig, codes: torch.Tensor | None = None,
+                      scales: torch.Tensor | None = None) -> torch.Tensor:
+    """The reference's ``quartet_linear_pq``: y = Quartet(x) @ w_vals for the
+    rotated-quantized weight of :func:`quest_qdq_gathered` (whose codes and
+    scales the kernels multiply by; the plain path takes the values)."""
+    _check(cfg)
+    if cfg.fwd_quantizer == "none" or cfg.fwd_format != "mxfp4":
+        raise ValueError(f"fp4_allgather gathers MXFP4 QuEST codes: {cfg}")
+    if cfg.use_kernels and (codes is None or scales is None):
+        raise ValueError("quartet_linear_pq on the kernels needs the gathered codes and scales")
+    return _QuartetLinearPQ.apply(x, w_vals, w_mask, seed & 0xFFFFFFFF, cfg, codes, scales)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,8 @@
 // sr_hadamard_quantize).  Per 32-element group along K:
 //   xh    = prescale · (x ⊙ signs) · H32
 //   scale = E8M0-ceil(max(absmax(xh) / 6, 2^-126))
-//   codes = int8(2 · SR_E2M1(xh / scale, u)),  u = fastrng(seed, salt, m·K + k)
+//   codes = int8(2 · SR_E2M1(xh / scale, u)),  u = fastrng(seed, salt, offset + m·L + k)
+//   (the window: offset 0 and L = K unless a caller draws a block of a larger operand)
 //
 // Bound on H100: operations, with the bytes close behind.  It reads x once
 // (2 or 4 B/element) and writes 1 B of code per element plus 4 B of scale
@@ -35,7 +36,12 @@
 // element hashes (seed, salt, logical index) in registers with the murmur3
 // finalizer of repro_torch/core/fastrng.py, the index being row · K + col
 // of the logical [M, K] operand (mod 2^32), not the memory offset, so a
-// transposed view draws the plain version's bits.
+// transposed view draws the plain version's bits.  A window (offset, L)
+// makes the operand a block of a larger logical one: the index is offset +
+// row · L + col (L = K, offset 0 by default), so a data-parallel rank's
+// block of a backward operand ([B_l, N] rows of the logical [B, N] dy at
+// offset r·B_l·N; [K, B_l] columns of the logical [K, B] xqᵀ at offset
+// r·B_l, L = B) draws one device's bits at its elements.
 //
 // Two bodies.
 //
@@ -159,7 +165,7 @@ __global__ void __launch_bounds__(kThreads) sr_hadamard_kernel(
     const T* __restrict__ x, long long M, long long K, long long sm, long long sk, long long se,
     const float* __restrict__ signs, const uint32_t* __restrict__ expert_seeds,
     uint32_t seed_salt, uint32_t salt_term, float prescale, int8_t* __restrict__ codes,
-    float* __restrict__ scales) {
+    float* __restrict__ scales, long long offset, long long row_len) {
   __shared__ float tile[kRows][kGroup + 1];
   if (expert_seeds) {  // expert blockIdx.z's slice, signs and seed
     const long long e = blockIdx.z;
@@ -208,7 +214,8 @@ __global__ void __launch_bounds__(kThreads) sr_hadamard_kernel(
     const int e = e8m0_ceil_exponent(amax);
 
     const long long o = m * K + k0 + lane;
-    const float u = uniform(static_cast<uint32_t>(o) * kIndexMul + seed_salt);
+    const uint32_t idx = static_cast<uint32_t>(offset + m * row_len + k0 + lane);
+    const float u = uniform(idx * kIndexMul + seed_salt);
     codes[o] = static_cast<int8_t>(static_cast<int>(sr_half_code(__fmul_rn(v, inv_exp2(e)), u)));
     if (lane == 0) scales[m * groups + blockIdx.y] = __int_as_float((e + 127) << 23);
   }
@@ -230,7 +237,7 @@ __device__ __forceinline__ void apply_signs(float (&v)[kGroup], const float* __r
 // the vector bodies' group (group_quant.cuh), x's group in v on entry: the
 // plain version's arithmetic in its order on one whole 32-group in
 // registers; element i of group g of row m hashes h0 + i·kIndexMul, h0 =
-// (m·K + 32g)·kIndexMul + seed_salt.  Returns the scale and the 32
+// (offset + m·row_len + 32g)·kIndexMul + seed_salt.  Returns the scale and the 32
 // half-codes as words (w[0]).  On an expert axis (expert_seeds set),
 // at_expert moves the signs to expert e's row and forms its seed_salt.
 struct sr_hadamard_group {
@@ -242,6 +249,8 @@ struct sr_hadamard_group {
   float prescale;
   const uint32_t* expert_seeds;  // [E] on an expert axis, else null
   uint32_t salt_term;            // salt · kSaltMul
+  long long offset;              // the window: hashed index offset + m·row_len + col
+  long long row_len;
 
   __device__ __forceinline__ void at_expert(long long e, long long K) {
     if (!expert_seeds) return;
@@ -265,7 +274,8 @@ struct sr_hadamard_group {
     }
     const int e = e8m0_ceil_exponent(amax);
     const float inv = inv_exp2(e);
-    const uint32_t h0 = static_cast<uint32_t>(m * K + g * kGroup) * kIndexMul + seed_salt;
+    const uint32_t h0 =
+        static_cast<uint32_t>(offset + m * row_len + g * kGroup) * kIndexMul + seed_salt;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       uint32_t b[4];
@@ -291,7 +301,8 @@ namespace {
 int quantize(const void* x, int is_bf16, long long E, long long M, long long K, long long se,
              long long sm, long long sk, const void* signs, const uint32_t* expert_seeds,
              uint32_t seed, uint32_t salt, float prescale, void* codes, void* scales,
-             int vector, cudaStream_t s) {
+             int vector, long long offset, long long row_len, cudaStream_t s) {
+  if (offset < 0 || row_len < K) return static_cast<int>(cudaErrorInvalidValue);
   // the hash's per-call constant, as fastrng.random_bits adds it (mod 2^32)
   const uint32_t salt_term = salt * kSaltMul;
   const uint32_t seed_salt = seed * kSeedMul + salt_term;
@@ -302,7 +313,7 @@ int quantize(const void* x, int is_bf16, long long E, long long M, long long K, 
         (reinterpret_cast<uintptr_t>(signs) & 15))
       return static_cast<int>(cudaErrorInvalidValue);
     const sr_hadamard_group q = {{static_cast<uint8_t*>(codes)}, static_cast<float*>(scales), sg,
-                                 seed_salt, prescale, expert_seeds, salt_term};
+                                 seed_salt, prescale, expert_seeds, salt_term, offset, row_len};
     return is_bf16 ? group_quant::launch<__nv_bfloat16>(x, M, K, sm, sk, q, s, E, se)
                    : group_quant::launch<float>(x, M, K, sm, sk, q, s, E, se);
   }
@@ -311,11 +322,12 @@ int quantize(const void* x, int is_bf16, long long E, long long M, long long K, 
   if (is_bf16) {
     sr_hadamard_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), M, K, sm, sk, se, sg, expert_seeds, seed_salt,
-        salt_term, prescale, static_cast<int8_t*>(codes), static_cast<float*>(scales));
+        salt_term, prescale, static_cast<int8_t*>(codes), static_cast<float*>(scales), offset,
+        row_len);
   } else {
     sr_hadamard_kernel<float><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(x), M, K, sm, sk, se, sg, expert_seeds, seed_salt, salt_term,
-        prescale, static_cast<int8_t*>(codes), static_cast<float*>(scales));
+        prescale, static_cast<int8_t*>(codes), static_cast<float*>(scales), offset, row_len);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -326,19 +338,22 @@ int quantize(const void* x, int is_bf16, long long E, long long M, long long K, 
 // f32 [K]; writes codes int8 [M, K] and scales f32 [M, K/32] (contiguous,
 // 16-byte aligned).  vector = 1 runs the vector body (x must satisfy
 // group_quant::vector_ok and signs be 16-byte aligned, else
-// cudaErrorInvalidValue), 0 the tile body.
+// cudaErrorInvalidValue), 0 the tile body.  (offset, row_len) is the window
+// the uniforms are hashed in (0, K: x itself; row_len >= K).
 extern "C" int sr_hadamard_quantize(const void* x, int is_bf16, long long M, long long K,
                                     long long sm, long long sk, const void* signs,
                                     uint32_t seed, uint32_t salt, float prescale, void* codes,
-                                    void* scales, int vector, void* stream) {
+                                    void* scales, int vector, long long offset,
+                                    long long row_len, void* stream) {
   return quantize(x, is_bf16, 1, M, K, 0, sm, sk, signs, nullptr, seed, salt, prescale, codes,
-                  scales, vector, static_cast<cudaStream_t>(stream));
+                  scales, vector, offset, row_len, static_cast<cudaStream_t>(stream));
 }
 
 // The expert axis: x [E, M, K] with element strides (se, sm, sk), signs f32
 // [E, K] (contiguous, 16-byte aligned), seeds uint32 [E] on the device;
 // writes codes [E, M, K] and scales [E, M, K/32] (contiguous, 16-byte
-// aligned) in one launch, expert e hashing with seeds[e].  vector = 1 needs
+// aligned) in one launch, expert e hashing with seeds[e] through the window
+// (offset, row_len) as a 2-d launch on its slice.  vector = 1 needs
 // every slice to satisfy vector_ok (x 16-byte aligned and se a multiple of
 // 16 bytes), else cudaErrorInvalidValue.
 extern "C" int sr_hadamard_quantize_experts(const void* x, int is_bf16, long long E,
@@ -346,8 +361,10 @@ extern "C" int sr_hadamard_quantize_experts(const void* x, int is_bf16, long lon
                                             long long sm, long long sk, const void* signs,
                                             const void* seeds, uint32_t salt, float prescale,
                                             void* codes, void* scales, int vector,
+                                            long long offset, long long row_len,
                                             void* stream) {
   if (E < 1 || E > 65535 || seeds == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return quantize(x, is_bf16, E, M, K, se, sm, sk, signs, static_cast<const uint32_t*>(seeds),
-                  0, salt, prescale, codes, scales, vector, static_cast<cudaStream_t>(stream));
+                  0, salt, prescale, codes, scales, vector, offset, row_len,
+                  static_cast<cudaStream_t>(stream));
 }

@@ -115,17 +115,40 @@ class TokenBatcher:
 
     def batch(self, step: int) -> dict:
         per_host = self.global_batch // self.host_count
-        rows = []
+        return self.rows(step, [self.host_index * per_host + r for r in range(per_host)])
+
+    def rows(self, step: int, rows) -> dict:
+        """Rows ``rows`` of step ``step``'s global batch (a pure function of
+        (step, row))."""
         stride = self.seq_len + 1
-        for r in range(per_host):
-            row = self.host_index * per_host + r
-            start = (step * self.global_batch + row) * stride + self.seed
-            rows.append(self.dataset.slice(start, stride))
-        arr = np.stack(rows)  # [per_host, seq+1]
+        arr = np.stack([self.dataset.slice((step * self.global_batch + row) * stride
+                                           + self.seed, stride) for row in rows])
         return {
             "tokens": arr[:, :-1].astype(np.int32),
             "labels": arr[:, 1:].astype(np.int32),
         }
+
+    def rank_batch(self, step: int, rank: int, ranks: int, microbatch: int = 1) -> dict:
+        """A data-parallel rank's rows of step ``step``, microbatch by
+        microbatch: microbatch i is rows [i·G/m, (i+1)·G/m) of the global
+        batch G, and inside it rank r holds the r-th of ``ranks`` equal
+        blocks (the reference's layout: its accumulation scan splits the
+        global batch into m microbatches, and GSPMD splits each over the
+        data axis), so splitting this batch into m gives rank r's block of
+        every microbatch."""
+        return self.rows(step, rank_rows(self.global_batch, microbatch, rank, ranks))
+
+
+def rank_rows(global_batch: int, microbatch: int, rank: int, ranks: int) -> list[int]:
+    """The global-batch rows data-parallel rank ``rank`` of ``ranks`` holds,
+    microbatch by microbatch: rows i·G/m + r·G/(m·n) + j for microbatch i
+    and j < G/(m·n)."""
+    g, m = global_batch, microbatch
+    if g % (m * ranks):
+        raise ValueError(f"global batch {g} does not split into {m} microbatches over "
+                         f"{ranks} ranks")
+    per = g // (m * ranks)
+    return [i * (g // m) + rank * per + j for i in range(m) for j in range(per)]
 
 
 def make_dataset(spec: str, vocab_size: int, seed: int = 0):

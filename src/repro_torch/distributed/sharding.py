@@ -20,8 +20,13 @@ size divides it.  Trees are nested dicts, lists and tuples (a NamedTuple
 keeps its type) whose leaves have a ``.shape``: torch tensors, or the
 shapes of another package's tree.  Paths join dict keys and sequence
 indices with ``/``.  Serving uses :func:`serve_pool_partition` (the pool's
-KV-head axis); the training rules wait for the training half of
-multi-device work.
+KV-head axis).  Training shards by :func:`param_partition` over the
+data-parallel axes (FSDP): :func:`shard_tree` takes a rank's slice of a
+whole tree, :func:`unshard_tree` gathers the whole back (a collective:
+every rank of the data group calls it).  A spec's ``model`` entries are
+honoured only while the mesh's ``model`` axis has one rank: tensor
+parallelism in training is not ported (``DEFERRED``, ROADMAP A8d.5) and
+raises.
 """
 
 from __future__ import annotations
@@ -293,3 +298,102 @@ def cache_partition(cache_specs: Any, mesh, batch: int) -> Any:
         return P(*out)
 
     return tree_map_with_path(spec, cache_specs)
+
+
+# ---------------------------------------------------------------------------
+# Training: a rank's shard of a tree, and the whole back
+# ---------------------------------------------------------------------------
+
+# what data-parallel training does not do yet, each with its ROADMAP item;
+# every one raises at more than one data rank
+DEFERRED = {
+    "moe": "MoE training across devices (ROADMAP A8d.1)",
+    "opt8bit": "adamw8bit on shards (ROADMAP A8d.2)",
+    "grad_compress": "grad_compress on shards (ROADMAP A8d.2)",
+    "baseline": "the paper's baseline methods across data ranks (ROADMAP A8d.2)",
+    "sequence_parallel": "constrain_tokens' sequence-parallel fallback (ROADMAP A8d.3)",
+    "family": "the SSM, hybrid, enc-dec and VLM families across devices (ROADMAP A8d.4)",
+    "tp": "tensor parallelism in training (ROADMAP A8d.5)",
+}
+TP_TRAINING = DEFERRED["tp"]
+
+
+def data_axes_of(entry) -> tuple:
+    """The data-parallel axes named by one spec entry (() for none)."""
+    if entry is None:
+        return ()
+    axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    return tuple(a for a in axes if a in ("pod", "data"))
+
+
+def sharded_dim(spec, mesh) -> int | None:
+    """The dim a leaf is split along over the data-parallel axes (FSDP), or
+    None for a leaf every data rank holds whole.  Raises on a dim split
+    over a ``model`` axis of more than one rank."""
+    dim = None
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        if any(a == "model" and mesh.shape["model"] > 1 for a in axes):
+            raise NotImplementedError(f"a spec over 'model' ({spec}) on a mesh of "
+                                      f"{mesh.shape['model']} model ranks: {TP_TRAINING}")
+        if data_axes_of(entry):
+            if dim is not None:
+                raise ValueError(f"spec {spec} splits two dims over the data axes")
+            dim = i
+    return dim
+
+
+def data_rank_and_size(mesh) -> tuple[int, int]:
+    """This rank's index on the mesh's data-parallel axes (``pod`` major)
+    and their size."""
+    r, n = 0, 1
+    for a in dp_axes(mesh):
+        r = r * mesh.shape[a] + mesh.axis_index(a)
+        n *= mesh.shape[a]
+    return r, n
+
+
+def shard_leaf(x, spec, mesh):
+    """This rank's slice of a whole leaf (a view; a leaf held whole comes
+    back as it is)."""
+    dim = sharded_dim(spec, mesh)
+    if dim is None:
+        return x
+    r, n = data_rank_and_size(mesh)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n} ranks")
+    m = x.shape[dim] // n
+    return x.narrow(dim, r * m, m)
+
+
+def shard_tree(tree, specs, mesh):
+    """A rank's slice of every leaf of a whole tree, by its spec (``specs``
+    a tree of PartitionSpecs of the same structure, as
+    :func:`param_partition` or :func:`partition_state` give).  Non-tensor
+    leaves (a step counter) come back as they are."""
+    def one(x, spec):
+        return shard_leaf(x, spec, mesh) if hasattr(x, "narrow") else x
+
+    return _map(one, tree, specs)
+
+
+def unshard_leaf(x, spec, mesh):
+    """The whole leaf from every data rank's slice (an all-gather over the
+    data-parallel group, rank order)."""
+    dim = sharded_dim(spec, mesh)
+    if dim is None:
+        return x
+    from repro_torch.distributed.context import gather_data
+
+    return gather_data(x, dim, mesh)
+
+
+def unshard_tree(tree, specs, mesh):
+    """The whole tree back from the ranks' slices: one all-gather a sharded
+    leaf, in tree order (every rank of the data group calls it)."""
+    def one(x, spec):
+        return unshard_leaf(x, spec, mesh) if hasattr(x, "narrow") else x
+
+    return _map(one, tree, specs)

@@ -79,14 +79,16 @@ def hadamard_quest_quantize(x: torch.Tensor, group: int = GROUP):
 
 
 def sr_hadamard_quantize(x: torch.Tensor, signs: torch.Tensor, seed: int,
-                         prescale: float = 0.75, salt: int = 0):
+                         prescale: float = 0.75, salt: int = 0, offset: int = 0,
+                         row_len: int | None = None):
     """[..., K] → (codes [..., K] int8, scales [..., K/32] f32): Quartet's
     backward Stage 1.  The uniforms are hashed from (seed, salt, index in the
-    [prod(lead), K] operand) inside the kernel, so no random buffer exists;
-    a 2-d ``x`` may be any strided view (the dW operands are transposes)."""
+    [prod(lead), K] operand, or in the window ``offset``, ``row_len`` of a
+    larger one) inside the kernel, so no random buffer exists; a 2-d ``x``
+    may be any strided view (the dW operands are transposes)."""
     lead = x.shape[:-1]
     x2 = x if x.dim() == 2 else x.reshape(-1, x.shape[-1])
-    codes, scales = _sr_fn(x2, signs, seed, prescale, salt)
+    codes, scales = _sr_fn(x2, signs, seed, prescale, salt, offset, row_len)
     return codes.reshape(*lead, -1), scales.reshape(*lead, -1)
 
 
@@ -107,10 +109,12 @@ def hadamard_quest_quantize_experts(x: torch.Tensor, group: int = GROUP):
 
 
 def sr_hadamard_quantize_experts(x: torch.Tensor, signs: torch.Tensor, seeds: torch.Tensor,
-                                 prescale: float = 0.75, salt: int = 0):
+                                 prescale: float = 0.75, salt: int = 0, offset: int = 0,
+                                 row_len: int | None = None):
     """[E, M, K] (any strides), signs [E, K], seeds [E] → (codes [E, M, K]
-    int8, scales [E, M, K/32] f32) in one launch, expert e at seeds[e]."""
-    return _sr_experts(x, signs, seeds, prescale, salt)
+    int8, scales [E, M, K/32] f32) in one launch, expert e at seeds[e]
+    (each slice through the window ``offset``, ``row_len``)."""
+    return _sr_experts(x, signs, seeds, prescale, salt, offset, row_len)
 
 
 def mxfp4_matmul_experts(a_codes, a_scales, b_codes, b_scales) -> torch.Tensor:

@@ -17,7 +17,12 @@ The uniforms are not an operand, as they are in the reference's kernel: the
 kernel hashes (seed, salt, row · K + col) in registers with
 ``core.fastrng``'s hash, where (row, col) is the element's place in the
 *logical* [M, K] operand, whatever its strides.  The plain version draws
-the same bits with ``fastrng.uniform(seed, (M, K), salt)``.
+the same bits with ``fastrng.uniform(seed, (M, K), salt)``.  A window
+(``offset``, ``row_len``) makes the operand a block of a larger logical
+one: element (row, col) hashes ``offset + row · row_len + col`` (mod 2^32),
+as ``fastrng``'s window draws it, so a data-parallel rank's block of a
+backward operand draws exactly the bits one device draws at its elements.
+The defaults (0, K) hash the operand itself.
 
 :func:`sr_hadamard_quantize_experts` takes a stack ``[E, M, K]`` (the four
 backward operands of a MoE layer's stacked expert linears) with signs
@@ -63,7 +68,8 @@ def e2m1_stochastic_round(v: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.copysign(q, v)
 
 
-def _quantize_signed(xs: torch.Tensor, seed, prescale: float, salt: int):
+def _quantize_signed(xs: torch.Tensor, seed, prescale: float, salt: int, offset: int = 0,
+                     row_len: int | None = None):
     """The arithmetic after the sign flip, on xs [..., M, K] f32 (``seed`` a
     Python int, or a tensor [E] for xs [E, M, K]) → (codes, scales)."""
     *lead, m, k = xs.shape
@@ -73,29 +79,31 @@ def _quantize_signed(xs: torch.Tensor, seed, prescale: float, salt: int):
     absmax = torch.amax(torch.abs(xh), dim=-1)
     raw = torch.clamp(F.div_exact(absmax, _E2M1_MAX), min=2.0 ** F.E8M0_MIN_EXP)
     scale = F.round_scale_e8m0(raw, "ceil")
-    u = fastrng.uniform(seed, (m, k), salt, xs.device).reshape(xh.shape)
+    u = fastrng.uniform(seed, (m, k), salt, xs.device, offset, row_len).reshape(xh.shape)
     q = e2m1_stochastic_round(xh / scale[..., None], u)
     codes = torch.round(q * 2.0).to(torch.int8)
     return codes.reshape(*lead, m, k), scale
 
 
 def sr_hadamard_quantize_plain(x: torch.Tensor, signs: torch.Tensor, seed: int,
-                               prescale: float = 0.75, salt: int = 0):
+                               prescale: float = 0.75, salt: int = 0, offset: int = 0,
+                               row_len: int | None = None):
     """x [M, K] f32/bf16, signs [K] ±1 → (codes int8 [M, K], scales f32
     [M, K/32]): the kernel's arithmetic in plain PyTorch."""
     xs = x.to(torch.float32) * signs.to(torch.float32)[None, :]
-    return _quantize_signed(xs, seed, prescale, salt)
+    return _quantize_signed(xs, seed, prescale, salt, offset, row_len)
 
 
 def sr_hadamard_quantize_experts_plain(x: torch.Tensor, signs: torch.Tensor,
                                        seeds: torch.Tensor, prescale: float = 0.75,
-                                       salt: int = 0):
+                                       salt: int = 0, offset: int = 0,
+                                       row_len: int | None = None):
     """x [E, M, K], signs [E, K], seeds [E] (uint32 values in int64) →
     (codes [E, M, K], scales [E, M, K/32]): the 2-d plain version on every
     expert at its own signs and seed, batched (elementwise, so slice e is
     bit for bit the 2-d call on it)."""
     xs = x.to(torch.float32) * signs.to(torch.float32)[:, None, :]
-    return _quantize_signed(xs, seeds, prescale, salt)
+    return _quantize_signed(xs, seeds, prescale, salt, offset, row_len)
 
 
 @functools.cache
@@ -104,7 +112,7 @@ def _entry():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_uint32,
                    ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -115,16 +123,26 @@ def _cost(x: torch.Tensor, *args, **kwargs):
     return 0, nbytes(x) + x.numel() + x.numel() // 32 * 4
 
 
+def _window(k: int, offset: int, row_len: int | None) -> tuple[int, int]:
+    row_len = k if row_len is None else row_len
+    if offset < 0 or row_len < k:
+        raise ValueError(f"sr_hadamard_quantize: bad window offset {offset}, row length "
+                         f"{row_len} for K={k}")
+    return offset, row_len
+
+
 @counted(_cost)
 def sr_hadamard_quantize(x: torch.Tensor, signs: torch.Tensor, seed: int,
-                         prescale: float = 0.75, salt: int = 0):
+                         prescale: float = 0.75, salt: int = 0, offset: int = 0,
+                         row_len: int | None = None):
     """x [M, K] (any strides; f32 or bf16), signs [K] → (codes int8 [M, K],
-    scales f32 [M, K/32], both contiguous).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (``.launches`` counts every
-    launch, ``.vector_launches`` those of the vector body); anything else
-    raises."""
+    scales f32 [M, K/32], both contiguous); (``offset``, ``row_len``) the
+    window of a larger logical operand that x's uniforms are drawn from
+    (default: x itself).  CPU tensors take the plain version; CUDA tensors
+    launch the kernel (``.launches`` counts every launch,
+    ``.vector_launches`` those of the vector body); anything else raises."""
     if x.device.type == "cpu":
-        return sr_hadamard_quantize_plain(x, signs, seed, prescale, salt)
+        return sr_hadamard_quantize_plain(x, signs, seed, prescale, salt, offset, row_len)
     if x.device.type != "cuda":
         raise RuntimeError(f"sr_hadamard_quantize: unsupported device {x.device}")
     if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
@@ -134,6 +152,7 @@ def sr_hadamard_quantize(x: torch.Tensor, signs: torch.Tensor, seed: int,
     if k % GROUP != 0 or m == 0 or signs.shape != (k,):
         raise ValueError(f"sr_hadamard_quantize: bad shapes x {tuple(x.shape)}, "
                          f"signs {tuple(signs.shape)}")
+    offset, row_len = _window(k, offset, row_len)
     signs = signs.to(device=x.device, dtype=torch.float32).contiguous()
     if signs.data_ptr() % 16:  # the vector body reads the signs 16 bytes at a time
         signs = signs.clone()
@@ -142,8 +161,8 @@ def sr_hadamard_quantize(x: torch.Tensor, signs: torch.Tensor, seed: int,
     vector = vector_ok(x)
     status = _entry()(x.data_ptr(), int(x.dtype == torch.bfloat16), m, k, x.stride(0),
                       x.stride(1), signs.data_ptr(), seed & 0xFFFFFFFF, salt & 0xFFFFFFFF,
-                      prescale, codes.data_ptr(), scales.data_ptr(), int(vector),
-                      torch.cuda.current_stream(x.device).cuda_stream)
+                      prescale, codes.data_ptr(), scales.data_ptr(), int(vector), offset,
+                      row_len, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "sr_hadamard_quantize")
     sr_hadamard_quantize.launches += 1
     sr_hadamard_quantize.vector_launches += vector
@@ -160,7 +179,7 @@ def _experts_entry():
     fn = _build.load("sr_hadamard_quant").sr_hadamard_quantize_experts
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 6 + [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -174,15 +193,18 @@ def _seeds_u32(seeds: torch.Tensor, device) -> torch.Tensor:
 
 @counted(_cost)
 def sr_hadamard_quantize_experts(x: torch.Tensor, signs: torch.Tensor, seeds: torch.Tensor,
-                                 prescale: float = 0.75, salt: int = 0):
+                                 prescale: float = 0.75, salt: int = 0, offset: int = 0,
+                                 row_len: int | None = None):
     """x [E, M, K] (any strides: the backward's transposed views are read in
     place), signs [E, K], seeds [E] (uint32 values in int64) → (codes int8
     [E, M, K], scales f32 [E, M, K/32], both contiguous) in one launch,
     counted in ``sr_hadamard_quantize.launches`` and ``.expert_launches``
-    (and ``.vector_launches`` when it takes the vector body).  CPU tensors
-    take the plain version."""
+    (and ``.vector_launches`` when it takes the vector body); each expert's
+    slice hashes through the window (``offset``, ``row_len``) as a 2-d call
+    does.  CPU tensors take the plain version."""
     if not _device("sr_hadamard_quantize_experts", x):
-        return sr_hadamard_quantize_experts_plain(x, signs, seeds, prescale, salt)
+        return sr_hadamard_quantize_experts_plain(x, signs, seeds, prescale, salt, offset,
+                                                  row_len)
     if x.dim() != 3 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"sr_hadamard_quantize_experts: need 3-d f32/bf16, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -191,6 +213,7 @@ def sr_hadamard_quantize_experts(x: torch.Tensor, signs: torch.Tensor, seeds: to
             or seeds.shape != (e,)):
         raise ValueError(f"sr_hadamard_quantize_experts: bad shapes x {tuple(x.shape)}, "
                          f"signs {tuple(signs.shape)}, seeds {tuple(seeds.shape)}")
+    offset, row_len = _window(k, offset, row_len)
     signs = signs.to(device=x.device, dtype=torch.float32).contiguous()
     if signs.data_ptr() % 16:  # the vector body reads the signs 16 bytes at a time
         signs = signs.clone()
@@ -201,7 +224,7 @@ def sr_hadamard_quantize_experts(x: torch.Tensor, signs: torch.Tensor, seeds: to
     status = _experts_entry()(x.data_ptr(), int(x.dtype == torch.bfloat16), e, m, k,
                               x.stride(0), x.stride(1), x.stride(2), signs.data_ptr(),
                               seeds32.data_ptr(), salt & 0xFFFFFFFF, prescale, codes.data_ptr(),
-                              scales.data_ptr(), int(vector),
+                              scales.data_ptr(), int(vector), offset, row_len,
                               torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "sr_hadamard_quantize_experts")
     sr_hadamard_quantize.launches += 1

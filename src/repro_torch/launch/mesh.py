@@ -12,8 +12,12 @@ the process is a world of one.
 ``torch.distributed.new_group`` must be entered by every rank of the world
 in the same order, members or not, so :func:`make_local_mesh` and
 :func:`make_serve_meshes` create every line's group on every rank and keep
-the ones this rank belongs to.  ``make_production_mesh`` (the 256- and
-512-chip layouts of the dry run) is not ported.
+the ones this rank belongs to.  :func:`make_production_mesh` lays the
+reference's 16 × 16 ``(data, model)`` and 2 × 16 × 16 ``(pod, data,
+model)`` layouts over the first 256 or 512 ranks; a multi-pod mesh also
+holds the ``("pod", "data")`` plane's group, the data-parallel group of
+training.  Training takes :func:`make_local_mesh` (``model`` 1: every rank
+on ``data``), as the reference's launcher does.
 """
 
 from __future__ import annotations
@@ -145,6 +149,24 @@ def make_local_mesh(model: int = 1) -> Mesh:
     ranks = np.arange(n).reshape(n // model, model)
     groups = {"data": _line_groups(ranks, 0), "model": _line_groups(ranks, 1)}
     return Mesh(ranks, ("data", "model"), groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production layouts over ranks 0 .. 255 (16 × 16,
+    axes ``(data, model)``) or 0 .. 511 (2 × 16 × 16, ``(pod, data,
+    model)``).  Raises when the world holds fewer ranks than the mesh."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = int(np.prod(shape))
+    if world_size() < need:
+        raise ValueError(f"the production mesh {dict(zip(axes, shape))} needs {need} ranks, "
+                         f"the world has {world_size()}: start {need} (torchrun "
+                         f"--nnodes ... --nproc-per-node ...), or train on make_local_mesh()")
+    ranks = np.arange(need).reshape(shape)
+    groups = {a: _line_groups(ranks, i) for i, a in enumerate(axes)}
+    if multi_pod:  # the (pod, data) planes, one a model index
+        groups[("pod", "data")] = _line_groups(ranks.transpose(2, 0, 1).reshape(16, -1).T, 0)
+    return Mesh(ranks, axes, groups)
 
 
 def make_serve_meshes(tp: int = 1, dp: int = 1) -> list[Mesh]:

@@ -22,6 +22,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import (constrain_layer_params, constrain_logits,
+                                             constrain_tokens)
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention, init_attention
 from repro_torch.models.transformer import (
@@ -70,11 +72,12 @@ def init_encdec_lm(cfg: ModelConfig, generator: torch.Generator, device) -> dict
 def _encoder_layer(lp: dict, x: torch.Tensor, pos: torch.Tensor, s: int, cfg: ModelConfig,
                    method: str) -> torch.Tensor:
     _, norm = L.make_norm(cfg.norm)
+    lp = constrain_layer_params(lp, "encoder/layers")
     h, _ = attention(lp["attn"], norm(lp["attn_norm"], x, cfg.norm_eps), pos,
                      L.seed_fold(s, 100), cfg, causal=False, method=method)
     x = x + h
-    return x + mlp(lp["mlp"], norm(lp["mlp_norm"], x, cfg.norm_eps), L.seed_fold(s, 200),
-                   cfg, method)
+    return constrain_tokens(x + mlp(lp["mlp"], norm(lp["mlp_norm"], x, cfg.norm_eps),
+                                    L.seed_fold(s, 200), cfg, method))
 
 
 def encode(params: dict, source_embeds: torch.Tensor, cfg: ModelConfig, seed: int,
@@ -128,8 +131,8 @@ def encdec_head(params: dict, x: torch.Tensor, cfg: ModelConfig, seed: int,
     """The decoder's final norm and the tied unembedding → f32 logits."""
     _, norm = L.make_norm(cfg.norm)
     x = norm(params["decoder"]["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], x, L.seed_fold(seed, 999), cfg.quartet,
-                     cfg.quantize_lm_head, method).to(torch.float32)
+    return constrain_logits(L.unembed(params["embed"], x, L.seed_fold(seed, 999), cfg.quartet,
+                                      cfg.quantize_lm_head, method).to(torch.float32))
 
 
 def encdec_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: int, *,
@@ -153,9 +156,10 @@ def encdec_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: i
         if source_embeds is None:
             raise ValueError("the encoder needs memory or source_embeds")
         memory = encode(params, source_embeds, cfg, L.seed_fold(seed, 7), method)
-    x = L.add_absolute_positions(L.embed(params["embed"], tokens), positions)
+    x = L.add_absolute_positions(constrain_tokens(L.embed(params["embed"], tokens)), positions)
 
     def layer(lp, x, memory, s, sc, cc):
+        lp = constrain_layer_params(lp, "decoder/layers")
         h, _ = attention(lp["self_attn"], norm(lp["self_norm"], x, cfg.norm_eps), positions,
                          L.seed_fold(s, 100), cfg, causal=True, kv_cache=sc,
                          cache_index=cache_index, method=method)
@@ -164,8 +168,8 @@ def encdec_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: i
                          L.seed_fold(s, 150), cfg, causal=False, kv_source=memory,
                          kv_cache=cc, write_kv=build_cross, method=method)
         x = x + h
-        return x + mlp(lp["mlp"], norm(lp["mlp_norm"], x, cfg.norm_eps), L.seed_fold(s, 200),
-                       cfg, method)
+        return constrain_tokens(x + mlp(lp["mlp"], norm(lp["mlp_norm"], x, cfg.norm_eps),
+                                        L.seed_fold(s, 200), cfg, method))
 
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for i in range(cfg.num_layers):

@@ -25,11 +25,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import constrain_tokens
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import init_mamba2_block, mamba2_block, mamba2_cache_spec
 from repro_torch.models.transformer import (
     LAYER_SEED_STRIDE,
     _stacked_init,
+    anchored,
     dense_block,
     init_dense_block,
     layer_slice,
@@ -74,18 +76,19 @@ def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: i
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-    x = L.embed(params["embed"], tokens)
+    x = constrain_tokens(L.embed(params["embed"], tokens))
     n_super, per, tail = split_counts(cfg)
+    block = anchored(mamba2_block, "mamba_layers")
     rope = L.rope_table(positions, cfg.head_dim_, cfg.rope_theta)  # one table, 13 readers
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
 
     def mamba(x, j, s):
         p = layer_slice(params["mamba_layers"], j)
         if remat:
-            return checkpoint(mamba2_block, p, x, positions, s, cfg, None, method, None, None,
+            return checkpoint(block, p, x, positions, s, cfg, None, method, None, None,
                               rope, use_reentrant=False)[0]
         cache = None if caches is None else (caches["mamba"][0][j], caches["mamba"][1][j])
-        return mamba2_block(p, x, positions, s, cfg, cache, method, cache_index, None, rope)[0]
+        return block(p, x, positions, s, cfg, cache, method, cache_index, None, rope)[0]
 
     def super_block(x, sp):
         a_cache = None if caches is None else (caches["attn"][0][sp], caches["attn"][1][sp])

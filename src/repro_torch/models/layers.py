@@ -11,10 +11,13 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as Fn
 
 from repro_torch.core import formats as F
 from repro_torch.core.baselines import baseline_linear, baseline_linear_experts
-from repro_torch.core.quartet import QuartetConfig, quartet_linear, quartet_linear_experts
+from repro_torch.core.quartet import (QuartetConfig, quartet_linear, quartet_linear_experts,
+                                     quartet_linear_pq, quest_qdq_gathered)
+from repro_torch.distributed.context import weight_operand, widened
 
 
 def trunc_normal(shape, std: float, dtype: torch.dtype, generator: torch.Generator,
@@ -33,21 +36,61 @@ def init_dense(d_in: int, d_out: int, dtype, generator, device,
     return p
 
 
+class _HeadProduct(torch.autograd.Function):
+    """x [..., S, D] @ w [D, V] in f32, the LM head's product, whose
+    backward computes dx a [S, V] block of rows at a time and dW in one
+    product over every row.  On the card cuBLAS splits dx's
+    V-long contraction by the call's row count, so dx of a whole [B·S, V]
+    gradient would round a row by B: a data-parallel rank (B/n rows) would
+    then feed its layers other bits than one device, and their stochastic
+    roundings would part.  A block of S rows rounds alike in any batch."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        wt = w.t()
+        blocks = g.reshape(-1, *g.shape[-2:]) if g.dim() > 2 else g[None]
+        dx = torch.stack([gb @ wt for gb in blocks]).reshape(x.shape)
+        dw = x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+        return dx, dw
+
+
+def head_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """f32 x [..., S, D] @ f32 w [D, V] (:class:`_HeadProduct` under
+    autograd, the plain product otherwise)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _HeadProduct.apply(x, w)
+    return x @ w
+
+
 def dense(params: dict, x: torch.Tensor, seed: int, qcfg: QuartetConfig,
-          method: str = "quartet") -> torch.Tensor:
+          method: str = "quartet", head: bool = False) -> torch.Tensor:
     """The one entry point of every model matmul; ``method`` selects Quartet,
     the bf16 baseline or one of the paper's baselines
     (``core.baselines.BASELINE_METHODS``).  In training under a baseline
     method the weight arrives in its master dtype (:func:`takes_master_weight`)
-    and is cast to x's dtype here, or inside ``baseline_linear``."""
+    and is cast to x's dtype here, or inside ``baseline_linear``.  With
+    ``qcfg.fp4_allgather`` Quartet takes the weight as MXFP4 codes, gathered
+    from the data ranks' shards when the train step's anchors left ``w`` a
+    shard (``core.quartet.quest_qdq_gathered``).  ``head``: the LM head,
+    whose bf16 product takes :func:`head_product`."""
     w = params["w"]
     if w.shape[0] % 32 != 0:
         # contraction dim not divisible by the MXFP4 group: keep bf16
         method = "bf16"
-    if method == "quartet":
+    if method == "quartet" and qcfg.fp4_allgather:
+        w_vals, w_mask, codes, scales = quest_qdq_gathered(w, qcfg)
+        y = quartet_linear_pq(x, w_vals, w_mask, seed, qcfg, codes, scales)
+    elif method == "quartet":
         y = quartet_linear(x, w, seed, qcfg)
     elif method == "bf16":
-        y = (x.to(torch.float32) @ w.to(x.dtype).to(torch.float32)).to(x.dtype)
+        xf, wf = x.to(torch.float32), weight_operand(w, x.dtype).to(torch.float32)
+        y = (head_product(xf, wf) if head else xf @ wf).to(x.dtype)
     else:
         y = baseline_linear(x, w, seed, method)
     if "b" in params:
@@ -244,8 +287,14 @@ def init_embedding(vocab: int, d: int, dtype, generator, device) -> dict:
     return {"table": trunc_normal((vocab, d), 1.0 / np.sqrt(d), dtype, generator, device)}
 
 
-def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens.long()]
+def embed(params: dict, tokens: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The table's rows (``F.embedding``: on the card its backward sums a
+    row's gradients in f32 and rounds once, where an index's rounds each
+    add to a bf16 table), back in the compute ``dtype`` when the
+    data-parallel anchors widened the table to f32 (``distributed.context.
+    widened``)."""
+    rows = Fn.embedding(tokens.long(), params["table"])
+    return rows.to(dtype) if dtype is not None and widened() else rows
 
 
 def unembed(params: dict, x: torch.Tensor, seed: int, qcfg: QuartetConfig,
@@ -255,7 +304,7 @@ def unembed(params: dict, x: torch.Tensor, seed: int, qcfg: QuartetConfig,
     table = params["table"]
     if quantize and method == "quartet":
         return quartet_linear(x, table.t(), seed, qcfg)
-    return x.to(torch.float32) @ table.to(torch.float32).t()
+    return head_product(x.to(torch.float32), table.to(torch.float32).t())
 
 
 def seed_fold(seed, salt: int):

@@ -87,6 +87,10 @@ def _expert_ffn(xe: torch.Tensor, params: dict, seed: int, cfg: ModelConfig,
     expert_offset + e in uint32, as the reference's vmap carries them (a
     tensor-parallel rank's block of experts starts at ``expert_offset``)."""
     qc = cfg.quartet
+    if method == "quartet" and qc.fp4_allgather:
+        from repro_torch.distributed.sharding import DEFERRED
+
+        raise NotImplementedError(f"fp4_allgather on the stacked experts: {DEFERRED['moe']}")
     seeds = (L.seed_fold(seed, 20) + expert_offset
              + torch.arange(xe.shape[0], dtype=torch.int64, device=xe.device)) & 0xFFFFFFFF
     g = L.dense_experts(params["gate"], xe, L.seed_fold(seeds, 21), qc, method)

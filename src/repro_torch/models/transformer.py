@@ -15,7 +15,12 @@ training (grad enabled, no cache) with ``cfg.remat``, each layer runs under
 ``torch.utils.checkpoint``: only its input is kept, and the backward
 recomputes its forward, as the reference checkpoints its layer-scan
 body.  The per-layer seeds are deterministic, so the recompute
-quantizes to the same bits.  Every block returns ``(x, aux)``: a MoE
+quantizes to the same bits.  The reference's anchors sit where its layer
+scan has them (``distributed.context``): a layer's parameters gathered at
+the top of the checkpointed body (so the backward's recompute gathers
+again, as FSDP does), the activations' rows checked after the embedding
+and after each layer, the logits after the head; outside a train step's
+plan they return their input.  Every block returns ``(x, aux)``: a MoE
 layer's router loss (an f32 scalar), a dense layer's 0.0;
 ``lm_forward(..., return_aux=True)`` (the train step) also returns their
 f32 sum in layer order, as the reference's layer scan carries it.
@@ -28,6 +33,8 @@ import torch.nn.functional as Fn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import (constrain_layer_params, constrain_logits,
+                                             constrain_tokens)
 from repro_torch.kernels.paged_attention import PagedKV
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention, init_attention
@@ -110,6 +117,17 @@ def _stacked_init(block_init, n: int) -> dict:
     return out
 
 
+def anchored(block, path: str = "layers"):
+    """``block`` under the reference's layer-scan anchors: its parameters
+    (a slice of the stack at ``path``) gathered on entry, its output rows
+    checked on exit."""
+    def run(params, x, *args):
+        x, aux = block(constrain_layer_params(params, path), x, *args)
+        return constrain_tokens(x), aux
+
+    return run
+
+
 def _blocks(cfg: ModelConfig):
     """The family's (init, apply) pair."""
     if cfg.family == "dense":
@@ -157,8 +175,8 @@ def lm_head_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, seed: int,
                            cfg.quantize_lm_head, method)
     else:
         logits = L.dense(params["lm_head"], x, L.seed_fold(seed, 999), cfg.quartet,
-                         method if cfg.quantize_lm_head else "bf16")
-    logits = logits.to(torch.float32)
+                         method if cfg.quantize_lm_head else "bf16", head=True)
+    logits = constrain_logits(logits.to(torch.float32))
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
@@ -183,10 +201,11 @@ def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: int, 
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, getattr(torch, cfg.dtype))
+    x = constrain_tokens(x)
     if cfg.pos_embed == "absolute":
         x = L.add_absolute_positions(x, positions)
-    _, block = _blocks(cfg)
+    block = anchored(_blocks(cfg)[1])
     # the rope table depends on the positions alone: built once, read by
     # every layer's attention (an SSM has none)
     rope = (L.rope_table(positions, cfg.head_dim_, cfg.rope_theta)

@@ -32,11 +32,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import constrain_layer_params, constrain_tokens
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention, init_attention
 from repro_torch.models.transformer import (
     LAYER_SEED_STRIDE,
     _stacked_init,
+    anchored,
     dense_block,
     init_dense_block,
     init_mlp,
@@ -137,23 +139,25 @@ def vlm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, seed: int,
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-    x = L.embed(params["embed"], tokens)
+    x = constrain_tokens(L.embed(params["embed"], tokens))
     n_super, per = split_counts(cfg)
+    block = anchored(dense_block)
     rope = L.rope_table(positions, cfg.head_dim_, cfg.rope_theta)  # one table, every layer
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
 
     def dense(x, j, s):
         if remat:
-            return checkpoint(dense_block, layer_slice(params["layers"], j), x, positions, s,
+            return checkpoint(block, layer_slice(params["layers"], j), x, positions, s,
                               cfg, None, method, None, None, rope, use_reentrant=False)[0]
         cache = None if caches is None else (caches["self"][0][j], caches["self"][1][j])
-        return dense_block(layer_slice(params["layers"], j), x, positions, s, cfg, cache,
-                           method, cache_index, None, rope)[0]
+        return block(layer_slice(params["layers"], j), x, positions, s, cfg, cache,
+                     method, cache_index, None, rope)[0]
 
     def super_block(x, sp):
         cache = None if caches is None else (caches["cross"][0][sp], caches["cross"][1][sp])
-        x = cross_block(layer_slice(params["cross_layers"], sp), x, image_embeds, positions,
-                        (seed + sp * 7919) & _U32, cfg, cache, method, rope)
+        lp = constrain_layer_params(layer_slice(params["cross_layers"], sp), "cross_layers")
+        x = cross_block(lp, x, image_embeds, positions, (seed + sp * 7919) & _U32, cfg, cache,
+                        method, rope)
         seed0 = (seed + sp * ((per * LAYER_SEED_STRIDE) % 2**32)) & _U32
         for i in range(per):
             x = dense(x, sp * per + i, (seed0 + i * LAYER_SEED_STRIDE) & _U32)

@@ -31,9 +31,13 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 def chunked_lm_loss(head_fn, params, features, labels, seed: int,
                     mask: torch.Tensor | None = None, z_loss: float = 0.0,
-                    chunk: int = 512, method: str = "quartet"):
+                    chunk: int = 512, method: str = "quartet",
+                    denom: torch.Tensor | None = None):
     """head_fn(params, x_chunk, seed, method) → f32 logits; features
-    [B, S, D].  Chunks are summed in order, as the reference's scan."""
+    [B, S, D].  Chunks are summed in order, as the reference's scan.
+    ``denom``: the token count to divide by (a data-parallel rank passes the
+    global count, so its loss is its share of the global mean and each
+    token's gradient is the one-device one); by default this call's own."""
     B, S, _ = features.shape
     c = min(chunk, S)
     while S % c != 0:
@@ -56,7 +60,7 @@ def chunked_lm_loss(head_fn, params, features, labels, seed: int,
         n_i, z_i, c_i = (checkpoint(one, *args, use_reentrant=False) if grad
                          else one(*args))
         nll, zl, cnt = nll + n_i, zl + z_i, cnt + c_i
-    denom = torch.clamp(cnt, min=1.0)
+    denom = torch.clamp(cnt if denom is None else denom, min=1.0)
     loss = nll / denom
     metrics = {"nll": loss, "tokens": denom}
     if z_loss:

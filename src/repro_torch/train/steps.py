@@ -17,6 +17,21 @@ The per-step ``seed`` is derived from the step counter exactly as the
 reference derives it, ``((step + 1) · microbatch) mod 2^32`` and then
 ``seed + i`` for microbatch i, so every stochastic rounding draws the
 reference's bits and a step is reproducible from the state.
+
+Under a training mesh (``distributed.context``: a mesh with a ``data``
+axis is active, as ``launch/train.py`` sets it) a dense model trains FSDP
+data-parallel, as the reference's GSPMD program does: the state holds a
+rank's shards (``distributed.sharding.shard_tree`` by ``param_specs``), a
+rank's batch holds its rows of every microbatch
+(``data.pipeline.TokenBatcher.rank_batch``), the step opens the anchors'
+plan, each rank's loss is its share of the global token count (so the
+summed gradients are the one-device gradient, with a ``loss_mask`` too),
+the accumulator stays in shard shapes, the clip sums the shards' squares
+across the ranks and counts a replicated leaf once, and AdamW updates a
+rank's shards only.  The metrics come back reduced over the ranks.  On
+one data rank the step takes the same anchors (gathers of one rank) and
+equals the step without a mesh bit for bit.  At more than one data rank
+what is not ported raises (``distributed.sharding.DEFERRED``).
 """
 
 from __future__ import annotations
@@ -27,6 +42,8 @@ import torch
 
 from repro_torch.core import threefry
 from repro_torch.core.baselines import BASELINE_METHODS
+from repro_torch.distributed import context as C
+from repro_torch.distributed import sharding as SH
 from repro_torch.models.layers import takes_master_weight
 from repro_torch.models.registry import Model
 from repro_torch.optim.adamw import Optimizer, apply_updates
@@ -57,10 +74,66 @@ def _leaf_paths(tree, path=()) -> list[tuple[str, ...]]:
     return [path]
 
 
+def training_mesh():
+    """The active mesh when it is a training mesh (it has a ``data`` axis),
+    else None (no mesh, or a serving mesh)."""
+    mesh = C.current_mesh()
+    return mesh if mesh is not None and "data" in mesh.axis_names else None
+
+
+def _is_8bit(opt_state) -> bool:
+    return any(t.dtype == torch.int8 for t in tree_leaves(opt_state.get("mu", {}))
+               if isinstance(t, torch.Tensor))
+
+
+def check_data_parallel(cfg, method: str, grad_compress: bool, opt_state, mesh) -> None:
+    """Raise on what data-parallel training does not do yet, at more than
+    one data rank (each message names its ROADMAP item)."""
+    if mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(SH.DEFERRED["tp"])
+    if SH.data_rank_and_size(mesh)[1] == 1:
+        return
+    if cfg.family == "moe":
+        raise NotImplementedError(SH.DEFERRED["moe"])
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r}: {SH.DEFERRED['family']}")
+    if grad_compress:
+        raise NotImplementedError(SH.DEFERRED["grad_compress"])
+    if _is_8bit(opt_state):
+        raise NotImplementedError(SH.DEFERRED["opt8bit"])
+    if method in BASELINE_METHODS:
+        raise NotImplementedError(f"method {method!r}: {SH.DEFERRED['baseline']}")
+
+
+def _plan(model, method, grad_compress, state, param_specs):
+    """The anchors' plan for this step (None without a training mesh, and
+    for the families whose anchors are not driven yet on one rank)."""
+    mesh = training_mesh()
+    if mesh is None:
+        return None
+    check_data_parallel(model.cfg, method, grad_compress, state.opt_state, mesh)
+    if model.cfg.family != "dense":
+        return None
+    if param_specs is None:
+        if SH.data_rank_and_size(mesh)[1] > 1:
+            raise ValueError("a data-parallel step needs the parameters' specs "
+                             "(make_train_step(param_specs=param_partition(whole, mesh)))")
+        param_specs = SH.param_partition(state.params, mesh)
+    return C.make_plan(mesh, param_specs, model.cfg.quartet.fp4_allgather
+                       and method == "quartet")
+
+
+def _token_count(batch: dict) -> torch.Tensor:
+    mask = batch.get("loss_mask")
+    if mask is None:
+        return torch.tensor(float(batch["labels"].numel()), device=batch["labels"].device)
+    return mask.to(torch.float32).sum()
+
+
 def make_train_step(model: Model, optimizer: Optimizer, *, method: str = "quartet",
                     clip_norm: float = 1.0, aux_weight: float = 0.01, z_loss: float = 0.0,
                     grad_compress: bool = False, loss_chunk: int = 512,
-                    microbatch: int = 1) -> Callable:
+                    microbatch: int = 1, param_specs=None) -> Callable:
     """``microbatch`` > 1 splits the batch into that many sequential
     gradient-accumulation steps (activation memory shrinks in proportion).
     With ``grad_compress`` (and a state whose ``err`` is not None) the
@@ -68,17 +141,21 @@ def make_train_step(model: Model, optimizer: Optimizer, *, method: str = "quarte
     (``optim.grad_compress``), every leaf under the step's one key
     ``fold_in(PRNGKey(0xC0), seed)``, before the optimizer.
     The step takes and returns a :class:`TrainState`; the metrics it returns
-    are 0-d tensors on the params' device (reading them synchronises)."""
+    are 0-d tensors on the params' device (reading them synchronises).
+    ``param_specs`` (the whole parameters' ``param_partition`` under the
+    mesh) tells a data-parallel step which leaves are shards, and along
+    which dim."""
     cfg = model.cfg
     compute_dtype = getattr(torch, cfg.dtype)
     baseline = method in BASELINE_METHODS
 
-    def loss_fn(cparams, batch, seed):
+    def loss_fn(cparams, batch, seed, denom=None):
+        cparams = C.constrain_params(cparams)
         feats, _, aux = model.forward(cparams, batch["tokens"], seed, extra=_extra(batch),
                                       method=method, features_only=True, return_aux=True)
         loss, metrics = chunked_lm_loss(model.head, cparams, feats, batch["labels"], seed,
                                         batch.get("loss_mask"), z_loss, chunk=loss_chunk,
-                                        method=method)
+                                        method=method, denom=denom)
         metrics["aux"] = aux
         # a dense model's aux is exactly 0: its loss and gradients are unchanged
         return loss + aux_weight * aux, metrics
@@ -92,9 +169,21 @@ def make_train_step(model: Model, optimizer: Optimizer, *, method: str = "quarte
         cparams = tree_unflatten(params, [
             p if m or not p.is_floating_point() else p.to(compute_dtype)
             for p, m in zip(leaves, master)])
-        loss, metrics = loss_fn(cparams, batch, seed)
+        plan = C.current_plan()
+        if plan is None or plan.size == 1:
+            loss, metrics = loss_fn(cparams, batch, seed)
+            grads = torch.autograd.grad(loss, leaves)
+            return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
+        # this rank's share of the global mean (its tokens' losses over the
+        # global count): summed over the ranks, the loss and the gradients
+        # are the one-device ones, each token's gradient bit for bit
+        plan.rows = batch["tokens"].shape[0] * plan.size
+        loss, metrics = loss_fn(cparams, batch, seed,
+                                C.all_reduce_data(_token_count(batch), plan.mesh))
         grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
+        metrics = {k: v.detach() if k == "tokens" else C.all_reduce_data(v.detach(), plan.mesh)
+                   for k, v in metrics.items()}
+        return C.all_reduce_data(loss.detach(), plan.mesh), metrics, list(grads)
 
     def grads_of(params, batch, seed):
         if microbatch <= 1:
@@ -113,10 +202,20 @@ def make_train_step(model: Model, optimizer: Optimizer, *, method: str = "quarte
 
     def train_step(state: TrainState, batch):
         seed = ((state.step + 1) * microbatch) & _MASK
-        loss, metrics, grads = grads_of(state.params, batch, seed)
+        plan = _plan(model, method, grad_compress, state, param_specs)
+        if plan is None:
+            loss, metrics, grads = grads_of(state.params, batch, seed)
+        else:
+            with C.fsdp_plan(plan):
+                loss, metrics, grads = grads_of(state.params, batch, seed)
         with torch.no_grad():
             grads = tree_unflatten(state.params, grads)
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            if plan is None or plan.size == 1:
+                grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            else:
+                sharded = [plan.dims["/".join(p)] is not None for p in _leaf_paths(grads)]
+                grads, gnorm = clip_by_global_norm(
+                    grads, clip_norm, sharded, lambda t: C.all_reduce_data(t, plan.mesh))
             err = state.err
             if grad_compress and err is not None:
                 key = threefry.fold_in(threefry.prng_key(0xC0), seed)
@@ -132,14 +231,32 @@ def make_train_step(model: Model, optimizer: Optimizer, *, method: str = "quarte
     return train_step
 
 
-def make_eval_step(model: Model, *, method: str = "quartet") -> Callable:
+def make_eval_step(model: Model, *, method: str = "quartet", param_specs=None) -> Callable:
+    """The evaluation step; under a training mesh with more than one data
+    rank (``param_specs`` as :func:`make_train_step` takes them) the
+    anchors gather the shards and the metrics come back reduced."""
     compute_dtype = getattr(torch, model.cfg.dtype)
 
     @torch.no_grad()
     def eval_step(params, batch):
-        logits, _ = model.forward(_cast(params, compute_dtype), batch["tokens"], 0,
-                                  extra=_extra(batch), method=method)
+        mesh = training_mesh()
+        if mesh is None or SH.data_rank_and_size(mesh)[1] == 1:
+            logits, _ = model.forward(_cast(params, compute_dtype), batch["tokens"], 0,
+                                      extra=_extra(batch), method=method)
+            _, metrics = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
+            return metrics
+        check_data_parallel(model.cfg, method, False, {}, mesh)
+        if param_specs is None:
+            raise ValueError("a data-parallel eval step needs the parameters' specs")
+        plan = C.make_plan(mesh, param_specs)
+        plan.rows = batch["tokens"].shape[0] * plan.size
+        with C.fsdp_plan(plan):
+            logits, _ = model.forward(C.constrain_params(_cast(params, compute_dtype)),
+                                      batch["tokens"], 0, extra=_extra(batch), method=method)
         _, metrics = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
-        return metrics
+        count = _token_count(batch)
+        share = count / torch.clamp(C.all_reduce_data(count, mesh), min=1.0)
+        return {k: C.all_reduce_data(v if k == "tokens" else v * share, mesh)
+                for k, v in metrics.items()}
 
     return eval_step

@@ -72,8 +72,9 @@ class Ranks:
 
 
 def start(tmp_path, world: int, fn: str, *args, gloo_timeout_s: float = GLOO_TIMEOUT_S,
-          limit_s: float = JOIN_LIMIT_S) -> Ranks:
-    """Launch ``world`` ranks, each running ``fn(*args)`` of this module."""
+          limit_s: float = JOIN_LIMIT_S, script: str | None = None) -> Ranks:
+    """Launch ``world`` ranks, each running ``fn(*args)`` of this module (or
+    of ``script``, a helper module whose main calls :func:`_rank_main`)."""
     d = str(tmp_path)
     out = os.path.join(d, f"{fn}.out")
     with open(os.path.join(d, f"{fn}.args"), "wb") as fh:
@@ -83,12 +84,13 @@ def start(tmp_path, world: int, fn: str, *args, gloo_timeout_s: float = GLOO_TIM
     for r in range(world):
         open(f"{out}.{r}", "wb").close()
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), str(r), str(world), d, fn,
+            [sys.executable, os.path.abspath(script or __file__), str(r), str(world), d, fn,
              str(gloo_timeout_s)], env=env))
     return Ranks(procs, out, limit_s)
 
 
-def _rank_main(rank: int, world: int, d: str, fn: str, gloo_timeout_s: float) -> int:
+def _rank_main(rank: int, world: int, d: str, fn: str, gloo_timeout_s: float,
+               namespace: dict | None = None) -> int:
     torch.set_num_threads(1)
     from repro_torch.launch.mesh import init_distributed
 
@@ -99,7 +101,7 @@ def _rank_main(rank: int, world: int, d: str, fn: str, gloo_timeout_s: float) ->
         store = torch.distributed.FileStore(os.path.join(d, f"{fn}.store"), world)
         init_distributed(device="cpu", rank=rank, world_size=world, store=store,
                          timeout_s=gloo_timeout_s)
-        result = (True, globals()[fn](*args))
+        result = (True, (namespace or globals())[fn](*args))
         code = 0
     except BaseException:
         result, code = (False, traceback.format_exc()), 1

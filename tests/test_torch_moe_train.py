@@ -168,7 +168,7 @@ class _Entries(_ExpertEntries):
     passes, through the 2-d plain version, written where the kernel writes."""
 
     def b2(self, x, is_bf16, E, M, K, se, sm, sk, signs, seeds, salt, prescale, codes, scales,
-           vector, stream):
+           vector, offset, row_len, stream):
         dt = torch.bfloat16 if is_bf16 else torch.float32
         es = 2 if is_bf16 else 4
         self.calls.append({"entry": "b2", "grid_z": E, "vector": vector})
@@ -181,7 +181,7 @@ class _Entries(_ExpertEntries):
         for e in range(E):
             xe = self._view(x, dt, (M, K), (sm, sk), e * se)
             c, s = SR.sr_hadamard_quantize_plain(xe, sg[e], int(sd[e]) & 0xFFFFFFFF, prescale,
-                                                 salt)
+                                                 salt, offset, row_len)
             self._write(codes + e * M * K, c)
             self._write(scales + 4 * e * M * (K // 32), s)
         return 0

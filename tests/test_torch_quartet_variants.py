@@ -196,8 +196,7 @@ def test_kernels_raise_on_configs_they_do_not_compute(variant):
 def test_configs_match_reference():
     for j, t in ((JQ.BF16_CONFIG, TQ.BF16_CONFIG), (JQ.FP8_CONFIG, TQ.FP8_CONFIG),
                  (JQ.QUARTET_CONFIG, TQ.QUARTET_CONFIG)):
-        jd = {k: v for k, v in dataclasses.asdict(j).items() if k != "fp4_allgather"}
-        assert jd == dataclasses.asdict(t)
+        assert dataclasses.asdict(j) == dataclasses.asdict(t)
     with pytest.raises(ValueError):
         TQ.quartet_linear(torch.zeros(2, 32), torch.zeros(32, 32), 0,
                           TQ.QuartetConfig(bwd_rounding="stochastic"))
