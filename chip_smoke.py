@@ -251,6 +251,31 @@
    3 steps of 32 x 512 with fp4_allgather off and on (step 0's losses equal
    within 1e-6, in (1, 12)); reported: tokens/s, peak bytes a rank, the
    collectives' MB and device ms a step.
+4m. MoE Quartet training across data ranks (``--phases moe-dp-train
+   [--devices N]``; N as the multidevice phase takes it): B2's expert axis
+   through a rank's window at qwen3-moe-235b-a22b's expert backward
+   operands (dy, and the transposed xqᵀ and dyᵀ of the gate/up and down
+   linears, for rank windows r = 0 .. 3 of 4 groups of 4096 tokens, 320
+   slots an expert a group) bit for bit against its plain version and the
+   slice of the whole operand's launch; B1's expert axis on the expert
+   stacks' shards at dp 4 (K for gate/up, N for down) against its plain
+   version, the concatenated codes equal to B1 on the whole Wᵀ, and B3's
+   expert axis on them against its plain version; the router's logits of 8,
+   2 and 1 rows equal a 32-row call's bit for bit.  On one card, a world of
+   one (NCCL over ``tcp://localhost``): qwen3-moe at full width, 1 of 94
+   layers, 2 steps of 8 x 512 with the 8-bit AdamW and a bf16 master,
+   through the anchors with fp4_allgather off and on, equal bit for bit to
+   the step without a mesh (loss, aux, grad-norm, launches, every
+   parameter).  On N cards, one process a card: the same layer at dp N
+   against dp 1 from equal weights (a bf16 master, the gradients kept) in
+   three layouts, 32 x 512 in one microbatch (a whole 4096-token group a
+   rank at dp 4), in two (two ranks a group) and 8 x 512 in one (four ranks
+   a group): every layer's selection bit for bit, loss and aux within 1e-6,
+   grad-norm within 1e-4, gradients within 1e-3 relative L2, launches a
+   rank equal; then 5 of its 94 layers (what a rank holds), 3 steps of
+   64 x 512 in 2 microbatches, the 8-bit AdamW, fp4_allgather off and on
+   (step 0's losses equal within 1e-6, finite); reported: tokens/s, peak
+   bytes a rank, the collectives' MB and device ms by kind.
 5. Times each kernel (CUDA events, median, L2 flushed before each launch)
    beside its plain version and, where one PyTorch call computes the same
    function, that call, at serving, training and evaluation shapes; B1, B2,
@@ -487,6 +512,34 @@ DP_CHECK_BATCH, DP_7B_STEPS, DP_7B_BATCH, DP_TIMEOUT_S = 32, 3, 32, 900
 DP_LINEAR_TOKENS = (DP_7B_ONE_BATCH // TRAIN_MICRO * TRAIN_SEQ,
                     DP_7B_BATCH // TRAIN_MICRO // DP_WORLD * TRAIN_SEQ)
 DP_PARAM_TOL, DP_PARAM_SHARE = 1e-3, 1e-3
+
+# the moe-dp-train phase: qwen3-moe-235b-a22b at its published widths across
+# data ranks, the 8-bit AdamW with a bf16 master.  B2's window at its expert
+# backward operands for MDP_WINDOW_GROUPS ranks of one 4096-token group each
+# (MOE_TRAIN_CAPACITY slots an expert a group); on one card a world of one,
+# MOE_TRAIN_LAYERS layer, MDP_ONE_STEPS steps of MOE_TRAIN_BATCH x TRAIN_SEQ in
+# one microbatch, fp4_allgather off and on, against no mesh; on N cards the
+# same layer at dp N against dp 1 in each of MDP_LAYOUTS (rows, microbatches):
+# 32 x 512 in one microbatch (a whole group a rank at dp 4), in two (two ranks
+# a group), 8 x 512 in one (four ranks a group), a bf16 master and the LM
+# loss in one chunk of 512 positions (a bf16 leaf that a step reads more than
+# once, as every loss chunk reads the final norm and the head, sums its
+# gradients in bf16 on one device and in f32 across ranks: 128-position
+# chunks left them 2.3-3.2e-3 relative L2 apart); then MDP_BIG_LAYERS layers,
+# what a rank holds: 2,491,416,576 parameters a layer and 1,244,659,712 in
+# the embedding and head; a rank keeps 1 B a parameter of bf16 master and
+# 8-bit moments, and in the second microbatch's backward 4 B more of the f32
+# accumulator, 2 B of the bf16 gradients, and a layer's gathered weights in
+# bf16 and f32 with its f32 dW (~25 GB): 6 layers ran out of the card's 80
+# GB with 68.7 GB allocated; 5 layers (13.70 B parameters) ~63 GB.
+# MDP_BIG_STEPS steps of MDP_BIG_BATCH x TRAIN_SEQ in MDP_BIG_MICRO
+# microbatches (a whole group a rank), fp4_allgather off and on.  The gates:
+# selection bit for bit, loss and aux within MDP_LOSS_TOL, grad-norm within
+# MDP_GNORM_TOL, gradients within MDP_GRAD_TOL relative L2
+MDP_WINDOW_GROUPS, MDP_ONE_STEPS = 4, 2
+MDP_LAYOUTS = ((32, 1), (32, 2), (8, 1))
+MDP_BIG_LAYERS, MDP_BIG_STEPS, MDP_BIG_BATCH, MDP_BIG_MICRO = 5, 3, 64, 2
+MDP_LOSS_TOL, MDP_GNORM_TOL, MDP_GRAD_TOL = 1e-6, 1e-4, 1e-3
 
 # the baselines phase: each baseline method on one full-width llama-paper-200m
 # linear of BASELINE_ROWS tokens (4 x 512), card against CPU; each training
@@ -3155,10 +3208,10 @@ def train_moe_full_width(torch, ops, device="cuda"):
                             "device_busy_ms": busy,
                             "device_idle_share": 1 - busy / (step_wall * 1e3)}
 
-    # the router's forward and backward over this batch, a [B, 1] column at
-    # a time (as the card runs it) against one GEMM over all tokens: host
-    # clock around synchronised work, median of 3 (a step runs the forward
-    # twice under remat and the backward once, a layer)
+    # the router's forward and backward over this batch, in blocks of
+    # ROUTER_ROWS tokens (as the card runs it) against one GEMM over all
+    # tokens: host clock around synchronised work, median of 3 (a step runs
+    # the forward twice under remat and the backward once, a layer)
     from repro_torch.models.moe import _router_logits
 
     w = state.params["layers"]["moe"]["router"]["w"][0].detach().requires_grad_()
@@ -3179,7 +3232,7 @@ def train_moe_full_width(torch, ops, device="cuda"):
         return lambda: torch.autograd.grad(logits_fn().sum(), (xr, w))
 
     summary["router_fwd_bwd_ms"] = {
-        "columns": host_ms(router(lambda: _router_logits(w, xr))),
+        "blocks": host_ms(router(lambda: _router_logits(w, xr))),
         "one_gemm": host_ms(router(lambda: xr.float() @ w.float()))}
     del state
     gc.collect()
@@ -6162,30 +6215,37 @@ def _grad_opt(torch):
 
 
 def _dp_steps(torch, ops, model, params, opt, batcher, steps, *, mesh=None, rank=0, ranks=1,
-              timed=False, specs=None):
+              timed=False, specs=None, micro=TRAIN_MICRO, master="float32", routing=False,
+              loss_chunk=512):
     """``steps`` train steps of ``model`` from whole ``params`` under
     ``mesh`` (this rank's shards and rows; with ``specs``, ``params`` are
-    already this rank's shards) or none.  Returns (losses, grad-norms, final
-    state, launches, per-step seconds, collectives by step, peak bytes)."""
+    already this rank's shards) or none, ``micro`` microbatches a step, a
+    ``master`` dtype.  Returns (losses, grad-norms, final state, launches,
+    per-step seconds, collectives by step, peak bytes, auxes, and with
+    ``routing`` every MoE layer's selection: {seed: (first group, sel_idx
+    on the host)})."""
     from repro_torch.distributed import context as C
     from repro_torch.distributed import sharding as SH
+    from repro_torch.models import moe as TM
     from repro_torch.train.state import make_train_state
     from repro_torch.train.steps import make_train_step
 
     if mesh is not None and specs is None:
         specs = SH.param_partition(params, mesh)
         params = SH.shard_tree(params, specs, mesh)
-    state = make_train_state(params, opt)
+    state = make_train_state(params, opt, master,
+                             shardings=None if mesh is None else (mesh, specs))
     del params
-    step = make_train_step(model, opt, microbatch=TRAIN_MICRO, param_specs=specs)
-    losses, gnorms, dts, colls = [], [], [], []
+    step = make_train_step(model, opt, microbatch=micro, param_specs=specs,
+                           loss_chunk=loss_chunk)
+    losses, gnorms, auxes, dts, colls = [], [], [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    with C.activate_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+    with (C.activate_mesh(mesh) if mesh is not None else contextlib.nullcontext(),
+          TM.recording_routing() if routing else contextlib.nullcontext() as log):
         for s in range(steps):
-            b = batcher.batch(s) if mesh is None else batcher.rank_batch(s, rank, ranks,
-                                                                         TRAIN_MICRO)
+            b = batcher.batch(s) if mesh is None else batcher.rank_batch(s, rank, ranks, micro)
             batch = {k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
             C.stats.reset()
             C.stats.timing = timed
@@ -6194,12 +6254,14 @@ def _dp_steps(torch, ops, model, params, opt, batcher, steps, *, mesh=None, rank
             state, m = step(state, batch)
             losses.append(float(m["loss"]))
             gnorms.append(float(m["grad_norm"]))
+            auxes.append(float(m["aux"]))
             dts.append(time.perf_counter() - t0)
             colls.append({k: dict(v, device_ms=C.stats.device_ms(k))
                           for k, v in C.stats.summary().items()})
             C.stats.timing = False
+    sel = {seed: (first, idx.cpu()) for seed, (first, idx, _) in log.items()} if routing else None
     return (losses, gnorms, state, ops.launch_counts(), dts, colls,
-            torch.cuda.max_memory_allocated())
+            torch.cuda.max_memory_allocated(), auxes, sel)
 
 
 def _dp_join_world(torch, rank: int, world: int, init_method: str):
@@ -6262,7 +6324,7 @@ def dp_train_one_card(torch, ops, init_method: str) -> tuple[dict, dict, dict]:
         n_params = sum(p.numel() for p in _leaves(params))
         batcher = TokenBatcher(SyntheticC4Dataset(model.cfg.vocab_size, seed=SEED),
                                DP_7B_ONE_BATCH, TRAIN_SEQ)
-        losses, gnorms, state, counts, dts, colls, peak = _dp_steps(
+        losses, gnorms, state, counts, dts, colls, peak, _, _ = _dp_steps(
             torch, ops, model, params, adamw(cosine_warmup(LEARNING_RATES[DP_7B_ARCH], 1)),
             batcher, 1, mesh=mesh)
         vec = ops.vector_launches()
@@ -6470,17 +6532,431 @@ def dp_train(torch, ops, devices: int | None, timer=None):
     return err, times, summary, counts, vec
 
 
+# ---------------------------------------------------------------------------
+# phase 4m: MoE Quartet training across data ranks
+# ---------------------------------------------------------------------------
+
+
+def check_moe_dp_window_kernels(torch, device="cuda") -> float:
+    """B2's expert axis through a rank's window at qwen3-moe-235b-a22b's
+    expert backward operands, for rank windows r = 0 .. MDP_WINDOW_GROUPS-1
+    of a logical slot axis of MDP_WINDOW_GROUPS groups x MOE_TRAIN_CAPACITY
+    slots an expert (each rank one 4096-token group): the gate/up (K 4096, N
+    1536) and down (K 1536, N 4096) linears' dy [E, c, N] (blocks along N,
+    offset r·c·N) and the transposed xqᵀ [E, K, c] and dyᵀ [E, N, c] (blocks
+    along the slots, offset r·c, row length G·c, the signs ξ_B drawn at the
+    window), each kernel launch bit for bit equal to its plain version and
+    to the slice of the whole operand's launch.  Returns max |Δ| (0)."""
+    from repro_torch.core import fastrng
+    from repro_torch.kernels import sr_hadamard_quant as SR
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    cfg = moe_train_config()
+    E, c, n = cfg.num_experts, MOE_TRAIN_CAPACITY, MDP_WINDOW_GROUPS
+    L = n * c
+    seeds = _expert_seeds(torch, E, device)
+    for proj, K, N in (("gate/up", cfg.d_model, cfg.d_ff), ("down", cfg.d_ff, cfg.d_model)):
+        xq = (torch.randn((E, L, K), generator=gen, device=device) * 1.9).to(torch.bfloat16)
+        dy = (torch.randn((E, L, N), generator=gen, device=device) * 1e-3).to(torch.bfloat16)
+        signs_n = fastrng.rademacher(seeds, N, salt=11, device=device)
+        signs_b = fastrng.rademacher(seeds, L, salt=12, device=device)
+        full = {"dy": SR.sr_hadamard_quantize_experts(dy, signs_n, seeds, salt=1),
+                "xqᵀ": SR.sr_hadamard_quantize_experts(xq.transpose(-1, -2), signs_b, seeds,
+                                                       salt=3),
+                "dyᵀ": SR.sr_hadamard_quantize_experts(dy.transpose(-1, -2), signs_b, seeds,
+                                                       salt=4)}
+        for r in range(n):
+            blk = slice(r * c, (r + 1) * c)
+            sb = fastrng.rademacher(seeds, c, salt=12, device=device, offset=r * c)
+            if not torch.equal(sb, signs_b[:, blk]):
+                raise AssertionError("rademacher's window over the experts' seeds is not the "
+                                     "whole vectors' slice")
+            own_x, own_dy = xq[:, blk].contiguous(), dy[:, blk].contiguous()
+            for tag, args in (("dy", (own_dy, signs_n, seeds, 0.75, 1, r * c * N, None)),
+                              ("xqᵀ", (own_x.transpose(-1, -2), sb, seeds, 0.75, 3, r * c, L)),
+                              ("dyᵀ", (own_dy.transpose(-1, -2), sb, seeds, 0.75, 4, r * c, L))):
+                got = SR.sr_hadamard_quantize_experts(*args)
+                plain = SR.sr_hadamard_quantize_experts_plain(*args)
+                fc, fs = full[tag]
+                want = ((fc[:, blk], fs[:, blk]) if tag == "dy" else
+                        (fc[..., blk], fs[..., r * c // 32:(r + 1) * c // 32]))
+                for g, p_, w in zip(got, plain, want):
+                    if not (torch.equal(g, p_) and torch.equal(g, w)):
+                        raise AssertionError(f"B2 experts' window {proj} {tag} rank {r}: the "
+                                             f"kernel, its plain version and the whole "
+                                             f"operand's slice differ")
+        del xq, dy, full
+    torch.cuda.empty_cache()
+    return 0.0
+
+
+def check_router_rows(torch, device="cuda") -> dict:
+    """The MoE router's logits (``models.moe._router_logits``, blocks of
+    ROUTER_ROWS tokens on the card) of a data rank's rows against one
+    device's: x [32, 512, 4096] bf16 and its blocks of 8 and 2 rows (dp 4 at
+    MDP_LAYOUTS' row counts) and of 1 row, bit for bit.  Routing at dp N
+    equals one device's only if a rank's rows route to one device's bits
+    (a [B, 1] column at a time, as the router ran before this check, rounds
+    2 rows otherwise than 32)."""
+    from repro_torch.models.moe import _router_logits
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 42)
+    cfg = moe_train_config()
+    w = (torch.randn((cfg.d_model, cfg.num_experts), generator=gen, device=device)
+         / cfg.d_model**0.5).to(torch.bfloat16)
+    x = torch.randn((MDP_LAYOUTS[0][0], TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device=device).to(torch.bfloat16)
+    full = _router_logits(w, x)
+    out = {}
+    for rows in (8, 2, 1):
+        diff = sum(int((_router_logits(w, x[i:i + rows]) != full[i:i + rows]).sum())
+                   for i in range(0, x.shape[0], rows))
+        out[f"{rows}_rows_differ"] = diff
+        if diff:
+            raise AssertionError(f"the router's logits of {rows}-row blocks differ from "
+                                 f"the {x.shape[0]}-row call's at {diff} places")
+    return out
+
+
+def _expert_shards(torch, w, dim: int, n: int):
+    """The n contiguous shards of an expert stack [E, K, N] along ``dim``."""
+    m = w.shape[dim] // n
+    return [w.narrow(dim, r * m, m).contiguous() for r in range(n)]
+
+
+def check_moe_dp_shard_kernels(torch, device="cuda", n: int = MDP_WINDOW_GROUPS) -> dict:
+    """B1 and B3 on a full-width qwen3-moe layer's expert stacks as
+    fp4_allgather takes them at dp ``n`` (the ranks' shards, cut here on one
+    card): B1's expert axis on each shard's Wᵀ view ([E, F, D/n] for gate
+    and up, split along K; [E, D/n, F] for down, split along N) against its
+    plain version bit for bit, the shards' codes and scales concatenated as
+    ``quest_qdq_gathered`` gathers them equal to B1 on the whole Wᵀ; B3's
+    expert axis on a group's slots of x codes [E, c, K] and the concatenated
+    codes against its plain version (``check_kernels``' tolerance).
+    Returns max |Δ| by kernel."""
+    from repro_torch.kernels import hadamard_quant as HQ
+    from repro_torch.kernels import mxfp4_matmul as MM
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 41)
+    cfg = moe_train_config()
+    E, d, f, c = cfg.num_experts, cfg.d_model, cfg.d_ff, MOE_TRAIN_CAPACITY
+    err = {"hadamard_quest_quantize": 0.0, "mxfp4_matmul": 0.0}
+    for name, K, N, dim in (("gate", d, f, 1), ("down", f, d, 2)):
+        w = (torch.randn((E, K, N), generator=gen, device=device) / K**0.5).to(torch.bfloat16)
+        tdim = 3 - dim  # Wᵀ's split dim
+        parts = []
+        for r, shard in enumerate(_expert_shards(torch, w, dim, n)):
+            x = shard.transpose(-1, -2)
+            got, want = HQ.hadamard_quest_quantize_experts(x), \
+                HQ.hadamard_quest_quantize_experts_plain(x)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"B1 experts on rank {r}'s {name} shard "
+                                     f"{tuple(shard.shape)} differs from its plain version")
+            parts.append(got)
+        codes = torch.cat([p[0] for p in parts], tdim)
+        scales = torch.cat([p[1] for p in parts], tdim)
+        wc, ws, _ = HQ.hadamard_quest_quantize_experts(w.transpose(-1, -2))
+        if not (torch.equal(codes, wc) and torch.equal(scales, ws)):
+            raise AssertionError(f"{name}: the shards' gathered codes and scales differ from "
+                                 f"B1 on the whole Wᵀ")
+        x = (torch.randn((E, c, K), generator=gen, device=device) * 1.9).to(torch.bfloat16)
+        xc, xs, _ = HQ.hadamard_quest_quantize_experts(x)
+        args = (xc, xs, codes.transpose(-1, -2), scales.transpose(-1, -2))
+        got, want = MM.mxfp4_matmul_experts(*args), MM.mxfp4_matmul_experts_plain(*args)
+        if not torch.allclose(got, want, rtol=1e-6, atol=1e-5):
+            raise AssertionError(f"B3 experts on {name}'s gathered codes: max |Δ| "
+                                 f"{float((got - want).abs().max())}")
+        err["mxfp4_matmul"] = max(err["mxfp4_matmul"], float((got - want).abs().max()))
+        del w, parts, codes, scales, wc, ws, x, xc, xs, got, want
+    torch.cuda.empty_cache()
+    return err
+
+
+def _moe_dp_model(layers: int, fp4: bool = False):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_engine import kernel_config
+    from repro_torch.models import build_model
+
+    cfg = kernel_config(dataclasses.replace(get_config(MOE_ARCH), num_layers=layers))
+    if fp4:
+        cfg = dataclasses.replace(cfg, quartet=dataclasses.replace(cfg.quartet,
+                                                                   fp4_allgather=True))
+    return build_model(cfg)
+
+
+def moe_dp_one_card(torch, ops, init_method: str) -> tuple[dict, dict, dict]:
+    """The one-card moe-dp-train work, in a world of one (this process):
+    qwen3-moe-235b-a22b at full width, MOE_TRAIN_LAYERS layer, MDP_ONE_STEPS
+    steps of MOE_TRAIN_BATCH x TRAIN_SEQ, the 8-bit AdamW and a bf16
+    master, under ``make_local_mesh()`` through the anchors with
+    fp4_allgather off and on, against the step without a mesh: loss, aux,
+    grad-norm, launches and every parameter bit for bit.  Returns
+    (summary, launches, vector launches) of the run with fp4_allgather
+    on."""
+    from repro_torch.convert import init_params
+    from repro_torch.data.pipeline import SyntheticC4Dataset, TokenBatcher
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adamw8bit, cosine_warmup
+
+    _dp_join_world(torch, 0, 1, init_method)
+    try:
+        mesh = make_local_mesh()
+        model = _moe_dp_model(MOE_TRAIN_LAYERS)
+        params = init_params(model.cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+        batcher = TokenBatcher(SyntheticC4Dataset(model.cfg.vocab_size, seed=SEED),
+                               MOE_TRAIN_BATCH, TRAIN_SEQ)
+
+        base, peaks = None, {}
+        for name, m, on_mesh in (("no_mesh", model, False), ("mesh", model, True),
+                                 ("mesh_fp4", _moe_dp_model(MOE_TRAIN_LAYERS, fp4=True), True)):
+            r = _dp_steps(torch, ops, m, params, adamw8bit(cosine_warmup(3e-4, MDP_ONE_STEPS)),
+                          batcher, MDP_ONE_STEPS, mesh=mesh if on_mesh else None, micro=1,
+                          master="bfloat16")
+            got = (r[0], r[7], r[1], r[3])
+            peaks[name], vec = r[6], ops.vector_launches()
+            if base is None:  # the run without a mesh, its parameters kept on the host
+                base, base_params = got, [t.cpu() for t in _leaves(r[2].params)]
+            elif got != base or not all(torch.equal(a.cpu(), b) for a, b in zip(
+                    _leaves(r[2].params), base_params)):
+                raise AssertionError(f"moe-dp-train: the one-rank {name} run differs from the "
+                                     f"run without a mesh: loss {got[0]} vs {base[0]}, aux "
+                                     f"{got[1]} vs {base[1]}, grad-norm {got[2]} vs {base[2]}, "
+                                     f"launches {got[3]} vs {base[3]}")
+            del r
+            gc.collect()
+            torch.cuda.empty_cache()
+        summary = {"one_rank": {"layers": MOE_TRAIN_LAYERS, "batch": MOE_TRAIN_BATCH,
+                                "steps": MDP_ONE_STEPS, "loss": base[0], "aux": base[1],
+                                "grad_norm": base[2], "launches": base[3], "peak_bytes": peaks,
+                                "equal_bit_for_bit": list(peaks)}}
+        del base_params, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return summary, base[3], vec
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _grad_keep():
+    """An optimizer whose state is the step's clipped gradients and whose
+    updates are zeros (0-d, broadcast): the step's gradients, with no
+    zero-filled copy of the parameters beside them (15 GB in f32 for a
+    full-width MoE layer)."""
+    from repro_torch.optim.adamw import Optimizer
+    from repro_torch.tree import tree_map
+
+    return Optimizer(lambda params: {"g": None},
+                     lambda grads, state, params: (tree_map(lambda g: g.new_zeros(()), grads),
+                                                   {"g": grads}))
+
+
+def _grads_rel(torch, dp_g, one_g, specs, mesh) -> dict[str, float]:
+    """Each leaf's relative L2 between a rank's gradient shards and its
+    slices of the one-device gradients."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.tree import tree_leaves
+
+    want = SH.shard_tree(one_g, specs, mesh)
+    return dict(zip(_leaf_names(want), (_rel_l2(torch, a, b) for a, b in zip(
+        tree_leaves(dp_g), tree_leaves(want)))))
+
+
+def moe_dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
+    """One rank of the moe-dp-train phase on N cards: a full-width
+    qwen3-moe layer at dp N against dp 1 in each of MDP_LAYOUTS (every rank
+    also runs dp 1 on the whole batch), then MDP_BIG_LAYERS layers at dp N,
+    fp4_allgather off and on.  Writes its results to
+    ``out_dir/rank{rank}.json``."""
+    # the big run's step holds a few GB-sized f32 temporaries of a layer's
+    # expert stacks at a time; without expandable segments the allocator's
+    # cached blocks fragment (13.5 GB reserved but unallocated at an OOM)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+
+    sys.path.insert(0, SRC)
+    from repro_torch.convert import init_params
+    from repro_torch.data.pipeline import SyntheticC4Dataset, TokenBatcher
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adamw8bit, cosine_warmup
+
+    _dp_join_world(torch, rank, world, init_method)
+    mesh = make_local_mesh()
+    out = {"rank": rank, "layouts": []}
+    path = os.path.join(out_dir, f"rank{rank}.json")
+    model = _moe_dp_model(MOE_TRAIN_LAYERS)
+
+    def params():  # the same whole weights, drawn anew for each run
+        return init_params(model.cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+
+    specs = SH.param_partition(params(), mesh)
+    for rows, micro in MDP_LAYOUTS:
+        batcher = TokenBatcher(SyntheticC4Dataset(model.cfg.vocab_size, seed=SEED), rows,
+                               TRAIN_SEQ)
+        one = _dp_steps(torch, ops, model, params(), _grad_keep(), batcher, 1, micro=micro,
+                        master="bfloat16", routing=True)
+        one_g, one_sel = one[2].opt_state["g"], one[8]
+        res = {"rows": rows, "microbatches": micro, "loss_dp1": one[0][0], "aux_dp1": one[7][0],
+               "grad_norm_dp1": one[1][0], "launches_dp1": one[3], "peak_dp1": one[6]}
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        dp = _dp_steps(torch, ops, model, params(), _grad_keep(), batcher, 1, mesh=mesh,
+                       rank=rank, ranks=world, micro=micro, master="bfloat16", routing=True,
+                       timed=True)
+        rel = _grads_rel(torch, dp[2].opt_state["g"], one_g, specs, mesh)
+        sel_equal = [bool(torch.equal(idx, one_sel[seed][1][first:first + idx.shape[0]]))
+                     for seed, (first, idx) in dp[8].items()]
+        res.update(loss_dp=dp[0][0], aux_dp=dp[7][0], grad_norm_dp=dp[1][0],
+                   launches_dp=dp[3], peak_dp=dp[6], collectives=dp[5][0],
+                   grad_rel_l2_max=max(rel.values()), grad_rel_l2=rel,
+                   selections=len(sel_equal), selections_equal=sum(sel_equal),
+                   first_groups=sorted({first for first, _ in dp[8].values()}),
+                   groups_a_rank=sorted({int(idx.shape[0]) for _, idx in dp[8].values()}))
+        out["layouts"].append(res)
+        del dp, one_g, one_sel
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(path, "w") as fh:  # the layouts' results, should the big run fail
+        json.dump(out, fh)
+    # as many layers as a rank holds, 8-bit AdamW, fp4_allgather off and on
+    batcher = TokenBatcher(SyntheticC4Dataset(model.cfg.vocab_size, seed=SEED), MDP_BIG_BATCH,
+                           TRAIN_SEQ)
+    for fp4 in (False, True):
+        model = _moe_dp_model(MDP_BIG_LAYERS, fp4=fp4)
+        params = init_params(model.cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+        out["params_big"] = sum(p.numel() for p in _leaves(params))
+        specs = SH.param_partition(params, mesh)
+        shards = _tree_map(lambda t: t.contiguous(), SH.shard_tree(params, specs, mesh))
+        del params  # the whole bf16 weights leave before the peak is read
+        gc.collect()
+        torch.cuda.empty_cache()
+        r = _dp_steps(torch, ops, model, shards,
+                      adamw8bit(cosine_warmup(3e-4, MDP_BIG_STEPS)), batcher, MDP_BIG_STEPS,
+                      mesh=mesh, rank=rank, ranks=world, timed=True, specs=specs,
+                      micro=MDP_BIG_MICRO, master="bfloat16")
+        del shards
+        out["fp4" if fp4 else "bf16"] = {
+            "loss": r[0], "aux": r[7], "grad_norm": r[1], "step_s": r[4], "collectives": r[5],
+            "peak_bytes": r[6], "launches": r[3]}
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(path, "w") as fh:
+        json.dump(out, fh)
+    torch.distributed.destroy_process_group()
+
+
+def moe_dp_train(torch, ops, devices: int | None):
+    """The moe-dp-train phase (its docstring entry 4m).  Returns (max |Δ| by
+    kernel, summary, launches and vector launches of the one-card run with
+    fp4_allgather on, or of rank 0's MDP_BIG_LAYERS run on N cards)."""
+    import socket
+
+    import torch.multiprocessing
+
+    seen = torch.cuda.device_count()
+    world = seen if devices is None else devices
+    if world > seen:
+        raise AssertionError(f"--devices {world}: this process sees {seen} card(s)")
+    t0 = time.perf_counter()
+    err = {"sr_hadamard_quantize_experts": check_moe_dp_window_kernels(torch)}
+    log(f"[moe-dp-train] B2's expert-axis window equals its plain version and the whole "
+        f"operand's slice bit for bit at qwen3-moe's expert backward operands, "
+        f"{MDP_WINDOW_GROUPS} rank windows ({time.perf_counter() - t0:.1f} s)")
+    shard_err = check_moe_dp_shard_kernels(torch)
+    err.update(shard_err)
+    log(f"[moe-dp-train] B1 on the expert stacks' shards equals its plain version, the "
+        f"gathered codes B1's on the whole stacks, B3 on them within tolerance: "
+        f"{json.dumps(shard_err)} ({time.perf_counter() - t0:.1f} s)")
+    log(f"[moe-dp-train] the router's logits of a rank's rows equal one device's: "
+        f"{json.dumps(check_router_rows(torch))}")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    init_method = f"tcp://localhost:{port}"
+    summary = {"world": world, "devices_seen": seen}
+    if world == 1:
+        one, counts, vec = moe_dp_one_card(torch, ops, init_method)
+        summary.update(one)
+    else:
+        out_dir = tempfile.mkdtemp(prefix="moe-dp-train-")
+        try:
+            torch.multiprocessing.start_processes(moe_dp_rank,
+                                                  args=(world, init_method, out_dir),
+                                                  nprocs=world, join=True,
+                                                  start_method="spawn")
+        except Exception:
+            for r in range(world):  # what the ranks wrote before the failure
+                if os.path.exists(os.path.join(out_dir, f"rank{r}.json")):
+                    with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+                        log(f"[moe-dp-train] rank {r} before the failure: {fh.read()}")
+            raise
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        log(f"[moe-dp-train] rank 0: {json.dumps(ranks[0])}")
+        bad = []
+        for i, (rows, micro) in enumerate(MDP_LAYOUTS):
+            chk = [rk["layouts"][i] for rk in ranks]
+            c0 = chk[0]
+            tag = f"{rows} x {TRAIN_SEQ} in {micro}"
+            if any(c["selections_equal"] != c["selections"] or not c["selections"]
+                   for c in chk):
+                sel = [(c["selections_equal"], c["selections"]) for c in chk]
+                bad.append(f"{tag}: selections equal (equal, all) a rank {sel}")
+            for key, tol in (("loss", MDP_LOSS_TOL), ("aux", MDP_LOSS_TOL),
+                             ("grad_norm", MDP_GNORM_TOL)):
+                if abs(c0[f"{key}_dp"] / c0[f"{key}_dp1"] - 1) > tol:
+                    bad.append(f"{tag}: {key} {c0[f'{key}_dp']} vs {c0[f'{key}_dp1']}")
+            if max(c["grad_rel_l2_max"] for c in chk) > MDP_GRAD_TOL:
+                bad.append(f"{tag}: gradients' relative L2 {[c['grad_rel_l2_max'] for c in chk]}")
+            if any(c["launches_dp"] != c["launches_dp1"] for c in chk):
+                bad.append(f"{tag}: launches a rank {[c['launches_dp'] for c in chk]} vs dp 1 "
+                           f"{c0['launches_dp1']}")
+        for key in ("bf16", "fp4"):
+            loss = ranks[0][key]["loss"]
+            if not all(math.isfinite(v) and 1 < v < 14 for v in loss):
+                bad.append(f"{MDP_BIG_LAYERS} layers {key} losses {loss}")
+        if abs(ranks[0]["fp4"]["loss"][0] / ranks[0]["bf16"]["loss"][0] - 1) > MDP_LOSS_TOL:
+            bad.append(f"step 0 loss fp4_allgather on {ranks[0]['fp4']['loss'][0]} vs off "
+                       f"{ranks[0]['bf16']['loss'][0]}")
+        if bad:
+            raise AssertionError(f"moe-dp-train at dp {world}: {bad}")
+        summary["layouts"] = [[{k: v for k, v in rk["layouts"][i].items() if k != "grad_rel_l2"}
+                               for rk in ranks] for i in range(len(MDP_LAYOUTS))]
+        summary["params_big"] = ranks[0]["params_big"]
+        tokens = MDP_BIG_BATCH * TRAIN_SEQ
+        for key in ("bf16", "fp4"):
+            per = [rk[key] for rk in ranks]
+            steps = [max(p["step_s"][s] for p in per) for s in range(MDP_BIG_STEPS)]
+            summary[f"big_{key}"] = {
+                "layers": MDP_BIG_LAYERS, "loss": per[0]["loss"], "aux": per[0]["aux"],
+                "grad_norm": per[0]["grad_norm"], "step_s": steps,
+                "tokens_per_s_last_steps": tokens * (MDP_BIG_STEPS - 1) / sum(steps[1:]),
+                "peak_bytes": [p["peak_bytes"] for p in per],
+                "collectives_rank0_by_step": per[0]["collectives"],
+                "launches_rank0": per[0]["launches"]}
+        counts = ranks[0]["fp4"]["launches"]
+        vec = None
+    summary["phase_s"] = time.perf_counter() - t0
+    return err, summary, counts, vec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernels,engine,features,moe,train,moe-train,variants,baselines,"
                             "dense-configs,ssm,hybrid,cross,state-train,telemetry,multidevice,"
-                            "dp-train,times",
+                            "dp-train,moe-dp-train,times",
                     help="comma-separated subset of kernels,engine,features,moe,train,"
                          "moe-train,variants,baselines,dense-configs,ssm,hybrid,cross,"
-                         "state-train,telemetry,multidevice,dp-train,times")
+                         "state-train,telemetry,multidevice,dp-train,moe-dp-train,times")
     ap.add_argument("--devices", type=int, default=None,
-                    help="multidevice and dp-train phases: the cards to run on, one process "
+                    help="multidevice, dp-train and moe-dp-train phases: the cards to run on, "
+                         "one process "
                          "each (default: every card the process sees; raises if it sees "
                          "fewer)")
     args = ap.parse_args()
@@ -6813,6 +7289,20 @@ def main() -> int:
             log(f"[dp-train] B2 window, rank 0's llama-paper-7b operands: {json.dumps(dtimes)}")
         log(f"[dp-train] {json.dumps(summary)}")
         log(f"[dp-train] done in {summary['phase_s']:.1f} s")
+    if "moe-dp-train" in phases:
+        merr, summary, counts["moe_dp_train"], mvec = moe_dp_train(torch, ops, args.devices)
+        for k, v in merr.items():
+            err[k] = max(err.get(k, 0.0), v)
+        if mvec is not None:
+            vectors["moe_dp_train"] = mvec
+        missing = [k for k in ("hadamard_quest_quantize", "sr_hadamard_quantize",
+                               "mxfp4_matmul") if counts["moe_dp_train"][k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the moe-dp-train path: {missing}")
+        log(f"[moe-dp-train] launches a rank on the MoE data-parallel training path: "
+            f"{counts['moe_dp_train']}")
+        log(f"[moe-dp-train] {json.dumps(summary)}")
+        log(f"[moe-dp-train] done in {summary['phase_s']:.1f} s")
     if vectors:
         # every B1 call on the main paths, and every B2 call on the training
         # paths, reads and writes through the vector body (a thread per group,
@@ -6821,7 +7311,7 @@ def main() -> int:
                                  ("b2", "sr_hadamard_quantize",
                                   [p for p in ("train", "moe_train", "grad_compress",
                                                "starcoder2_train", *STATE_TRAIN_PATH.values(),
-                                               "dp_train")
+                                               "dp_train", "moe_dp_train")
                                    if p in vectors])):
             vs = {p: (vectors[p][name], counts[p][name]) for p in paths}
             log(f"[{tag}] vector-body launches / all launches, by path: {json.dumps(vs)}")

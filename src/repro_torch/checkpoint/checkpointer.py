@@ -27,7 +27,9 @@ directory per step)::
   sharded leaf in turn (a collective) and data rank 0 writes.  ``restore``
   with ``shardings`` reads the whole leaves and keeps this rank's slices,
   so a checkpoint written at one data-parallel width restores at any other
-  (the reference's elastic ``restore(shardings=)``).  A blocking save and
+  (the reference's elastic ``restore(shardings=)``); the 8-bit AdamW's
+  moments too, split or whole as ``partition_state(..., sharded=True)``
+  gives them.  A blocking save and
   every restore end or start at a barrier of the data ranks, so no rank
   reads a step that rank 0 is still writing.
 """

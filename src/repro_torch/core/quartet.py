@@ -55,7 +55,13 @@ to :func:`quartet_linear_pq`, Quartet with the weight operand already
 rotated and quantized (B3 on x's codes and the gathered ones).  Its
 backward returns dW in the rotated space; :func:`quest_qdq_gathered`'s
 reduce-scatters that f32 sum to the shard before the mask ⊙ and H⁻¹,
-which are shard-local too.
+which are shard-local too.  Both take a stack of experts [E, K, N] (B1's
+and B3's expert axes on the card), as the reference quantizes a MoE
+layer's stacks before its vmap.  A data-parallel rank's expert linears
+run over its block of each expert's slots: ``quartet_linear_experts``'s
+``window`` (offset, row length) places them on the logical slot axis, and
+the backward's slot-axis draws (dy's SR, the signs ξ_B, xqᵀ's and dyᵀ's SR)
+take that window.
 """
 
 from __future__ import annotations
@@ -418,29 +424,35 @@ def quartet_linear(x: torch.Tensor, w: torch.Tensor, seed: int,
 
 
 class _QuestQDQGathered(torch.autograd.Function):
-    """w (a rank's shard [K/n, N] or [K, N/n], or a whole [K, N]) →
-    (values f32 [K, N], mask [shard], codes int8 [N, K], scales f32
-    [N, K/32]): H₃₂ and QuEST on the shard's Wᵀ (B1 on the card), the codes
-    and scales all-gathered over the data ranks, dequantized.  Only the
-    values carry a gradient: the backward reduce-scatters the f32 dW_rot to
-    the shard, then applies the shard's mask and H⁻¹ along K."""
+    """w (a rank's shard [K/n, N] or [K, N/n], or a whole [K, N]; or a stack
+    of experts' [E, ., .]) → (values f32 [(E,) K, N], mask [shard], codes
+    int8 [(E,) N, K], scales f32 [(E,) N, K/32]): H₃₂ and QuEST on the
+    shard's Wᵀ (B1 on the card, its expert axis for a stack), the codes and
+    scales all-gathered over the data ranks, dequantized.  Only the values
+    carry a gradient: the backward reduce-scatters the f32 dW_rot to the
+    shard, then applies the shard's mask and H⁻¹ along K."""
 
     @staticmethod
     def forward(ctx, w, cfg, dim):
         plan = C.current_plan() if dim is not None else None
         if cfg.use_kernels:
-            codes, scales, mask_t = _kernel_ops(None).hadamard_quest_quantize(
-                w.t(), group=cfg.group)
+            K = _kernel_ops(None)
+            quant = K.hadamard_quest_quantize_experts if w.dim() == 3 else \
+                K.hadamard_quest_quantize
+            codes, scales, mask_t = quant(w.transpose(-1, -2), group=cfg.group)
         else:
-            wh = hadamard_transform(w.to(torch.float32), g=cfg.group, dim=0)
-            q = Q.quest(wh.t(), cfg.fwd_fmt)  # blocks along K
+            wh = hadamard_transform(w.to(torch.float32), g=cfg.group, dim=-2)
+            q = Q.quest(wh.transpose(-1, -2), cfg.fwd_fmt)  # blocks along K
             codes, scales, mask_t = q.codes, q.scales, q.mask
         if plan is not None:
-            # W's dim ↔ Wᵀ's other dim; contiguous [N, K] as B1 writes it
-            codes = C.gather_data(codes, 1 - dim, plan.mesh).contiguous()
-            scales = C.gather_data(scales, 1 - dim, plan.mesh).contiguous()
-        vals = _dequant_codes(codes, scales, cfg.group).t()  # f32 [K, N], bf16-exact
-        mask = mask_t.t()
+            # W's dim ↔ Wᵀ's other one of its last two; contiguous [., N, K]
+            # as B1 writes it
+            tdim = 2 * w.dim() - 3 - dim
+            codes = C.gather_data(codes, tdim, plan.mesh).contiguous()
+            scales = C.gather_data(scales, tdim, plan.mesh).contiguous()
+        # f32 [(E,) K, N], bf16-exact
+        vals = _dequant_codes(codes, scales, cfg.group).transpose(-1, -2)
+        mask = mask_t.transpose(-1, -2)
         ctx.save_for_backward(mask)
         ctx.plan, ctx.dim, ctx.group, ctx.dtype = plan, dim, cfg.group, w.dtype
         ctx.mark_non_differentiable(mask, codes, scales)
@@ -455,16 +467,17 @@ class _QuestQDQGathered(torch.autograd.Function):
             # the f32 sum over the ranks, scattered to this rank's shard before
             # the mask ⊙ and H⁻¹ (both block-local along K)
             d = C.reduce_scatter_data(d, ctx.dim, plan.mesh)
-        dw = hadamard_transform(d * mask, g=ctx.group, dim=0)
+        dw = hadamard_transform(d * mask, g=ctx.group, dim=-2)
         return dw.to(ctx.dtype), None, None
 
 
 def quest_qdq_gathered(w: torch.Tensor, cfg: QuartetConfig):
     """The reference's ``quest_qdq_gathered``: → (w_vals f32 [K, N], w_mask,
     codes int8 [N, K], scales f32 [N, K/32]), the rotated-quantized weight
-    whole on every data rank.  ``w`` is a rank's shard when the train
-    step's anchors left it sharded (``distributed.context.fsdp_dim``), else
-    the whole weight; the mask stays the shard's."""
+    whole on every data rank; a stack of experts [E, K, N] gives each with
+    its leading E.  ``w`` is a rank's shard when the train step's anchors
+    left it sharded (``distributed.context.fsdp_dim``), else the whole
+    weight; the mask stays the shard's."""
     _check(cfg)
     return _QuestQDQGathered.apply(w, cfg, C.fsdp_dim(w))
 
@@ -472,53 +485,76 @@ def quest_qdq_gathered(w: torch.Tensor, cfg: QuartetConfig):
 class _QuartetLinearPQ(torch.autograd.Function):
     """Quartet with the weight operand pre-rotated and pre-quantized: the
     forward quantizes x alone (B1, then B3 on the gathered codes on the
-    card); the backward is Algorithm 1's, returning dW_rot in the rotated
-    space for :class:`_QuestQDQGathered` to finish."""
+    card; their expert axes for a stack of experts); the backward is
+    Algorithm 1's, returning dW_rot in the rotated space for
+    :class:`_QuestQDQGathered` to finish."""
 
     @staticmethod
-    def forward(ctx, x, w_vals, w_mask, seed, cfg, codes, scales):
+    def forward(ctx, x, w_vals, w_mask, seed, cfg, codes, scales, window):
+        experts = w_vals.dim() == 3
         if cfg.use_kernels:
             K = _kernel_ops(None)
-            xc, xs, xm = K.hadamard_quest_quantize(x, group=cfg.group)
-            y = K.mxfp4_matmul(xc, xs, codes.t(), scales.t())
+            if experts:
+                xc, xs, xm = K.hadamard_quest_quantize_experts(x, group=cfg.group)
+                y = K.mxfp4_matmul_experts(xc, xs, codes.transpose(-1, -2),
+                                           scales.transpose(-1, -2))
+            else:
+                xc, xs, xm = K.hadamard_quest_quantize(x, group=cfg.group)
+                y = K.mxfp4_matmul(xc, xs, codes.t(), scales.t())
             res = (xc, xs, xm, codes, scales)
         else:
             xh = hadamard_transform(x.to(torch.float32), g=cfg.group, dim=-1)
-            xq = _fwd_quantize(xh, cfg, _forward_key(seed))
+            xq = (_fwd_quantize_experts(xh, cfg, seed) if experts
+                  else _fwd_quantize(xh, cfg, _forward_key(seed)))
             xv = xq.values.to(torch.bfloat16)
             wv = w_vals.to(torch.bfloat16)  # exact
             y = _gemm(xv, wv, cfg.accum_dtype)
             res = (xv, wv, xq.mask)
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            ctx.save_for_backward(*res)
-        ctx.seed, ctx.cfg, ctx.window, ctx.dtype = seed, cfg, C.token_window(), x.dtype
+            ctx.save_for_backward(*res, *([seed] if experts else []))
+        ctx.seed, ctx.cfg, ctx.dtype, ctx.experts = seed, cfg, x.dtype, experts
+        ctx.window = window if experts else C.token_window()
         return y.to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
         cfg, seed = ctx.cfg, ctx.seed
+        saved = ctx.saved_tensors
+        if ctx.experts:
+            *saved, seed = saved
         if cfg.use_kernels:
-            xc, xs, xm, codes, scales = ctx.saved_tensors
-            wq_v = _dequant_codes(codes, scales, cfg.group).t()
-            dx, dw_rot = _bwd_kernel_gemms(cfg, seed, xc, xs, wq_v, xm, dy, ctx.window)
+            xc, xs, xm, codes, scales = saved
+            wq_v = _dequant_codes(codes, scales, cfg.group,
+                                  torch.bfloat16 if ctx.experts else torch.float32)
+            wq_v = wq_v.transpose(-1, -2)
+            gemms = _bwd_experts_kernel_gemms if ctx.experts else _bwd_kernel_gemms
+            dx, dw_rot = gemms(cfg, seed, xc, xs, wq_v, xm, dy, ctx.window)
         else:
-            xv, wv, xm = ctx.saved_tensors
-            dx, dw_rot = _bwd_plain_gemms(cfg, seed, xv, wv, xm, dy, ctx.window)
-        return dx.to(ctx.dtype), dw_rot, None, None, None, None, None
+            xv, wv, xm = saved
+            gemms = _bwd_experts_plain_gemms if ctx.experts else _bwd_plain_gemms
+            dx, dw_rot = gemms(cfg, seed, xv, wv, xm, dy, ctx.window)
+        return dx.to(ctx.dtype), dw_rot, None, None, None, None, None, None
 
 
-def quartet_linear_pq(x: torch.Tensor, w_vals: torch.Tensor, w_mask: torch.Tensor, seed: int,
+def quartet_linear_pq(x: torch.Tensor, w_vals: torch.Tensor, w_mask: torch.Tensor, seed,
                       cfg: QuartetConfig, codes: torch.Tensor | None = None,
-                      scales: torch.Tensor | None = None) -> torch.Tensor:
+                      scales: torch.Tensor | None = None, window=(0, None)) -> torch.Tensor:
     """The reference's ``quartet_linear_pq``: y = Quartet(x) @ w_vals for the
     rotated-quantized weight of :func:`quest_qdq_gathered` (whose codes and
-    scales the kernels multiply by; the plain path takes the values)."""
+    scales the kernels multiply by; the plain path takes the values).  For
+    a stack of experts (x [E, T, K], w_vals [E, K, N]) ``seed`` is the
+    experts' seeds [E] and ``window`` the tokens' place on an expert's
+    logical token axis, as :func:`quartet_linear_experts` takes them."""
     _check(cfg)
     if cfg.fwd_quantizer == "none" or cfg.fwd_format != "mxfp4":
         raise ValueError(f"fp4_allgather gathers MXFP4 QuEST codes: {cfg}")
     if cfg.use_kernels and (codes is None or scales is None):
         raise ValueError("quartet_linear_pq on the kernels needs the gathered codes and scales")
-    return _QuartetLinearPQ.apply(x, w_vals, w_mask, seed & 0xFFFFFFFF, cfg, codes, scales)
+    if w_vals.dim() == 3:
+        _check_experts(x, w_vals, window)
+    else:
+        seed &= 0xFFFFFFFF
+    return _QuartetLinearPQ.apply(x, w_vals, w_mask, seed, cfg, codes, scales, window)
 
 
 # ---------------------------------------------------------------------------
@@ -575,52 +611,63 @@ def _maybe_rht_experts(x: torch.Tensor, signs: torch.Tensor, cfg: QuartetConfig,
     return hadamard_transform(x, g=cfg.group, dim=dim)
 
 
-def _backward_experts_plain(cfg, seeds, res, dy):
-    """:func:`_backward_plain` for every expert at once: expert e's signs and
-    uniforms at seeds[e], over its own [T, K] / [K, N] operands."""
-    xq_v, wq_v, m_x, m_w = res
-    g = cfg.group
+def _bwd_experts_plain_gemms(cfg, seeds, xq_v, wq_v, m_x, dy, window=(0, None)):
+    """:func:`_bwd_plain_gemms` for every expert at once → (dx [E, T, K],
+    dW_rot [E, K, N]): expert e's signs and uniforms at seeds[e], over its
+    own [T, K] / [K, N] operands; ``window`` (offset, row length) places
+    the T tokens on an expert's logical token axis, for the token-axis
+    draws (dy's SR, the signs ξ_B, xqᵀ's and dyᵀ's SR)."""
+    off, row = window
     dyf = dy.to(torch.float32)
 
     # dx = H⁻¹( 16/9 · (SR(¾·Ĥ_N dy) @ SR(¾·Ĥ_N Wᵀ)ᵀ) ⊙ M_x )
     dy_p = _pad32(dyf, -1)
     wq_p = _pad32(wq_v.to(torch.float32), -1)
-    signs_n = fastrng.rademacher(seeds, dy_p.shape[-1], salt=11, device=dy.device)
+    Np = dy_p.shape[-1]
+    signs_n = fastrng.rademacher(seeds, Np, salt=11, device=dy.device)
     g_h = _maybe_rht_experts(dy_p, signs_n, cfg, 2)
     wt_h = _maybe_rht_experts(wq_p, signs_n, cfg, 2)  # blocks along N
-    dx_rot = _bwd_gemm(g_h, wt_h, cfg, seeds, (1, 2))
-    dx = hadamard_transform(dx_rot * m_x, g=g, dim=-1)  # H⁻¹ = H
+    dx_rot = _bwd_gemm(g_h, wt_h, cfg, seeds, (1, 2), ((off * Np, None), (0, None)))
+    dx = hadamard_transform(dx_rot * m_x, g=cfg.group, dim=-1)  # H⁻¹ = H
 
     # dW_rot = 16/9 · SR(¾·Ĥ_B Xᵀ)ᵀ @ SR(¾·Ĥ_B dy), B the token axis
     xf = _pad32(xq_v.to(torch.float32), 1)
     gf = _pad32(dyf, 1)
-    signs_b = fastrng.rademacher(seeds, xf.shape[1], salt=12, device=dy.device)
+    signs_b = fastrng.rademacher(seeds, xf.shape[1], salt=12, device=dy.device, offset=off)
     x2 = _maybe_rht_experts(xf, signs_b, cfg, 1)
     g2 = _maybe_rht_experts(gf, signs_b, cfg, 1)
-    dw_rot = _bwd_gemm(x2.transpose(-1, -2), g2.transpose(-1, -2), cfg, seeds, (3, 4))
-    dw = hadamard_transform(dw_rot * m_w, g=g, dim=-2)  # H⁻¹ along K
-    return dx, dw
+    dw_rot = _bwd_gemm(x2.transpose(-1, -2), g2.transpose(-1, -2), cfg, seeds, (3, 4),
+                       ((off, row), (off, row)))
+    return dx, dw_rot
 
 
-def _backward_experts_kernels(cfg, seeds, res, dy, ops=None):
-    """:func:`_backward_kernels` for every expert at once: backward Stage 1
-    on the four operands dy [E, T, Np], Wq [E, K, Np], xqᵀ [E, K, Bp] and
-    dyᵀ [E, N, Bp] (the last three views with unit stride along their
-    rows, read in place), then the GEMMs for dx and dW: six launches for all
-    E experts, no host sync.  The saved codes are dequantized to bf16
-    (exact, and half an f32 copy's bytes)."""
+def _backward_experts_plain(cfg, seeds, res, dy, window=(0, None)):
+    """:func:`_backward_plain` for every expert at once (the weight mask and
+    H⁻¹ after :func:`_bwd_experts_plain_gemms`)."""
+    xq_v, wq_v, m_x, m_w = res
+    dx, dw_rot = _bwd_experts_plain_gemms(cfg, seeds, xq_v, wq_v, m_x, dy, window)
+    return dx, hadamard_transform(dw_rot * m_w, g=cfg.group, dim=-2)  # H⁻¹ along K
+
+
+def _bwd_experts_kernel_gemms(cfg, seeds, xc, xs, wq_v, m_x, dy, window=(0, None), ops=None):
+    """:func:`_bwd_experts_plain_gemms` on the kernels: backward Stage 1 on
+    the four operands dy [E, T, Np], Wq [E, K, Np], xqᵀ [E, K, Bp] and dyᵀ
+    [E, N, Bp] (the last three views with unit stride along their rows,
+    read in place; the token-axis draws through ``window``), then the GEMMs
+    for dx and dW_rot: six launches for all E experts, no host sync."""
     K = _kernel_ops(ops)
-    xc, xs, wtc, wts, m_x, m_w = res
     g = cfg.group
-    wq_v = _dequant_codes(wtc, wts, g, torch.bfloat16).transpose(-1, -2)  # [E, K, N]
+    off, row = window
     dy = dy.contiguous()  # bf16 or f32: the kernel reads either exactly
 
     # dx: Stage 1 along N on dy and Wq; the GEMM's B is the transposed view
     # of the Wq codes
     dy_p = _pad32(dy, -1)
     wq_p = _pad32(wq_v, -1)
-    signs_n = fastrng.rademacher(seeds, dy_p.shape[-1], salt=11, device=dy.device)
-    gc, gs = K.sr_hadamard_quantize_experts(dy_p, signs_n, seeds, salt=1)
+    Np = dy_p.shape[-1]
+    signs_n = fastrng.rademacher(seeds, Np, salt=11, device=dy.device)
+    rows = {"offset": off * Np} if off else {}
+    gc, gs = K.sr_hadamard_quantize_experts(dy_p, signs_n, seeds, salt=1, **rows)
     wtc2, wts2 = K.sr_hadamard_quantize_experts(wq_p, signs_n, seeds, salt=2)
     dx_rot = SR_POSTSCALE * K.mxfp4_matmul_experts(gc, gs, wtc2.transpose(-1, -2),
                                                    wts2.transpose(-1, -2))
@@ -630,13 +677,27 @@ def _backward_experts_kernels(cfg, seeds, res, dy, ops=None):
     # the GEMM's B is the transposed view of the dy codes
     xq_v = _pad32(_dequant_codes(xc, xs, g, torch.bfloat16), 1)
     gf = _pad32(dy, 1)
-    signs_b = fastrng.rademacher(seeds, xq_v.shape[1], salt=12, device=dy.device)
-    x2c, x2s = K.sr_hadamard_quantize_experts(xq_v.transpose(-1, -2), signs_b, seeds, salt=3)
-    g2c, g2s = K.sr_hadamard_quantize_experts(gf.transpose(-1, -2), signs_b, seeds, salt=4)
+    signs_b = fastrng.rademacher(seeds, xq_v.shape[1], salt=12, device=dy.device, offset=off)
+    cols = {"offset": off, "row_len": row} if row is not None else {}
+    x2c, x2s = K.sr_hadamard_quantize_experts(xq_v.transpose(-1, -2), signs_b, seeds, salt=3,
+                                              **cols)
+    g2c, g2s = K.sr_hadamard_quantize_experts(gf.transpose(-1, -2), signs_b, seeds, salt=4,
+                                              **cols)
     dw_rot = SR_POSTSCALE * K.mxfp4_matmul_experts(x2c, x2s, g2c.transpose(-1, -2),
                                                    g2s.transpose(-1, -2))
-    dw = hadamard_transform(dw_rot * m_w, g=g, dim=-2)
-    return dx, dw
+    return dx, dw_rot
+
+
+def _backward_experts_kernels(cfg, seeds, res, dy, ops=None, window=(0, None)):
+    """:func:`_backward_kernels` for every expert at once: backward Stage 1
+    on the four operands, the GEMMs for dx and dW
+    (:func:`_bwd_experts_kernel_gemms`), the weight mask and H⁻¹.  The
+    saved codes are dequantized to bf16 (exact, and half an f32 copy's
+    bytes)."""
+    xc, xs, wtc, wts, m_x, m_w = res
+    wq_v = _dequant_codes(wtc, wts, cfg.group, torch.bfloat16).transpose(-1, -2)  # [E, K, N]
+    dx, dw_rot = _bwd_experts_kernel_gemms(cfg, seeds, xc, xs, wq_v, m_x, dy, window, ops)
+    return dx, hadamard_transform(dw_rot * m_w, g=cfg.group, dim=-2)
 
 
 class _QuartetLinearExperts(torch.autograd.Function):
@@ -644,7 +705,7 @@ class _QuartetLinearExperts(torch.autograd.Function):
     Algorithm-1 backward at each expert's seed."""
 
     @staticmethod
-    def forward(ctx, x, w, seeds, cfg):
+    def forward(ctx, x, w, seeds, cfg, window):
         grad = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
         if cfg.fwd_quantizer == "none":
             y = _gemm(x, w, cfg.accum_dtype)
@@ -654,7 +715,7 @@ class _QuartetLinearExperts(torch.autograd.Function):
                       else _forward_experts_plain(x, w, cfg, seeds))
         if grad:  # serving keeps nothing
             ctx.save_for_backward(seeds, *res)
-        ctx.cfg = cfg
+        ctx.cfg, ctx.window = cfg, window
         ctx.dtypes = (x.dtype, w.dtype)
         return y.to(x.dtype)
 
@@ -666,19 +727,30 @@ class _QuartetLinearExperts(torch.autograd.Function):
             x, w = res
             dx = _gemm(dy, w.transpose(-1, -2), cfg.accum_dtype)
             dw = _gemm(x.transpose(-1, -2), dy, cfg.accum_dtype)
+        elif cfg.use_kernels:
+            dx, dw = _backward_experts_kernels(cfg, seeds, res, dy, window=ctx.window)
         else:
-            bwd = _backward_experts_kernels if cfg.use_kernels else _backward_experts_plain
-            dx, dw = bwd(cfg, seeds, res, dy)
-        return dx.to(ctx.dtypes[0]), dw.to(ctx.dtypes[1]), None, None
+            dx, dw = _backward_experts_plain(cfg, seeds, res, dy, ctx.window)
+        return dx.to(ctx.dtypes[0]), dw.to(ctx.dtypes[1]), None, None, None
+
+
+def _check_experts(x: torch.Tensor, w: torch.Tensor, window) -> None:
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
+        raise ValueError(f"quartet_linear_experts: x {tuple(x.shape)}, w {tuple(w.shape)}")
+    if window[1] is not None and x.shape[1] % 32:
+        raise ValueError(f"{x.shape[1]} tokens an expert in a window of {window[1]} are not "
+                         f"a multiple of 32: the logical axis's padding would fall inside it")
 
 
 def quartet_linear_experts(x: torch.Tensor, w: torch.Tensor, seeds: torch.Tensor,
-                           cfg: QuartetConfig) -> torch.Tensor:
+                           cfg: QuartetConfig, window=(0, None)) -> torch.Tensor:
     """y [E, T, N] = Quartet(x[e]) @ Quartet(w[e]) for x [E, T, K], w
     [E, K, N].  ``seeds`` [E] (uint32 values in int64) are the experts'
     stochastic-rounding seeds, folded as the reference folds them; they
-    drive the backward."""
+    drive the backward.  ``window`` (offset, row length): the T tokens are
+    an expert's slots offset .. offset + T − 1 of a logical axis of that
+    length (a data-parallel rank's block of a MoE layer's slots), whose
+    draws the backward takes; (0, None) is x's own axis."""
     _check(cfg)
-    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
-        raise ValueError(f"quartet_linear_experts: x {tuple(x.shape)}, w {tuple(w.shape)}")
-    return _QuartetLinearExperts.apply(x, w, seeds, cfg)
+    _check_experts(x, w, window)
+    return _QuartetLinearExperts.apply(x, w, seeds, cfg, window)

@@ -26,12 +26,19 @@ in PyTorch what GSPMD derives from them:
   ``fp4_allgather``
   the Quartet weights stay shards, tagged with their dim
   (:func:`fsdp_dim`), and ``core.quartet.quest_qdq_gathered`` gathers
-  their MXFP4 codes instead.
+  their MXFP4 codes instead; a MoE layer's expert stacks [E, K, N] too
+  (``gate`` and ``up`` split along K, ``down`` along N).
 * :func:`constrain_params` does the same for the leaves outside the layer
   stack (embedding, final norm, head).
 * :func:`constrain_tokens` checks that a rank holds its rows of the
   microbatch; the reference's sequence-parallel fallback raises.
 * :func:`constrain_logits` is the identity while ``model`` has one rank.
+
+A MoE layer routes the global microbatch's groups
+(:func:`moe_group_layout`): a rank holds whole groups, or a part of one
+that consecutive data ranks share (:func:`data_subgroup`), whose tokens
+and router logits they gather (:func:`gather_own_rows`) and whose experts
+they split, gathering their outputs (:func:`gather_blocks`).
 
 Each rank's loss is its share of the global mean, so summed gradients are
 the one-device gradient.  Outside a plan (no mesh, a serving mesh, or a
@@ -284,6 +291,130 @@ def token_window() -> tuple[int, int]:
     return (0, 1) if plan is None else (plan.rank, plan.size)
 
 
+@dataclasses.dataclass(frozen=True)
+class GroupLayout:
+    """Where a rank's tokens lie among a MoE layer's routing groups of the
+    global microbatch (``models.moe.moe_ffn``).  The microbatch's T tokens
+    form ``groups`` groups of ``g``; a rank routes ``local`` of them,
+    starting at global group ``first``.  ``share`` ranks hold one group
+    between them (1 when every rank holds whole groups); a rank is member
+    ``member`` of its group's ``group`` (a process group, None at share 1)
+    and owns the group's rows [member·T_l, (member + 1)·T_l)."""
+
+    g: int
+    groups: int
+    local: int
+    first: int
+    share: int = 1
+    member: int = 0
+    group: object = None
+
+
+def moe_group_layout(tokens: int, group_tokens: int, num_experts: int) -> GroupLayout:
+    """The layout of a rank's ``tokens`` (T_l) in a MoE layer's groups of
+    ``min(group_tokens, T)``, T the global microbatch's tokens (T_l times
+    the data ranks under a plan, T_l outside one).  Contiguous rank rows
+    hold either whole groups (T_l a multiple of g) or a part of one group
+    that ``g / T_l`` ranks share (then E must split over them); any other
+    layout raises."""
+    r, n = token_window()
+    T = tokens * n
+    g = min(group_tokens, T)
+    if T % g:
+        raise ValueError(f"tokens {T} not divisible into groups of {g}")
+    if tokens % g == 0:
+        return GroupLayout(g, T // g, tokens // g, r * (tokens // g))
+    share = g // tokens
+    if g % tokens or num_experts % share:
+        raise NotImplementedError(
+            f"MoE groups of {g} tokens over {n} data ranks of {tokens} tokens and "
+            f"{num_experts} experts: a group neither lies whole on a rank nor splits over "
+            f"ranks that divide its experts; groups that straddle the ranks' token blocks "
+            f"(ROADMAP A8d.3)")
+    plan = current_plan()
+    return GroupLayout(g, T // g, 1, r // share, share, r % share,
+                       data_subgroup(plan.mesh, share))
+
+
+def _data_ranks(mesh) -> list[int]:
+    """The world ranks of this rank's data-parallel line, in data-rank
+    order (``pod`` major)."""
+    import numpy as np
+
+    ranks = mesh.ranks
+    if "model" in mesh.axis_names:
+        ranks = np.take(ranks, mesh.axis_index("model"), axis=mesh.axis_names.index("model"))
+    return [int(x) for x in np.asarray(ranks).reshape(-1)]
+
+
+def data_subgroup(mesh, size: int):
+    """This rank's process group among the blocks of ``size`` consecutive
+    data ranks (the whole data group at ``size`` = the data ranks).  Every
+    block's group is created on every rank in one order, at the first call
+    (which every rank makes at the same point of a step), and kept on the
+    mesh."""
+    rank, n = SH.data_rank_and_size(mesh)
+    if size == n:
+        return data_group(mesh)
+    cache = mesh.__dict__.setdefault("_data_subgroups", {})
+    if size not in cache:
+        ranks = _data_ranks(mesh)
+        mine = None
+        for b in range(n // size):
+            grp = dist.new_group(ranks=ranks[b * size:(b + 1) * size])
+            if b == rank // size:
+                mine = grp
+        cache[size] = mine
+    return cache[size]
+
+
+def gather_group(x: torch.Tensor, dim: int, lay: GroupLayout) -> torch.Tensor:
+    """Every member's ``x`` of a shared group concatenated on ``dim`` (no
+    autograd)."""
+    return x if lay.share == 1 else _gather(x, dim, lay.group, lay.share)
+
+
+class _GatherOwnRows(torch.autograd.Function):
+    """Forward: the group members' rows concatenated (dim 0).  Backward:
+    this member's rows of the gradient.  For values every member then
+    computes alike from the whole group, whose gradient on a member reaches
+    only the rows it owns."""
+
+    @staticmethod
+    def forward(ctx, x, lay):
+        ctx.lay, ctx.rows = lay, x.shape[0]
+        return gather_group(x, 0, lay)
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.lay.member * ctx.rows
+        return g[m:m + ctx.rows].contiguous(), None
+
+
+def gather_own_rows(x: torch.Tensor, lay: GroupLayout) -> torch.Tensor:
+    return x if lay.share == 1 else _GatherOwnRows.apply(x, lay)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """Forward: the members' blocks concatenated on dim 0 (a shared group's
+    experts).  Backward: the gradient summed over the members and this
+    member's block kept (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, lay):
+        ctx.lay = lay
+        return gather_group(x, 0, lay)
+
+    @staticmethod
+    def backward(ctx, g):
+        lay = ctx.lay
+        return _reduce_scatter(g, 0, lay.group, lay.share, lay.member), None
+
+
+def gather_blocks(x: torch.Tensor, lay: GroupLayout) -> torch.Tensor:
+    return x if lay.share == 1 else _GatherBlocks.apply(x, lay)
+
+
 def widened() -> bool:
     """Whether the anchors hand the step's floating leaves over in f32: under
     a plan across data ranks, with autograd on.  Each such leaf holds its
@@ -354,6 +485,13 @@ def _is_dense_weight(path: str) -> bool:
     return parts[-1] == "w" and (len(parts) < 2 or parts[-2] != "router")
 
 
+def _is_expert_stack(path: str) -> bool:
+    """A MoE layer's stacked expert weight [E, K, N] (``gate``, ``up``,
+    ``down``), which ``models.layers.dense_experts`` multiplies by."""
+    parts = path.split("/")
+    return len(parts) >= 2 and parts[-2] == "moe" and parts[-1] in ("gate", "up", "down")
+
+
 def _anchor(tree, prefix: str, plan: FsdpPlan, stacked: bool, skip=None):
     """Gather every sharded leaf of ``tree`` (at ``prefix`` in the whole
     parameter tree) and hook every replicated one's gradient."""
@@ -374,10 +512,12 @@ def _anchor(tree, prefix: str, plan: FsdpPlan, stacked: bool, skip=None):
         wide = torch.float32 if widened() else x.dtype
         if dim is None:
             return _ReduceGrad.apply(x, group, n, wide) if grad else x
-        # a layer's Quartet weight (the head is a bf16 GEMM unless the
-        # config quantizes it: it gathers as it is)
-        if (_is_dense_weight(full) and stacked and plan.fp4_allgather
-                and x.shape[0] % 32 == 0):
+        # a layer's Quartet weight, or its experts' stacks (the head is a
+        # bf16 GEMM unless the config quantizes it: it gathers as it is);
+        # the shard's contraction dim K must hold whole groups of 32
+        if stacked and plan.fp4_allgather and (
+                (_is_dense_weight(full) and x.shape[0] % 32 == 0)
+                or (_is_expert_stack(full) and x.shape[1] % 32 == 0)):
             x = x.view_as(x)  # a tagged alias: quest_qdq_gathered gathers its codes
             x._fsdp_dim = dim
             return x

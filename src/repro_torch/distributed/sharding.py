@@ -23,10 +23,11 @@ indices with ``/``.  Serving uses :func:`serve_pool_partition` (the pool's
 KV-head axis).  Training shards by :func:`param_partition` over the
 data-parallel axes (FSDP): :func:`shard_tree` takes a rank's slice of a
 whole tree, :func:`unshard_tree` gathers the whole back (a collective:
-every rank of the data group calls it).  A spec's ``model`` entries are
-honoured only while the mesh's ``model`` axis has one rank: tensor
-parallelism in training is not ported (``DEFERRED``, ROADMAP A8d.5) and
-raises.
+every rank of the data group calls it); :func:`partition_state` gives a
+state's specs, the 8-bit moments' by the whole parameters' block counts.
+A spec's ``model`` entries are honoured only while the mesh's ``model``
+axis has one rank: tensor parallelism in training is not ported
+(``DEFERRED``, ROADMAP A8d.5) and raises.
 """
 
 from __future__ import annotations
@@ -191,23 +192,26 @@ def _is_int8(leaf) -> bool:
     return str(getattr(leaf, "dtype", "")).removeprefix("torch.") == "int8"
 
 
-def opt_partition(opt_state: dict, param_specs: Any, mesh) -> dict:
+def opt_partition(opt_state: dict, param_specs: Any, mesh, blocks: Any = None) -> dict:
     """Adam moments inherit their parameter's spec; the 8-bit moments
     (``{"q": [..., n, 256], "s": [..., n]}`` blocked along the param's last
     axis) keep its leading dims' sharding, and its last dim's axis moves to
-    the block-count dim when that count stays divisible."""
+    the block-count dim when that count stays divisible.  The count is the
+    whole state's: ``q``'s, or for a state of shards ``blocks`` (a tree of
+    each parameter's whole block count, :func:`partition_state`)."""
 
     def like(spec, leaf):
         if hasattr(leaf, "shape") and len(leaf.shape) == len(spec):
             return spec
         return P(*([None] * len(getattr(leaf, "shape", ()))))
 
-    def q8spec(spec, m):
+    def q8spec(spec, m, nb=None):
         if not isinstance(m, dict):
             return P(*([None] * len(m.shape)))
         parts = list(spec)
         lead = parts[:-1]
-        last = _fit(mesh, m["q"].shape[-2], parts[-1]) if parts else None
+        nb = m["q"].shape[-2] if nb is None else nb
+        last = _fit(mesh, nb, parts[-1]) if parts else None
         qdims, sdims = len(m["q"].shape), len(m["s"].shape)
         qspec = (lead + [last, None])[:qdims]
         qspec = [None] * (qdims - len(qspec)) + qspec
@@ -220,17 +224,31 @@ def opt_partition(opt_state: dict, param_specs: Any, mesh) -> dict:
         if key == "step":
             out[key] = P()
         elif any(_is_int8(x) for x in _leaves(opt_state[key])):
-            out[key] = _map(q8spec, param_specs, opt_state[key])
+            out[key] = (_map(q8spec, param_specs, opt_state[key]) if blocks is None
+                        else _map(q8spec, param_specs, opt_state[key], blocks))
         else:
             out[key] = _map(like, param_specs, opt_state[key])
     return out
 
 
-def partition_state(state, param_specs, mesh):
-    """Specs for a whole ``train.state.TrainState``."""
+def partition_state(state, param_specs, mesh, sharded: bool = False):
+    """Specs for a ``train.state.TrainState``: a whole one, or with
+    ``sharded`` a rank's shards of one (as ``train.loop`` holds it), whose
+    8-bit moments split by the whole parameters' block counts."""
     from repro_torch.train.state import TrainState
 
-    opt = opt_partition(state.opt_state, param_specs, mesh)
+    blocks = None
+    if sharded:
+        n = data_rank_and_size(mesh)[1]
+
+        def count(spec, p):
+            if not len(p.shape):
+                return 1
+            last = p.shape[-1] * (n if sharded_dim(spec, mesh) == len(p.shape) - 1 else 1)
+            return -(-last // 256)
+
+        blocks = _map(count, param_specs, state.params)
+    opt = opt_partition(state.opt_state, param_specs, mesh, blocks)
     return TrainState(param_specs, opt, P(), None if state.err is None else param_specs)
 
 
@@ -307,10 +325,8 @@ def cache_partition(cache_specs: Any, mesh, batch: int) -> Any:
 # what data-parallel training does not do yet, each with its ROADMAP item;
 # every one raises at more than one data rank
 DEFERRED = {
-    "moe": "MoE training across devices (ROADMAP A8d.1)",
-    "opt8bit": "adamw8bit on shards (ROADMAP A8d.2)",
-    "grad_compress": "grad_compress on shards (ROADMAP A8d.2)",
-    "baseline": "the paper's baseline methods across data ranks (ROADMAP A8d.2)",
+    "grad_compress": "grad_compress on shards (ROADMAP A8d.2, its remainder)",
+    "baseline": "the paper's baseline methods across data ranks (ROADMAP A8d.2, its remainder)",
     "sequence_parallel": "constrain_tokens' sequence-parallel fallback (ROADMAP A8d.3)",
     "family": "the SSM, hybrid, enc-dec and VLM families across devices (ROADMAP A8d.4)",
     "tp": "tensor parallelism in training (ROADMAP A8d.5)",

@@ -18,7 +18,10 @@ C4-like data (or a memmap token file, ``--data``), with AdamW on a cosine
 schedule with 10% warmup at the paper's learning rate.  ``--opt8bit``
 takes the 8-bit AdamW and a bf16 master, as the reference trains its large
 MoE configs (one full-width qwen3-moe-235b-a22b layer fits one card only
-so).  ``--method`` takes Quartet, bf16 or one of the paper's baselines
+so; under ``torchrun`` across data ranks, its shards of the 8-bit moments).
+``--layers`` cuts the depth to the first N layers at the published widths
+(qwen3-moe-235b-a22b's 94 layers hold 234 B parameters).  ``--method``
+takes Quartet, bf16 or one of the paper's baselines
 (``luq_int4``, ``luq_fp4``, ``jetfire_fp4``, ``halo_fp4``, ``lss_int4``;
 plain PyTorch, as the reference computes them); ``--grad-compress`` adds the
 SR-int8 gradient round trip with error feedback.  On ``cuda`` (the
@@ -59,6 +62,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama-paper-200m")
     ap.add_argument("--reduced", action="store_true", help="the CPU-scale config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="the first N layers (the depth cut, widths unchanged)")
     ap.add_argument("--method", default="quartet", choices=["quartet", "bf16", *BASELINE_METHODS])
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)
@@ -87,6 +92,8 @@ def main():
         device = init_distributed(device=args.device)
     mesh = make_production_mesh() if args.production_mesh else make_local_mesh()
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if args.device == "cuda":
         cfg = kernel_config(cfg)
     if args.fp4_allgather:

@@ -99,17 +99,20 @@ def dense(params: dict, x: torch.Tensor, seed: int, qcfg: QuartetConfig,
 
 
 def dense_experts(w: torch.Tensor, x: torch.Tensor, seeds: torch.Tensor, qcfg: QuartetConfig,
-                  method: str = "quartet") -> torch.Tensor:
+                  method: str = "quartet", window=(0, None)) -> torch.Tensor:
     """E stacked linears at once, y[e] = x[e] @ w[e] for x [E, T, K], w
     [E, K, N]: the counterpart of the reference's ``jax.vmap`` of
     :func:`dense` over a MoE layer's experts (``seeds`` [E], one per expert,
-    as the vmap carries them; a baseline quantizes and samples per expert)."""
+    as the vmap carries them; a baseline quantizes and samples per expert).
+    ``window``: the T tokens' place on an expert's logical token axis
+    (``core.quartet.quartet_linear_experts``)."""
     if w.shape[1] % 32 != 0:
         method = "bf16"
     if method == "quartet":
-        return quartet_linear_experts(x, w, seeds, qcfg)
+        return quartet_linear_experts(x, w, seeds, qcfg, window)
     if method == "bf16":
-        return torch.bmm(x.to(torch.float32), w.to(x.dtype).to(torch.float32)).to(x.dtype)
+        wf = weight_operand(w, x.dtype).to(torch.float32)
+        return torch.bmm(x.to(torch.float32), wf).to(x.dtype)
     return baseline_linear_experts(x, w, seeds, method)
 
 
@@ -147,6 +150,55 @@ def _tree_sum(s: torch.Tensor) -> torch.Tensor:
         h = s.shape[-1] // 2
         s = s[..., :h] + s[..., h:]
     return s
+
+
+class _RowSoftmax(torch.autograd.Function):
+    """softmax over the last dim in one order on every device and for any
+    number of rows: the max (exact in any order), exp, the sum
+    :func:`_tree_sum`; the backward p ⊙ (g − Σ g ⊙ p), its sum the same
+    tree.  A library softmax (and its backward's sum) picks its reduction
+    order on the card from the call's row count."""
+
+    @staticmethod
+    def forward(ctx, x):
+        e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+        p = e / _tree_sum(e)
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        (p,) = ctx.saved_tensors
+        return p * (g - _tree_sum(g * p))
+
+
+class _RowLogSumExp(torch.autograd.Function):
+    """logsumexp over the last dim in :class:`_RowSoftmax`'s order; the
+    backward g ⊙ exp(x − lse), elementwise."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = x.amax(dim=-1, keepdim=True)
+        lse = m + torch.log(_tree_sum(torch.exp(x - m)))
+        ctx.save_for_backward(x, lse)
+        return lse.squeeze(-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g[..., None] * torch.exp(x - lse)
+
+
+def row_softmax(x: torch.Tensor) -> torch.Tensor:
+    """softmax over the last dim; on the card in one order for any number of
+    rows (:class:`_RowSoftmax`), on the CPU torch's (which rounds a row alike
+    in any call)."""
+    return _RowSoftmax.apply(x) if x.is_cuda else torch.softmax(x, dim=-1)
+
+
+def row_logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the last dim, as :func:`row_softmax` takes it."""
+    return _RowLogSumExp.apply(x) if x.is_cuda else torch.logsumexp(x, dim=-1)
 
 
 class _MeanSquare(torch.autograd.Function):

@@ -22,11 +22,15 @@ them equal to the reference and deterministic on the card:
   that changes from run to run; :func:`_combine` adds them in ascending
   expert order, one bf16 add at a time, on every device.
 * On the card a cuBLAS GEMM rounds a row by the call's row count (a
-  speculative verify's ``B·(k+1)`` rows against a decode's ``B``); there the
-  router's f32 GEMM runs one ``[B, 1]`` column of tokens at a time, as the
-  serving steps apply the head, so a token's routing never depends on the
-  call's shape.  The weight is cast to f32 once, so in training its
-  gradient sums the columns' products in f32 and rounds once.
+  speculative verify's ``B·(k+1)`` rows against a decode's ``B``, a data
+  rank's B/n rows against one device's B); there the router's f32 GEMM
+  runs on blocks of ``ROUTER_ROWS`` tokens, the last padded with zero rows,
+  so every GEMM has one shape and a token's routing never depends on the
+  call's.  The weight is cast to f32 once, so in training its gradient sums
+  the blocks' products in f32 and rounds once.  The softmax and logsumexp
+  over the experts likewise take one order there, forward and backward
+  (``layers.row_softmax``, ``layers.row_logsumexp``): torch's reductions
+  round a row by the call's row count.
 
 Every part takes gradients (MoE training).  The dispatch gather's backward
 sums a token's gradients from its expert slots; :class:`_Dispatch` adds
@@ -38,27 +42,54 @@ exactly zero and adds nothing.  :func:`_combine`'s backward writes each
 gated slot's gradient once (:class:`_Combine`).
 
 Capacity ``c = max(32, round_up(k·g/E·capacity_factor, 32))`` with
-``g = min(4096, B·S)`` counted over all lanes, masked ones included; tokens
+``g = min(4096, T)`` counted over all lanes, masked ones included; tokens
 over capacity are dropped.  ``token_valid`` zero-gates padding lanes, so they
 never compete for capacity.  In a tensor-parallel serving step
 (``cfg.tp_axis``) each rank runs its block of E/tp experts and all-gathers
-their outputs on the expert axis.  The FP4 all-gather of training
-(``fp4_allgather``) waits for the training half of multi-device work.
+their outputs on the expert axis.  With ``fp4_allgather`` the expert stacks
+are rotated and QuEST-quantized whole (a rank's shards under the train
+step's anchors, their codes all-gathered) before a block of experts is
+taken, as the reference quantizes them before its vmap.
+
+Data-parallel training (``distributed.context``'s plan): T is the global
+microbatch's tokens, so every rank computes what one device computes
+(``distributed.context.moe_group_layout``).  Where a rank holds whole
+groups, routing, capacity, dispatch and the combine are rank-local (every
+piece is per row), and expert e's slot axis of the logical [E, G·c, D] is
+this rank's block of G_l·c slots, the window the experts' backward draws
+its token-axis uniforms and signs in.  Where ``share`` ranks hold one group
+between them, each gathers the group's tokens and router logits and routes
+the whole group alike; member j runs experts [j·E/share, (j + 1)·E/share)
+over the group's slots (the seeds at their global index) and the blocks are
+gathered on the expert axis; each member combines its own tokens.  The
+backward keeps one device's order: the slot gradients come back to their
+expert's member by a reduce-scatter whose other summands are exactly zero,
+and each member gathers every block's dispatch gradients and sums its own
+tokens' slots in ascending expert order (:class:`_GroupDispatch`).  A
+token's router, aux and z-loss terms count on its own rank only: the aux
+loss is each rank's share of one device's value (its groups, or its rows'
+part of a shared group's mean router probability, over the global group and
+token counts), so the ranks' shares sum to it.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 import torch.nn.functional as Fn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quartet import quartet_linear_pq, quest_qdq_gathered
+from repro_torch.distributed import context as C
 from repro_torch.distributed.context import all_gather_tiled, tp_rank
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention, init_attention
 from repro_torch.models.transformer import init_mlp, mlp
 
 NEG_INF = -1e30
+ROUTER_ROWS = 256  # tokens a router GEMM on the card: one shape for any call
 
 
 def moe_capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
@@ -81,22 +112,34 @@ def init_moe_ffn(cfg: ModelConfig, dtype, generator, device) -> dict:
 
 
 def _expert_ffn(xe: torch.Tensor, params: dict, seed: int, cfg: ModelConfig,
-                method: str, expert_offset: int = 0) -> torch.Tensor:
-    """xe [E, T', D] → [E, T', D]: every expert's SwiGLU, each of its three
-    linears one stacked call; expert e's seeds are seed_fold(seed, 20) +
+                method: str, expert_offset: int = 0, experts: slice | None = None,
+                window=(0, None)) -> torch.Tensor:
+    """xe [E', T', D] → [E', T', D]: every expert's SwiGLU, each of its
+    three linears one stacked call, over the stacks' block ``experts`` (all
+    of them by default); expert e's seeds are seed_fold(seed, 20) +
     expert_offset + e in uint32, as the reference's vmap carries them (a
-    tensor-parallel rank's block of experts starts at ``expert_offset``)."""
+    block of experts starts at ``expert_offset``).  ``window`` (offset,
+    row length) places the T' slots in an expert's logical slot axis, for
+    the backward's draws."""
     qc = cfg.quartet
-    if method == "quartet" and qc.fp4_allgather:
-        from repro_torch.distributed.sharding import DEFERRED
-
-        raise NotImplementedError(f"fp4_allgather on the stacked experts: {DEFERRED['moe']}")
     seeds = (L.seed_fold(seed, 20) + expert_offset
              + torch.arange(xe.shape[0], dtype=torch.int64, device=xe.device)) & 0xFFFFFFFF
-    g = L.dense_experts(params["gate"], xe, L.seed_fold(seeds, 21), qc, method)
-    u = L.dense_experts(params["up"], xe, L.seed_fold(seeds, 22), qc, method)
+
+    def linear(name, x, s):
+        w = params[name]
+        if method == "quartet" and qc.fp4_allgather and w.shape[1] % 32 == 0:
+            # the whole stack (or a rank's shard) quantized, its codes
+            # gathered, then the block taken
+            vals, mask, codes, scales = quest_qdq_gathered(w, qc)
+            if experts is not None:
+                vals, codes, scales = vals[experts], codes[experts], scales[experts]
+            return quartet_linear_pq(x, vals, mask, s, qc, codes, scales, window)
+        return L.dense_experts(w if experts is None else w[experts], x, s, qc, method, window)
+
+    g = linear("gate", xe, L.seed_fold(seeds, 21))
+    u = linear("up", xe, L.seed_fold(seeds, 22))
     h = Fn.silu(g.to(torch.float32)).to(xe.dtype) * u
-    return L.dense_experts(params["down"], h, L.seed_fold(seeds, 23), qc, method)
+    return linear("down", h, L.seed_fold(seeds, 23))
 
 
 def _top_k(v: torch.Tensor, k: int):
@@ -108,18 +151,22 @@ def _top_k(v: torch.Tensor, k: int):
 
 def _router_logits(w: torch.Tensor, x: torch.Tensor):
     """The router's bf16 dense on x [B, S, D] → f32 [B, S, E] (``L.dense``'s
-    bf16 arithmetic); on the card one [B, 1] column at a time (module
-    docstring)."""
+    bf16 arithmetic); on the card a block of ``ROUTER_ROWS`` tokens at a
+    time (module docstring)."""
     wf = w.to(torch.float32)
 
     def route(xs):
         return (xs.to(torch.float32) @ wf).to(xs.dtype)
 
-    if x.is_cuda and x.shape[1] > 1:
-        logits = torch.cat([route(x[:, s:s + 1]) for s in range(x.shape[1])], dim=1)
-    else:
-        logits = route(x)
-    return logits.to(torch.float32)
+    if not x.is_cuda:
+        return route(x).to(torch.float32)
+    B, S, D = x.shape
+    flat = x.reshape(B * S, D)
+    pad = (-flat.shape[0]) % ROUTER_ROWS
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros((pad, D))])
+    logits = torch.cat([route(blk) for blk in flat.split(ROUTER_ROWS)])[:B * S]
+    return logits.reshape(B, S, -1).to(torch.float32)
 
 
 def _slots(sel_idx: torch.Tensor, sel_gate: torch.Tensor, g: int, k: int):
@@ -202,6 +249,44 @@ class _Dispatch(torch.autograd.Function):
         return _sum_slots(dxe, e_s, c_s, ok), None, None, None, None
 
 
+class _GroupDispatch(torch.autograd.Function):
+    """A shared group's dispatch for this member's block of experts: xe
+    [E_l, c, D] = the group's tokens (this member's x_own [T_l, D] gathered
+    with the others') at sel_blk [E_l, c].  The backward gathers every
+    member's block of slot gradients (the whole expert axis) and sums this
+    member's tokens' gated slots (its rows of the slots, [1, T_l, k']) with
+    :func:`_sum_slots`, as one device's :class:`_Dispatch` sums them."""
+
+    @staticmethod
+    def forward(ctx, x_own, sel_blk, e_s, c_s, ok, lay):
+        ctx.save_for_backward(e_s, c_s, ok)
+        ctx.lay = lay
+        return C.gather_group(x_own, 0, lay)[sel_blk]
+
+    @staticmethod
+    def backward(ctx, dxe):
+        e_s, c_s, ok = ctx.saved_tensors
+        dall = C.gather_group(dxe.contiguous(), 0, ctx.lay)  # [E, c, D]
+        return _sum_slots(dall[None], e_s, c_s, ok)[0], None, None, None, None, None
+
+
+_ROUTING: list[dict] = []
+
+
+@contextlib.contextmanager
+def recording_routing():
+    """Within the block, every ``moe_ffn`` call records its routing into
+    the dict it yields: its seed → (first global group, sel_idx, sel_gate
+    [G_l, E, c]) of the groups this rank routed (a recompute overwrites a
+    layer's entry with the same values)."""
+    log: dict = {}
+    _ROUTING.append(log)
+    try:
+        yield log
+    finally:
+        _ROUTING.pop()
+
+
 def _combine(ye: torch.Tensor, sel_idx: torch.Tensor, sel_gate: torch.Tensor, g: int,
              k: int) -> torch.Tensor:
     """The gated expert outputs ye [G, E, c, D] back to token order [G, g, D]:
@@ -216,21 +301,24 @@ def moe_ffn(params: dict, x: torch.Tensor, seed: int, cfg: ModelConfig,
             method: str = "quartet", group_tokens: int = 4096, token_valid=None,
             return_routing: bool = False):
     """x [B, S, D] → (y [B, S, D], aux scalar); with ``return_routing`` also
-    ``(sel_idx, sel_gate)`` [G, E, c].  ``token_valid`` [B, S] bool marks the
-    lanes that carry real tokens: masked lanes get zero gates, score
-    ``NEG_INF`` in capacity selection, add nothing to the combine and drop
-    out of the load-balance statistics."""
+    ``(sel_idx, sel_gate)`` [G, E, c] of the groups this rank routed.
+    ``token_valid`` [B, S] bool marks the lanes that carry real tokens:
+    masked lanes get zero gates, score ``NEG_INF`` in capacity selection,
+    add nothing to the combine and drop out of the load-balance
+    statistics.  Under a data-parallel plan the groups are the global
+    microbatch's (module docstring)."""
     B, S, D = x.shape
-    T = B * S
     E, k = cfg.num_experts, cfg.experts_per_token
-    g = min(group_tokens, T)
-    G = T // g
-    assert G * g == T, f"tokens {T} not divisible into groups of {g}"
-    xg = x.reshape(G, g, D)
+    ranks = C.token_window()[1]
+    lay = C.moe_group_layout(B * S, group_tokens, E)
+    g, G = lay.g, lay.local
+    tl = B * S  # this rank's tokens
+    own = slice(lay.member * tl, (lay.member + 1) * tl)  # its rows of a shared group
 
-    # --- router (bf16, tiny) ---
-    logits = _router_logits(params["router"]["w"], x).reshape(G, g, E)
-    probs = torch.softmax(logits, dim=-1)
+    # --- router (bf16, tiny): this rank's tokens, a shared group's gathered ---
+    logits_own = _router_logits(params["router"]["w"], x).reshape(tl, E)
+    logits = C.gather_own_rows(logits_own, lay).reshape(G, g, E)
+    probs, lse = L.row_softmax(logits), L.row_logsumexp(logits)
     top_vals, top_idx = _top_k(probs, k)
     top_sum = top_vals[..., :1]
     for j in range(1, k):  # XLA:CPU's order, elementwise: a row's sum is shape-free
@@ -238,13 +326,24 @@ def moe_ffn(params: dict, x: torch.Tensor, seed: int, cfg: ModelConfig,
     top_vals = top_vals / torch.clamp(top_sum, min=1e-9)
     gates = torch.zeros_like(probs).scatter(-1, top_idx, top_vals)
     if token_valid is not None:
-        gates = gates * token_valid.reshape(G, g)[..., None].to(gates.dtype)
+        valid = C.gather_group(token_valid.reshape(tl).to(torch.uint8), 0, lay)
+        gates = gates * valid.reshape(G, g)[..., None].to(gates.dtype)
 
     # --- aux losses: load balance [Switch] + router z-loss ---
     me = (gates > 0).to(torch.float32).mean(dim=1)
-    pe = probs.mean(dim=1)
-    aux = E * torch.mean(torch.sum(me * pe, dim=-1))
-    zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    if ranks == 1:
+        pe = probs.mean(dim=1)
+        aux = E * torch.mean(torch.sum(me * pe, dim=-1))
+        zloss = torch.mean(lse ** 2)
+    else:
+        # this rank's share: its groups' terms, or its rows' part of a
+        # shared group's mean probability and z-loss, over the global counts
+        if lay.share == 1:
+            pe = probs.mean(dim=1)
+        else:
+            pe, lse = probs[:, own].sum(dim=1) / g, lse[:, own]
+        aux = E * torch.sum(torch.sum(me * pe, dim=-1)) / lay.groups
+        zloss = torch.sum(lse ** 2) / (lay.groups * g)
     aux = aux + cfg.router_zloss * zloss
 
     # --- capacity selection: per (G, E) the top-c gated tokens ---
@@ -252,27 +351,41 @@ def moe_ffn(params: dict, x: torch.Tensor, seed: int, cfg: ModelConfig,
     scores = torch.where(gates > 0, gates, torch.full_like(gates, NEG_INF))
     sel_val, sel_idx = _top_k(scores.transpose(1, 2), c)  # [G, E, c]
     sel_gate = torch.where(sel_val > 0, sel_val, torch.zeros_like(sel_val))
+    if _ROUTING:
+        _ROUTING[-1][seed] = (lay.first, sel_idx.detach(), sel_gate.detach())
 
     # --- dispatch, expert FFN ---
     slots = _slots(sel_idx, sel_gate, g, k)
-    xe = _Dispatch.apply(xg, sel_idx, *slots)  # [G, E, c, D]
-    xe = xe.transpose(0, 1).reshape(E, G * c, D)
+    # the slots' place on an expert's logical slot axis (its G·c slots)
+    window = (0, None) if ranks == 1 else (lay.first * c, lay.groups * c)
     tp = cfg.tp_size if cfg.tp_axis is not None and cfg.tp_size > 1 and E % cfg.tp_size == 0 \
         else 1
-    if tp > 1:
-        # expert parallelism in a tensor-parallel serving step: this rank's
-        # contiguous block of E/tp experts (weights and dispatched tokens),
-        # then the blocks all-gathered back to the whole expert axis — a
-        # concatenation, so the combine below adds in one device's order.
-        # Routing and capacity ran on replicated inputs, the same on every rank
-        r, El = tp_rank(cfg.tp_axis), E // tp
-        blk = slice(r * El, (r + 1) * El)
-        eparams = {**params, "gate": params["gate"][blk], "up": params["up"][blk],
-                   "down": params["down"][blk]}
-        ye = _expert_ffn(xe[blk], eparams, seed, cfg, method, expert_offset=r * El)
-        ye = all_gather_tiled(ye, 0, cfg.tp_axis)
+    if lay.share > 1:
+        # a group shared by `share` data ranks: this member's block of
+        # experts over the group's slots, the blocks gathered on the expert
+        # axis; the combine below adds its own tokens' slots
+        El = E // lay.share
+        blk = slice(lay.member * El, (lay.member + 1) * El)
+        slots = tuple(t[:, own] for t in slots)
+        xe = _GroupDispatch.apply(x.reshape(tl, D), sel_idx[0, blk], *slots, lay)
+        ye = _expert_ffn(xe, params, seed, cfg, method, lay.member * El, blk, window)
+        ye = C.gather_blocks(ye, lay)
     else:
-        ye = _expert_ffn(xe, params, seed, cfg, method)
+        xe = _Dispatch.apply(x.reshape(G, g, D), sel_idx, *slots)  # [G, E, c, D]
+        xe = xe.transpose(0, 1).reshape(E, G * c, D)
+        if tp > 1:
+            # expert parallelism in a tensor-parallel serving step: this rank's
+            # contiguous block of E/tp experts (weights and dispatched tokens),
+            # then the blocks all-gathered back to the whole expert axis — a
+            # concatenation, so the combine below adds in one device's order.
+            # Routing and capacity ran on replicated inputs, the same on every
+            # rank
+            r, El = tp_rank(cfg.tp_axis), E // tp
+            blk = slice(r * El, (r + 1) * El)
+            ye = _expert_ffn(xe[blk], params, seed, cfg, method, r * El, blk)
+            ye = all_gather_tiled(ye, 0, cfg.tp_axis)
+        else:
+            ye = _expert_ffn(xe, params, seed, cfg, method, window=window)
     ye = ye.reshape(E, G, c, D).transpose(0, 1)
     ye = ye * sel_gate[..., None].to(ye.dtype)
 

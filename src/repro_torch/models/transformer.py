@@ -23,7 +23,9 @@ and after each layer, the logits after the head; outside a train step's
 plan they return their input.  Every block returns ``(x, aux)``: a MoE
 layer's router loss (an f32 scalar), a dense layer's 0.0;
 ``lm_forward(..., return_aux=True)`` (the train step) also returns their
-f32 sum in layer order, as the reference's layer scan carries it.
+f32 sum in layer order, as the reference's layer scan carries it; under a
+data-parallel plan each layer's is the rank's share of one device's
+(``models.moe``), so the sum is too.
 """
 
 from __future__ import annotations

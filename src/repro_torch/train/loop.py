@@ -79,10 +79,11 @@ def train(
     if mesh is not None:
         specs = SH.param_partition(params, mesh)
         params = tree_map(lambda t: t.contiguous(), SH.shard_tree(params, specs, mesh))
-    state = make_train_state(params, optimizer, master_dtype, grad_compress)
+    state = make_train_state(params, optimizer, master_dtype, grad_compress,
+                             None if mesh is None else (mesh, specs))
     del params
     if mesh is not None:
-        shardings = (mesh, SH.partition_state(state, specs, mesh))
+        shardings = (mesh, SH.partition_state(state, specs, mesh, sharded=True))
     if world_rank() != 0:
         log_fn = _quiet
 

@@ -4,12 +4,17 @@ Port of ``repro.train.losses``.  :func:`chunked_lm_loss` applies the LM
 head and the cross entropy per sequence chunk, each chunk under
 ``torch.utils.checkpoint``: the whole [B, S, V] f32 logits tensor never
 exists (one [B, c, V] chunk at a time), and the backward recomputes each
-chunk's logits — one extra head GEMM for a vocabulary-sized saving."""
+chunk's logits — one extra head GEMM for a vocabulary-sized saving.  Its
+logsumexp over the vocabulary takes one order on the card for any number
+of rows (``models.layers.row_logsumexp``), so a data-parallel rank's
+tokens get one device's gradients."""
 
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.layers import row_logsumexp
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -45,7 +50,7 @@ def chunked_lm_loss(head_fn, params, features, labels, seed: int,
 
     def one(xc, lc, mc):
         logits = head_fn(params, xc, seed, method)
-        lse = torch.logsumexp(logits, dim=-1)
+        lse = row_logsumexp(logits)
         ll = torch.take_along_dim(logits, lc.long()[..., None], dim=-1)[..., 0]
         m = torch.ones_like(lse) if mc is None else mc.to(torch.float32)
         nll = torch.sum((lse - ll) * m)

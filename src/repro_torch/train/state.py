@@ -21,11 +21,15 @@ class TrainState(NamedTuple):
 
 
 def make_train_state(params, optimizer: Optimizer, master_dtype: str = "float32",
-                     grad_compress: bool = False) -> TrainState:
+                     grad_compress: bool = False, shardings=None) -> TrainState:
+    """The step-0 state of ``params``; with ``shardings=(mesh, param
+    specs)`` ``params`` are a rank's shards, and an optimizer that shards
+    its state itself (``Optimizer.sharded``) is told so."""
     dtype = getattr(torch, master_dtype)
     master = tree_map(lambda p: p.to(dtype) if p.is_floating_point() else p, params)
     err = None
     if grad_compress:
         err = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
                        master)
-    return TrainState(master, optimizer.init(master), 0, err)
+    sharded = {"shardings": shardings} if shardings is not None and optimizer.sharded else {}
+    return TrainState(master, optimizer.init(master, **sharded), 0, err)

@@ -28,10 +28,14 @@ plan, each rank's loss is its share of the global token count (so the
 summed gradients are the one-device gradient, with a ``loss_mask`` too),
 the accumulator stays in shard shapes, the clip sums the shards' squares
 across the ranks and counts a replicated leaf once, and AdamW updates a
-rank's shards only.  The metrics come back reduced over the ranks.  On
-one data rank the step takes the same anchors (gathers of one rank) and
-equals the step without a mesh bit for bit.  At more than one data rank
-what is not ported raises (``distributed.sharding.DEFERRED``).
+rank's shards only.  The metrics come back reduced over the ranks.  A
+MoE model trains the same way: its layers route the global microbatch's
+groups (``models.moe``), and its aux loss, like the LM loss, is each
+rank's share of one device's.  The 8-bit AdamW updates a rank's shards of
+its moments (``optim.adamw``, given the mesh and the specs).  On one data
+rank the step takes the same anchors (gathers of one rank) and equals the
+step without a mesh bit for bit.  At more than one data rank what is not
+ported raises (``distributed.sharding.DEFERRED``).
 """
 
 from __future__ import annotations
@@ -81,26 +85,17 @@ def training_mesh():
     return mesh if mesh is not None and "data" in mesh.axis_names else None
 
 
-def _is_8bit(opt_state) -> bool:
-    return any(t.dtype == torch.int8 for t in tree_leaves(opt_state.get("mu", {}))
-               if isinstance(t, torch.Tensor))
-
-
-def check_data_parallel(cfg, method: str, grad_compress: bool, opt_state, mesh) -> None:
+def check_data_parallel(cfg, method: str, grad_compress: bool, mesh) -> None:
     """Raise on what data-parallel training does not do yet, at more than
     one data rank (each message names its ROADMAP item)."""
     if mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(SH.DEFERRED["tp"])
     if SH.data_rank_and_size(mesh)[1] == 1:
         return
-    if cfg.family == "moe":
-        raise NotImplementedError(SH.DEFERRED["moe"])
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r}: {SH.DEFERRED['family']}")
     if grad_compress:
         raise NotImplementedError(SH.DEFERRED["grad_compress"])
-    if _is_8bit(opt_state):
-        raise NotImplementedError(SH.DEFERRED["opt8bit"])
     if method in BASELINE_METHODS:
         raise NotImplementedError(f"method {method!r}: {SH.DEFERRED['baseline']}")
 
@@ -111,8 +106,8 @@ def _plan(model, method, grad_compress, state, param_specs):
     mesh = training_mesh()
     if mesh is None:
         return None
-    check_data_parallel(model.cfg, method, grad_compress, state.opt_state, mesh)
-    if model.cfg.family != "dense":
+    check_data_parallel(model.cfg, method, grad_compress, mesh)
+    if model.cfg.family not in ("dense", "moe"):
         return None
     if param_specs is None:
         if SH.data_rank_and_size(mesh)[1] > 1:
@@ -193,12 +188,16 @@ def make_train_step(model: Model, optimizer: Optimizer, *, method: str = "quarte
         for i in range(microbatch):
             mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
             loss, metrics, g = value_and_grad(params, mb, (seed + i) & _MASK)
-            g = [t.to(torch.float32) for t in g]
-            acc = g if acc is None else [a + b for a, b in zip(acc, g)]
+            if acc is None:  # a copy of ours (a gradient may be a view)
+                acc = [t.to(torch.float32, copy=True) for t in g]
+            else:  # in place, a leaf at a time: one f32 copy of the gradients
+                for a, t in zip(acc, g):
+                    a.add_(t)
+            del g
             loss_sum = loss_sum + loss
             ms.append(metrics)
         metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
-        return loss_sum / microbatch, metrics, [a / microbatch for a in acc]
+        return loss_sum / microbatch, metrics, [a.div_(microbatch) for a in acc]
 
     def train_step(state: TrainState, batch):
         seed = ((state.step + 1) * microbatch) & _MASK
@@ -223,7 +222,11 @@ def make_train_step(model: Model, optimizer: Optimizer, *, method: str = "quarte
                          for g, e in zip(tree_leaves(grads), tree_leaves(err))]
                 grads = tree_unflatten(grads, [p[0] for p in pairs])
                 err = tree_unflatten(err, [p[1] for p in pairs])
-            updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+            sharded = {}
+            if plan is not None and plan.size > 1 and optimizer.sharded:
+                sharded["shardings"] = (plan.mesh, param_specs)
+            updates, opt_state = optimizer.update(grads, state.opt_state, state.params,
+                                                  **sharded)
             params = apply_updates(state.params, updates)
         metrics.update(loss=loss, grad_norm=gnorm)
         return TrainState(params, opt_state, state.step + 1, err), metrics
@@ -245,7 +248,7 @@ def make_eval_step(model: Model, *, method: str = "quartet", param_specs=None) -
                                       extra=_extra(batch), method=method)
             _, metrics = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
             return metrics
-        check_data_parallel(model.cfg, method, False, {}, mesh)
+        check_data_parallel(model.cfg, method, False, mesh)
         if param_specs is None:
             raise ValueError("a data-parallel eval step needs the parameters' specs")
         plan = C.make_plan(mesh, param_specs)

@@ -91,18 +91,3 @@ def test_quartet_linear_pq_vs_reference(use_kernels, monkeypatch):
     assert torch.equal(y.detach(), y2.detach()) and torch.equal(dx, dx2)
     assert _rel_l2(dw.numpy(), dw2.numpy()) < 1e-6
 
-
-def test_moe_fp4_allgather_raises():
-    from repro_torch.models import moe
-
-    with pytest.raises(NotImplementedError, match="A8d.1"):
-        moe._expert_ffn(torch.zeros((2, 4, 64)), {}, 0, _fp4_moe_cfg(), "quartet")
-
-
-def _fp4_moe_cfg():
-    import dataclasses
-
-    from repro_torch.configs import get_reduced_config
-
-    cfg = get_reduced_config("qwen3-moe-235b-a22b")
-    return dataclasses.replace(cfg, quartet=dataclasses.replace(cfg.quartet, fp4_allgather=True))

@@ -1,7 +1,7 @@
 """What data-parallel training does not do yet raises at more than one
 data rank, each message naming its ROADMAP item, and nothing falls back to
-one device silently: MoE (A8d.1), the 8-bit AdamW, gradient compression
-and the baseline methods on shards (A8d.2), the sequence-parallel fallback
+one device silently: gradient compression and the baseline methods on
+shards (A8d.2), the sequence-parallel fallback
 (A8d.3), the SSM, hybrid, enc-dec and VLM families (A8d.4), tensor
 parallelism (A8d.5); a data-parallel step without the parameters' specs;
 the production mesh below 256 ranks.  The step raises before its first
@@ -36,7 +36,7 @@ def _step(arch="llama-paper-200m", mesh=DP2, state=EMPTY, **kw):
 
 
 @pytest.mark.parametrize("arch, item", [
-    ("qwen3-moe-235b-a22b", "A8d.1"), ("falcon-mamba-7b", "A8d.4"), ("zamba2-7b", "A8d.4"),
+    ("falcon-mamba-7b", "A8d.4"), ("zamba2-7b", "A8d.4"),
     ("whisper-tiny", "A8d.4"), ("llama-3.2-vision-11b", "A8d.4")])
 def test_families_raise_at_dp2(arch, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -47,9 +47,6 @@ def test_families_raise_at_dp2(arch, item):
 
 
 def test_optimizer_compression_and_baselines_raise_at_dp2():
-    eight = TrainState({}, {"mu": {"w": {"q": torch.zeros((1, 256), dtype=torch.int8)}}}, 0)
-    with pytest.raises(NotImplementedError, match="adamw8bit.*A8d.2"):
-        _step(state=eight)
     with pytest.raises(NotImplementedError, match="grad_compress.*A8d.2"):
         _step(grad_compress=True)
     with pytest.raises(NotImplementedError, match="luq_int4.*A8d.2"):
